@@ -1,0 +1,132 @@
+"""Build and bind the hand-written CUDA kernels under csrc/.
+
+Each csrc/<name>.cu is compiled by nvcc for sm_90a (Hopper) into
+_build/lib<name>.so with a plain C interface, loaded with ctypes. A library
+is rebuilt when its source or a shared header is newer than it; all stale
+sources compile in parallel, one nvcc each. A failed build raises with nvcc's
+stderr. Nothing here runs at import: the first launch builds what it needs.
+
+Every C entry takes device pointers, sizes and the CUDA stream, launches on
+that stream without synchronising, and returns cudaGetLastError(); `launch`
+raises if that is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+# library -> {C function: argument types, the trailing stream included}
+SIGNATURES = {
+    "tier_intersect": {
+        # a, b, wa, wb, E, out, stream
+        "tier_intersect_stream": (_P, _P, _I, _I, _L, _P, _P),
+        # nbr, d_pad, edges, valid, wa, wb, E, out, stream
+        "tier_intersect_gather": (_P, _L, _P, _P, _I, _I, _L, _P, _P),
+    },
+    "hub_popcount": {
+        # b, a, G, K, W, out, stream
+        "hub_popcount_stream": (_P, _P, _L, _I, _I, _P, _P),
+        # rows, hw, b_ids, nbrs, G, K, W, out, stream
+        "hub_popcount_gather": (_P, _L, _P, _P, _L, _I, _I, _P, _P),
+    },
+    "hub_rows": {
+        # nbr, v_pad, d_pad, hub_id, wide_ids, nw, hw, out, stream
+        "build_hub_rows": (_P, _L, _I, _P, _P, _L, _I, _P, _P),
+    },
+}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _library(name: str) -> Path:
+    return BUILD / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    lib = _library(name)
+    if not lib.exists():
+        return True
+    built = lib.stat().st_mtime
+    deps = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return any(d.stat().st_mtime > built for d in deps)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda); "
+                           "the CUDA kernels cannot be built")
+    return path
+
+
+def build(names=None) -> dict[str, str]:
+    """Compile the stale kernel libraries in parallel.
+
+    Returns {library: ptxas report} for each library compiled by this call.
+    """
+    names = [n for n in (names or SIGNATURES) if _stale(n)]
+    if not names:
+        return {}
+    nvcc = _nvcc()
+    BUILD.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        tmp = BUILD / f"lib{name}.so.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    reports, failed = {}, []
+    for name, (tmp, proc) in procs.items():
+        out, err = proc.communicate()
+        if proc.returncode:
+            failed.append(f"nvcc failed on csrc/{name}.cu "
+                          f"(exit {proc.returncode}):\n{out}{err}")
+            continue
+        os.replace(tmp, _library(name))
+        reports[name] = out + err
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return reports
+
+
+def _load(name: str) -> ctypes.CDLL:
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(_library(name)))
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def launch(name: str, fn: str, *args) -> None:
+    """Call C entry `fn` of library `name` on the current CUDA stream.
+
+    Tensor arguments pass as device pointers, ints as themselves; the stream
+    is appended. Raises if the launch reported a CUDA error.
+    """
+    c_args = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
+              else a for a in args]
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    err = getattr(_load(name), fn)(*c_args, stream)
+    if err:
+        raise RuntimeError(f"{fn}: CUDA error {err}")

@@ -1,0 +1,137 @@
+"""Rules of the PyTorch port: it imports neither jax nor gms_tpu, its entry
+points default to the card and raise without one, and its CLI and harness
+keep gms_tpu's grammar and stdout protocol (plus --device)."""
+
+import io
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from gms_tpu_torch.algorithms import triangle_count as tc
+from gms_tpu_torch.graphs.tiles import PaddedGraph
+from gms_tpu_torch.harness import benchmark, cli, printer, timers
+from gms_tpu_torch.io.builder import build_csr
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _run(args, **kw):
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    return subprocess.run([sys.executable, *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300, **kw)
+
+
+def test_port_imports_neither_jax_nor_gms_tpu():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import gms_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            gms_tpu_torch.__path__, "gms_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     or m == "gms_tpu" or m.startswith("gms_tpu."))
+        print(len(names), bad)
+    """)
+    out = _run(["-c", code])
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 20  # every module of the port was imported
+    assert bad == "[]"
+
+
+def _triangle():
+    return build_csr(np.array([[0, 1], [1, 2], [2, 0]]))
+
+
+def test_default_device_is_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the default runs there")
+    g = _triangle()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tc.TrianglePlan(g)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tc.triangle_count(g)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PaddedGraph.from_csr(g)
+    assert tc.triangle_count(g, device="cpu") == 1
+
+
+def test_cli_parses_device():
+    args = cli.Parser().parse(["-g", "kronecker", "8", "-n", "2"])
+    assert (args.device, args.gen, args.scale, args.trials) == (
+        "cuda", "kronecker", 8, 2)
+    args = cli.Parser().add_param("k", 3).parse(
+        ["-f", "x.el", "--device", "cpu", "-p", "k=5"])
+    assert (args.device, args.file, args.params) == ("cpu", "x.el", {"k": 5})
+    with pytest.raises(SystemExit):
+        cli.Parser().parse(["-g", "kronecker", "8", "--device", "tpu"])
+    with pytest.raises(SystemExit):
+        cli.Parser().parse(["--device", "cpu"])
+
+
+def test_bench_cli_prints_result_rows():
+    out = _run(["-m", "gms_tpu_torch.bench.triangle_count", "-g", "kronecker",
+                "8", "-n", "1", "-v", "--device", "cpu"])
+    assert out.returncode == 0, out.stderr
+    rows = [ln.split() for ln in out.stdout.splitlines()
+            if ln.startswith("@@@")]
+    assert rows and rows[0][2] == "verified" and rows[0][-1] == "tc-total-tiered-cpu"
+    params = {ln.split()[1] for ln in out.stdout.splitlines()
+              if ln.startswith("@@#")}
+    assert params == {"tc_edges_per_sec", "tc_model_gbps"}
+    assert "GraphExec buildTime:" in out.stdout
+
+
+def test_printer_protocol():
+    buf = io.StringIO()
+    printer.Printer(out=buf).enqueue(1.5, "x", 3).print()
+    printer.print_param("n", 0.25, out=buf)
+    printer.print_info("note", out=buf)
+    assert buf.getvalue().splitlines() == [
+        "@@@ 1.50000 x 3", "@@# n 0.25000", "@## note"]
+
+
+def test_benchmark_runners(capsys):
+    args = cli.Args(trials=2, verify=True, gen="kronecker", scale=4)
+    g = _triangle()
+    r = benchmark.benchmark_kernel(
+        args, g, lambda g: tc.triangle_count(g, device="cpu"),
+        verifier=lambda g, r: r == 1, labels=("tc",))
+    assert r == 1
+    r = benchmark.benchmark_kernel_bk_pp(
+        args, g, build=lambda g: tc.TrianglePlan(g, device="cpu"),
+        preprocess=lambda g: torch.arange(3), kernel=lambda p, o: p.run(),
+        verifier=lambda g, r: r == 1, labels=("pp",))
+    assert r == 1
+    r = benchmark.Pipeline(args, labels=("pipe",)).run(
+        ("one", lambda c: torch.ones(2)), ("two", lambda c: c.sum()))
+    assert int(r) == 2
+    out = capsys.readouterr().out
+    rows = [ln for ln in out.splitlines() if ln.startswith("@@@")]
+    assert len(rows) == 6 and out.count("Average Time:") == 2
+
+
+def test_timers(tmp_path):
+    t = timers.Timer()
+    t.start()
+    assert t.stop(sync_on=[torch.zeros(2), torch.device("cpu")]) >= 0
+    d = timers.DetailTimer()
+    d.phase("a", sync_on=torch.zeros(1))
+    buf = io.StringIO()
+    d.print(out=buf)
+    assert buf.getvalue().startswith("a:")
+    with timers.ProfileScope(None):
+        pass
+    with timers.ProfileScope(str(tmp_path / "trace")):
+        torch.ones(8).sum()
+    assert (tmp_path / "trace" / "trace.json").exists()
