@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py          # from the repository root; needs one card
 
-Drives the port's main path, triangle counting on RMAT scale 18 (average
-degree 16, seed 27491095, the headline graph of bench.py), through the
-entry points a user calls, and holds every hand-written CUDA kernel of that
-path against its plain PyTorch version on the card. Phases, each printing a
-line and each failing the run (non-zero exit) if it fails:
+Drives the port's two paths through the entry points a user calls —
+triangle counting on RMAT scale 18 (average degree 16, seed 27491095, the
+headline graph of bench.py) and k-clique counting on bench.py's three
+k-clique graphs — and holds every hand-written CUDA kernel of those paths
+against its plain PyTorch version on the card. Phases, each printing a line
+and each failing the run (non-zero exit) if it fails:
 
   1. device and build: card name, power limit, nvcc build of csrc/*.cu;
   2. headline graph: generation and CSR build on the host;
@@ -19,7 +20,20 @@ line and each failing the run (non-zero exit) if it fails:
      headline shapes, exactly (integers, tolerance 0), with CUDA-event times;
   5. steady-state trial time of both plans;
   6. small graph (RMAT scale 12) against the host oracle, at hub thresholds
-     8, 65 and None, both modes.
+     8, 65 and None, both modes;
+  7. the triangle path's launches and the time so far;
+  8. k-clique main path, with every k-clique launch counter set to 0 just
+     before it: kclique_count(g, k, device="cuda") on the three k-clique
+     graphs of bench.py (RMAT 16 k=5, RMAT 13 k=6, RMAT 12 k=8, average
+     degree 16, seed 27491095), each against its golden count, after the
+     exact degeneracy peel; every k-clique kernel must have launched;
+  9. RMAT 16 k=5 again under the ADG ordering (eps 0.1): the same count;
+ 10. each k-clique kernel against its plain version, exactly, with
+     CUDA-event times: build_local_adj and kclique_dense_count on every
+     chunk of RMAT 16 k=5, kc_stack_count on every chunk of RMAT 13 k=6 and
+     RMAT 12 k=8 and on the W=256 chunk of K_132 at k=6;
+ 11. small graphs against the host oracle: RMAT 10 at k=3..7, K_7 at
+     k=1..8, and K_132 at k=6 against C(132, 6).
 
 The line before the last is a JSON object describing every kernel; the last
 is {"ok": true, "device": {...}}. Imports nothing of jax or gms_tpu.
@@ -28,16 +42,26 @@ is {"ok": true, "device": {...}}. Imports nothing of jax or gms_tpu.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import time
+
+import numpy as np
 
 import torch
 
 GOLDEN = 82_647_223          # triangles, RMAT-18 deg 16 seed 27491095
 SCALE, DEGREE, SEED = 18, 16, 27491095
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
+# __popc results per clock per SM at compute capability 9.0 (CUDA C++
+# Programming Guide, arithmetic instructions throughput table); the rate of
+# an AND+popcount word operation, times the SMs and the SM clock
+POPC_PER_CLOCK_PER_SM = 16
 KERNEL_REPS, PLAIN_REPS, STEADY_TRIALS = 10, 3, 20
+# k-clique graphs of bench.py: (RMAT scale, k, golden count of BENCH_r05)
+KCLIQUE_RUNS = ((16, 5, 4_600_426_489), (13, 6, 681_595_966),
+                (12, 8, 2_339_107_240))
 
 # kernel -> (source, gms_tpu program it replaces)
 KERNELS = {
@@ -51,6 +75,12 @@ KERNELS = {
                         "gms_tpu/algorithms/triangle_count.py:99"),
     "count_hub_groups": ("gms_tpu_torch/csrc/hub_popcount.cu",
                          "gms_tpu/algorithms/triangle_count.py:239"),
+    "build_local_adj": ("gms_tpu_torch/csrc/local_adj.cu",
+                        "gms_tpu/algorithms/k_clique.py:82"),
+    "kclique_dense_count": ("gms_tpu_torch/csrc/kclique_dense.cu",
+                            "gms_tpu/algorithms/k_clique.py:548"),
+    "kc_stack_count": ("gms_tpu_torch/csrc/kclique_stack.cu",
+                       "gms_tpu/algorithms/k_clique.py:343"),
 }
 
 
@@ -59,11 +89,23 @@ def check(cond: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke FAILED: {what}")
 
 
-def card_line() -> str:
+def smi(query: str) -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True, timeout=60).stdout.strip().splitlines()[0]
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def card_line() -> str:
+    return smi("name,power.limit")
+
+
+def popcount_rate() -> float:
+    """AND+popcount word operations per second of card 0 at its maximum SM
+    clock."""
+    mhz = float(smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return POPC_PER_CLOCK_PER_SM * sms * mhz * 1e6
 
 
 class Timing:
@@ -75,7 +117,7 @@ class Timing:
         self.flush = torch.empty(1 << 26, dtype=torch.int32, device="cuda")
 
     def ms(self, fn, reps: int) -> float:
-        fn()
+        """fn must have run once already (compare runs it to check it)."""
         times = []
         for _ in range(reps):
             self.flush.zero_()
@@ -89,23 +131,38 @@ class Timing:
         return statistics.median(times)
 
 
-def compare(timing, calls):
-    """calls: [(label, kernel_fn, plain_fn, bytes)] of one kernel on one
-    trial; prints one line per call.
+def max_abs_err(got, want) -> int:
+    if isinstance(got, tuple):
+        return max(max_abs_err(g, w) for g, w in zip(got, want))
+    return int((got.long() - want.long()).abs().max())
 
-    Returns (max_abs_err, kernel_ms, plain_ms, bound_ms), each summed (the
-    error maximised) over the calls. The bytes are the least the call must
-    move (see data_words)."""
-    err, k_ms, p_ms, bound = 0, 0.0, 0.0, 0.0
-    for label, kernel, plain, nbytes in calls:
+
+def compare(timing, calls, *, ops_rate=None, plain_reps=PLAIN_REPS):
+    """calls: [(label, kernel_fn, plain_fn, bytes[, ops])] of one kernel on
+    one trial; prints one line per call. Both functions run once for the
+    comparison, which warms them up for the timing.
+
+    Returns (max_abs_err, kernel_ms, plain_ms, bound_ms, bound_by), each
+    summed (the error maximised) over the calls. A call's bound is the larger
+    of its bytes (the least it must move, see data_words) over 3.35 TB/s and
+    its word operations over `ops_rate`; bound_by names the larger sum."""
+    err, k_ms, p_ms, bound, by_ops, by_bytes = 0, 0.0, 0.0, 0.0, 0.0, 0.0
+    for label, kernel, plain, nbytes, *ops in calls:
         got, want = kernel(), plain()
-        diff = int((got.long() - want.long()).abs().max())
-        kt, pt = timing.ms(kernel, KERNEL_REPS), timing.ms(plain, PLAIN_REPS)
+        diff = max_abs_err(got, want)
+        kt = timing.ms(kernel, KERNEL_REPS)
+        pt = timing.ms(plain, plain_reps)
         bt = nbytes / HBM_BYTES_PER_S * 1e3
+        ot = ops[0] / ops_rate * 1e3 if ops else 0.0
+        ops_note = f", {ops[0]} word ops -> {ot:.4f} ms" if ops else ""
         print(f"    {label}: max_abs_err {diff}, kernel {kt:.4f} ms, bound "
-              f"{bt:.4f} ms ({nbytes} bytes), plain {pt:.4f} ms")
-        err, k_ms, p_ms, bound = max(err, diff), k_ms + kt, p_ms + pt, bound + bt
-    return err, k_ms, p_ms, bound
+              f"{max(bt, ot):.4f} ms ({nbytes} bytes -> {bt:.4f} ms"
+              f"{ops_note}), plain {pt:.4f} ms")
+        err, k_ms, p_ms = max(err, diff), k_ms + kt, p_ms + pt
+        bound += max(bt, ot)
+        by_ops, by_bytes = by_ops + ot, by_bytes + bt
+    return (err, k_ms, p_ms, bound,
+            "operations" if by_ops > by_bytes else "bytes")
 
 
 # Bytes of a kernel's bound: the words that carry data, each read once, plus
@@ -136,6 +193,190 @@ def distinct_rows(guard: int, *ids) -> int:
     """Distinct rows named by `ids`, the all-zero guard row left out."""
     rows = torch.unique(torch.cat([i.reshape(-1) for i in ids]))
     return int((rows != guard).sum())
+
+
+def kernel_entry(name, launches, err, k_ms, p_ms, bound_ms, by) -> dict:
+    """One kernel's entry of the kernels line. No single PyTorch call
+    computes any of these functions, so there is no library time."""
+    source, replaces = KERNELS[name]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": None}
+
+
+def tiers(chunks, pad_id) -> str:
+    """'W: chunks / real roots' of each tier width of a k-clique plan."""
+    out = {}
+    for chunk, ww in chunks:
+        c, r = out.get(32 * ww, (0, 0))
+        out[32 * ww] = (c + 1, r + int((chunk != pad_id).sum()))
+    return " · ".join(f"{w}: {c} / {r}" for w, (c, r) in sorted(out.items()))
+
+
+def local_adj_bytes(pg, chunk, ww) -> int:
+    """K4's bytes: each distinct row it reads (the roots' and their
+    neighbours'), up to and including its first SENTINEL, the roots, and the
+    adj and S0 words written."""
+    from gms_tpu_torch.graphs.tiles import SENTINEL
+    nbr, v_pad = pg.nbr, pg.v_pad
+    roots = chunk.long().clamp(0, v_pad - 1)
+    r_nbr = nbr[roots, :min(32 * ww, nbr.shape[1])]
+    rows = torch.cat([roots, r_nbr[r_nbr != SENTINEL].long()])
+    words = data_words(pg.deg, torch.unique(rows), nbr.shape[1])
+    c = chunk.numel()
+    return (words + c + c * 32 * ww * ww + c * ww) * 4
+
+
+def kclique_phases(timing, report) -> None:
+    """Phases 8-11: the k-clique path (see the module docstring)."""
+    from gms_tpu_torch.algorithms import k_clique as kc
+    from gms_tpu_torch.io.builder import build_csr
+    from gms_tpu_torch.io.generators import generate_rmat_el
+    from gms_tpu_torch.preprocessing import degeneracy
+
+    graphs = {}
+    for scale, k, golden in KCLIQUE_RUNS:
+        t0 = time.perf_counter()
+        g = build_csr(generate_rmat_el(scale, DEGREE, seed=SEED),
+                      num_nodes=1 << scale)
+        graphs[scale] = g
+        print(f"[8] graph RMAT {scale}: {g.num_nodes} nodes, "
+              f"{g.num_edges_undirected} undirected edges, "
+              f"{time.perf_counter() - t0:.2f} s")
+
+    # [8] main path, counters from 0
+    kc.reset_launches()
+    ranks = {}
+    for scale, k, golden in KCLIQUE_RUNS:
+        g = graphs[scale]
+        t0 = time.perf_counter()
+        rank, degen = degeneracy.degeneracy_ordering_rank(g)
+        peel_s = time.perf_counter() - t0
+        ranks[scale] = rank
+        before = dict(kc.LAUNCHES)
+        t0 = time.perf_counter()
+        count = kc.kclique_count(g, k, device="cuda", rank=rank)
+        count_s = time.perf_counter() - t0
+        used = {n: kc.LAUNCHES[n] - before[n] for n in before}
+        print(f"[8] RMAT {scale} k={k}: count {count}, golden {golden}; "
+              f"degeneracy {degen}; peel {peel_s:.3f} s; count {count_s:.4f} s"
+              f" (synchronised); {count / count_s:.1f} cliques/s; "
+              f"launches {used}")
+        check(count == golden, f"RMAT {scale} k={k}: {count} != {golden}")
+    launches = dict(kc.LAUNCHES)
+    print(f"[8] k-clique main path launches: {launches}")
+    check(all(n > 0 for n in launches.values()),
+          f"a k-clique kernel of the path never launched: {launches}")
+    plans = {}
+    for scale, k, golden in KCLIQUE_RUNS:
+        t0 = time.perf_counter()
+        pg, chunks = kc.plan_chunks(graphs[scale], k, device="cuda",
+                                    rank=ranks[scale])
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+        plans[scale] = (k, pg, chunks)
+        print(f"    RMAT {scale} k={k}: host plan (orient, pad, tiers, copies "
+              f"to the card) {plan_s:.4f} s; D_pad {pg.d_pad}, tiers (W: "
+              f"chunks / real roots) {tiers(chunks, pg.v_pad)}")
+
+    # [9] the ADG ordering gives the same count
+    head, k_head, golden = KCLIQUE_RUNS[0]
+    t0 = time.perf_counter()
+    adg = degeneracy.adg_ordering_rank(graphs[head], 0.1)
+    adg_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    count = kc.kclique_count(graphs[head], k_head, device="cuda", rank=adg)
+    count_s = time.perf_counter() - t0
+    pg, chunks = kc.plan_chunks(graphs[head], k_head, device="cuda", rank=adg)
+    print(f"[9] RMAT {head} k={k_head} ADG eps 0.1: count {count}; ADG "
+          f"{adg_s:.3f} s; count {count_s:.4f} s; max out-degree "
+          f"{int(pg.deg.max())}, D_pad {pg.d_pad}; tiers "
+          f"{tiers(chunks, pg.v_pad)}")
+    check(count == golden, f"ADG-ordered RMAT {head}: {count} != {golden}")
+    del pg, chunks
+
+    # [10] each kernel against its plain version, exactly
+    rate = popcount_rate()
+    print(f"[10] popcount rate {rate:.4e} word ops/s "
+          f"({POPC_PER_CLOCK_PER_SM}/clock/SM x "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs x"
+          f" {smi('clocks.max.sm')})")
+    # the dense run (k=5): its k=4 counts give K5's operations
+    _, pg, chunks = plans[head]
+    adjs = [kc.build_local_adj(pg.nbr, c, w_words=ww) for c, ww in chunks]
+    k3 = [int(kc.kclique_dense_count(a, k=3)) for a, _ in adjs]
+    k4 = [int(kc.kclique_dense_count(a, k=4)) for a, _ in adjs]
+    calls = {
+        "build_local_adj": [
+            (f"RMAT {head} W={32 * ww} C={c.numel()}",
+             lambda c=c, ww=ww: kc.build_local_adj(pg.nbr, c, w_words=ww),
+             lambda c=c, ww=ww: kc.build_local_adj_plain(pg.nbr, c,
+                                                         w_words=ww),
+             local_adj_bytes(pg, c, ww))
+            for c, ww in chunks],
+        "kclique_dense_count": [
+            (f"RMAT {head} k=5 W={a.shape[1]} C={a.shape[0]}",
+             lambda a=a: kc.kclique_dense_count(a, k=5),
+             lambda a=a: kc.kclique_dense_count_plain(a, k=5),
+             a.numel() * 4 + 8, n4 * a.shape[2])
+            for (a, _), n4 in zip(adjs, k4)],
+    }
+    print(f"    RMAT {head} per chunk: k=3 counts {k3}, k=4 counts {k4}")
+    del adjs
+    stack_calls = []
+    k_132 = np.stack(np.nonzero(np.triu(np.ones((132, 132), bool), 1)), 1)
+    g132 = build_csr(k_132.astype(np.int64))
+    pg132, chunks132 = kc.plan_chunks(g132, 6, device="cuda")
+    runs = [(f"RMAT {s}", plans[s]) for s, _, _ in KCLIQUE_RUNS[1:]]
+    runs.append(("K_132", (6, pg132, [(c, ww) for c, ww in chunks132
+                                      if ww == 8])))
+    for label, (k, pg, chunks) in runs:
+        for c, ww in chunks:
+            adj, s0 = kc.build_local_adj(pg.nbr, c, w_words=ww)
+            stats = {}
+            kc.kc_stack_count_plain(adj, s0, k=k, stats=stats)
+            stack_calls.append((
+                f"{label} k={k} W={32 * ww} C={c.numel()}",
+                lambda adj=adj, s0=s0, k=k: kc.kc_stack_count(adj, s0, k=k),
+                lambda adj=adj, s0=s0, k=k: kc.kc_stack_count_plain(adj, s0,
+                                                                    k=k),
+                (adj.numel() + s0.numel()) * 4 + 8, stats["word_ops"]))
+    n_main = sum(len(plans[s][2]) for s, _, _ in KCLIQUE_RUNS[1:])
+    calls["kc_stack_count"] = stack_calls[:n_main]
+    for name, kcalls in calls.items():
+        err, k_ms, p_ms, bound_ms, by = compare(timing, kcalls, ops_rate=rate,
+                                                plain_reps=1)
+        print(f"[10] {name}: {len(kcalls)} launches, max_abs_err {err}, "
+              f"kernel {k_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), "
+              f"plain {p_ms:.4f} ms")
+        check(err == 0, f"{name} disagrees with its plain version by {err}")
+        report.append(kernel_entry(name, launches[name], err, k_ms, p_ms,
+                                   bound_ms, by))
+    err, k_ms, p_ms, bound_ms, by = compare(timing, stack_calls[n_main:],
+                                            ops_rate=rate, plain_reps=1)
+    print(f"[10] kc_stack_count K_132 W=256 chunk: max_abs_err {err}, kernel "
+          f"{k_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), plain "
+          f"{p_ms:.4f} ms")
+    check(err == 0, f"kc_stack_count disagrees on K_132 by {err}")
+    del calls, stack_calls, plans
+
+    # [11] small graphs against the oracle
+    small = build_csr(generate_rmat_el(10, DEGREE, seed=SEED),
+                      num_nodes=1 << 10)
+    for k in range(3, 8):
+        want = kc.kclique_count_oracle(small, k)
+        got = kc.kclique_count(small, k, device="cuda")
+        check(got == want, f"RMAT 10 k={k}: {got} != oracle {want}")
+    k7 = build_csr(np.stack(np.nonzero(np.triu(np.ones((7, 7), bool), 1)),
+                            1).astype(np.int64))
+    for k in range(1, 9):
+        got = kc.kclique_count(k7, k, device="cuda")
+        check(got == math.comb(7, k), f"K_7 k={k}: {got} != {math.comb(7, k)}")
+    got = kc.kclique_count(g132, 6, device="cuda")
+    check(got == math.comb(132, 6), f"K_132 k=6: {got} != C(132, 6)")
+    print(f"[11] RMAT 10 k=3..7 equal the oracle; K_7 k=1..8 and K_132 k=6 "
+          f"({got}) equal the binomials")
 
 
 def main() -> None:
@@ -253,18 +494,14 @@ def main() -> None:
     }
     report, bounds = [], {}
     for name, kcalls in calls.items():
-        err, k_ms, p_ms, bound_ms = compare(timing, kcalls)
+        err, k_ms, p_ms, bound_ms, by = compare(timing, kcalls)
         print(f"[4] {name}: {len(kcalls)} launches/trial, max_abs_err {err}, "
-              f"kernel {k_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes), "
+              f"kernel {k_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), "
               f"plain {p_ms:.4f} ms")
         check(err == 0, f"{name} disagrees with its plain version by {err}")
         bounds[name] = bound_ms
-        source, replaces = KERNELS[name]
-        report.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None})
+        report.append(kernel_entry(name, launches[name], err, k_ms, p_ms,
+                                   bound_ms, by))
 
     # [5] steady state
     for label, p, kernels in (
@@ -296,6 +533,8 @@ def main() -> None:
 
     print(f"[7] launches on the main path: {launches}; total "
           f"{time.perf_counter() - t_start:.1f} s")
+    kclique_phases(timing, report)
+    print(f"[12] total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -46,6 +46,18 @@ SIGNATURES = {
         # nbr, v_pad, d_pad, hub_id, wide_ids, nw, hw, out, stream
         "build_hub_rows": (_P, _L, _I, _P, _P, _L, _I, _P, _P),
     },
+    "local_adj": {
+        # nbr, v_pad, d_pad, roots, C, w_words, adj, s0, stream
+        "build_local_adj": (_P, _L, _I, _P, _L, _I, _P, _P, _P),
+    },
+    "kclique_dense": {
+        # adj, C, w_words, k, out, stream
+        "kclique_dense_count": (_P, _L, _I, _I, _P, _P),
+    },
+    "kclique_stack": {
+        # adj, s0, C, w_words, k, root offsets, item offsets, out, stream
+        "kc_stack_count": (_P, _P, _L, _I, _I, _P, _P, _P, _P),
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

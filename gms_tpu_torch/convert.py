@@ -1,13 +1,19 @@
-"""Carry a prepared triangle-count plan across from gms_tpu.
+"""Carry gms_tpu's prepared state across as port tensors.
 
-`plan_from_numpy` rebuilds a port TrianglePlan from the arrays of a gms_tpu
-TrianglePlan, handed over as numpy (the caller extracts them; this module
-imports nothing of gms_tpu). uint32 bit words are viewed as int32, the port's
-carrier for the same bits. The adjacency `nbr` must be gms_tpu's padded
-layout (rows sorted, SENTINEL tail, guard row): the port's merge kernels
-rely on it, and GMS_TPU_PARANOID=1 checks it here.
+The caller hands over numpy arrays taken from gms_tpu objects (this module
+imports nothing of gms_tpu). uint32 bit words are viewed as int32, the
+port's carrier for the same bits.
 
-state keys:
+* `tensor_from_numpy`: one array (bit words, a k-clique root chunk, ...).
+* `padded_from_numpy`: a PaddedGraph's `nbr` (any lane, e.g. the lane-32
+  layout of k-clique counting) as a port PaddedGraph.
+* `plan_from_numpy`: a triangle-count plan.
+
+The adjacency `nbr` must be gms_tpu's padded layout (rows sorted, SENTINEL
+tail, guard row): the port's merge and search kernels rely on it, and
+GMS_TPU_PARANOID=1 checks it here.
+
+plan_from_numpy state keys:
     nbr        int32[V_pad, D_pad]              plan.padded.nbr
     tiers      [(wa, wb, c, edges[E,2], valid[E])]
     hub        [(w, k, gc, b_ids[G], nbrs[G,k])] or None
@@ -30,30 +36,48 @@ from gms_tpu_torch.graphs.tiles import SENTINEL, PaddedGraph
 from gms_tpu_torch.harness import checks
 
 
+def tensor_from_numpy(a, *, device="cuda") -> torch.Tensor:
+    """An owned tensor of `a` on `device`; uint32 words become int32 words
+    with the same bits."""
+    a = np.array(a)  # an owned, writable copy
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a).to(resolve(device))
+
+
+def padded_from_numpy(nbr, *, device="cuda", num_nodes: int | None = None
+                      ) -> PaddedGraph:
+    """A port PaddedGraph from gms_tpu's padded adjacency `nbr`; `num_nodes`
+    defaults to V_pad - 1."""
+    nbr = np.asarray(nbr, dtype=np.int32)
+    deg = (nbr != SENTINEL).sum(axis=1).astype(np.int32)
+    if num_nodes is None:
+        num_nodes = nbr.shape[0] - 1
+    if checks.paranoid():
+        checks.validate_padded(nbr, deg, num_nodes, name="padded_from_numpy")
+    return PaddedGraph(tensor_from_numpy(nbr, device=device),
+                       tensor_from_numpy(deg, device=device), num_nodes,
+                       int(deg.sum()))
+
+
 def plan_from_numpy(state: dict, *, device="cuda") -> TrianglePlan:
     dev = resolve(device)
 
     def t(a):
-        a = np.array(a)  # an owned, writable copy
-        if a.dtype == np.uint32:
-            a = a.view(np.int32)
-        return torch.from_numpy(a).to(dev)
+        return tensor_from_numpy(a, device=dev)
 
     def listed(key, convert):
         items = state.get(key)
         return None if items is None else [convert(it) for it in items]
 
     nbr = np.asarray(state["nbr"], dtype=np.int32)
-    deg = (nbr != SENTINEL).sum(axis=1).astype(np.int32)
-    num_nodes = state.get("num_nodes", nbr.shape[0] - 1)
-    if checks.paranoid():
-        checks.validate_padded(nbr, deg, num_nodes, name="plan_from_numpy")
     plan = TrianglePlan.__new__(TrianglePlan)
     plan.device = dev
     plan.dag = None
-    plan.padded = PaddedGraph(t(nbr), t(deg), num_nodes, int(deg.sum()))
+    plan.padded = padded_from_numpy(
+        nbr, device=dev, num_nodes=state.get("num_nodes", nbr.shape[0] - 1))
     plan.num_edges_undirected = state.get("num_edges_undirected",
-                                          int(deg.sum()))
+                                          plan.padded.num_edges)
     plan.method = state.get("method", "compare")
     plan.tiers = listed("tiers", lambda x: (*map(int, x[:3]), t(x[3]), t(x[4])))
     plan.hub = listed("hub", lambda x: (*map(int, x[:3]), t(x[3]), t(x[4])))

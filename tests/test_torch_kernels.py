@@ -16,8 +16,11 @@ import pytest
 import torch
 
 from gms_tpu_torch import _kernels
+from gms_tpu_torch.algorithms import k_clique as kc
 from gms_tpu_torch.algorithms import triangle_count as tc
 from gms_tpu_torch.graphs.tiles import SENTINEL
+from gms_tpu_torch.io.builder import build_csr
+from gms_tpu_torch.io.generators import generate_rmat_el
 
 torch.set_num_threads(1)
 
@@ -47,6 +50,16 @@ def test_wrappers_reject_bad_inputs():
     meta = torch.zeros((4, 8), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tc.count_tier_mat(meta, meta)
+    with pytest.raises(TypeError):
+        kc.build_local_adj(_i32(8, 4), _i32(3).long(), w_words=1)
+    with pytest.raises(ValueError, match="w_words"):
+        kc.build_local_adj(_i32(8, 4), _i32(3), w_words=0)
+    with pytest.raises(ValueError, match="32\\*WW"):
+        kc.kclique_dense_count(_i32(2, 16, 1), k=4)
+    with pytest.raises(ValueError, match="does not match"):
+        kc.kc_stack_count(_i32(2, 32, 1), _i32(3, 1), k=6)
+    with pytest.raises(ValueError, match="k must be >= 5"):
+        kc.kc_stack_count(_i32(2, 32, 1), _i32(2, 1), k=4)
 
 
 def test_every_source_has_a_binding():
@@ -106,10 +119,10 @@ def _words(rng, shape):
                                          dtype=np.int64).astype(np.int32))
 
 
-def _launched(name, fn):
-    before = tc.LAUNCHES[name]
+def _launched(name, fn, launches=tc.LAUNCHES):
+    before = launches[name]
     out = fn()
-    assert tc.LAUNCHES[name] == before + 1
+    assert launches[name] == before + 1
     return out
 
 
@@ -177,3 +190,72 @@ def test_hub_rows_on_card(card, hw):
                     lambda: tc.build_hub_rows(*args, hub_words=hw))
     assert torch.equal(got, tc.build_hub_rows_plain(*args, hub_words=hw))
     assert got.any()
+
+
+def _padded_rows(rng, V, D, n, max_len):
+    """int32[V, D]: rows 0..n-1 strictly ascending over [0, n) with a
+    SENTINEL tail, the rest all SENTINEL (the padded layout)."""
+    nbr = np.full((V, D), SENTINEL, dtype=np.int32)
+    for v in range(n):
+        k = int(rng.integers(0, max_len + 1))
+        nbr[v, :k] = np.sort(rng.choice(n, size=k, replace=False))
+    return nbr
+
+
+def _sparse_bits(rng, shape, p):
+    """int32 words whose bits are set with probability p."""
+    bits = rng.random((*shape[:-1], shape[-1] * 32)) < p
+    words = np.packbits(bits.reshape(-1, 8), bitorder="little")
+    return torch.from_numpy(words.view(np.int32).reshape(shape).copy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ww,D", [(1, 96), (3, 64), (32, 160)])
+def test_local_adj_on_card(card, ww, D):
+    # W < D, W > D and W = 1024 > D; roots include pad and negative ids
+    rng = np.random.default_rng(ww * D)
+    V, n = 300, 290
+    nbr = torch.from_numpy(_padded_rows(rng, V, D, n, D)).to(card)
+    roots = rng.integers(0, n, 70).astype(np.int32)
+    roots[-3:] = (V, V + 11, -2)
+    roots = torch.from_numpy(roots).to(card)
+    adj, s0 = _launched("build_local_adj", lambda: kc.build_local_adj(
+        nbr, roots, w_words=ww), kc.LAUNCHES)
+    padj, ps0 = kc.build_local_adj_plain(nbr, roots, w_words=ww)
+    assert torch.equal(adj, padj) and torch.equal(s0, ps0)
+    assert adj.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 4, 5])
+@pytest.mark.parametrize("C,ww,p", [(40, 1, 0.3), (9, 5, 0.1), (3, 32, 0.03),
+                                    (2, 64, 0.03)])
+def test_dense_count_on_card(card, k, C, ww, p):
+    # ww=64 (W=2048) reads A from device memory, the others from shared
+    # memory, ww=32 (128 KB) above the 48 KB default
+    rng = np.random.default_rng(C * ww + k)
+    adj = _sparse_bits(rng, (C, 32 * ww, ww), p).to(card)
+    got = _launched("kclique_dense_count",
+                    lambda: kc.kclique_dense_count(adj, k=k), kc.LAUNCHES)
+    assert int(got) == int(kc.kclique_dense_count_plain(adj, k=k)) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [5, 6, 8])
+def test_stack_count_on_card(card, k):
+    g = build_csr(generate_rmat_el(10, 16, seed=27491095), num_nodes=1024)
+    pg, chunks = kc.plan_chunks(g, k, device=card, root_chunk=64)
+    for chunk, ww in chunks[-3:]:
+        for w in (ww, 2 * ww):  # the tier's width and a wider one
+            adj, s0 = kc.build_local_adj(pg.nbr, chunk, w_words=w)
+            got = _launched("kc_stack_count",
+                            lambda: kc.kc_stack_count(adj, s0, k=k),
+                            kc.LAUNCHES)
+            assert int(got) == int(kc.kc_stack_count_plain(adj, s0, k=k))
+    # random bits at W = 1024
+    rng = np.random.default_rng(k)
+    adj = _sparse_bits(rng, (3, 1024, 32), 0.02).to(card)
+    s0 = _sparse_bits(rng, (3, 32), 0.3).to(card)
+    got = _launched("kc_stack_count", lambda: kc.kc_stack_count(adj, s0, k=k),
+                    kc.LAUNCHES)
+    assert int(got) == int(kc.kc_stack_count_plain(adj, s0, k=k))

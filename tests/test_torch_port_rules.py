@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from gms_tpu_torch.algorithms import k_clique as kc
 from gms_tpu_torch.algorithms import triangle_count as tc
 from gms_tpu_torch.graphs.tiles import PaddedGraph
 from gms_tpu_torch.harness import benchmark, cli, printer, timers
@@ -63,7 +64,13 @@ def test_default_device_is_the_card():
         tc.triangle_count(g)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PaddedGraph.from_csr(g)
+    for k in (1, 3, 6):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            kc.kclique_count(g, k)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kc.plan_chunks(g, 3)
     assert tc.triangle_count(g, device="cpu") == 1
+    assert kc.kclique_count(g, 3, device="cpu") == 1
 
 
 def test_cli_parses_device():
