@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py          # from the repository root; needs one card
 
-Drives the port's two paths through the entry points a user calls —
+Drives the port's three paths through the entry points a user calls —
 triangle counting on RMAT scale 18 (average degree 16, seed 27491095, the
-headline graph of bench.py) and k-clique counting on bench.py's three
-k-clique graphs — and holds every hand-written CUDA kernel of those paths
+headline graph of bench.py), k-clique counting on bench.py's three
+k-clique graphs and maximal clique enumeration (Bron–Kerbosch) on its RMAT
+scale 14 graph — and holds every hand-written CUDA kernel of those paths
 against its plain PyTorch version on the card. Phases, each printing a line
 and each failing the run (non-zero exit) if it fails:
 
@@ -33,7 +34,33 @@ and each failing the run (non-zero exit) if it fails:
      chunk of RMAT 16 k=5, kc_stack_count on every chunk of RMAT 13 k=6 and
      RMAT 12 k=8 and on the W=256 chunk of K_132 at k=6;
  11. small graphs against the host oracle: RMAT 10 at k=3..7, K_7 at
-     k=1..8, and K_132 at k=6 against C(132, 6).
+     k=1..8, and K_132 at k=6 against C(132, 6);
+ 12. Bron–Kerbosch main path, with every BK launch counter and K4's set to
+     0 just before it: bron_kerbosch(g, device="cuda", rank=rank) on RMAT 14
+     (average degree 16, seed 27491095, the graph of bench.py's maximal
+     clique run) after the exact degeneracy peel, against the golden
+     165,402,717; the host plan timed apart, the tiers and launches; K4,
+     symmetrize_bits, hub_cover_bits and bk_stack_machine must have
+     launched, and their entries in the kernels line carry these counts;
+ 13. RMAT 14 again under the ADG ordering (eps 0.1): the same count;
+ 14. enumerate mode, with the counters set to 0 again just before its run:
+     sink= at RMAT 12 (the rows sum to the count mode's count, every BK
+     kernel and K4 launched, decode_clique_members's entry carries this
+     run's count, a seeded sample of 1,000 rows are cliques and maximal),
+     and collect=True at RMAT 8 against bron_kerbosch_simple (which,
+     without a pivot, takes a minute at RMAT 9);
+ 15. the RMAT 14 call's kernels job by job, with CUDA-event times and
+     bounds: symmetrize_bits and hub_cover_bits against their plain
+     versions on every job (their kernels-line times are these), and
+     bk_stack_machine (count, and emit as sorted rows) on the jobs with
+     IN >= 2048 and on the W=128 job with the most cliques up to
+     BK_PLAIN_CLIQUES (the plain search would take minutes on the largest);
+ 16. each BK kernel against its plain version, exactly, with CUDA-event
+     times, on every job of RMAT 12, whose enumerate run of phase 14 is
+     part of the path. bk_stack_machine's kernels-line times are summed
+     over every job of phases 15 and 16 it was held against plain on; its
+     bound is the larger of bytes over 3.35 TB/s and its operations, the
+     popcounts at 16 and the bitwise operations at 64 a clock per SM.
 
 The line before the last is a JSON object describing every kernel; the last
 is {"ok": true, "device": {...}}. Imports nothing of jax or gms_tpu.
@@ -54,10 +81,11 @@ import torch
 GOLDEN = 82_647_223          # triangles, RMAT-18 deg 16 seed 27491095
 SCALE, DEGREE, SEED = 18, 16, 27491095
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
-# __popc results per clock per SM at compute capability 9.0 (CUDA C++
-# Programming Guide, arithmetic instructions throughput table); the rate of
-# an AND+popcount word operation, times the SMs and the SM clock
+# Results per clock per SM at compute capability 9.0 (CUDA C++ Programming
+# Guide, arithmetic instructions throughput table): __popc, the rate of an
+# AND+popcount word operation, and 32-bit bitwise AND/OR/XOR
 POPC_PER_CLOCK_PER_SM = 16
+BITWISE_PER_CLOCK_PER_SM = 64
 KERNEL_REPS, PLAIN_REPS, STEADY_TRIALS = 10, 3, 20
 # k-clique graphs of bench.py: (RMAT scale, k, golden count of BENCH_r05)
 KCLIQUE_RUNS = ((16, 5, 4_600_426_489), (13, 6, 681_595_966),
@@ -81,7 +109,20 @@ KERNELS = {
                             "gms_tpu/algorithms/k_clique.py:548"),
     "kc_stack_count": ("gms_tpu_torch/csrc/kclique_stack.cu",
                        "gms_tpu/algorithms/k_clique.py:343"),
+    "symmetrize_bits": ("gms_tpu_torch/csrc/bk_symmetrize.cu",
+                        "gms_tpu/algorithms/bron_kerbosch.py:406"),
+    "hub_cover_bits": ("gms_tpu_torch/csrc/bk_cover.cu",
+                       "gms_tpu/algorithms/bron_kerbosch.py:376"),
+    "bk_stack_machine": ("gms_tpu_torch/csrc/bk_stack.cu",
+                         "gms_tpu/algorithms/bron_kerbosch.py:550"),
+    "decode_clique_members": ("gms_tpu_torch/csrc/bk_decode.cu",
+                              "gms_tpu/algorithms/bron_kerbosch.py:832"),
 }
+BK_GOLDEN = 165_402_717      # maximal cliques, RMAT-14 deg 16 (BENCH_r05)
+BK_SCALE, BK_SMALL, BK_SAMPLE = 14, 12, 1000
+# the plain K9 is held to the kernel on RMAT 14's W=128 job with the most
+# cliques up to this many (the plain search takes minutes on the largest)
+BK_PLAIN_CLIQUES = 1_000_000
 
 
 def check(cond: bool, what: str) -> None:
@@ -100,12 +141,12 @@ def card_line() -> str:
     return smi("name,power.limit")
 
 
-def popcount_rate() -> float:
-    """AND+popcount word operations per second of card 0 at its maximum SM
-    clock."""
+def sm_rate(per_clock_per_sm: int) -> float:
+    """Operations per second of card 0 at `per_clock_per_sm` results per
+    clock per SM and its maximum SM clock."""
     mhz = float(smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return POPC_PER_CLOCK_PER_SM * sms * mhz * 1e6
+    return per_clock_per_sm * sms * mhz * 1e6
 
 
 class Timing:
@@ -297,7 +338,7 @@ def kclique_phases(timing, report) -> None:
     del pg, chunks
 
     # [10] each kernel against its plain version, exactly
-    rate = popcount_rate()
+    rate = sm_rate(POPC_PER_CLOCK_PER_SM)
     print(f"[10] popcount rate {rate:.4e} word ops/s "
           f"({POPC_PER_CLOCK_PER_SM}/clock/SM x "
           f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs x"
@@ -377,6 +418,324 @@ def kclique_phases(timing, report) -> None:
     check(got == math.comb(132, 6), f"K_132 k=6: {got} != C(132, 6)")
     print(f"[11] RMAT 10 k=3..7 equal the oracle; K_7 k=1..8 and K_132 k=6 "
           f"({got}) equal the binomials")
+
+
+def bk_tiers(plan) -> str:
+    """'W: jobs / real roots, IN lo-hi' of each tier width of a BK plan."""
+    out = {}
+    pad = plan.padded.v_pad
+    for chunk, ww, in_w in plan.jobs:
+        j, r, lo, hi = out.get(32 * ww, (0, 0, in_w, in_w))
+        out[32 * ww] = (j + 1, r + int((chunk != pad).sum()), min(lo, in_w),
+                        max(hi, in_w))
+    return " · ".join(f"{w}: {j} / {r}, IN {lo}-{hi}"
+                      for w, (j, r, lo, hi) in sorted(out.items()))
+
+
+def cover_bytes(plan, chunk, ww, in_w) -> int:
+    """K8's bytes: each distinct DAG row it reads (the roots' and their
+    lower neighbours'), up to and including its first SENTINEL, the roots,
+    their CSR entries, and M and wvalid written."""
+    from gms_tpu_torch.algorithms import bron_kerbosch as bk
+    wl = bk.gather_wlists(plan.lo_indptr, plan.lo_cols, chunk, in_width=in_w)
+    v_pad = plan.padded.v_pad
+    rows = torch.cat([chunk.long().clamp(0, v_pad - 1),
+                      wl[wl != bk._SENT].long()])
+    words = data_words(plan.padded.deg, torch.unique(rows),
+                       plan.padded.d_pad)
+    c = chunk.numel()
+    return ((words + 3 * c + int((wl != bk._SENT).sum())
+             + c * in_w * ww) * 4 + c * in_w)
+
+
+def decode_bytes(plan, chunk, out) -> int:
+    """K10's bytes: the rows read, gid and members written, and each distinct
+    root row up to its first SENTINEL (at most W slots)."""
+    ww = out.shape[1] - 1
+    gid = chunk[out[:, ww].long().clamp(0, chunk.numel() - 1)]
+    words = data_words(plan.padded.deg, torch.unique(gid), 32 * ww)
+    return (out.numel() + out.shape[0] * (1 + 32 * ww) + words) * 4
+
+
+def sorted_rows(out) -> np.ndarray:
+    rows = out.cpu().numpy()
+    return rows[np.lexsort(rows.T[::-1])] if len(rows) else rows
+
+
+def stack_compare(timing, label, univ, rates):
+    """Holds K9 against one plain run on a job's universe `univ`, the count
+    and the emitted rows as sorted sets, and prints a line. The plain run
+    also counts the tree's word operations by type; their bound is the
+    larger of the popcounts over `rates[0]` and the bitwise operations over
+    `rates[1]` (different units). Returns (max_abs_err, kernel ms, emit ms,
+    plain ms, bytes bound ms, operations bound ms, popcounts, bitwise
+    operations)."""
+    from gms_tpu_torch.algorithms import bron_kerbosch as bk
+    stats = {}
+    want, want_out = bk.bk_stack_machine_plain(*univ, emit=True, stats=stats)
+    got = bk.bk_stack_machine(*univ)
+    n, out = bk.bk_stack_machine(*univ, emit=True)
+    a, b = sorted_rows(out), sorted_rows(want_out)
+    diff = max(abs(int(got) - int(want)), abs(int(n) - int(want)),
+               int(np.abs(a.astype(np.int64) - b).max(initial=0))
+               if a.shape == b.shape else 1 << 31)
+    kt = timing.ms(lambda: bk.bk_stack_machine(*univ), KERNEL_REPS)
+    et = timing.ms(lambda: bk.bk_stack_machine(*univ, emit=True), KERNEL_REPS)
+    pt = timing.ms(lambda: bk.bk_stack_machine_plain(*univ), 1)
+    nbytes = sum(t.numel() * t.element_size() for t in univ) + 8
+    bt = nbytes / HBM_BYTES_PER_S * 1e3
+    ot = max(stats["popc_ops"] / rates[0], stats["bit_ops"] / rates[1]) * 1e3
+    print(f"    {label}: count {int(want)}, max_abs_err {diff}, kernel "
+          f"{kt:.4f} ms (emit {et:.4f} ms), bound {max(bt, ot):.4f} ms "
+          f"({nbytes} bytes -> {bt:.4f} ms; {stats['popc_ops']} popcounts, "
+          f"{stats['bit_ops']} bitwise ops -> {ot:.4f} ms), plain "
+          f"{pt:.4f} ms")
+    return diff, kt, et, pt, bt, ot, stats["popc_ops"], stats["bit_ops"]
+
+
+def bk_jobs(plan):
+    """[(label, chunk, ww, in_w, cover kwargs)] of a BK plan's jobs."""
+    return [(f"W={32 * ww} IN={in_w} C={chunk.numel()}", chunk, ww, in_w,
+             dict(in_width=in_w, w_words=ww)) for chunk, ww, in_w in plan.jobs]
+
+
+def bk_calls(bk, plan, label, chunk, ww, in_w, cover, calls):
+    """Appends a job's K7 and K8 calls to `calls`; returns its K9 universe
+    (adj symmetrized, S0, live0, M, wvalid) and its K4 adj."""
+    from gms_tpu_torch.algorithms import k_clique as kc
+    nbr = plan.padded.nbr
+    adj, s0 = kc.build_local_adj(nbr, chunk, w_words=ww)
+    calls["symmetrize_bits"].append((
+        label, lambda: bk.symmetrize_bits(adj),
+        lambda: bk.symmetrize_bits_plain(adj), adj.numel() * 8))
+    calls["hub_cover_bits"].append((
+        label, lambda: bk.hub_cover_bits(nbr, plan.lo_indptr, plan.lo_cols,
+                                         chunk, **cover),
+        lambda: bk.hub_cover_bits_plain(nbr, plan.lo_indptr, plan.lo_cols,
+                                        chunk, **cover),
+        cover_bytes(plan, chunk, ww, in_w)))
+    m, wv = bk.hub_cover_bits(nbr, plan.lo_indptr, plan.lo_cols, chunk,
+                              **cover)
+    return (bk.symmetrize_bits(adj), s0, chunk != nbr.shape[0], m, wv), adj
+
+
+def bk_phases(timing, report) -> None:
+    """Phases 12-16: the Bron-Kerbosch path (see the module docstring)."""
+    from gms_tpu_torch.algorithms import bron_kerbosch as bk
+    from gms_tpu_torch.algorithms import k_clique as kc
+    from gms_tpu_torch.io.builder import build_csr
+    from gms_tpu_torch.io.generators import generate_rmat_el
+    from gms_tpu_torch.preprocessing import degeneracy
+
+    def launches():
+        return dict(bk.LAUNCHES,
+                    build_local_adj=kc.LAUNCHES["build_local_adj"])
+
+    t0 = time.perf_counter()
+    g = build_csr(generate_rmat_el(BK_SCALE, DEGREE, seed=SEED),
+                  num_nodes=1 << BK_SCALE)
+    print(f"[12] graph RMAT {BK_SCALE}: {g.num_nodes} nodes, "
+          f"{g.num_edges_undirected} undirected edges, "
+          f"{int((g.degrees == 0).sum())} isolated, "
+          f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    rank, degen = degeneracy.degeneracy_ordering_rank(g)
+    peel_s = time.perf_counter() - t0
+
+    # [12] main path, counters from 0 (K4 is k_clique's build_local_adj)
+    bk.reset_launches()
+    kc.reset_launches()
+    t0 = time.perf_counter()
+    count = bk.bron_kerbosch(g, device="cuda", rank=rank)
+    call_s = time.perf_counter() - t0
+    main = launches()
+    roots = np.arange(g.num_nodes, dtype=np.int32)
+    t0 = time.perf_counter()
+    plan = bk.BKPlan(g, rank, roots, device="cuda")
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    print(f"[12] RMAT {BK_SCALE} maximal cliques: count {count}, golden "
+          f"{BK_GOLDEN}; degeneracy {degen}; peel {peel_s:.3f} s; call "
+          f"{call_s:.4f} s (synchronised; host plan alone {plan_s:.4f} s: "
+          f"orient, pad, lower CSR, sub-chunks, copies); "
+          f"{count / call_s:.1f} cliques/s; launches {main}")
+    print(f"    D_pad {plan.padded.d_pad}, max in-degree "
+          f"{int(plan.indeg.max())}; tiers (W: jobs / real roots, IN) "
+          f"{bk_tiers(plan)}")
+    check(count == BK_GOLDEN, f"RMAT {BK_SCALE} BK: {count} != {BK_GOLDEN}")
+    count_path = ("build_local_adj", "symmetrize_bits", "hub_cover_bits",
+                  "bk_stack_machine")
+    check(all(main[n] > 0 for n in count_path),
+          f"a kernel of the BK count path never launched: {main}")
+    del plan
+
+    # [13] the ADG ordering gives the same count
+    t0 = time.perf_counter()
+    adg = degeneracy.adg_ordering_rank(g, 0.1)
+    adg_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    count = bk.bron_kerbosch(g, device="cuda", rank=adg)
+    call_s = time.perf_counter() - t0
+    plan = bk.BKPlan(g, adg, roots, device="cuda")
+    print(f"[13] RMAT {BK_SCALE} ADG eps 0.1: count {count}; ADG {adg_s:.3f} "
+          f"s; call {call_s:.4f} s; {count / call_s:.1f} cliques/s; max "
+          f"out-degree {int(plan.dag_deg.max())}; tiers {bk_tiers(plan)}")
+    check(count == BK_GOLDEN, f"ADG-ordered RMAT {BK_SCALE}: {count} != "
+                              f"{BK_GOLDEN}")
+    del plan
+
+    # [14] enumerate mode, counters from 0 just before its sink= run
+    small = build_csr(generate_rmat_el(BK_SMALL, DEGREE, seed=SEED),
+                      num_nodes=1 << BK_SMALL)
+    srank, _ = degeneracy.degeneracy_ordering_rank(small)
+    want = bk.bron_kerbosch(small, device="cuda", rank=srank)
+    chunks = []
+    bk.reset_launches()
+    kc.reset_launches()
+    t0 = time.perf_counter()
+    n_emit, none = bk.bron_kerbosch(small, device="cuda", rank=srank,
+                                    collect=True,
+                                    sink=lambda g_, m_: chunks.append((g_, m_)))
+    emit_s = time.perf_counter() - t0
+    enum = launches()
+    rows = sum(len(c[0]) for c in chunks)
+    check(none is None and n_emit == want == rows,
+          f"RMAT {BK_SMALL} sink: {rows} rows, count {n_emit} != {want}")
+    check(all(n > 0 for n in enum.values()),
+          f"a kernel of the BK enumerate path never launched: {enum}")
+    nbrs = [set(small.out_neigh(v).tolist()) for v in range(small.num_nodes)]
+    ends = np.cumsum([len(c[0]) for c in chunks])
+    sample = np.random.default_rng(SEED).choice(rows, BK_SAMPLE,
+                                                replace=False)
+    for l in sample:
+        j = int(np.searchsorted(ends, l, side="right"))
+        gid, members = chunks[j]
+        r = l - (ends[j - 1] if j else 0)
+        clique = [int(gid[r]), *members[r][members[r] >= 0].tolist()]
+        common = set.intersection(*(nbrs[v] for v in clique))
+        check(all(b in nbrs[a] for i, a in enumerate(clique)
+                  for b in clique[i + 1:]) and not common - set(clique),
+              f"RMAT {BK_SMALL} row {l} is not a maximal clique: {clique}")
+    tiny = build_csr(generate_rmat_el(8, DEGREE, seed=SEED), num_nodes=256)
+    oracle = set(bk.bron_kerbosch_simple(tiny))
+    n_tiny, cl = bk.bron_kerbosch(tiny, device="cuda", collect=True)
+    check(n_tiny == len(oracle) and set(cl) == oracle,
+          f"RMAT 8 collect: {n_tiny} cliques, oracle {len(oracle)}")
+    print(f"[14] RMAT {BK_SMALL}: {n_emit} maximal cliques streamed to the "
+          f"sink in {len(chunks)} jobs, {emit_s:.4f} s, launches {enum} "
+          f"(bk_stack_machine: a count and an emit pass a job with rows); "
+          f"{BK_SAMPLE} sampled rows are maximal cliques; RMAT 8 collect "
+          f"equals bron_kerbosch_simple ({n_tiny})")
+
+    # [15] the RMAT 14 call, job by job; K7 and K8 against their plain
+    # versions on every job, K9 on the jobs with IN >= 2048 and on one W=128
+    # job
+    rates = (sm_rate(POPC_PER_CLOCK_PER_SM), sm_rate(BITWISE_PER_CLOCK_PER_SM))
+    plan = bk.BKPlan(g, rank, roots, device="cuda")
+    nbr = plan.padded.nbr
+    calls = {"symmetrize_bits": [], "hub_cover_bits": []}
+    k4_ms = k9_ms = 0.0
+    k4_bytes = k9_bytes = total = 0
+    jobs = []
+    for label, chunk, ww, in_w, cover in bk_jobs(plan):
+        univ, adj = bk_calls(bk, plan, label, chunk, ww, in_w, cover, calls)
+        n = int(bk.bk_stack_machine(*univ))
+        total += n
+        k4_ms += timing.ms(lambda c=chunk, w=ww: (
+            kc.build_local_adj(nbr, c, w_words=w)), 3)
+        t9 = timing.ms(lambda u=univ: bk.bk_stack_machine(*u), 3)
+        k9_ms += t9
+        k4_bytes += local_adj_bytes(plan.padded, chunk, ww)
+        k9_bytes += sum(t.numel() * t.element_size() for t in univ) + 8
+        jobs.append((f"RMAT {BK_SCALE} {label}", ww, in_w, n, univ))
+        if t9 > 10:
+            print(f"    W={32 * ww} IN={in_w} real roots "
+                  f"{int((chunk != nbr.shape[0]).sum())}: {n} cliques, "
+                  f"bk_stack_machine {t9:.4f} ms")
+    check(total == BK_GOLDEN, f"RMAT {BK_SCALE} job by job: {total}")
+    entries = {}
+    for name, kcalls in calls.items():
+        entries[name] = compare(timing, kcalls, plain_reps=1)
+        err, k_ms, p_ms, bound_ms, by = entries[name]
+        print(f"[15] {name}: {len(kcalls)} jobs, max_abs_err {err}, kernel "
+              f"{k_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), plain "
+              f"{p_ms:.4f} ms")
+        check(err == 0, f"{name} disagrees with its plain version by {err}")
+    w128 = [j for j in jobs if j[1] == 4 and 0 < j[3] <= BK_PLAIN_CLIQUES]
+    check(bool(w128), f"RMAT {BK_SCALE} has no W=128 job the plain K9 takes")
+    held = [j for j in jobs if j[2] >= 2048] + [max(w128, key=lambda j: j[3])]
+    stack = [stack_compare(timing, label, univ, rates)
+             for label, _, _, _, univ in held]
+    print(f"[15] RMAT {BK_SCALE}, {len(jobs)} jobs, kernel ms summed "
+          f"against bytes over 3.35 TB/s: build_local_adj {k4_ms:.4f} ms "
+          f"(median of 3) vs {k4_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; "
+          + "; ".join(f"{n} {entries[n][1]:.4f} ms vs {entries[n][3]:.4f} ms"
+                      for n in calls)
+          + f"; bk_stack_machine {k9_ms:.4f} ms (median of 3) vs "
+          f"{k9_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; bk_stack_machine held "
+          f"against its plain version on {len(held)} jobs (IN >= 2048, and "
+          f"the W=128 job with the most cliques up to {BK_PLAIN_CLIQUES}), "
+          f"max_abs_err {max(r[0] for r in stack)}")
+    check(all(r[0] == 0 for r in stack),
+          "bk_stack_machine disagrees with its plain version at RMAT "
+          f"{BK_SCALE}")
+    del plan, g, jobs, calls, held
+
+    # [16] each kernel against its plain version, exactly, on RMAT 12
+    plan = bk.BKPlan(small, srank, np.arange(small.num_nodes,
+                                               dtype=np.int32), device="cuda")
+    nbr = plan.padded.nbr
+    print(f"[16] RMAT {BK_SMALL} plan: tiers {bk_tiers(plan)}")
+    calls = {"symmetrize_bits": [], "hub_cover_bits": []}
+    decode = []
+    for label, chunk, ww, in_w, cover in bk_jobs(plan):
+        univ, _ = bk_calls(bk, plan, label, chunk, ww, in_w, cover, calls)
+        stack.append(stack_compare(timing, f"RMAT {BK_SMALL} {label}", univ,
+                                   rates))
+        _, out = bk.bk_stack_machine(*univ, emit=True)
+        if not out.shape[0]:  # bron_kerbosch decodes only rows it has
+            continue
+        decode.append((
+            f"{label} L={out.shape[0]}",
+            lambda c=chunk, o=out: bk.decode_clique_members(nbr, c, o),
+            lambda c=chunk, o=out: bk.decode_clique_members_plain(nbr, c, o),
+            decode_bytes(plan, chunk, out)))
+    # K7, K8: the main path's times (RMAT 14) and the larger error of both
+    for name, kcalls in calls.items():
+        err, k_ms, p_ms, bound_ms, by = compare(timing, kcalls)
+        print(f"[16] {name}: {len(kcalls)} launches, max_abs_err {err}, "
+              f"kernel {k_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), "
+              f"plain {p_ms:.4f} ms")
+        check(err == 0, f"{name} disagrees with its plain version by {err}")
+        main_err, *rest = entries[name]
+        report.append(kernel_entry(name, main[name], max(err, main_err),
+                                   *rest))
+    # K9: summed over every job it was held against its plain version on
+    err = max(r[0] for r in stack)
+    k_ms, e_ms, p_ms, popc, bit = (sum(r[i] for r in stack)
+                                   for i in (1, 2, 3, 6, 7))
+    bound = sum(max(r[4], r[5]) for r in stack)
+    by = ("operations" if sum(r[5] for r in stack) > sum(r[4] for r in stack)
+          else "bytes")
+    print(f"[16] bk_stack_machine: {len(stack)} jobs held against the plain "
+          f"version ({len(stack) - len(plan.jobs)} of RMAT {BK_SCALE}, "
+          f"every job of RMAT {BK_SMALL}), max_abs_err {err} (count and "
+          f"emitted rows), kernel {k_ms:.4f} ms (emit {e_ms:.4f} ms), bound "
+          f"{bound:.4f} ms ({by}; {popc} popcounts, {bit} bitwise ops), "
+          f"plain {p_ms:.4f} ms")
+    check(err == 0, f"bk_stack_machine disagrees with its plain version by "
+                    f"{err}")
+    report.append(kernel_entry("bk_stack_machine", main["bk_stack_machine"],
+                               err, k_ms, p_ms, bound, by))
+    # K10: its path is enumerate mode's (RMAT 12)
+    err, k_ms, p_ms, bound_ms, by = compare(timing, decode)
+    print(f"[16] decode_clique_members: {len(decode)} launches, max_abs_err "
+          f"{err}, kernel {k_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), "
+          f"plain {p_ms:.4f} ms")
+    check(err == 0, f"decode_clique_members disagrees by {err}")
+    report.append(kernel_entry("decode_clique_members",
+                               enum["decode_clique_members"], err, k_ms,
+                               p_ms, bound_ms, by))
 
 
 def main() -> None:
@@ -534,7 +893,9 @@ def main() -> None:
     print(f"[7] launches on the main path: {launches}; total "
           f"{time.perf_counter() - t_start:.1f} s")
     kclique_phases(timing, report)
-    print(f"[12] total {time.perf_counter() - t_start:.1f} s")
+    print(f"[11] total so far {time.perf_counter() - t_start:.1f} s")
+    bk_phases(timing, report)
+    print(f"[17] total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

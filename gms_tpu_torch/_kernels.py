@@ -58,6 +58,27 @@ SIGNATURES = {
         # adj, s0, C, w_words, k, root offsets, item offsets, out, stream
         "kc_stack_count": (_P, _P, _L, _I, _I, _P, _P, _P, _P),
     },
+    "bk_symmetrize": {
+        # adj, C, w_words, out, stream
+        "symmetrize_bits": (_P, _L, _I, _P, _P),
+    },
+    "bk_cover": {
+        # nbr, v_pad, d_pad, lo_indptr, n, lo_cols, n_cols, roots, C,
+        # w_words, in_width, M, wvalid, stream
+        "hub_cover_bits": (_P, _L, _I, _P, _L, _P, _L, _P, _L, _I, _I, _P,
+                           _P, _P),
+    },
+    "bk_stack": {
+        # adj, s0, live0, C, w_words, M, wvalid, in_width, root offsets,
+        # root ext, transposed cover, control words, queue, ready flags,
+        # queue capacity, out rows, out capacity, total, stream
+        "bk_stack": (_P, _P, _P, _L, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                     _L, _P, _L, _P, _P),
+    },
+    "bk_decode": {
+        # nbr, v_pad, d_pad, chunk, C, out, L, w_words, gid, members, stream
+        "decode_clique_members": (_P, _L, _I, _P, _L, _P, _L, _I, _P, _P, _P),
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -335,6 +335,12 @@ def kc_fused_chunk(nbr, chunk, *, w_words: int, k: int):
 # host planning and orchestration
 # ---------------------------------------------------------------------------
 
+def _bucket(n: int) -> int:
+    """n rounded up to a power of two, at least 256: gms_tpu's chunk-size
+    rounding (k_clique.py:50), kept so plans equal gms_tpu's."""
+    return 1 << max(8, int(np.ceil(np.log2(max(n, 1)))))
+
+
 def plan_tier_chunks(deg_all, roots_all, pad_id, *, root_chunk: int = 4096,
                      mem_budget_words: int = 1 << 25, min_w: int = 32):
     """Degree-tiered root chunks: yields (chunk int32[cmax] padded with

@@ -22,7 +22,8 @@
 // whole chunks' times. Three launches:
 //   count_kernel, one block per root: n_i = |S1| for each kept i, scanned
 //     into per-root offsets; the root's total;
-//   scan_kernel, one block: the roots' totals scanned into item offsets;
+//   root_offsets_kernel (block_scan.cuh), one block: the roots' totals
+//     scanned into item offsets;
 //   stack_kernel: persistent warps take item numbers from an atomic counter,
 //     find (b, i, j) by binary search in the offsets, and search below
 //     S2 = S1 & adj_j. A warp keeps its search path in shared memory: level
@@ -43,6 +44,7 @@
 
 #include <cuda_runtime.h>
 
+#include "block_scan.cuh"
 #include "block_sum.cuh"
 
 namespace {
@@ -59,38 +61,8 @@ __device__ __forceinline__ int popc_words(const unsigned* s, int ww) {
   return p;
 }
 
-// Exclusive scan of one value per thread over the block, tile after tile:
-// returns this thread's offset within the running total *carry, which it
-// advances by the tile's sum. Every thread of the block must call it.
-template <typename T>
-__device__ T block_scan(T n, T* carry) {
-  __shared__ T warp_tot[32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  T x = n;
-  for (int o = 1; o < 32; o <<= 1) {
-    const T y = __shfl_up_sync(kFull, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_tot[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    T y = lane < (int)(blockDim.x >> 5) ? warp_tot[lane] : T(0);
-    for (int o = 1; o < 32; o <<= 1) {
-      const T z = __shfl_up_sync(kFull, y, o);
-      if (lane >= o) y += z;
-    }
-    warp_tot[lane] = y;  // inclusive over warps
-  }
-  __syncthreads();
-  const T excl = *carry + (warp > 0 ? warp_tot[warp - 1] : T(0)) + x - n;
-  __syncthreads();
-  if (threadIdx.x == blockDim.x - 1) *carry = excl + n;
-  __syncthreads();
-  return excl;
-}
-
 // ioff[b*W + i] = first item of (b, i) within root b; roff[b] = root b's
-// items (scan_kernel turns these into offsets).
+// items (root_offsets_kernel turns these into offsets).
 __global__ void count_kernel(const unsigned* __restrict__ adj,
                              const unsigned* __restrict__ s0, int ww, int k,
                              int* __restrict__ ioff,
@@ -117,25 +89,6 @@ __global__ void count_kernel(const unsigned* __restrict__ adj,
   if (threadIdx.x == 0) roff[b] = carry;
 }
 
-// roff[0..c) := exclusive offsets of the roots' items, roff[c] = items;
-// *next = 0.
-__global__ void scan_kernel(long long c, long long* roff,
-                            unsigned long long* next) {
-  __shared__ long long carry;
-  if (threadIdx.x == 0) {
-    carry = 0;
-    *next = 0ull;
-  }
-  __syncthreads();
-  for (long long base = 0; base < c; base += blockDim.x) {
-    const long long b = base + threadIdx.x;
-    const long long n = b < c ? roff[b] : 0;
-    const long long off = block_scan(n, &carry);
-    if (b < c) roff[b] = off;
-  }
-  if (threadIdx.x == 0) roff[c] = carry;
-}
-
 // First set bit >= pos among S's ww words, or 32*ww; warp-uniform.
 __device__ __forceinline__ int next_bit(const unsigned* S, int ww, int pos,
                                         int lane) {
@@ -149,20 +102,6 @@ __device__ __forceinline__ int next_bit(const unsigned* S, int ww, int pos,
       const unsigned xf = __shfl_sync(kFull, x, f);
       return 32 * (wb + f) + __ffs(xf) - 1;
     }
-  }
-  return 32 * ww;
-}
-
-// The nth set bit of S (n < |S|); every lane computes it.
-__device__ __forceinline__ int nth_bit(const unsigned* S, int ww, int n) {
-  for (int w = 0; w < ww; ++w) {
-    unsigned x = S[w];
-    const int p = __popc(x);
-    if (n < p) {
-      for (; n > 0; --n) x &= x - 1;
-      return 32 * w + __ffs(x) - 1;
-    }
-    n -= p;
   }
   return 32 * ww;
 }
@@ -217,12 +156,7 @@ __global__ void stack_kernel(const unsigned* __restrict__ adj,
     if (lane == 0) t = atomicAdd(next, 1ull);
     t = __shfl_sync(kFull, t, 0);
     if (t >= items) break;
-    long long lo = 0, hi = c;  // root: the last b with roff[b] <= t
-    while (hi - lo > 1) {
-      const long long mid = (lo + hi) >> 1;
-      if ((unsigned long long)roff[mid] <= t) lo = mid; else hi = mid;
-    }
-    const long long b = lo;
+    const long long b = item_root(roff, c, t);
     const int local = (int)(t - roff[b]);
     const int* io = ioff + b * W;
     int il = 0, ih = W;  // i: the last i with io[i] <= local
@@ -281,7 +215,7 @@ extern "C" int kc_stack_count(const void* adj, const void* s0, long long c,
   unsigned long long* next = (unsigned long long*)(offsets + c + 1);
   count_kernel<<<(unsigned)c, kThreads, 0, st>>>(
       (const unsigned*)adj, (const unsigned*)s0, ww, k, (int*)ioff, offsets);
-  scan_kernel<<<1, kScanThreads, 0, st>>>(c, offsets, next);
+  root_offsets_kernel<<<1, kScanThreads, 0, st>>>(c, offsets, next);
   const int levels = k - 3;
   const size_t smem = (size_t)kWarps * levels * (ww + 1) * sizeof(unsigned);
   if (smem > 48 * 1024) {

@@ -16,11 +16,13 @@ import pytest
 import torch
 
 from gms_tpu_torch import _kernels
+from gms_tpu_torch.algorithms import bron_kerbosch as bk
 from gms_tpu_torch.algorithms import k_clique as kc
 from gms_tpu_torch.algorithms import triangle_count as tc
 from gms_tpu_torch.graphs.tiles import SENTINEL
 from gms_tpu_torch.io.builder import build_csr
 from gms_tpu_torch.io.generators import generate_rmat_el
+from gms_tpu_torch.preprocessing import degeneracy
 
 torch.set_num_threads(1)
 
@@ -259,3 +261,142 @@ def test_stack_count_on_card(card, k):
     got = _launched("kc_stack_count", lambda: kc.kc_stack_count(adj, s0, k=k),
                     kc.LAUNCHES)
     assert int(got) == int(kc.kc_stack_count_plain(adj, s0, k=k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,ww", [(40, 1), (9, 4), (3, 20), (2, 40)])
+def test_symmetrize_on_card(card, C, ww):
+    # rows in shared memory (ww=20 above the 48 KB default) and, at ww=40
+    # (200 KB), read from device memory
+    rng = np.random.default_rng(C * ww)
+    adj = _sparse_bits(rng, (C, 32 * ww, ww), 0.05).to(card)
+    got = _launched("symmetrize_bits", lambda: bk.symmetrize_bits(adj),
+                    bk.LAUNCHES)
+    assert torch.equal(got, bk.symmetrize_bits_plain(adj))
+    assert not torch.equal(got, adj)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ww,D,in_w", [(1, 96, 32), (4, 64, 128),
+                                       (32, 160, 64)])
+def test_hub_cover_on_card(card, ww, D, in_w):
+    # lists longer and shorter than in_w; roots include pad and negative ids
+    rng = np.random.default_rng(ww * D + in_w)
+    V, n = 300, 290
+    nbr = torch.from_numpy(_padded_rows(rng, V, D, n, D)).to(card)
+    lens = rng.integers(0, in_w + 6, n)
+    indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    cols = rng.integers(0, n, int(indptr[-1])).astype(np.int32)
+    roots = rng.integers(0, n, 70).astype(np.int32)
+    roots[-3:] = (V, V + 11, -2)
+    args = [torch.from_numpy(x).to(card) for x in (indptr, cols, roots)]
+    m, v = _launched("hub_cover_bits", lambda: bk.hub_cover_bits(
+        nbr, *args, in_width=in_w, w_words=ww), bk.LAUNCHES)
+    pm, pv = bk.hub_cover_bits_plain(nbr, *args, in_width=in_w, w_words=ww)
+    assert torch.equal(m, pm) and torch.equal(v, pv)
+    assert m.any() and v.any() and not v.all()
+
+
+def _bk_universe(plan, chunk, ww, in_w):
+    nbr = plan.padded.nbr
+    adj, s0 = kc.build_local_adj(nbr, chunk, w_words=ww)
+    m, v = bk.hub_cover_bits(nbr, plan.lo_indptr, plan.lo_cols, chunk,
+                             in_width=in_w, w_words=ww)
+    return bk.symmetrize_bits(adj), s0, chunk != nbr.shape[0], m, v
+
+
+def _rows(out):
+    return sorted(map(tuple, out.cpu().tolist()))
+
+
+def _check_stack(univ):
+    got = _launched("bk_stack_machine", lambda: bk.bk_stack_machine(*univ),
+                    bk.LAUNCHES)
+    want, want_out = bk.bk_stack_machine_plain(*univ, emit=True)
+    assert int(got) == int(want)
+    n, out = bk.bk_stack_machine(*univ, emit=True)
+    assert int(n) == int(want) and _rows(out) == _rows(want_out)
+    return int(want)
+
+
+@pytest.mark.cuda
+def test_bk_stack_on_card(card):
+    g = build_csr(generate_rmat_el(10, 16, seed=27491095), num_nodes=1024)
+    rank, _ = degeneracy.degeneracy_ordering_rank(g)
+    plan = bk.BKPlan(g, rank, np.arange(1024, dtype=np.int32), device=card,
+                     root_chunk=64)
+    counts = [_check_stack(_bk_universe(plan, *job)) for job in plan.jobs]
+    assert sum(counts) == bk.bron_kerbosch(g, device="cpu", rank=rank)
+    chunk, ww, in_w = plan.jobs[int(np.argmax(counts))]
+    for w in (2 * ww, 8):  # wider: the paths move to device memory at 8
+        _check_stack(_bk_universe(plan, chunk, w, in_w))
+    # random symmetric bits at W = 256 with random covers
+    rng = np.random.default_rng(3)
+    dense = np.triu(rng.random((4, 256, 256)) < 0.3, 1)
+    dense |= dense.transpose(0, 2, 1)
+    pack = lambda b: torch.from_numpy(np.packbits(  # noqa: E731
+        b, axis=-1, bitorder="little").view(np.int32).copy()).to(card)
+    s0 = pack(rng.random((4, 256)) < 0.5)
+    m = pack(rng.random((4, 64, 256)) < 0.6)
+    v = torch.from_numpy(rng.random((4, 64)) < 0.3).to(card)
+    live = torch.tensor([True, True, False, True], device=card)
+    assert _check_stack((pack(dense), s0, live, m, v)) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ww", [1, 2])
+def test_bk_stack_wide_cover_on_card(card, ww):
+    # IN = 2048: the leaf filter's second block of 32 words. Only rows
+    # w >= 1024 are valid, so a filter that skipped them would accept every
+    # leaf; with 8 valid rows some leaves are covered and some are not.
+    rng = np.random.default_rng(ww)
+    C, W, IN = 4, 32 * ww, 2048
+    dense = np.triu(rng.random((C, W, W)) < 0.3, 1)
+    dense |= dense.transpose(0, 2, 1)
+    pack = lambda b: torch.from_numpy(np.packbits(  # noqa: E731
+        b, axis=-1, bitorder="little").view(np.int32).copy()).to(card)
+    s0 = pack(rng.random((C, W)) < 0.5)
+    m = pack(rng.random((C, IN, W)) < 0.6)
+    v = np.zeros((C, IN), bool)
+    for c in range(C):
+        v[c, 1024 + rng.choice(1024, 8, replace=False)] = True
+    live = torch.ones(C, dtype=torch.bool, device=card)
+    univ = (pack(dense), s0, live, m, torch.from_numpy(v).to(card))
+    uncovered = bk.bk_stack_machine_plain(*univ[:4], torch.zeros_like(univ[4]))
+    assert 0 < _check_stack(univ) < int(uncovered)
+
+
+@pytest.mark.cuda
+def test_bron_kerbosch_on_card(card):
+    for scale, ordering in ((9, "degeneracy"), (9, "degree"), (8, "id")):
+        g = build_csr(generate_rmat_el(scale, 16, seed=27491095),
+                      num_nodes=1 << scale)
+        want, cl = bk.bron_kerbosch(g, device="cpu", ordering=ordering,
+                                    collect=True)
+        assert bk.bron_kerbosch(g, device=card, ordering=ordering) == want
+        n, got = bk.bron_kerbosch(g, device=card, ordering=ordering,
+                                  collect=True)
+        assert n == want and set(got) == set(cl)
+    k130 = np.stack(np.nonzero(np.triu(np.ones((130, 130), bool), 1)), 1)
+    g = build_csr(k130.astype(np.int64))
+    assert bk.bron_kerbosch(g, device=card, ordering="id",
+                            collect=True) == (1, [frozenset(range(130))])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ww,D", [(1, 96), (4, 64)])
+def test_decode_on_card(card, ww, D):
+    rng = np.random.default_rng(ww + D)
+    V, n, C, L = 300, 290, 50, 500
+    nbr = torch.from_numpy(_padded_rows(rng, V, D, n, D)).to(card)
+    chunk = rng.integers(0, n, C).astype(np.int32)
+    chunk[-2:] = (V, -4)
+    out = _sparse_bits(rng, (L, ww + 1), 0.3).numpy()
+    out[:, ww] = rng.integers(-3, C + 3, L)  # root-local ids clip
+    args = [torch.from_numpy(x).to(card) for x in (chunk, out)]
+    gid, mem = _launched("decode_clique_members",
+                         lambda: bk.decode_clique_members(nbr, *args),
+                         bk.LAUNCHES)
+    pgid, pmem = bk.decode_clique_members_plain(nbr, *args)
+    assert torch.equal(gid, pgid) and torch.equal(mem, pmem)
+    assert (mem >= 0).any() and (mem == -1).any()

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from gms_tpu_torch.algorithms import bron_kerbosch as bk
 from gms_tpu_torch.algorithms import k_clique as kc
 from gms_tpu_torch.algorithms import triangle_count as tc
 from gms_tpu_torch.graphs.tiles import PaddedGraph
@@ -69,8 +70,14 @@ def test_default_device_is_the_card():
             kc.kclique_count(g, k)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         kc.plan_chunks(g, 3)
+    for collect in (False, True):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            bk.bron_kerbosch(g, collect=collect)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bk.BKPlan(g, np.arange(3), np.arange(3))
     assert tc.triangle_count(g, device="cpu") == 1
     assert kc.kclique_count(g, 3, device="cpu") == 1
+    assert bk.bron_kerbosch(g, device="cpu") == 1
 
 
 def test_cli_parses_device():
@@ -97,6 +104,23 @@ def test_bench_cli_prints_result_rows():
               if ln.startswith("@@#")}
     assert params == {"tc_edges_per_sec", "tc_model_gbps"}
     assert "GraphExec buildTime:" in out.stdout
+
+
+def test_bk_bench_cli_prints_result_rows():
+    out = _run(["-m", "gms_tpu_torch.bench.bron_kerbosch", "-g", "kronecker",
+                "8", "-n", "1", "-v", "--device", "cpu"])
+    assert out.returncode == 0, out.stderr
+    rows = [ln.split() for ln in out.stdout.splitlines()
+            if ln.startswith("@@@")]
+    assert [r[-1] for r in rows] == ["BK-GMS-ADG-cpu", "BK-GMS-DEG-cpu",
+                                     "BK-GMS-DGR-cpu", "BK-GMS-SG-cpu"]
+    assert all(r[2] == "verified" for r in rows)
+    counts = {ln.split()[2] for ln in out.stdout.splitlines()
+              if ln.startswith("@@# bk_cliques ")}
+    assert counts == {"1915"}  # RMAT-8 deg 16, seed 27491095
+    params = {ln.split()[1] for ln in out.stdout.splitlines()
+              if ln.startswith("@@#")}
+    assert params == {"bk_cliques", "bk_cliques_per_sec"}
 
 
 def test_printer_protocol():
