@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py          # from the repository root; needs one card
 
-Drives the port's three paths through the entry points a user calls —
+Drives the port's four paths through the entry points a user calls —
 triangle counting on RMAT scale 18 (average degree 16, seed 27491095, the
 headline graph of bench.py), k-clique counting on bench.py's three
-k-clique graphs and maximal clique enumeration (Bron–Kerbosch) on its RMAT
-scale 14 graph — and holds every hand-written CUDA kernel of those paths
+k-clique graphs, maximal clique enumeration (Bron–Kerbosch) on its RMAT
+scale 14 graph and k-clique-star counting on its RMAT scale 12 graph — and
+holds every hand-written CUDA kernel of those paths
 against its plain PyTorch version on the card. Phases, each printing a line
 and each failing the run (non-zero exit) if it fails:
 
@@ -60,7 +61,34 @@ and each failing the run (non-zero exit) if it fails:
      part of the path. bk_stack_machine's kernels-line times are summed
      over every job of phases 15 and 16 it was held against plain on; its
      bound is the larger of bytes over 3.35 TB/s and its operations, the
-     popcounts at 16 and the bitwise operations at 64 a clock per SM.
+     popcounts at 16 and the bitwise operations at 64 a clock per SM;
+ 17. k-clique-star main path, with the star launch counters set to 0 just
+     before it: kclique_star_list(g, 4, device="cuda", rank=rank,
+     mode="count") on RMAT 12 (average degree 16, seed 27491095, the graph
+     of bench.py's k-clique-star run) after the exact degeneracy peel,
+     against the golden 4,077,953 cliques and 136,080,055 star total; timed
+     warm, after one untimed first call (whose time is printed beside), the
+     host plan timed apart, the jobs and launches; build_local_univ and
+     star_stack must have launched;
+ 18. RMAT 12 again under the ADG ordering (eps 0.1): the same two numbers;
+ 19. the identity star_total(k) = (k+1) · kclique_count(g, k+1) at RMAT 12
+     for k = 3 and 4 (the star of a k-clique is the set of vertices that
+     extend it to a (k+1)-clique);
+ 20. emit mode at RMAT 12 job by job on the device, with the counters set
+     to 0 again just before it: star_fused_chunk(emit=True) and
+     decode_star_rows on every job; the rows sum to 4,077,953 and their
+     star popcounts to 136,080,055; in a seeded sample of 1,000 rows the
+     clique is a clique and the star equals its common neighbourhood less
+     the clique;
+ 21. list mode: 30-vertex random graphs at k = 2, 3, 4 against
+     kclique_star_oracle, and RMAT 10 at k = 3 against the port's own
+     device="cpu" run, as sets;
+ 22. each star kernel against its plain version, exactly, with CUDA-event
+     times and bounds: build_local_univ and decode_star_rows on every RMAT
+     12 job, star_stack (count, and emit as sorted rows) on every job too;
+     its bound is the larger of its bytes over 3.35 TB/s (live0, the live
+     roots' S0 and I0, and the two matrices' rows of the slots it searches)
+     and its operations, as K9's.
 
 The line before the last is a JSON object describing every kernel; the last
 is {"ok": true, "device": {...}}. Imports nothing of jax or gms_tpu.
@@ -117,12 +145,21 @@ KERNELS = {
                          "gms_tpu/algorithms/bron_kerbosch.py:550"),
     "decode_clique_members": ("gms_tpu_torch/csrc/bk_decode.cu",
                               "gms_tpu/algorithms/bron_kerbosch.py:832"),
+    "build_local_univ": ("gms_tpu_torch/csrc/star_univ.cu",
+                         "gms_tpu/algorithms/k_clique_star.py:54"),
+    "star_stack": ("gms_tpu_torch/csrc/star_stack.cu",
+                   "gms_tpu/algorithms/k_clique_star.py:137"),
+    "decode_star_rows": ("gms_tpu_torch/csrc/star_decode.cu",
+                         "gms_tpu/algorithms/k_clique_star.py:346"),
 }
 BK_GOLDEN = 165_402_717      # maximal cliques, RMAT-14 deg 16 (BENCH_r05)
 BK_SCALE, BK_SMALL, BK_SAMPLE = 14, 12, 1000
 # the plain K9 is held to the kernel on RMAT 14's W=128 job with the most
 # cliques up to this many (the plain search takes minutes on the largest)
 BK_PLAIN_CLIQUES = 1_000_000
+# k-clique-stars at RMAT-12, k=4 (BENCH_extra.json): cliques, star total
+STAR_SCALE, STAR_K, STAR_GOLDEN = 12, 4, (4_077_953, 136_080_055)
+STAR_SAMPLE, STAR_SMALL = 1000, 10
 
 
 def check(cond: bool, what: str) -> None:
@@ -457,40 +494,73 @@ def decode_bytes(plan, chunk, out) -> int:
     return (out.numel() + out.shape[0] * (1 + 32 * ww) + words) * 4
 
 
-def sorted_rows(out) -> np.ndarray:
-    rows = out.cpu().numpy()
-    return rows[np.lexsort(rows.T[::-1])] if len(rows) else rows
+def sorted_rows(out):
+    """The rows of out in lexicographic order, sorted on its device: one
+    stable sort per column, the last column first."""
+    idx = torch.arange(out.shape[0], device=out.device)
+    for c in reversed(range(out.shape[1])):
+        idx = idx[torch.sort(out[idx, c], stable=True).indices]
+    return out[idx]
 
 
-def stack_compare(timing, label, univ, rates):
-    """Holds K9 against one plain run on a job's universe `univ`, the count
-    and the emitted rows as sorted sets, and prints a line. The plain run
-    also counts the tree's word operations by type; their bound is the
-    larger of the popcounts over `rates[0]` and the bitwise operations over
-    `rates[1]` (different units). Returns (max_abs_err, kernel ms, emit ms,
-    plain ms, bytes bound ms, operations bound ms, popcounts, bitwise
-    operations)."""
-    from gms_tpu_torch.algorithms import bron_kerbosch as bk
+def rows_err(got, want) -> int:
+    """max_abs_err of two sets of rows (2^31 if their shapes differ)."""
+    a, b = sorted_rows(got), sorted_rows(want)
+    if a.shape != b.shape:
+        return 1 << 31
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def search_compare(timing, label, kernel, plain, nbytes, rates):
+    """Holds a search kernel (K9, K12) against one plain run on a job: its
+    count and its emitted rows as sorted sets; prints a line. kernel(emit)
+    returns the count, or (count, rows) with emit; plain(emit, stats) the
+    same, and with stats it counts the tree's word operations by type,
+    whose bound is the larger of the popcounts over `rates[0]` and the
+    bitwise operations over `rates[1]` (different units). Returns
+    (max_abs_err, kernel ms, emit ms, plain ms, bytes bound ms, operations
+    bound ms, popcounts, bitwise operations)."""
     stats = {}
-    want, want_out = bk.bk_stack_machine_plain(*univ, emit=True, stats=stats)
-    got = bk.bk_stack_machine(*univ)
-    n, out = bk.bk_stack_machine(*univ, emit=True)
-    a, b = sorted_rows(out), sorted_rows(want_out)
-    diff = max(abs(int(got) - int(want)), abs(int(n) - int(want)),
-               int(np.abs(a.astype(np.int64) - b).max(initial=0))
-               if a.shape == b.shape else 1 << 31)
-    kt = timing.ms(lambda: bk.bk_stack_machine(*univ), KERNEL_REPS)
-    et = timing.ms(lambda: bk.bk_stack_machine(*univ, emit=True), KERNEL_REPS)
-    pt = timing.ms(lambda: bk.bk_stack_machine_plain(*univ), 1)
-    nbytes = sum(t.numel() * t.element_size() for t in univ) + 8
+    want, want_out = plain(True, stats)
+    got = kernel(False)
+    n, out = kernel(True)
+    diff = max(max_abs_err(got, want), max_abs_err(n, want),
+               rows_err(out, want_out))
+    kt = timing.ms(lambda: kernel(False), KERNEL_REPS)
+    et = timing.ms(lambda: kernel(True), KERNEL_REPS)
+    pt = timing.ms(lambda: plain(False, None), 1)
     bt = nbytes / HBM_BYTES_PER_S * 1e3
     ot = max(stats["popc_ops"] / rates[0], stats["bit_ops"] / rates[1]) * 1e3
-    print(f"    {label}: count {int(want)}, max_abs_err {diff}, kernel "
+    print(f"    {label}: count {want.tolist()}, max_abs_err {diff}, kernel "
           f"{kt:.4f} ms (emit {et:.4f} ms), bound {max(bt, ot):.4f} ms "
           f"({nbytes} bytes -> {bt:.4f} ms; {stats['popc_ops']} popcounts, "
           f"{stats['bit_ops']} bitwise ops -> {ot:.4f} ms), plain "
           f"{pt:.4f} ms")
     return diff, kt, et, pt, bt, ot, stats["popc_ops"], stats["bit_ops"]
+
+
+def search_summary(results):
+    """search_compare's results summed over jobs: (max_abs_err, kernel ms,
+    emit ms, plain ms, popcounts, bitwise operations, bound ms, bound_by);
+    each job's bound is the larger of its byte and operation times."""
+    err = max(r[0] for r in results)
+    k_ms, e_ms, p_ms, popc, bit = (sum(r[i] for r in results)
+                                   for i in (1, 2, 3, 6, 7))
+    bound = sum(max(r[4], r[5]) for r in results)
+    by = ("operations" if sum(r[5] for r in results) >
+          sum(r[4] for r in results) else "bytes")
+    return err, k_ms, e_ms, p_ms, popc, bit, bound, by
+
+
+def bk_compare(timing, label, univ, rates):
+    """search_compare for K9 on a job's universe (adj, S0, live0, M,
+    wvalid)."""
+    from gms_tpu_torch.algorithms import bron_kerbosch as bk
+    return search_compare(
+        timing, label, lambda emit: bk.bk_stack_machine(*univ, emit=emit),
+        lambda emit, stats: bk.bk_stack_machine_plain(*univ, emit=emit,
+                                                      stats=stats),
+        sum(t.numel() * t.element_size() for t in univ) + 8, rates)
 
 
 def bk_jobs(plan):
@@ -664,7 +734,7 @@ def bk_phases(timing, report) -> None:
     w128 = [j for j in jobs if j[1] == 4 and 0 < j[3] <= BK_PLAIN_CLIQUES]
     check(bool(w128), f"RMAT {BK_SCALE} has no W=128 job the plain K9 takes")
     held = [j for j in jobs if j[2] >= 2048] + [max(w128, key=lambda j: j[3])]
-    stack = [stack_compare(timing, label, univ, rates)
+    stack = [bk_compare(timing, label, univ, rates)
              for label, _, _, _, univ in held]
     print(f"[15] RMAT {BK_SCALE}, {len(jobs)} jobs, kernel ms summed "
           f"against bytes over 3.35 TB/s: build_local_adj {k4_ms:.4f} ms "
@@ -690,7 +760,7 @@ def bk_phases(timing, report) -> None:
     decode = []
     for label, chunk, ww, in_w, cover in bk_jobs(plan):
         univ, _ = bk_calls(bk, plan, label, chunk, ww, in_w, cover, calls)
-        stack.append(stack_compare(timing, f"RMAT {BK_SMALL} {label}", univ,
+        stack.append(bk_compare(timing, f"RMAT {BK_SMALL} {label}", univ,
                                    rates))
         _, out = bk.bk_stack_machine(*univ, emit=True)
         if not out.shape[0]:  # bron_kerbosch decodes only rows it has
@@ -711,12 +781,7 @@ def bk_phases(timing, report) -> None:
         report.append(kernel_entry(name, main[name], max(err, main_err),
                                    *rest))
     # K9: summed over every job it was held against its plain version on
-    err = max(r[0] for r in stack)
-    k_ms, e_ms, p_ms, popc, bit = (sum(r[i] for r in stack)
-                                   for i in (1, 2, 3, 6, 7))
-    bound = sum(max(r[4], r[5]) for r in stack)
-    by = ("operations" if sum(r[5] for r in stack) > sum(r[4] for r in stack)
-          else "bytes")
+    err, k_ms, e_ms, p_ms, popc, bit, bound, by = search_summary(stack)
     print(f"[16] bk_stack_machine: {len(stack)} jobs held against the plain "
           f"version ({len(stack) - len(plan.jobs)} of RMAT {BK_SCALE}, "
           f"every job of RMAT {BK_SMALL}), max_abs_err {err} (count and "
@@ -736,6 +801,231 @@ def bk_phases(timing, report) -> None:
     report.append(kernel_entry("decode_clique_members",
                                enum["decode_clique_members"], err, k_ms,
                                p_ms, bound_ms, by))
+
+
+def star_jobs_line(jobs, pad_id) -> str:
+    """'W: slots / real roots' of each job of a k-clique-star plan."""
+    return " · ".join(f"{32 * ww}: {c.numel()} / {int((c != pad_id).sum())}"
+                      for c, ww in jobs)
+
+
+def univ_bytes(pg, chunk, ww) -> int:
+    """K11's bytes: each distinct row it reads (the roots' and their
+    neighbours'), up to and including its first SENTINEL, the roots, the
+    ranks of the roots and their slots, and the two matrices and two sets
+    written."""
+    from gms_tpu_torch.graphs.tiles import SENTINEL
+    nbr, v_pad = pg.nbr, pg.v_pad
+    roots = chunk.long().clamp(0, v_pad - 1)
+    r_nbr = nbr[roots, :min(32 * ww, nbr.shape[1])]
+    slots = r_nbr[r_nbr != SENTINEL].long()
+    words = data_words(pg.deg, torch.unique(torch.cat([roots, slots])),
+                       nbr.shape[1])
+    ranks = torch.unique(torch.cat([chunk.long().clamp(0, v_pad), slots]))
+    c = chunk.numel()
+    return (words + c + ranks.numel() + 2 * c * 32 * ww * ww
+            + 2 * c * ww) * 4
+
+
+def star_stack_bytes(adj_full, adj_dag, s0, i0, live0, k) -> int:
+    """K12's bytes in count mode: live0, the live roots' S0 and I0, the
+    adj_full and adj_dag rows of each slot in S0 of the roots it searches
+    (|S0| >= k-1; every node's S lies in S0, so no other row is read), and
+    the two int64 totals written."""
+    from gms_tpu_torch.algorithms.triangle_count import popcount32
+    ww = s0.shape[1]
+    size = popcount32(s0).sum(1)
+    searched = live0 & (size >= k - 1)
+    return (live0.numel() + 16 + 4 * 2 * ww * (int(live0.sum())
+                                               + int(size[searched].sum())))
+
+
+def star_decode_bytes(pg, chunk, out) -> int:
+    """K13's bytes: the rows read, gid and both id blocks written, and each
+    distinct root row up to its first SENTINEL (at most W slots)."""
+    ww = (out.shape[1] - 1) // 2
+    gid = chunk[out[:, 2 * ww].long().clamp(0, chunk.numel() - 1)]
+    words = data_words(pg.deg, torch.unique(gid), 32 * ww)
+    return (out.numel() + out.shape[0] * (1 + 64 * ww) + words) * 4
+
+
+def star_phases(timing, report) -> None:
+    """Phases 17-22: the k-clique-star path (see the module docstring)."""
+    from gms_tpu_torch.algorithms import k_clique as kc
+    from gms_tpu_torch.algorithms import k_clique_star as ks
+    from gms_tpu_torch.algorithms.triangle_count import popcount32
+    from gms_tpu_torch.io.builder import build_csr
+    from gms_tpu_torch.io.generators import generate_rmat_el
+    from gms_tpu_torch.preprocessing import degeneracy
+
+    k = STAR_K
+    t0 = time.perf_counter()
+    g = build_csr(generate_rmat_el(STAR_SCALE, DEGREE, seed=SEED),
+                  num_nodes=1 << STAR_SCALE)
+    print(f"[17] graph RMAT {STAR_SCALE}: {g.num_nodes} nodes, "
+          f"{g.num_edges_undirected} undirected edges, max degree "
+          f"{g.max_degree}, {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    rank, degen = degeneracy.degeneracy_ordering_rank(g)
+    peel_s = time.perf_counter() - t0
+
+    # [17] main path: a first call (it loads the star kernels' modules and
+    # sets their launch attributes), then the counters from 0 and the timed
+    # call
+    t0 = time.perf_counter()
+    ks.kclique_star_list(g, k, device="cuda", rank=rank, mode="count")
+    cold_s = time.perf_counter() - t0
+    ks.reset_launches()
+    t0 = time.perf_counter()
+    got = ks.kclique_star_list(g, k, device="cuda", rank=rank, mode="count")
+    call_s = time.perf_counter() - t0
+    main = dict(ks.LAUNCHES)
+    t0 = time.perf_counter()
+    pg, rank_pad, jobs = ks.plan_star_jobs(g, k, device="cuda", rank=rank)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    print(f"[17] RMAT {STAR_SCALE} k={k} stars: (cliques, star total) {got}, "
+          f"golden {STAR_GOLDEN}; degeneracy {degen}; peel {peel_s:.3f} s; "
+          f"call {call_s:.4f} s (synchronised, warm; the first call "
+          f"{cold_s:.4f} s; host plan alone {plan_s:.4f} s: pad, rank_pad, "
+          f"tiers, sub-chunks, copies); {got[0] / call_s:.1f} cliques/s; "
+          f"launches {main}")
+    print(f"    D_pad {pg.d_pad}; {len(jobs)} jobs (W: slots / real roots) "
+          f"{star_jobs_line(jobs, pg.v_pad)}")
+    check(got == STAR_GOLDEN, f"RMAT {STAR_SCALE} k={k} stars: {got} != "
+                              f"{STAR_GOLDEN}")
+    check(main["build_local_univ"] > 0 and main["star_stack"] > 0,
+          f"a kernel of the star count path never launched: {main}")
+
+    # [18] the ADG ordering gives the same numbers
+    t0 = time.perf_counter()
+    adg = degeneracy.adg_ordering_rank(g, 0.1)
+    adg_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = ks.kclique_star_list(g, k, device="cuda", rank=adg, mode="count")
+    call_s = time.perf_counter() - t0
+    print(f"[18] RMAT {STAR_SCALE} ADG eps 0.1: {got}; ADG {adg_s:.3f} s; "
+          f"call {call_s:.4f} s; {got[0] / call_s:.1f} cliques/s")
+    check(got == STAR_GOLDEN, f"ADG-ordered RMAT {STAR_SCALE} stars: {got}")
+
+    # [19] star_total(k) = (k+1) · #K_{k+1}
+    for kk in (3, 4):
+        n, total = ks.kclique_star_list(g, kk, device="cuda", rank=rank,
+                                        mode="count")
+        nk = kc.kclique_count(g, kk, device="cuda", rank=rank)
+        nk1 = kc.kclique_count(g, kk + 1, device="cuda", rank=rank)
+        print(f"[19] k={kk}: {n} cliques (kclique_count {nk}), star total "
+              f"{total} = {kk + 1} x {nk1}")
+        check(n == nk and total == (kk + 1) * nk1,
+              f"star identity fails at k={kk}: {n}, {total}; {nk}, {nk1}")
+
+    # [20] emit mode job by job, counters from 0
+    nbrs = [set(g.out_neigh(v).tolist()) for v in range(g.num_nodes)]
+    sample = np.sort(np.random.default_rng(SEED).choice(
+        STAR_GOLDEN[0], STAR_SAMPLE, replace=False))
+    ks.reset_launches()
+    rows = stars = 0
+    picked = []
+    t0 = time.perf_counter()
+    for chunk, ww in jobs:
+        _, out = ks.star_fused_chunk(pg.nbr, rank_pad, chunk, w_words=ww,
+                                     k=k, emit=True)
+        gid, members, star_ids = ks.decode_star_rows(pg.nbr, chunk, out)
+        stars += int(popcount32(out[:, ww:2 * ww]).sum())
+        mine = sample[(sample >= rows) & (sample < rows + out.shape[0])]
+        idx = torch.from_numpy(mine - rows).cuda()
+        picked += zip(gid[idx].tolist(), members[idx].tolist(),
+                      star_ids[idx].tolist())
+        rows += out.shape[0]
+        del out, gid, members, star_ids
+    torch.cuda.synchronize()
+    emit_s = time.perf_counter() - t0
+    enum = dict(ks.LAUNCHES)
+    check((rows, stars) == STAR_GOLDEN,
+          f"RMAT {STAR_SCALE} emit: {rows} rows, star popcounts {stars}")
+    check(enum["decode_star_rows"] == len(jobs) and
+          enum["build_local_univ"] == len(jobs),
+          f"a star kernel of the emit path did not run on every job: {enum}")
+    for gid, members, star_ids in picked:
+        clique = [gid, *(m for m in members if m >= 0)]
+        common = set.intersection(*(nbrs[v] for v in clique))
+        check(all(b in nbrs[a] for i, a in enumerate(clique)
+                  for b in clique[i + 1:])
+              and {s for s in star_ids if s >= 0} == common - set(clique),
+              f"RMAT {STAR_SCALE}: a sampled row is not a clique with its "
+              f"star: {clique}")
+    check(len(picked) == STAR_SAMPLE, f"sampled {len(picked)} rows")
+    print(f"[20] RMAT {STAR_SCALE} emit: {rows} rows, star popcounts {stars} "
+          f"in {len(jobs)} jobs, {emit_s:.4f} s (count pass, emit pass, "
+          f"decode); launches {enum}; {STAR_SAMPLE} sampled rows are cliques "
+          f"whose stars equal their common neighbourhoods")
+
+    # [21] list mode against the oracle and the plain run
+    for kk in (2, 3, 4):
+        rg = np.triu(np.random.default_rng(kk).random((30, 30)) < 0.3, 1)
+        rg = build_csr(np.stack(np.nonzero(rg), 1).astype(np.int64),
+                       num_nodes=30)
+        got = ks.kclique_star_list(rg, kk, device="cuda")
+        want = ks.kclique_star_oracle(rg, kk)
+        check(len(got) == len(want) and set(got) == set(want),
+              f"random graph k={kk}: {len(got)} pairs, oracle {len(want)}")
+    small = build_csr(generate_rmat_el(STAR_SMALL, DEGREE, seed=SEED),
+                      num_nodes=1 << STAR_SMALL)
+    got = ks.kclique_star_list(small, 3, device="cuda")
+    t0 = time.perf_counter()
+    want = ks.kclique_star_list(small, 3, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    check(len(got) == len(want) and set(got) == set(want),
+          f"RMAT {STAR_SMALL} k=3 list: {len(got)} pairs, plain {len(want)}")
+    print(f"[21] random graphs k=2..4 equal the oracle; RMAT {STAR_SMALL} k=3 "
+          f"list ({len(got)} pairs) equals the device='cpu' run "
+          f"({cpu_s:.2f} s)")
+
+    # [22] each kernel against its plain version, job by job
+    rates = (sm_rate(POPC_PER_CLOCK_PER_SM), sm_rate(BITWISE_PER_CLOCK_PER_SM))
+    nbr = pg.nbr
+    univ_calls, decode_calls, stack = [], [], []
+    for chunk, ww in jobs:
+        label = f"W={32 * ww} C={chunk.numel()}"
+        univ_calls.append((
+            label,
+            lambda c=chunk, w=ww: ks.build_local_univ(nbr, rank_pad, c,
+                                                      w_words=w),
+            lambda c=chunk, w=ww: ks.build_local_univ_plain(nbr, rank_pad, c,
+                                                            w_words=w),
+            univ_bytes(pg, chunk, ww)))
+        univ = (*ks.build_local_univ(nbr, rank_pad, chunk, w_words=ww),
+                chunk != pg.v_pad)
+        stack.append(search_compare(
+            timing, f"RMAT {STAR_SCALE} {label}",
+            lambda emit, u=univ: ks.star_stack(*u, k=k, emit=emit),
+            lambda emit, stats, u=univ: ks.star_stack_plain(
+                *u, k=k, emit=emit, stats=stats),
+            star_stack_bytes(*univ, k), rates))
+        _, out = ks.star_stack(*univ, k=k, emit=True)
+        decode_calls.append((
+            f"{label} L={out.shape[0]}",
+            lambda c=chunk, o=out: ks.decode_star_rows(nbr, c, o),
+            lambda c=chunk, o=out: ks.decode_star_rows_plain(nbr, c, o),
+            star_decode_bytes(pg, chunk, out)))
+    for name, calls, launches in (("build_local_univ", univ_calls, main),
+                                  ("decode_star_rows", decode_calls, enum)):
+        err, k_ms, p_ms, bound_ms, by = compare(timing, calls, plain_reps=1)
+        print(f"[22] {name}: {len(calls)} jobs, max_abs_err {err}, kernel "
+              f"{k_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), plain "
+              f"{p_ms:.4f} ms")
+        check(err == 0, f"{name} disagrees with its plain version by {err}")
+        report.append(kernel_entry(name, launches[name], err, k_ms, p_ms,
+                                   bound_ms, by))
+        del calls[:]
+    err, k_ms, e_ms, p_ms, popc, bit, bound, by = search_summary(stack)
+    print(f"[22] star_stack: {len(stack)} of {len(jobs)} jobs held against the "
+          f"plain version (count and emitted rows), max_abs_err {err}, "
+          f"kernel {k_ms:.4f} ms (emit {e_ms:.4f} ms), bound {bound:.4f} ms "
+          f"({by}; {popc} popcounts, {bit} bitwise ops), plain {p_ms:.4f} ms")
+    check(err == 0, f"star_stack disagrees with its plain version by {err}")
+    report.append(kernel_entry("star_stack", main["star_stack"], err, k_ms,
+                               p_ms, bound, by))
 
 
 def main() -> None:
@@ -895,7 +1185,9 @@ def main() -> None:
     kclique_phases(timing, report)
     print(f"[11] total so far {time.perf_counter() - t_start:.1f} s")
     bk_phases(timing, report)
-    print(f"[17] total {time.perf_counter() - t_start:.1f} s")
+    print(f"[16] total so far {time.perf_counter() - t_start:.1f} s")
+    star_phases(timing, report)
+    print(f"[23] total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -79,6 +79,22 @@ SIGNATURES = {
         # nbr, v_pad, d_pad, chunk, C, out, L, w_words, gid, members, stream
         "decode_clique_members": (_P, _L, _I, _P, _L, _P, _L, _I, _P, _P, _P),
     },
+    "star_univ": {
+        # nbr, v_pad, d_pad, rank_pad, len(rank_pad), roots, C, w_words,
+        # adj_full, adj_dag, s0, i0, stream
+        "build_local_univ": (_P, _L, _I, _P, _L, _P, _L, _I, _P, _P, _P, _P,
+                             _P),
+    },
+    "star_stack": {
+        # adj_full, adj_dag, s0, i0, live0, C, w_words, k, root offsets,
+        # item offsets, out tail, out rows, out capacity, totals, stream
+        "star_stack": (_P, _P, _P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _L, _P,
+                       _P),
+    },
+    "star_decode": {
+        # nbr, v_pad, d_pad, chunk, C, out, L, w_words, gid, ids, stream
+        "decode_star_rows": (_P, _L, _I, _P, _L, _P, _L, _I, _P, _P, _P),
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -17,7 +17,8 @@
 // in shared memory; a warp per (root, i) reads w_i's row 32 slots at a time
 // up to its first SENTINEL, and each lane binary-searches its element among
 // the root's slots (rows strictly ascending with a SENTINEL tail, the padded
-// layout) and sets the bit in a per-warp word buffer, which the warp writes.
+// layout) and sets the bit in a per-warp word buffer, which the warp writes
+// (row_search.cuh).
 //
 // Bound on an H100 (3.35 TB/s): bytes. Each distinct DAG row read (the
 // roots' and their lower neighbours') up to and including its first
@@ -26,16 +27,12 @@
 
 #include <cuda_runtime.h>
 
-#include "block_sum.cuh"
+#include "row_search.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-
-__device__ __forceinline__ long long clip(long long v, long long n) {
-  return v < 0 ? 0 : (v >= n ? n - 1 : v);
-}
 
 __global__ void cover_kernel(const int* __restrict__ nbr, long long v_pad,
                              int d, const int* __restrict__ indptr,
@@ -50,10 +47,10 @@ __global__ void cover_kernel(const int* __restrict__ nbr, long long v_pad,
   unsigned* bits = reinterpret_cast<unsigned*>(smem + W) + warp * ww;
   const long long b = blockIdx.x;
   const long long r = roots[b];
-  const int* root_row = nbr + clip(r, v_pad) * d;
+  const int* root_row = nbr + clip_index(r, v_pad) * d;
   for (int j = threadIdx.x; j < W; j += blockDim.x)
     q[j] = j < d ? root_row[j] : GMS_SENTINEL;
-  const long long s = clip(r, n);
+  const long long s = clip_index(r, n);
   const long long start = indptr[s];
   const long long cnt = r < n ? indptr[s + 1] - start : 0;
   __syncthreads();
@@ -61,23 +58,12 @@ __global__ void cover_kernel(const int* __restrict__ nbr, long long v_pad,
   for (int i = warp; i < in_w; i += kWarps) {
     for (int w = lane; w < ww; w += 32) bits[w] = 0u;
     __syncwarp();
-    const int u = i < cnt ? cols[clip(start + i, n_cols)] : GMS_SENTINEL;
-    if (u != GMS_SENTINEL) {
-      const int* row = nbr + clip(u, v_pad) * d;
-      for (int base = 0; base < d; base += 32) {
-        const int sl = base + lane;
-        const int x = sl < d ? row[sl] : GMS_SENTINEL;
-        if (x != GMS_SENTINEL) {
-          int lo = 0, hi = W;
-          while (lo < hi) {
-            const int mid = (lo + hi) >> 1;
-            if (q[mid] < x) lo = mid + 1; else hi = mid;
-          }
-          if (lo < W && q[lo] == x) atomicOr(bits + (lo >> 5), 1u << (lo & 31));
-        }
-        if (__any_sync(0xffffffffu, x == GMS_SENTINEL)) break;
-      }
-    }
+    const int u = i < cnt ? cols[clip_index(start + i, n_cols)] : GMS_SENTINEL;
+    if (u != GMS_SENTINEL)
+      for_each_slot_in_row(nbr + clip_index(u, v_pad) * d, d, q, W, lane,
+                           [&](int j) {
+                             atomicOr(bits + (j >> 5), 1u << (j & 31));
+                           });
     __syncwarp();
     unsigned* out = m + (b * in_w + i) * ww;
     for (int w = lane; w < ww; w += 32) out[w] = bits[w];

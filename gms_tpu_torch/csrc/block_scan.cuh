@@ -1,5 +1,5 @@
-// Block-wide exclusive scans and the root-offset scan of the work-stack
-// kernels (kclique_stack.cu, bk_stack.cu).
+// Block-wide exclusive scans, the root-offset scan and the bit walks of the
+// work-stack kernels (kclique_stack.cu, bk_stack.cu, star_stack.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -76,6 +76,24 @@ __device__ __forceinline__ int nth_bit(const unsigned* S, int ww, int n) {
       return 32 * w + __ffs(x) - 1;
     }
     n -= p;
+  }
+  return 32 * ww;
+}
+
+// First set bit >= pos among S's ww words, or 32*ww; every lane of the warp
+// calls it and gets the same answer.
+__device__ __forceinline__ int next_bit(const unsigned* S, int ww, int pos,
+                                        int lane) {
+  for (int wb = pos >> 5; wb < ww; wb += 32) {
+    const int w = wb + lane;
+    unsigned x = w < ww ? S[w] : 0u;
+    if (w == (pos >> 5)) x &= 0xffffffffu << (pos & 31);
+    const unsigned hit = __ballot_sync(0xffffffffu, x != 0u);
+    if (hit) {
+      const int f = __ffs(hit) - 1;
+      const unsigned xf = __shfl_sync(0xffffffffu, x, f);
+      return 32 * (wb + f) + __ffs(xf) - 1;
+    }
   }
   return 32 * ww;
 }

@@ -89,23 +89,6 @@ __global__ void count_kernel(const unsigned* __restrict__ adj,
   if (threadIdx.x == 0) roff[b] = carry;
 }
 
-// First set bit >= pos among S's ww words, or 32*ww; warp-uniform.
-__device__ __forceinline__ int next_bit(const unsigned* S, int ww, int pos,
-                                        int lane) {
-  for (int wb = pos >> 5; wb < ww; wb += 32) {
-    const int w = wb + lane;
-    unsigned x = w < ww ? S[w] : 0u;
-    if (w == (pos >> 5)) x &= kFull << (pos & 31);
-    const unsigned hit = __ballot_sync(kFull, x != 0u);
-    if (hit) {
-      const int f = __ffs(hit) - 1;
-      const unsigned xf = __shfl_sync(kFull, x, f);
-      return 32 * (wb + f) + __ffs(xf) - 1;
-    }
-  }
-  return 32 * ww;
-}
-
 // This lane's share of Σ_{j∈c} popcount(c & A_j): lane l takes bit l of
 // each word of c. c lies in shared memory, written before a __syncwarp.
 __device__ __forceinline__ long long inline_count(const unsigned* c,

@@ -16,7 +16,8 @@
 // time (coalesced), stopping at its first SENTINEL; each lane binary-searches
 // its element among the root's slots (rows are strictly ascending with a
 // SENTINEL tail, the padded-layout invariant) and sets the bit it finds in a
-// per-warp word buffer in shared memory, which the warp then writes out.
+// per-warp word buffer in shared memory, which the warp then writes out
+// (row_search.cuh, shared with K8 and K11).
 //
 // Bound on an H100 (3.35 TB/s): bytes. Each distinct row read once up to and
 // including its first SENTINEL, the roots, and the C*W*WW + C*WW output words
@@ -25,16 +26,12 @@
 
 #include <cuda_runtime.h>
 
-#include "block_sum.cuh"
+#include "row_search.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-
-__device__ __forceinline__ long long clip_row(long long v, long long v_pad) {
-  return v < 0 ? 0 : (v >= v_pad ? v_pad - 1 : v);
-}
 
 __global__ void local_adj_kernel(const int* __restrict__ nbr, long long v_pad,
                                  int d, const int* __restrict__ roots, int ww,
@@ -46,7 +43,7 @@ __global__ void local_adj_kernel(const int* __restrict__ nbr, long long v_pad,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   unsigned* bits = reinterpret_cast<unsigned*>(smem + W) + warp * ww;
   const long long b = blockIdx.x;
-  const int* root_row = nbr + clip_row(roots[b], v_pad) * d;
+  const int* root_row = nbr + clip_index(roots[b], v_pad) * d;
   for (int j = threadIdx.x; j < W; j += blockDim.x)
     r_nbr[j] = j < d ? root_row[j] : GMS_SENTINEL;
   __syncthreads();
@@ -63,22 +60,11 @@ __global__ void local_adj_kernel(const int* __restrict__ nbr, long long v_pad,
     for (int w = lane; w < ww; w += 32) bits[w] = 0u;
     __syncwarp();
     const int u = r_nbr[i];
-    if (u != GMS_SENTINEL) {
-      const int* row = nbr + clip_row(u, v_pad) * d;
-      for (int base = 0; base < d; base += 32) {
-        const int s = base + lane;
-        const int x = s < d ? row[s] : GMS_SENTINEL;
-        if (x != GMS_SENTINEL) {
-          int lo = 0, hi = W;
-          while (lo < hi) {
-            const int mid = (lo + hi) >> 1;
-            if (r_nbr[mid] < x) lo = mid + 1; else hi = mid;
-          }
-          if (lo < W && r_nbr[lo] == x) atomicOr(bits + (lo >> 5), 1u << (lo & 31));
-        }
-        if (__any_sync(0xffffffffu, x == GMS_SENTINEL)) break;
-      }
-    }
+    if (u != GMS_SENTINEL)
+      for_each_slot_in_row(nbr + clip_index(u, v_pad) * d, d, r_nbr, W, lane,
+                           [&](int j) {
+                             atomicOr(bits + (j >> 5), 1u << (j & 31));
+                           });
     __syncwarp();
     unsigned* out = adj + (b * W + i) * ww;
     for (int w = lane; w < ww; w += 32) out[w] = bits[w];

@@ -18,6 +18,7 @@ import torch
 from gms_tpu_torch import _kernels
 from gms_tpu_torch.algorithms import bron_kerbosch as bk
 from gms_tpu_torch.algorithms import k_clique as kc
+from gms_tpu_torch.algorithms import k_clique_star as ks
 from gms_tpu_torch.algorithms import triangle_count as tc
 from gms_tpu_torch.graphs.tiles import SENTINEL
 from gms_tpu_torch.io.builder import build_csr
@@ -62,6 +63,13 @@ def test_wrappers_reject_bad_inputs():
         kc.kc_stack_count(_i32(2, 32, 1), _i32(3, 1), k=6)
     with pytest.raises(ValueError, match="k must be >= 5"):
         kc.kc_stack_count(_i32(2, 32, 1), _i32(2, 1), k=4)
+    with pytest.raises(TypeError):
+        ks.build_local_univ(_i32(8, 4), _i32(9), _i32(3).long(), w_words=1)
+    with pytest.raises(TypeError, match="live0"):
+        ks.star_stack(_i32(2, 32, 1), _i32(2, 32, 1), _i32(2, 1), _i32(2, 1),
+                      _i32(2), k=3)
+    with pytest.raises(ValueError, match="2WW\\+1"):
+        ks.decode_star_rows(_i32(8, 4), _i32(2), _i32(3, 4))
 
 
 def test_every_source_has_a_binding():
@@ -400,3 +408,117 @@ def test_decode_on_card(card, ww, D):
     pgid, pmem = bk.decode_clique_members_plain(nbr, *args)
     assert torch.equal(gid, pgid) and torch.equal(mem, pmem)
     assert (mem >= 0).any() and (mem == -1).any()
+
+
+# k-clique-star: K11 build_local_univ, K12 star_stack, K13 decode_star_rows
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ww,D", [(1, 96), (3, 64), (64, 160)])
+def test_star_univ_on_card(card, ww, D):
+    # W < D, W > D and W = 2048; roots include pad and negative ids, and
+    # rank_pad is shorter than V_pad + 1, so rank lookups clip
+    rng = np.random.default_rng(ww * D + 1)
+    V, n = 300, 290
+    nbr = torch.from_numpy(_padded_rows(rng, V, D, n, D)).to(card)
+    rank_pad = np.full(V - 5, np.iinfo(np.int32).max, dtype=np.int32)
+    rank_pad[:n] = rng.permutation(n)
+    roots = rng.integers(0, n, 70).astype(np.int32)
+    roots[-3:] = (V, V + 11, -2)
+    rank_pad, roots = (torch.from_numpy(x).to(card) for x in (rank_pad, roots))
+    got = _launched("build_local_univ", lambda: ks.build_local_univ(
+        nbr, rank_pad, roots, w_words=ww), ks.LAUNCHES)
+    want = ks.build_local_univ_plain(nbr, rank_pad, roots, w_words=ww)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert got[1].any() and got[2].any()
+
+
+def _check_star(univ, k):
+    got = _launched("star_stack", lambda: ks.star_stack(*univ, k=k),
+                    ks.LAUNCHES)
+    want, want_out = ks.star_stack_plain(*univ, k=k, emit=True)
+    assert got.tolist() == want.tolist()
+    counts, out = ks.star_stack(*univ, k=k, emit=True)
+    assert counts.tolist() == want.tolist()
+    assert _rows(out) == _rows(want_out)
+    return int(want[0])
+
+
+def _star_jobs(g, k, card, **kw):
+    pg, rank_pad, jobs = ks.plan_star_jobs(g, k, device=card, **kw)
+    for chunk, ww in jobs:
+        yield chunk, ww, lambda w, c=chunk: (*ks.build_local_univ(
+            pg.nbr, rank_pad, c, w_words=w), c != pg.v_pad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 3, 4, 5, 6])
+def test_star_stack_on_card(card, k):
+    g = build_csr(generate_rmat_el(10, 16, seed=27491095), num_nodes=1024)
+    jobs = list(_star_jobs(g, k, card, root_chunk=64))
+    counts = [_check_star(univ(ww), k) for _, ww, univ in jobs]
+    assert sum(counts) == kc.kclique_count(g, k, device=card) > 0
+    _, ww, univ = jobs[int(np.argmax(counts))]
+    _check_star(univ(2 * ww), k)  # a wider universe, the same tree
+    # random bits at W = 2048 (any bits define a tree), with a 12-clique
+    # planted among each root's candidates so that every k has cliques
+    rng = np.random.default_rng(k)
+    C, W = 3, 2048
+    full = np.triu(rng.random((C, W, W)) < 0.03, 1)
+    i0 = rng.random((C, W)) < 0.7
+    s0 = i0 & (rng.random((C, W)) < 0.5)
+    for c in range(C):
+        planted = rng.choice(W, 12, replace=False)
+        full[c][np.ix_(planted, planted)] = True
+        s0[c, planted] = i0[c, planted] = True
+    full |= full.transpose(0, 2, 1)
+    full[:, np.arange(W), np.arange(W)] = False
+    rank = rng.permutation(W)
+    dag = full & (rank[None, None, :] > rank[None, :, None])
+    pack = lambda b: torch.from_numpy(np.packbits(  # noqa: E731
+        b, axis=-1, bitorder="little").view(np.int32).copy()).to(card)
+    live = torch.tensor([True, False, True], device=card)
+    assert _check_star((pack(full), pack(dag), pack(s0), pack(i0), live),
+                       k) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 3, 4])
+def test_star_stack_w2048_job_on_card(card, k):
+    # RMAT-12's hub tier: one real root of degree 1,289 in a W = 2048 job
+    g = build_csr(generate_rmat_el(12, 16, seed=27491095), num_nodes=4096)
+    chunk, ww, univ = list(_star_jobs(g, k, card))[-1]
+    assert 32 * ww == 2048
+    assert _check_star(univ(ww), k) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ww,D", [(1, 96), (4, 64), (64, 160)])
+def test_star_decode_on_card(card, ww, D):
+    rng = np.random.default_rng(ww + D)
+    V, n, C, L = 300, 290, 50, 400
+    nbr = torch.from_numpy(_padded_rows(rng, V, D, n, D)).to(card)
+    chunk = rng.integers(0, n, C).astype(np.int32)
+    chunk[-2:] = (V, -4)
+    out = _sparse_bits(rng, (L, 2 * ww + 1), 0.3).numpy()
+    out[:, 2 * ww] = rng.integers(-3, C + 3, L)  # root-local ids clip
+    args = [torch.from_numpy(x).to(card) for x in (chunk, out)]
+    got = _launched("decode_star_rows",
+                    lambda: ks.decode_star_rows(nbr, *args), ks.LAUNCHES)
+    want = ks.decode_star_rows_plain(nbr, *args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (got[1] >= 0).any() and (got[2] >= 0).any()
+    assert (got[2] == -1).any()
+
+
+@pytest.mark.cuda
+def test_kclique_star_list_on_card(card):
+    g = build_csr(generate_rmat_el(9, 16, seed=27491095), num_nodes=512)
+    for k in (2, 3, 4, 5):
+        want = ks.kclique_star_list(g, k, device="cpu", mode="count")
+        assert ks.kclique_star_list(g, k, device=card, mode="count") == want
+    got = ks.kclique_star_list(g, 3, device=card)
+    assert set(got) == set(ks.kclique_star_list(g, 3, device="cpu"))
+    k5 = build_csr(np.stack(np.nonzero(np.triu(np.ones((5, 5), bool), 1)),
+                            1).astype(np.int64))
+    got = ks.kclique_star_list(k5, 4, device=card)
+    assert len(got) == 5 and set(got) == set(ks.kclique_star_oracle(k5, 4))

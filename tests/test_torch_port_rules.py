@@ -15,10 +15,12 @@ import torch
 
 from gms_tpu_torch.algorithms import bron_kerbosch as bk
 from gms_tpu_torch.algorithms import k_clique as kc
+from gms_tpu_torch.algorithms import k_clique_star as ks
 from gms_tpu_torch.algorithms import triangle_count as tc
 from gms_tpu_torch.graphs.tiles import PaddedGraph
 from gms_tpu_torch.harness import benchmark, cli, printer, timers
 from gms_tpu_torch.io.builder import build_csr
+from gms_tpu_torch.io.generators import generate_rmat_el
 
 torch.set_num_threads(1)
 
@@ -80,6 +82,20 @@ def test_default_device_is_the_card():
     assert bk.bron_kerbosch(g, device="cpu") == 1
 
 
+def test_kclique_star_default_device_is_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the default runs there")
+    g = _triangle()
+    for mode in ("list", "count"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ks.kclique_star_list(g, 3, mode=mode)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ks.plan_star_jobs(g, 3)
+    assert ks.kclique_star_list(g, 3, device="cpu") == [
+        (frozenset({0, 1, 2}), frozenset())]
+    assert ks.kclique_star_list(g, 2, device="cpu", mode="count") == (3, 3)
+
+
 def test_cli_parses_device():
     args = cli.Parser().parse(["-g", "kronecker", "8", "-n", "2"])
     assert (args.device, args.gen, args.scale, args.trials) == (
@@ -121,6 +137,26 @@ def test_bk_bench_cli_prints_result_rows():
     params = {ln.split()[1] for ln in out.stdout.splitlines()
               if ln.startswith("@@#")}
     assert params == {"bk_cliques", "bk_cliques_per_sec"}
+
+
+def test_kcstar_bench_cli_prints_result_rows():
+    out = _run(["-m", "gms_tpu_torch.bench.k_clique_star", "-g", "kronecker",
+                "6", "-n", "1", "-v", "--device", "cpu"])
+    assert out.returncode == 0, out.stderr
+    rows = [ln.split() for ln in out.stdout.splitlines()
+            if ln.startswith("@@@")]
+    assert [r[-1] for r in rows] == ["kcstar-k3-count-cpu"]
+    assert rows[0][2] == "verified"
+    params = {ln.split()[1]: ln.split()[2] for ln in out.stdout.splitlines()
+              if ln.startswith("@@#")}
+    assert set(params) == {"kcs_cliques", "kcs_star_total",
+                           "kcstar_cliques_per_sec", "kcstar_star_total"}
+    # RMAT-6 deg 16, seed 27491095: the star total is 4 x its 4-cliques
+    assert params["kcs_star_total"] == params["kcstar_star_total"]
+    g = build_csr(generate_rmat_el(6, 16, seed=27491095), num_nodes=64)
+    assert int(params["kcs_cliques"]) == kc.kclique_count(g, 3, device="cpu")
+    assert int(params["kcstar_star_total"]) == \
+        4 * kc.kclique_count(g, 4, device="cpu")
 
 
 def test_printer_protocol():
