@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py          # from the repository root; needs one card
 
-Drives the port's four paths through the entry points a user calls —
-triangle counting on RMAT scale 18 (average degree 16, seed 27491095, the
-headline graph of bench.py), k-clique counting on bench.py's three
-k-clique graphs, maximal clique enumeration (Bron–Kerbosch) on its RMAT
-scale 14 graph and k-clique-star counting on its RMAT scale 12 graph — and
-holds every hand-written CUDA kernel of those paths
-against its plain PyTorch version on the card. Phases, each printing a line
+Drives the port's paths through the entry points a user calls — triangle
+counting on RMAT scale 18 (average degree 16, seed 27491095, the headline
+graph of bench.py), k-clique counting on bench.py's three k-clique graphs,
+maximal clique enumeration (Bron–Kerbosch) on its RMAT scale 14 graph,
+k-clique-star counting on its RMAT scale 12 graph, per-vertex triangle
+counts, the triangle-count ordering and the device ADG ordering on RMAT 18,
+and dense-bitmap triangles and bitmap set counts on RMAT 16 — and holds
+every hand-written CUDA kernel of those paths against its plain PyTorch
+version on the card. Phases, each printing a line
 and each failing the run (non-zero exit) if it fails:
 
   1. device and build: card name, power limit, nvcc build of csrc/*.cu;
@@ -88,7 +90,35 @@ and each failing the run (non-zero exit) if it fails:
      12 job, star_stack (count, and emit as sorted rows) on every job too;
      its bound is the larger of its bytes over 3.35 TB/s (live0, the live
      roots' S0 and I0, and the two matrices' rows of the slots it searches)
-     and its operations, as K9's.
+     and its operations, as K9's;
+ 23. per-vertex main path, with the triangle launch counters set to 0 just
+     before it: triangle_count_per_vertex(g, device="cuda") on phase 2's
+     RMAT 18, timed to its read-back, the host plan timed apart; the counts
+     sum to 3 x 82,647,223, a seeded sample of 1,000 vertices and the 10 of
+     highest degree equal a host recount, and count_dag_edges_per_vertex
+     launched once per tier;
+ 24. triangle_count_ordering_rank at RMAT 18: a permutation ordering the
+     vertices by (per-vertex count, id);
+ 25. dense path, the counters set to 0 just before it: triangle_count_dense
+     on RMAT 16 equals TrianglePlan's count; the bitmap's bytes
+     (536,870,912) and host build time; count_hub_edges launched once;
+ 26. device ADG at RMAT 18, the ADG counter set to 0 just before each run:
+     "avg" and "min" at eps 0.01, 0.1 and 0.5 equal the host
+     adg_ordering_rank rank for rank; "prob_min" and "prob_median" give the
+     same permutation twice for a seed and pass
+     verify_approx_degeneracy_order at RMAT 14; each run's rounds (adg_round
+     launches) and time; the main path is the "avg" eps 0.1 run, whose
+     launches adg_round's entry in the kernels line carries;
+ 27. bitmap_ops on RMAT 16's bitmap rows, row v against row v+1, the
+     counter set to 0 just before: the four counts keep |A∪B| =
+     |A|+|B|-|A∩B| and |A∖B| = |A|-|A∩B|, and |A| is v's out-degree;
+ 28. each of those kernels against its plain version, exactly, with
+     CUDA-event times and bounds: count_dag_edges_per_vertex on every RMAT
+     18 tier, count_hub_edges on RMAT 16's dense edges (its operations, one
+     AND+popcount a word, bound it), bitmap_rows_count on phase 27's rows
+     (the two views of one table are read once: their bytes count once),
+     adg_round on every round state of the main path's "avg" eps 0.1 run
+     (times and bounds summed over its rounds).
 
 The line before the last is a JSON object describing every kernel; the last
 is {"ok": true, "device": {...}}. Imports nothing of jax or gms_tpu.
@@ -118,6 +148,10 @@ KERNEL_REPS, PLAIN_REPS, STEADY_TRIALS = 10, 3, 20
 # k-clique graphs of bench.py: (RMAT scale, k, golden count of BENCH_r05)
 KCLIQUE_RUNS = ((16, 5, 4_600_426_489), (13, 6, 681_595_966),
                 (12, 8, 2_339_107_240))
+
+# the kernels of the total triangle count (phase 3)
+TC_PATH = ("count_tier_mat", "count_hub_groups_mat", "build_hub_rows",
+           "count_dag_edges", "count_hub_groups")
 
 # kernel -> (source, gms_tpu program it replaces)
 KERNELS = {
@@ -151,6 +185,14 @@ KERNELS = {
                    "gms_tpu/algorithms/k_clique_star.py:137"),
     "decode_star_rows": ("gms_tpu_torch/csrc/star_decode.cu",
                          "gms_tpu/algorithms/k_clique_star.py:346"),
+    "count_dag_edges_per_vertex": ("gms_tpu_torch/csrc/tier_intersect.cu",
+                                   "gms_tpu/algorithms/triangle_count.py:129"),
+    "count_hub_edges": ("gms_tpu_torch/csrc/bitmap_count.cu",
+                        "gms_tpu/algorithms/triangle_count.py:184"),
+    "bitmap_rows_count": ("gms_tpu_torch/csrc/bitmap_count.cu",
+                          "gms_tpu/sets/bitmap_ops.py:22"),
+    "adg_round": ("gms_tpu_torch/csrc/adg_round.cu",
+                  "gms_tpu/preprocessing/degeneracy.py:178"),
 }
 BK_GOLDEN = 165_402_717      # maximal cliques, RMAT-14 deg 16 (BENCH_r05)
 BK_SCALE, BK_SMALL, BK_SAMPLE = 14, 12, 1000
@@ -160,6 +202,13 @@ BK_PLAIN_CLIQUES = 1_000_000
 # k-clique-stars at RMAT-12, k=4 (BENCH_extra.json): cliques, star total
 STAR_SCALE, STAR_K, STAR_GOLDEN = 12, 4, (4_077_953, 136_080_055)
 STAR_SAMPLE, STAR_SMALL = 1000, 10
+# phases 23-28: per-vertex triangles at RMAT-18 (Σ = 3 x GOLDEN), dense
+# bitmap triangles and bitmap_ops at RMAT-16, device ADG at RMAT-18 (the
+# sampled boundaries verified at RMAT-14)
+PV_SAMPLE, PV_TOP = 1000, 10
+DENSE_SCALE, DENSE_BYTES = 16, 536_870_912
+ADG_EPS, ADG_VERIFY_SCALE = (0.01, 0.1, 0.5), 14
+ADG_MAIN = ("avg", 0.1)      # the device ADG run whose launches K17 reports
 
 
 def check(cond: bool, what: str) -> None:
@@ -194,10 +243,13 @@ class Timing:
     def __init__(self):
         self.flush = torch.empty(1 << 26, dtype=torch.int32, device="cuda")
 
-    def ms(self, fn, reps: int) -> float:
-        """fn must have run once already (compare runs it to check it)."""
+    def ms(self, fn, reps: int, setup=None) -> float:
+        """fn must have run once already (compare runs it to check it);
+        setup(), untimed, runs before each rep."""
         times = []
         for _ in range(reps):
+            if setup is not None:
+                setup()
             self.flush.zero_()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -1028,6 +1080,279 @@ def star_phases(timing, report) -> None:
                                p_ms, bound, by))
 
 
+def host_triangles_at(g, v) -> int:
+    """Triangles at v, recounted on the host: Σ_{w∈N(v)} |N(v) ∩ N(w)| / 2."""
+    nv = g.out_neigh(v)
+    if not len(nv):
+        return 0
+    mark = np.zeros(g.num_nodes, dtype=bool)
+    mark[nv] = True
+    nn = np.concatenate([g.out_neigh(int(w)) for w in nv])
+    return int(mark[nn].sum()) // 2
+
+
+def distinct_bytes(*tensors) -> int:
+    """Bytes of device memory the contiguous `tensors` cover together: views
+    that overlap (phase 27's rows v and v+1) count once."""
+    spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size())
+                   for t in tensors)
+    total, end = 0, 0
+    for lo, hi in spans:
+        total += max(hi - max(lo, end), 0)
+        end = max(end, hi)
+    return total
+
+
+def adg_bytes(g, alive, peel) -> int:
+    """K17's bytes for one round: deg and alive read, peel and alive
+    written, and for each vertex that stays alive (the pull walks it) its two
+    indptr entries, its CSR row and its deg written."""
+    walked = (alive & ~peel).cpu().numpy()
+    row_words = int(g.degrees[walked].sum())
+    n, w = g.num_nodes, int(walked.sum())
+    return 8 * n + 3 * n + 16 * w + 4 * row_words + 8 * w
+
+
+def vertex_phases(timing, report, g) -> None:
+    """Phases 23-28: per-vertex and dense triangles, the device ADG and the
+    bitmap counts (see the module docstring); g is phase 2's RMAT-18."""
+    from gms_tpu_torch.algorithms import triangle_count as tc
+    from gms_tpu_torch.graphs.bitmap import BitmapGraph
+    from gms_tpu_torch.io.builder import build_csr
+    from gms_tpu_torch.io.generators import generate_rmat_el
+    from gms_tpu_torch.preprocessing import degeneracy, orient
+    from gms_tpu_torch.sets import bitmap_ops as bo
+
+    # [23] per-vertex main path, counters from 0
+    t0 = time.perf_counter()
+    pg, parts = tc.plan_per_vertex(g, device="cuda")
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    tc.reset_launches()
+    t0 = time.perf_counter()
+    pv = tc.triangle_count_per_vertex(g, device="cuda")
+    call_s = time.perf_counter() - t0
+    pv_launches = dict(tc.LAUNCHES)
+    print(f"[23] RMAT {SCALE} per-vertex: Σ {int(pv.sum())} (3 x {GOLDEN} = "
+          f"{3 * GOLDEN}); call {call_s:.4f} s (host clock to the read-back; "
+          f"host plan alone {plan_s:.4f} s: orient, pad, 2-D tiers, copies); "
+          f"max {int(pv.max())}; launches {pv_launches}")
+    print(f"    D_pad {pg.d_pad}; {len(parts)} tiers (wa,wb): edges "
+          + " · ".join(f"({wa},{wb}): {int(v.sum())}"
+                       for wa, wb, _, _, v in parts))
+    check(int(pv.sum()) == 3 * GOLDEN, f"per-vertex Σ {int(pv.sum())}")
+    check(pv_launches["count_dag_edges_per_vertex"] == len(parts),
+          f"K14 launched {pv_launches} for {len(parts)} tiers")
+    top = np.argsort(-g.degrees, kind="stable")[:PV_TOP]
+    rng = np.random.default_rng(SEED)
+    sample = np.union1d(rng.choice(g.num_nodes, PV_SAMPLE, replace=False), top)
+    t0 = time.perf_counter()
+    bad = [int(v) for v in sample if pv[v] != host_triangles_at(g, int(v))]
+    print(f"    {len(sample)} sampled vertices (the {PV_TOP} of highest "
+          f"degree among them, {int(pv[top].sum())} triangle corners) equal "
+          f"the host recount: {not bad} ({time.perf_counter() - t0:.2f} s)")
+    check(not bad, f"per-vertex counts differ from the host at {bad[:10]}")
+
+    # [24] the triangle-count ordering
+    t0 = time.perf_counter()
+    rank = degeneracy.triangle_count_ordering_rank(g, device="cuda")
+    rank_s = time.perf_counter() - t0
+    order = degeneracy.rank_to_order(rank)
+    c = pv[order]
+    check(np.array_equal(np.sort(rank), np.arange(g.num_nodes)),
+          "the TC ordering is not a permutation")
+    check(bool(np.all((np.diff(c) > 0) | ((np.diff(c) == 0)
+                                          & (np.diff(order) > 0)))),
+          "the TC ordering is not by (count, id)")
+    print(f"[24] triangle_count_ordering_rank: a permutation by (count, id), "
+          f"{rank_s:.4f} s")
+
+    # [25] dense-bitmap triangles at RMAT 16, counters from 0
+    g16 = build_csr(generate_rmat_el(DENSE_SCALE, DEGREE, seed=SEED),
+                    num_nodes=1 << DENSE_SCALE)
+    want = tc.TrianglePlan(g16, device="cuda").run()
+    dag = orient.orient(g16, orient.degree_rank(g16))
+    t0 = time.perf_counter()
+    bg = BitmapGraph.from_csr(dag, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    tc.reset_launches()
+    t0 = time.perf_counter()
+    got = tc.triangle_count_dense(g16, device="cuda")
+    dense_s = time.perf_counter() - t0
+    dense_launches = dict(tc.LAUNCHES)
+    nbytes = bg.words.numel() * 4
+    print(f"[25] RMAT {DENSE_SCALE} dense: {got}, TrianglePlan {want}; bitmap "
+          f"{tuple(bg.words.shape)} {nbytes} bytes, host build and copy "
+          f"{build_s:.4f} s; call {dense_s:.4f} s (host clock, the bitmap "
+          f"build included); {dag.num_edges} DAG edges; launches "
+          f"{dense_launches}")
+    check(got == want, f"dense count {got} != TrianglePlan's {want}")
+    check(nbytes == DENSE_BYTES, f"bitmap bytes {nbytes}")
+    check(dense_launches["count_hub_edges"] == 1,
+          f"K15 launched {dense_launches}")
+
+    # [26] the device ADG at RMAT 18, the counter set to 0 just before each
+    # run; the main path's run is ADG_MAIN's
+    for boundary in ("avg", "min"):
+        for eps in ADG_EPS:
+            degeneracy.reset_launches()
+            t0 = time.perf_counter()
+            r = degeneracy.adg_ordering_rank_device(g, eps, boundary,
+                                                    device="cuda")
+            dev_s = time.perf_counter() - t0
+            rounds = degeneracy.LAUNCHES["adg_round"]
+            if (boundary, eps) == ADG_MAIN:
+                adg_launches = dict(degeneracy.LAUNCHES)
+            t0 = time.perf_counter()
+            h = degeneracy.adg_ordering_rank(g, eps, boundary)
+            host_s = time.perf_counter() - t0
+            print(f"[26] ADG {boundary} eps {eps}: {rounds} rounds, device "
+                  f"{dev_s:.4f} s, host {host_s:.4f} s, equal "
+                  f"{np.array_equal(r, h)}")
+            check(np.array_equal(r, h),
+                  f"device ADG {boundary} eps {eps} differs from the host's")
+    g14 = build_csr(generate_rmat_el(ADG_VERIFY_SCALE, DEGREE, seed=SEED),
+                    num_nodes=1 << ADG_VERIFY_SCALE)
+    for boundary in ("prob_min", "prob_median"):
+        degeneracy.reset_launches()
+        t0 = time.perf_counter()
+        r1 = degeneracy.adg_ordering_rank_device(g, 0.1, boundary, seed=SEED,
+                                                 device="cuda")
+        dev_s = time.perf_counter() - t0
+        rounds = degeneracy.LAUNCHES["adg_round"]
+        r2 = degeneracy.adg_ordering_rank_device(g, 0.1, boundary, seed=SEED,
+                                                 device="cuda")
+        r14 = degeneracy.adg_ordering_rank_device(g14, 0.1, boundary,
+                                                  seed=SEED, device="cuda")
+        ok = degeneracy.verify_approx_degeneracy_order(g14, r14, 0.1)
+        print(f"[26] ADG {boundary} eps 0.1 seed {SEED}: {rounds} rounds, "
+              f"device {dev_s:.4f} s; the same rank twice "
+              f"{np.array_equal(r1, r2)}; a permutation "
+              f"{np.array_equal(np.sort(r1), np.arange(g.num_nodes))}; RMAT "
+              f"{ADG_VERIFY_SCALE} passes the verifier {ok}")
+        check(np.array_equal(r1, r2) and ok and np.array_equal(
+            np.sort(r1), np.arange(g.num_nodes)), f"device ADG {boundary}")
+    print(f"[26] main path ({ADG_MAIN[0]} eps {ADG_MAIN[1]}) launches "
+          f"{adg_launches}")
+    check(adg_launches["adg_round"] > 0, f"K17 {adg_launches}")
+
+    # [27] bitmap counts on RMAT 16's rows, row v against row v+1
+    a, b = bg.words[:-1], bg.words[1:]
+    bo.reset_launches()
+    counts = {"card_a": bo.cardinality(a), "card_b": bo.cardinality(b),
+              "and": bo.intersect_count(a, b), "or": bo.union_count(a, b),
+              "andnot": bo.difference_count(a, b)}
+    bm_launches = dict(bo.LAUNCHES)
+    ca, cb, i, u, d = (counts[k].long() for k in counts)
+    deg16 = torch.zeros(bg.v_pad, dtype=torch.int64, device="cuda")
+    deg16[:dag.num_nodes] = torch.from_numpy(dag.degrees.astype(np.int64))
+    deg16 = deg16[:-1]
+    ok = (torch.equal(u, ca + cb - i) and torch.equal(d, ca - i)
+          and torch.equal(ca, deg16) and bool((i <= torch.minimum(ca, cb)).all()))
+    print(f"[27] bitmap_ops on {a.shape[0]} row pairs: Σ |A| {int(ca.sum())}, "
+          f"Σ |A∩B| {int(i.sum())}, Σ |A∪B| {int(u.sum())}, Σ |A∖B| "
+          f"{int(d.sum())}; |A∪B| = |A|+|B|-|A∩B|, |A∖B| = |A|-|A∩B|, |A| = "
+          f"out-degree: {ok}; launches {bm_launches}")
+    check(ok, "bitmap_ops counts break the set identities")
+    check(bm_launches["bitmap_rows_count"] == 5, f"K16 {bm_launches}")
+
+    # [28] each kernel against its plain version, exactly
+    rate = sm_rate(POPC_PER_CLOCK_PER_SM)
+    k14 = [(f"({wa},{wb}) E={e.shape[0]}",
+            lambda e=e, v=v, wa=wa, wb=wb: tc.count_dag_edges_per_vertex(
+                pg.nbr, e, v, num_segments=pg.v_pad, width_a=wa, width_b=wb),
+            lambda e=e, v=v, wa=wa, wb=wb, c=c:
+                tc.count_dag_edges_per_vertex_plain(
+                    pg.nbr, e, v, num_segments=pg.v_pad, chunk=c,
+                    width_a=wa, width_b=wb),
+            (distinct_data_words(pg.deg, [(e[v > 0, 0], wa), (e[v > 0, 1], wb)])
+             + e.numel() + v.numel() + 2 * pg.v_pad) * 4)
+           for wa, wb, c, e, v in parts]
+    edges, valid = tc._pad_edges(dag.edge_array(), 1024)
+    edges, valid = torch.from_numpy(edges).cuda(), torch.from_numpy(valid).cuda()
+    W = bg.w_pad
+    used = torch.unique(edges[valid > 0].reshape(-1)).numel()
+    k15 = [(f"RMAT {DENSE_SCALE} E={int(valid.sum())} W={W}",
+            lambda: tc.count_hub_edges(bg.words, None, edges, valid,
+                                       chunk=1024),
+            lambda: tc.count_hub_edges_plain(bg.words, None, edges, valid,
+                                             chunk=1024),
+            (used * W + edges.numel() + valid.numel()) * 4 + 8,
+            int(valid.sum()) * W)]
+    k16 = [(f"{op} B={a.shape[0]} W={W}",
+            lambda op=op: bo.rows_count(a, b, op=op),
+            lambda op=op: bo.rows_count_plain(a, b, op=op),
+            distinct_bytes(a, *([] if op == "card" else [b]))
+            + a.shape[0] * 4, a.numel())
+           for op in ("card", "and", "or", "andnot")]
+    for name, calls, launches in (
+            ("count_dag_edges_per_vertex", k14, pv_launches),
+            ("count_hub_edges", k15, dense_launches),
+            ("bitmap_rows_count", k16, bm_launches)):
+        err, k_ms, p_ms, bound_ms, by = compare(timing, calls, ops_rate=rate,
+                                                plain_reps=1)
+        print(f"[28] {name}: {len(calls)} launches, max_abs_err {err}, kernel "
+              f"{k_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), plain "
+              f"{p_ms:.4f} ms")
+        check(err == 0, f"{name} disagrees with its plain version by {err}")
+        report.append(kernel_entry(name, launches[name], err, k_ms, p_ms,
+                                   bound_ms, by))
+    del bg, a, b, edges, valid
+    # K17 on every round state of the main path's run (ADG_MAIN), so that
+    # its times and bound cover the launches it reports; each rep restores
+    # the round's state first, untimed
+    boundary, eps = ADG_MAIN
+    indptr = torch.from_numpy(g.indptr).cuda()
+    indices = torch.from_numpy(g.indices).cuda()
+    deg = torch.from_numpy(g.degrees.astype(np.int64)).cuda()
+    alive = torch.ones(g.num_nodes, dtype=torch.bool, device="cuda")
+    err, k_ms, p_ms, bound_ms, rnd = 0, 0.0, 0.0, 0.0, 0
+    while bool(alive.any()):
+        deg0, alive0 = deg.clone(), alive.clone()
+        pd, pa = deg0.clone(), alive0.clone()
+
+        def restore(d0=deg0, a0=alive0):
+            deg.copy_(d0)
+            alive.copy_(a0)
+
+        def kernel():
+            return degeneracy.adg_round(indptr, indices, deg, alive,
+                                        boundary=boundary, eps=eps)
+
+        def plain(d0=deg0, a0=alive0, pd=pd, pa=pa):
+            pd.copy_(d0)
+            pa.copy_(a0)
+            return degeneracy.adg_round_plain(indptr, indices, pd, pa,
+                                              boundary=boundary, eps=eps)
+
+        kt = timing.ms(kernel, KERNEL_REPS, setup=restore)
+        pt = timing.ms(plain, PLAIN_REPS)
+        want = plain()
+        restore()
+        peel = kernel()          # leaves the next round's state in deg, alive
+        diff = max(max_abs_err(peel, want), max_abs_err(deg, pd),
+                   max_abs_err(alive, pa))
+        nbytes = adg_bytes(g, alive0, want)
+        bt = nbytes / HBM_BYTES_PER_S * 1e3
+        rnd += 1
+        print(f"    adg_round {boundary} eps {eps} round {rnd} "
+              f"({int(alive0.sum())} alive, {int(want.sum())} peel): "
+              f"max_abs_err {diff}, kernel {kt:.4f} ms, bound {bt:.4f} ms "
+              f"({nbytes} bytes), plain {pt:.4f} ms (its state copy "
+              f"included)")
+        err, k_ms, p_ms, bound_ms = (max(err, diff), k_ms + kt, p_ms + pt,
+                                     bound_ms + bt)
+    print(f"[28] adg_round: the {rnd} rounds of {boundary} eps {eps}, "
+          f"max_abs_err {err}, kernel {k_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"(bytes), plain {p_ms:.4f} ms")
+    check(rnd == adg_launches["adg_round"],
+          f"{rnd} round states, {adg_launches} on the main path")
+    check(err == 0, f"adg_round disagrees with its plain version by {err}")
+    report.append(kernel_entry("adg_round", adg_launches["adg_round"], err,
+                               k_ms, p_ms, bound_ms, "bytes"))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -1069,7 +1394,7 @@ def main() -> None:
     count = plan.run()
     gplan = tc.TrianglePlan(g, device="cuda", materialize=False)
     gcount = gplan.run()
-    launches = dict(tc.LAUNCHES)
+    launches = {n: tc.LAUNCHES[n] for n in TC_PATH}
     print(f"[3] main path: materialized plan built in {build_s:.2f} s, "
           f"count {count}; gather plan count {gcount}; golden {GOLDEN}; "
           f"launches {launches}")
@@ -1187,7 +1512,9 @@ def main() -> None:
     bk_phases(timing, report)
     print(f"[16] total so far {time.perf_counter() - t_start:.1f} s")
     star_phases(timing, report)
-    print(f"[23] total {time.perf_counter() - t_start:.1f} s")
+    print(f"[22] total so far {time.perf_counter() - t_start:.1f} s")
+    vertex_phases(timing, report, g)
+    print(f"[29] total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

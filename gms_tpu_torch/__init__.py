@@ -19,3 +19,7 @@ Rules the whole package keeps:
 """
 
 __version__ = "0.1.0"
+
+from gms_tpu_torch.graphs.bitmap import BitmapGraph
+
+__all__ = ["BitmapGraph"]

@@ -26,7 +26,7 @@ BUILD = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 
 # library -> {C function: argument types, the trailing stream included}
 SIGNATURES = {
@@ -35,6 +35,8 @@ SIGNATURES = {
         "tier_intersect_stream": (_P, _P, _I, _I, _L, _P, _P),
         # nbr, d_pad, edges, valid, wa, wb, E, out, stream
         "tier_intersect_gather": (_P, _L, _P, _P, _I, _I, _L, _P, _P),
+        # nbr, d_pad, edges, valid, wa, wb, E, out, len(out), stream
+        "tier_intersect_vertex": (_P, _L, _P, _P, _I, _I, _L, _P, _L, _P),
     },
     "hub_popcount": {
         # b, a, G, K, W, out, stream
@@ -94,6 +96,18 @@ SIGNATURES = {
     "star_decode": {
         # nbr, v_pad, d_pad, chunk, C, out, L, w_words, gid, ids, stream
         "decode_star_rows": (_P, _L, _I, _P, _L, _P, _L, _I, _P, _P, _P),
+    },
+    "bitmap_count": {
+        # rows, n_rows, hw, row_of (or null), len(row_of), edges, valid, E,
+        # width, out, stream
+        "bitmap_edge_count": (_P, _L, _L, _P, _L, _P, _P, _L, _I, _P, _P),
+        # a, b, B, W, op, out, stream
+        "bitmap_rows_count": (_P, _P, _L, _I, _I, _P, _P),
+    },
+    "adg_round": {
+        # indptr, indices, n, deg, alive, peel, stats, mode, eps, bound,
+        # stream
+        "adg_round": (_P, _P, _L, _P, _P, _P, _P, _I, _D, _D, _P),
     },
 }
 
@@ -170,8 +184,9 @@ def _load(name: str) -> ctypes.CDLL:
 def launch(name: str, fn: str, *args) -> None:
     """Call C entry `fn` of library `name` on the current CUDA stream.
 
-    Tensor arguments pass as device pointers, ints as themselves; the stream
-    is appended. Raises if the launch reported a CUDA error.
+    Tensor arguments pass as device pointers (None as a null pointer), ints
+    and floats as themselves; the stream is appended. Raises if the launch
+    reported a CUDA error.
     """
     c_args = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
               else a for a in args]
@@ -179,3 +194,28 @@ def launch(name: str, fn: str, *args) -> None:
     err = getattr(_load(name), fn)(*c_args, stream)
     if err:
         raise RuntimeError(f"{fn}: CUDA error {err}")
+
+
+# ---------------------------------------------------------------------------
+# checks shared by the kernel wrappers
+# ---------------------------------------------------------------------------
+
+def on_cuda(name: str, *tensors: torch.Tensor) -> bool:
+    """True if all tensors are on one CUDA device, False if all on the CPU."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors on several devices: {devices}")
+    kind = devices.pop().type
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"{name}: unsupported device type {kind!r}")
+    return kind == "cuda"
+
+
+def check_tensor(name: str, what: str, t: torch.Tensor, ndim: int,
+                 dtype=torch.int32) -> None:
+    """Raise unless `t` has `dtype`, `ndim` dimensions and is contiguous."""
+    if t.dtype != dtype or t.dim() != ndim:
+        raise TypeError(f"{name}: {what} must be {str(dtype)[6:]} with {ndim} "
+                        f"dims, got {t.dtype} {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: {what} must be contiguous")

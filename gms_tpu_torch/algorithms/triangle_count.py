@@ -11,14 +11,20 @@ as gms_tpu does: edges with a wide endpoint go through hub bitmaps (AND +
 popcount over the small hub universe), the rest through 2-D degree tiers
 (sorted-row intersection at the tier's widths). Counts are exact int64.
 
-Five device programs of gms_tpu carry this path; each is a hand-written CUDA
-kernel here (csrc/), wrapped by the function of the same name:
+Per-vertex counts (`triangle_count_per_vertex`) run the same 2-D tiers with
+no hub path, each triangle counted at its three corners; the dense-bitmap
+count (`triangle_count_dense`) ANDs V-wide DAG bitmap rows per edge.
 
-    count_tier_mat        csrc/tier_intersect.cu  (stream mode)
-    count_dag_edges       csrc/tier_intersect.cu  (gather mode)
-    count_hub_groups_mat  csrc/hub_popcount.cu    (stream mode)
-    count_hub_groups      csrc/hub_popcount.cu    (gather mode)
-    build_hub_rows        csrc/hub_rows.cu
+Seven device programs of gms_tpu carry these paths; each is a hand-written
+CUDA kernel here (csrc/), wrapped by the function of the same name:
+
+    count_tier_mat              csrc/tier_intersect.cu  (stream mode)
+    count_dag_edges             csrc/tier_intersect.cu  (gather mode)
+    count_dag_edges_per_vertex  csrc/tier_intersect.cu  (per-vertex mode)
+    count_hub_groups_mat        csrc/hub_popcount.cu    (stream mode)
+    count_hub_groups            csrc/hub_popcount.cu    (gather mode)
+    build_hub_rows              csrc/hub_rows.cu
+    count_hub_edges             csrc/bitmap_count.cu    (bitmap_edge_count)
 
 Each wrapper checks device, dtype, shape and contiguity; for CPU tensors it
 runs its `*_plain` PyTorch version, for CUDA tensors it launches the kernel
@@ -26,8 +32,7 @@ runs its `*_plain` PyTorch version, for CUDA tensors it launches the kernel
 versions are never used on the main path when a card is present; chip_smoke.py
 holds each kernel against its plain version on the card.
 
-Per-vertex counting (count_dag_edges_per_vertex), dense-bitmap counting
-(count_hub_edges) and compressed graph inputs remain in gms_tpu for now.
+Compressed graph inputs are not ported yet.
 """
 
 from __future__ import annotations
@@ -38,12 +43,18 @@ import numpy as np
 import torch
 
 from gms_tpu_torch import _kernels
+from gms_tpu_torch._kernels import check_tensor as _check
+from gms_tpu_torch._kernels import on_cuda as _on_cuda
 from gms_tpu_torch.device import resolve
+from gms_tpu_torch.graphs.bitmap import BitmapGraph
 from gms_tpu_torch.graphs.csr import CSRGraph
 from gms_tpu_torch.graphs.tiles import PaddedGraph, SENTINEL, round_up
 from gms_tpu_torch.harness import checks
 from gms_tpu_torch.preprocessing import orient
 from gms_tpu_torch.sets import ops
+# popcount32 lives with the bitmap set algebra; k_clique, k_clique_star and
+# bron_kerbosch import it from here
+from gms_tpu_torch.sets.bitmap_ops import int32_bits, popcount32
 
 DEFAULT_CHUNK = 4096
 
@@ -57,7 +68,8 @@ _SENT = int(SENTINEL)
 # Kernel launches per wrapper, counted only where the CUDA kernel launches.
 LAUNCHES = dict.fromkeys((
     "count_tier_mat", "count_dag_edges", "count_hub_groups_mat",
-    "count_hub_groups", "build_hub_rows"), 0)
+    "count_hub_groups", "build_hub_rows", "count_dag_edges_per_vertex",
+    "count_hub_edges"), 0)
 
 
 def reset_launches() -> None:
@@ -202,40 +214,12 @@ def tier_chunk_2d(wa: int, wb: int) -> int:
 # kernel wrappers and their plain versions
 # ---------------------------------------------------------------------------
 
-def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
-    """True if all tensors are on one CUDA device, False if all on the CPU."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"{name}: tensors on several devices: {devices}")
-    kind = devices.pop().type
-    if kind not in ("cuda", "cpu"):
-        raise ValueError(f"{name}: unsupported device type {kind!r}")
-    return kind == "cuda"
-
-
-def _check(name: str, what: str, t: torch.Tensor, ndim: int) -> None:
-    if t.dtype != torch.int32 or t.dim() != ndim:
-        raise TypeError(f"{name}: {what} must be int32 with {ndim} dims, "
-                        f"got {t.dtype} {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: {what} must be contiguous")
-
-
-def popcount32(x: torch.Tensor) -> torch.Tensor:
-    """int64 popcount of each int32 bit word (torch has no popcount op).
-
-    SWAR on the word widened to int64 and masked to its 32 bits.
-    """
-    x = x.to(torch.int64) & 0xFFFFFFFF
-    x = x - ((x >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
-
-
-def _int32_bits(x: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2^32) -> int32 words with the same 32 bits."""
-    return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
+def _check_edges(name: str, edges: torch.Tensor, valid: torch.Tensor) -> None:
+    _check(name, "edges", edges, 2)
+    _check(name, "valid", valid, 1)
+    if edges.shape[1] != 2 or valid.shape[0] != edges.shape[0]:
+        raise ValueError(f"{name}: edges {tuple(edges.shape)} and valid "
+                         f"{tuple(valid.shape)} do not match")
 
 
 def _zero(device) -> torch.Tensor:
@@ -326,11 +310,7 @@ def count_dag_edges(nbr, edges, valid, *, chunk: int = DEFAULT_CHUNK,
     """
     name = "count_dag_edges"
     _check(name, "nbr", nbr, 2)
-    _check(name, "edges", edges, 2)
-    _check(name, "valid", valid, 1)
-    if edges.shape[1] != 2 or valid.shape[0] != edges.shape[0]:
-        raise ValueError(f"{name}: edges {tuple(edges.shape)} and valid "
-                         f"{tuple(valid.shape)} do not match")
+    _check_edges(name, edges, valid)
     if checks.paranoid():
         checks.validate_sorted_rows(nbr, name=f"{name} nbr")
     if not _on_cuda(name, nbr, edges, valid):
@@ -341,6 +321,124 @@ def count_dag_edges(nbr, edges, valid, *, chunk: int = DEFAULT_CHUNK,
     out = _zero(nbr.device)
     _kernels.launch("tier_intersect", "tier_intersect_gather", nbr,
                     nbr.shape[1], edges, valid, wa, wb, edges.shape[0], out)
+    LAUNCHES[name] += 1
+    return out
+
+
+def count_dag_edges_per_vertex_plain(nbr, edges, valid, *, num_segments: int,
+                                     chunk: int = DEFAULT_CHUNK,
+                                     method: str = "compare",
+                                     width_a: int | None = None,
+                                     width_b: int | None = None, out=None):
+    """Plain version of count_dag_edges_per_vertex: gathered rows, the
+    membership mask of sets.ops by `method`, int64 index_add_."""
+    wa, wb = _widths(nbr, width_a, width_b)
+    acc = (torch.zeros(num_segments, dtype=torch.int64, device=nbr.device)
+           if out is None else out)
+
+    def scatter(ids, add):  # gms_tpu's scatter drops ids out of range
+        ok = (ids >= 0) & (ids < num_segments)
+        acc.index_add_(0, ids[ok], add[ok])
+
+    for j in range(0, edges.shape[0], chunk):
+        e = edges[j:j + chunk].long()
+        v = valid[j:j + chunk].long()
+        a = nbr[e[:, 0], :wa]
+        m = ops.member(a, nbr[e[:, 1], :wb], method=method) & (v[:, None] > 0)
+        add = m.sum(1) * v
+        scatter(e[:, 0], add)
+        scatter(e[:, 1], add)
+        w = a[m].long()
+        scatter(w, torch.ones_like(w))
+    return acc
+
+
+def count_dag_edges_per_vertex(nbr, edges, valid, *, num_segments: int,
+                               chunk: int = DEFAULT_CHUNK,
+                               method: str = "compare",
+                               width_a: int | None = None,
+                               width_b: int | None = None, out=None):
+    """Per-vertex triangle participation counts — int64[num_segments].
+
+    Each triangle (u, v, w) found on DAG edge (u, v) with witness w adds
+    valid[e] * c to u and v, c = |N⁺(u) ∩ N⁺(v)|, and 1 to each witness w,
+    for edges with valid[e] > 0; ids outside [0, num_segments) are dropped.
+    The counts are added into `out` (int64[num_segments] on nbr's device)
+    when it is given, else into a new zeroed tensor; either is returned.
+    Same inputs and preconditions as count_dag_edges: nbr's rows strictly
+    ascending with a SENTINEL tail (the kernel merges them; GMS_TPU_PARANOID=1
+    checks it). Replaces gms_tpu's count_dag_edges_per_vertex
+    (triangle_count.py:129); SENTINEL slots are never counted, so its
+    overflow bucket has no counterpart. `chunk` and `method` only shape the
+    plain version.
+    """
+    name = "count_dag_edges_per_vertex"
+    _check(name, "nbr", nbr, 2)
+    _check_edges(name, edges, valid)
+    if out is not None:
+        _check(name, "out", out, 1, torch.int64)
+        if out.shape[0] != num_segments or out.device != nbr.device:
+            raise ValueError(f"{name}: out is {tuple(out.shape)} on "
+                             f"{out.device}, expected ({num_segments},) on "
+                             f"{nbr.device}")
+    if checks.paranoid():
+        checks.validate_sorted_rows(nbr, name=f"{name} nbr")
+    if not _on_cuda(name, nbr, edges, valid):
+        return count_dag_edges_per_vertex_plain(
+            nbr, edges, valid, num_segments=num_segments, chunk=chunk,
+            method=method, width_a=width_a, width_b=width_b, out=out)
+    wa, wb = _widths(nbr, width_a, width_b)
+    if out is None:
+        out = torch.zeros(num_segments, dtype=torch.int64, device=nbr.device)
+    _kernels.launch("tier_intersect", "tier_intersect_vertex", nbr,
+                    nbr.shape[1], edges, valid, wa, wb, edges.shape[0], out,
+                    num_segments)
+    LAUNCHES[name] += 1
+    return out
+
+
+def count_hub_edges_plain(rows, row_of, edges, valid, *, chunk: int,
+                          width: int | None = None):
+    """Plain version of count_hub_edges, `chunk` edges at a time."""
+    w = min(width or rows.shape[1], rows.shape[1])
+    total = _zero(rows.device)
+    for j in range(0, edges.shape[0], chunk):
+        e = edges[j:j + chunk].long()
+        if row_of is not None:
+            e = row_of[e.clamp(0, row_of.shape[0] - 1)].long()
+        e = e.clamp(0, rows.shape[0] - 1)
+        cnt = popcount32(rows[e[:, 0], :w] & rows[e[:, 1], :w]).sum(1)
+        total += (cnt * valid[j:j + chunk]).sum()
+    return total
+
+
+def count_hub_edges(rows, row_of, edges, valid, *, chunk: int,
+                    width: int | None = None):
+    """Σ valid[e] * popcount(row(u) & row(v)) over edges — int64 0-d tensor.
+
+    rows:   int32[N, HW] bitmap rows (gms_tpu's uint32 bits): hub bitmaps
+            [Nw, HW], or a BitmapGraph's words [V_pad, W_pad]
+    row_of: int32[V_pad+1] vertex -> row, or None (edges hold rows)
+    width:  prefix width in words; only rows[:, :width] is read
+    Indices clip into range, as gms_tpu's `mode="clip"` takes. Replaces
+    gms_tpu's count_hub_edges (triangle_count.py:184). `chunk` only steps
+    the plain version.
+    """
+    name = "count_hub_edges"
+    _check(name, "rows", rows, 2)
+    _check_edges(name, edges, valid)
+    if row_of is not None:
+        _check(name, "row_of", row_of, 1)
+    tensors = (rows, edges, valid) + (() if row_of is None else (row_of,))
+    if not _on_cuda(name, *tensors):
+        return count_hub_edges_plain(rows, row_of, edges, valid, chunk=chunk,
+                                     width=width)
+    out = _zero(rows.device)
+    _kernels.launch("bitmap_count", "bitmap_edge_count", rows, rows.shape[0],
+                    rows.shape[1], row_of,
+                    0 if row_of is None else row_of.shape[0], edges, valid,
+                    edges.shape[0], min(width or rows.shape[1], rows.shape[1]),
+                    out)
     LAUNCHES[name] += 1
     return out
 
@@ -434,7 +532,7 @@ def build_hub_rows_plain(nbr, hub_id, wide_ids, *, hub_words: int):
                       device=nbr.device)
     out.index_add_(0, row[keep] * hub_words + (hk >> 5),
                    torch.ones_like(hk) << (hk & 31))
-    return _int32_bits(out).view(r.shape[0], hub_words)
+    return int32_bits(out).view(r.shape[0], hub_words)
 
 
 def build_hub_rows(nbr, hub_id, wide_ids, *, hub_words: int):
@@ -668,6 +766,63 @@ def triangle_count(g, *, device="cuda", rank: np.ndarray | None = None,
                         f"{type(g).__name__}")
     return TrianglePlan(g, device=device, rank=rank, chunk=chunk,
                         method=method, tiers=tiers).run()
+
+
+def plan_per_vertex(g: CSRGraph, *, device="cuda",
+                    rank: np.ndarray | None = None, chunk: int | None = None,
+                    tiers=DEFAULT_TIERS):
+    """Host half of triangle_count_per_vertex: orient, pad and tier the DAG
+    edges as gms_tpu does (2-D tiers, no hub path). Returns (PaddedGraph on
+    `device`, [(wa, wb, chunk, edges, valid)] on `device`)."""
+    dev = resolve(device)
+    if rank is None:
+        rank = orient.degree_rank(g)
+    dag = orient.orient(g, rank)
+    pg = PaddedGraph.from_csr(dag, device=dev)
+    widths = _tier_widths(pg.d_pad, tiers)
+    parts = partition_edges_2d(dag.edge_array(), np.asarray(dag.degrees),
+                               widths)
+    out = []
+    for (wa, wb), part in parts.items():
+        c = chunk or tier_chunk_2d(wa, wb)
+        edges, valid = _pad_edges(part, c)
+        out.append((wa, wb, c, torch.from_numpy(edges).to(dev),
+                    torch.from_numpy(valid).to(dev)))
+    return pg, out
+
+
+def triangle_count_per_vertex(g: CSRGraph, *, device="cuda",
+                              rank: np.ndarray | None = None,
+                              chunk: int | None = None,
+                              method: str = "compare",
+                              tiers=DEFAULT_TIERS) -> np.ndarray:
+    """Per-vertex triangle counts (each triangle counted at all 3 corners),
+    int64[num_nodes]. One launch per tier into one device accumulator, read
+    back once (gms_tpu reads back once per tier)."""
+    pg, parts = plan_per_vertex(g, device=device, rank=rank, chunk=chunk,
+                                tiers=tiers)
+    acc = torch.zeros(pg.v_pad, dtype=torch.int64, device=pg.nbr.device)
+    for wa, wb, c, edges, valid in parts:
+        count_dag_edges_per_vertex(
+            pg.nbr, edges, valid, num_segments=pg.v_pad, chunk=c,
+            method=method, width_a=wa, width_b=wb, out=acc)
+    return acc[:g.num_nodes].cpu().numpy()
+
+
+def triangle_count_dense(g: CSRGraph, *, device="cuda",
+                         chunk: int = 1024) -> int:
+    """Whole-graph dense-bitmap TC (the RoaringGraph-variant role,
+    triangle_count.cc:22-48 over SetGraph<RoaringSet>): DAG rows as V-wide
+    bitmaps (graphs/bitmap.py BitmapGraph), count =
+    Σ_{(u,v)∈DAG} popcount(row_u & row_v). O(V²/8) bytes: the representation
+    for small and moderate V, not the scale path (that is TrianglePlan).
+    `chunk` pads the edge list, as gms_tpu's."""
+    dev = resolve(device)
+    dag = orient.orient(g, orient.degree_rank(g))
+    bg = BitmapGraph.from_csr(dag, device=dev)
+    edges, valid = _pad_edges(dag.edge_array(), chunk)
+    return int(count_hub_edges(bg.words, None, torch.from_numpy(edges).to(dev),
+                               torch.from_numpy(valid).to(dev), chunk=chunk))
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,7 @@ port's carrier for the same bits.
 * `padded_from_numpy`: a PaddedGraph's `nbr` (any lane, e.g. the lane-32
   layout of k-clique counting) as a port PaddedGraph.
 * `plan_from_numpy`: a triangle-count plan.
+* `bitmap_from_numpy`: a BitmapGraph's uint32 words as a port BitmapGraph.
 
 The adjacency `nbr` must be gms_tpu's padded layout (rows sorted, SENTINEL
 tail, guard row): the port's merge and search kernels rely on it, and
@@ -32,6 +33,7 @@ import torch
 
 from gms_tpu_torch.algorithms.triangle_count import TrianglePlan
 from gms_tpu_torch.device import resolve
+from gms_tpu_torch.graphs.bitmap import BitmapGraph
 from gms_tpu_torch.graphs.tiles import SENTINEL, PaddedGraph
 from gms_tpu_torch.harness import checks
 
@@ -58,6 +60,19 @@ def padded_from_numpy(nbr, *, device="cuda", num_nodes: int | None = None
     return PaddedGraph(tensor_from_numpy(nbr, device=device),
                        tensor_from_numpy(deg, device=device), num_nodes,
                        int(deg.sum()))
+
+
+def bitmap_from_numpy(words, *, device="cuda", num_nodes: int | None = None,
+                      num_edges: int | None = None) -> BitmapGraph:
+    """A port BitmapGraph from gms_tpu's BitmapGraph words (uint32[V_pad,
+    W_pad]); `num_nodes` defaults to V_pad, `num_edges` to the set bits."""
+    words = np.asarray(words, dtype=np.uint32)
+    if num_nodes is None:
+        num_nodes = words.shape[0]
+    if num_edges is None:
+        num_edges = int(np.unpackbits(words.view(np.uint8)).sum())
+    return BitmapGraph(tensor_from_numpy(words, device=device), num_nodes,
+                       num_edges)
 
 
 def plan_from_numpy(state: dict, *, device="cuda") -> TrianglePlan:

@@ -1,12 +1,19 @@
 // K1 intersect_count: Σ over edges e of |A_e ∩ B_e| for the narrow degree
-// tiers of the triangle-count plan.
+// tiers of the triangle-count plan, and K14, the same tiers counted per
+// vertex.
 //
-// Replaces two device programs of gms_tpu/algorithms/triangle_count.py:
+// Replaces three device programs of gms_tpu/algorithms/triangle_count.py:
 //   * count_tier_mat (:383)  — stream mode: operand rows pre-gathered and
 //     stored transposed, a[wa, E] and b[wb, E]; row e is column e, stride E;
 //   * count_dag_edges (:99)  — gather mode: rows nbr[u, :wa] and nbr[v, :wb]
 //     of the padded adjacency (row stride D_pad), with valid[e] weighting
-//     each edge (0 for padding edges, which point at vertex 0).
+//     each edge (0 for padding edges, which point at vertex 0);
+//   * count_dag_edges_per_vertex (:129) — per-vertex mode (K14): the gather
+//     mode's merge, where each match x (a witness) adds 1 to out[x] and the
+//     edge's count c adds c * valid[e] to out[u] and out[v], for edges with
+//     valid[e] > 0; ids outside [0, len(out)) are dropped, as gms_tpu's
+//     scatter drops them. SENTINEL never matches, so gms_tpu's overflow
+//     bucket for SENTINEL witnesses has no counterpart.
 // gms_tpu's `salt` argument and the rotation chain of run_steady exist only
 // because its platform memoized repeated runs of a pure program; CUDA launches
 // are never memoized, so the port drops them.
@@ -29,6 +36,12 @@
 // Gather mode reads rows of D_pad-strided adjacency and does not coalesce; it
 // serves graphs whose materialized streams would not fit (plan MAT_BUDGET).
 // Counts are summed exactly: int64 per block, one atomicAdd per block.
+//
+// K14 adds with 64-bit integer atomicAdd, bit-identical to a sequential sum
+// in any order. Its risk is time, not exactness: under the degree order the
+// witnesses are the high-rank hubs, so the atomics of one launch pile onto a
+// few addresses (RMAT-18: 82,647,223 witness increments). Its bound is the
+// gather mode's bytes plus the int64 output written once.
 
 #include <cuda_runtime.h>
 
@@ -36,8 +49,15 @@
 
 namespace {
 
+struct NoWitness {
+  __device__ void operator()(int) const {}
+};
+
+// |a ∩ b| of two sorted rows; on_match(x) is called for each common x.
+template <typename OnMatch = NoWitness>
 __device__ __forceinline__ int merge_count(const int* a, long long sa, int wa,
-                                           const int* b, long long sb, int wb) {
+                                           const int* b, long long sb, int wb,
+                                           OnMatch on_match = OnMatch()) {
   if (wa <= 0 || wb <= 0) return 0;
   int i = 0, j = 0, cnt = 0;
   int x = a[0], y = b[0];
@@ -49,6 +69,7 @@ __device__ __forceinline__ int merge_count(const int* a, long long sa, int wa,
       if (++j == wb) break;
       y = b[j * sb];
     } else {
+      on_match(x);
       ++cnt;
       if (++i == wa || ++j == wb) break;
       x = a[i * sa];
@@ -84,6 +105,26 @@ __global__ void gather_kernel(const int* __restrict__ nbr, long long d_pad,
   block_sum_add(cnt, out);
 }
 
+__global__ void vertex_kernel(const int* __restrict__ nbr, long long d_pad,
+                              const int* __restrict__ edges,
+                              const int* __restrict__ valid, int wa, int wb,
+                              long long E, unsigned long long* out,
+                              long long n_out) {
+  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (e >= E) return;
+  const int v = valid[e];
+  if (v <= 0) return;
+  const long long u = edges[2 * e], w = edges[2 * e + 1];
+  const int cnt = merge_count(
+      nbr + u * d_pad, 1, wa, nbr + w * d_pad, 1, wb, [&](int x) {
+        if (x < n_out) atomicAdd(out + x, 1ull);
+      });
+  if (cnt == 0) return;
+  const unsigned long long add = (unsigned long long)cnt * v;
+  if (u >= 0 && u < n_out) atomicAdd(out + u, add);
+  if (w >= 0 && w < n_out) atomicAdd(out + w, add);
+}
+
 constexpr int kThreads = 256;
 
 }  // namespace
@@ -108,6 +149,19 @@ extern "C" int tier_intersect_gather(const void* nbr, long long d_pad,
     gather_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
         (const int*)nbr, d_pad, (const int*)edges, (const int*)valid, wa, wb,
         E, (unsigned long long*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tier_intersect_vertex(const void* nbr, long long d_pad,
+                                     const void* edges, const void* valid,
+                                     int wa, int wb, long long E, void* out,
+                                     long long n_out, void* stream) {
+  if (E > 0) {
+    const long long blocks = (E + kThreads - 1) / kThreads;
+    vertex_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int*)nbr, d_pad, (const int*)edges, (const int*)valid, wa, wb,
+        E, (unsigned long long*)out, n_out);
   }
   return (int)cudaGetLastError();
 }

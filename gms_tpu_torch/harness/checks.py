@@ -11,8 +11,9 @@ Enable with GMS_TPU_PARANOID=1:
 
   * `PaddedGraph.from_csr` and `convert.plan_from_numpy` validate every
     padded graph they build;
-  * the merge kernels' wrappers (`count_tier_mat`, `count_dag_edges`) check
-    their operand rows with `validate_sorted_rows`;
+  * the merge kernels' wrappers (`count_tier_mat`, `count_dag_edges`,
+    `count_dag_edges_per_vertex`) check their operand rows with
+    `validate_sorted_rows`;
   * `validate_padded` can be called directly around custom layouts.
 
 Checks are O(V*D) host numpy — debug builds only, like the reference's.

@@ -1,5 +1,5 @@
-"""Vertex orderings: degree, exact degeneracy, approximate degeneracy (ADG) —
-the port of gms_tpu/preprocessing/degeneracy.py (host numpy, as there).
+"""Vertex orderings: degree, exact degeneracy, approximate degeneracy (ADG),
+triangle count — the port of gms_tpu/preprocessing/degeneracy.py.
 
 Covers reference gms/algorithms/preprocessing/:
   * getDegreeOrdering (parallel/degree.h:25-61, sequential/degree.h:11-46)
@@ -19,15 +19,28 @@ All functions return RANK format (rank[v] = position of v); use
 
 The exact peel is gms_tpu's numpy loop; gms_tpu runs a native C++ peel first,
 whose ranks may differ from this loop's on ties (core numbers and degeneracy
-agree). The device ADG (`adg_ordering_rank_device`) and the triangle-count
-ordering are not ported yet.
+agree). The host orderings are numpy, as in gms_tpu. The device ADG
+(`adg_ordering_rank_device`) runs each round through one hand-written CUDA
+kernel, `adg_round` (csrc/adg_round.cu), with its plain version for CPU
+tensors, and ranks each round's peeled vertices with one torch.sort; the
+triangle-count ordering runs the per-vertex triangle kernel.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from gms_tpu_torch import _kernels
+from gms_tpu_torch.device import resolve
 from gms_tpu_torch.graphs.csr import CSRGraph
+
+# Kernel launches, counted only where the CUDA kernel launches.
+LAUNCHES = {"adg_round": 0}
+
+
+def reset_launches() -> None:
+    LAUNCHES["adg_round"] = 0
 
 
 def order_to_rank(order: np.ndarray) -> np.ndarray:
@@ -171,10 +184,137 @@ def adg_ordering_rank(
     return rank
 
 
+# ---------------------------------------------------------------------------
+# device ADG (adg_ordering_rank_device)
+# ---------------------------------------------------------------------------
+
+# adg_round's boundary modes: computed from the round's stats, or drawn
+_ADG_MODE = {"avg": 0, "min": 1, "prob_min": 2, "prob_median": 2}
+ADG_SAMPLES = 128
+
+
+def adg_round_plain(indptr, indices, deg, alive, *, boundary: str,
+                    eps: float, bound: float | None = None):
+    """Plain version of adg_round."""
+    live = deg[alive]
+    mn = live.min()
+    if boundary == "avg":
+        bound = (1.0 + eps) * live.sum().double() / alive.sum().double()
+    elif boundary == "min":
+        bound = (2.0 + eps) * mn.double()
+    thr = torch.where(mn.double() <= bound, bound, mn.double())
+    peel = alive & (deg.double() <= thr)
+    src = torch.repeat_interleave(
+        torch.arange(deg.shape[0], device=deg.device), indptr.diff())
+    dec = torch.zeros_like(deg).index_add_(
+        0, src, peel[indices.long()].long())
+    deg -= torch.where(alive & ~peel, dec, 0)
+    alive &= ~peel
+    return peel
+
+
+def adg_round(indptr, indices, deg, alive, *, boundary: str, eps: float,
+              bound: float | None = None):
+    """One ADG round, in place on deg and alive; returns the peel mask.
+
+    indptr int64[n+1] and indices int32[E] are the undirected CSR, deg
+    int64[n] the alive vertices' remaining degrees, alive bool[n]. The
+    boundary is computed in float64 as gms_tpu's device version does —
+    avg: ((1 + eps) * Σ deg) / n_alive, min: (2 + eps) * min deg, over the
+    alive vertices — or, for the sampled boundaries, is the given `bound`.
+    peel = alive & (deg <= bound), or the alive vertices of minimum degree
+    when that is empty; each vertex that stays alive loses its peeled
+    neighbours from deg. Replaces the round of gms_tpu's
+    adg_ordering_rank_device (degeneracy.py:215-250) but its ranking.
+    """
+    name = "adg_round"
+    if boundary not in _ADG_MODE:
+        raise ValueError(f"{name}: unknown boundary {boundary!r}")
+    if _ADG_MODE[boundary] == 2 and bound is None:
+        raise ValueError(f"{name}: boundary {boundary!r} needs `bound`")
+    n = deg.shape[0]
+    for what, t, dtype, shape in (("indptr", indptr, torch.int64, (n + 1,)),
+                                  ("indices", indices, torch.int32, None),
+                                  ("deg", deg, torch.int64, (n,)),
+                                  ("alive", alive, torch.bool, (n,))):
+        _kernels.check_tensor(name, what, t, 1, dtype)
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {what} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+    if not _kernels.on_cuda(name, indptr, indices, deg, alive):
+        return adg_round_plain(indptr, indices, deg, alive,
+                               boundary=boundary, eps=eps, bound=bound)
+    peel = torch.empty_like(alive)
+    stats = torch.empty(3, dtype=torch.int64, device=deg.device)
+    _kernels.launch("adg_round", "adg_round", indptr, indices, n, deg, alive,
+                    peel, stats, _ADG_MODE[boundary], float(eps),
+                    float(bound or 0.0))
+    LAUNCHES[name] += 1
+    return peel
+
+
+def adg_ordering_rank_device(
+    g: CSRGraph, eps: float = 0.1, boundary: str = "avg", seed: int = 0, *,
+    device="cuda",
+) -> np.ndarray:
+    """ADG on the device — the port of gms_tpu's adg_ordering_rank_device.
+
+    Each round is one `adg_round` (boundary, peel, pull) and one torch.sort
+    of the peeled vertices by (deg, id); the loop is Python, with one
+    read-back a round (the peeled count). "avg" and "min" match gms_tpu's
+    device and host versions rank for rank. "prob_min" and "prob_median"
+    draw ADG_SAMPLES degrees a round, with replacement, from the alive
+    vertices, by a CPU torch.Generator seeded with `seed`: deterministic per
+    seed and equal on every device, but not jax.random's draws; the median
+    averages the two middle samples, as np.median and jnp.median do.
+    """
+    dev = resolve(device)
+    n = g.num_nodes
+    if n == 0:
+        return np.zeros(0, dtype=np.int32)
+    if boundary not in _ADG_MODE:
+        raise ValueError(f"unknown device ADG boundary {boundary!r}")
+    indptr = torch.from_numpy(g.indptr).to(dev)
+    indices = torch.from_numpy(g.indices).to(dev)
+    deg = torch.from_numpy(g.degrees.astype(np.int64)).to(dev)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    rank = torch.empty(n, dtype=torch.int32, device=dev)
+    gen = torch.Generator().manual_seed(seed)
+    next_rank = 0
+    while next_rank < n:
+        bound = None
+        if _ADG_MODE[boundary] == 2:
+            live = deg[alive]
+            take = torch.randint(0, live.numel(), (ADG_SAMPLES,),
+                                 generator=gen)
+            vals = live[take.to(dev)].cpu().numpy().astype(np.float64)
+            bound = ((2.0 + eps) * vals.min() if boundary == "prob_min"
+                     else (1.0 + eps) * np.median(vals))
+        peel = adg_round(indptr, indices, deg, alive, boundary=boundary,
+                         eps=eps, bound=bound)
+        ids = torch.nonzero(peel)[:, 0]
+        order = ids[torch.argsort(deg[ids] * n + ids)]
+        rank[order] = torch.arange(next_rank, next_rank + len(ids),
+                                   dtype=torch.int32, device=dev)
+        next_rank += len(ids)
+    return rank.cpu().numpy()
+
+
 def core_numbers(g: CSRGraph) -> np.ndarray:
     """Exact core number per vertex (util/core_number_evaluator.h:19-44)."""
     _rank, core, _k = _degeneracy_peel(g)
     return core
+
+
+def triangle_count_ordering_rank(g: CSRGraph, *, device="cuda") -> np.ndarray:
+    """Rank by per-vertex triangle count (asc, ties by id) —
+    triangleCountOrdering (parallel/triangle_count.h:11-31)."""
+    from gms_tpu_torch.algorithms.triangle_count import (
+        triangle_count_per_vertex)
+
+    tc = triangle_count_per_vertex(g, device=device)
+    order = np.lexsort((np.arange(g.num_nodes), tc))
+    return order_to_rank(order)
 
 
 # ---------------------------------------------------------------------------

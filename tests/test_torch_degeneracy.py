@@ -5,20 +5,32 @@ integers, and the ADG boundaries draw from the same numpy generator.
 gms_tpu peels with its native C++ runtime when it is built; its ranks may
 differ from the numpy loop's on ties, so the rank is compared against
 gms_tpu's numpy peel, and the core numbers against both.
+
+The device ADG runs here on its plain round (device="cpu"): "avg" and "min"
+equal gms_tpu's device and host versions rank for rank; the sampled
+boundaries draw from torch, not jax.random, so they are held to the verifier
+and to determinism per seed. The ordered collections mirror
+tests/test_preprocessing.py.
 """
 
 import numpy as np
 import pytest
 
+import torch
+
 from gms_tpu import native
 from gms_tpu.io.builder import build_csr as jbuild_csr
 from gms_tpu.preprocessing import degeneracy as jdg
+from gms_tpu.preprocessing import ordered_collection as joc
 
 from gms_tpu_torch.io.builder import build_csr
 from gms_tpu_torch.io.generators import generate_rmat_el
 from gms_tpu_torch.preprocessing import degeneracy as dg
+from gms_tpu_torch.preprocessing import ordered_collection as oc
 
 from conftest import random_graph
+
+torch.set_num_threads(1)
 
 
 def _edge_lists():
@@ -91,3 +103,128 @@ def test_rank_helpers_and_verifiers(pair):
                     == jdg.verify_approx_degeneracy_order(jg, rank, eps))
     assert not dg.verify_approx_degeneracy_order(g, np.zeros_like(perm), 0.1) \
         or g.num_nodes <= 1
+
+
+# ---------------------------------------------------------------------------
+# device ADG, triangle-count ordering
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("boundary", ["avg", "min"])
+def test_adg_device_equals_gms_tpu_device_and_host(pair, boundary):
+    g, jg = pair
+    for eps in (0.01, 0.1, 0.5):
+        rank = dg.adg_ordering_rank_device(g, eps, boundary, device="cpu")
+        assert rank.dtype == np.int32
+        np.testing.assert_array_equal(
+            rank, dg.adg_ordering_rank(g, eps, boundary=boundary))
+        np.testing.assert_array_equal(
+            rank, jdg.adg_ordering_rank(jg, eps, boundary=boundary))
+        np.testing.assert_array_equal(
+            rank, jdg.adg_ordering_rank_device(jg, eps, boundary=boundary))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_adg_device_matches_host_random(seed):
+    """As tests/test_preprocessing.py's device-against-host case."""
+    el = random_graph(70, 0.15, seed)
+    g, jg = build_csr(el, num_nodes=70), jbuild_csr(el, num_nodes=70)
+    for boundary in ("avg", "min"):
+        for eps in (0.1, 0.5):
+            rank = dg.adg_ordering_rank_device(g, eps, boundary, device="cpu")
+            np.testing.assert_array_equal(
+                rank, jdg.adg_ordering_rank(jg, eps, boundary=boundary))
+
+
+@pytest.mark.parametrize("boundary", ["prob_min", "prob_median"])
+def test_adg_device_prob_boundaries(boundary):
+    for seed in range(2):
+        g = build_csr(random_graph(70, 0.15, seed), num_nodes=70)
+        r1 = dg.adg_ordering_rank_device(g, 0.1, boundary, seed=3,
+                                         device="cpu")
+        r2 = dg.adg_ordering_rank_device(g, 0.1, boundary, seed=3,
+                                         device="cpu")
+        np.testing.assert_array_equal(r1, r2)
+        assert sorted(r1.tolist()) == list(range(70))
+        assert dg.verify_approx_degeneracy_order(g, r1, 0.1)
+    g = build_csr(generate_rmat_el(12, 16, seed=27491095), num_nodes=4096)
+    r1 = dg.adg_ordering_rank_device(g, 0.1, boundary, seed=5, device="cpu")
+    assert dg.verify_approx_degeneracy_order(g, r1, 0.1)
+    assert not np.array_equal(r1, dg.adg_ordering_rank_device(
+        g, 0.1, boundary, seed=6, device="cpu"))
+
+
+def test_adg_round_plain_guard_and_pull():
+    """One round by hand: a path 0-1-2-3 and a triangle 4-5-6, with 0 and 3
+    already peeled. avg over the alive degrees (1, 1, 2, 2, 2) is 1.6, so
+    (1 + 0.1) * 8 / 5 = 1.76 peels 1 and 2; at eps -0.9 the bound
+    0.1 * 1.6 peels nothing and the guard peels the minimum degree."""
+    g = build_csr(np.array([[0, 1], [1, 2], [2, 3], [4, 5], [5, 6], [4, 6]]))
+    indptr, indices = torch.from_numpy(g.indptr), torch.from_numpy(g.indices)
+    start = torch.tensor([0, 1, 1, 0, 2, 2, 2])
+    alive0 = torch.tensor([False, True, True, False, True, True, True])
+    for eps, peeled, deg_after in ((0.1, [1, 2], [0, 1, 1, 0, 2, 2, 2]),
+                                   (-0.9, [1, 2], [0, 1, 1, 0, 2, 2, 2])):
+        deg, alive = start.clone(), alive0.clone()
+        peel = dg.adg_round(indptr, indices, deg, alive, boundary="avg",
+                            eps=eps)
+        assert torch.nonzero(peel)[:, 0].tolist() == peeled
+        assert deg.tolist() == deg_after
+        assert alive.tolist() == [False, False, False, False, True, True,
+                                  True]
+    deg, alive = start.clone(), alive0.clone()
+    peel = dg.adg_round(indptr, indices, deg, alive, boundary="prob_min",
+                        eps=0.1, bound=2.0)
+    assert peel.tolist() == alive0.tolist() and not alive.any()
+    with pytest.raises(ValueError, match="needs `bound`"):
+        dg.adg_round(indptr, indices, deg, alive, boundary="prob_median",
+                     eps=0.1)
+    with pytest.raises(TypeError):
+        dg.adg_round(indptr, indices.long(), deg, alive, boundary="avg",
+                     eps=0.1)
+    with pytest.raises(ValueError, match="unknown boundary"):
+        dg.adg_round(indptr, indices, deg, alive, boundary="median", eps=0.1)
+    with pytest.raises(ValueError, match="unknown device ADG boundary"):
+        dg.adg_ordering_rank_device(g, 0.1, "median", device="cpu")
+
+
+def test_triangle_count_ordering_equals_gms_tpu(pair):
+    g, jg = pair
+    rank = dg.triangle_count_ordering_rank(g, device="cpu")
+    np.testing.assert_array_equal(rank, jdg.triangle_count_ordering_rank(jg))
+    assert sorted(rank.tolist()) == list(range(g.num_nodes))
+
+
+# ---------------------------------------------------------------------------
+# ordered collections (Danisch peel), as tests/test_preprocessing.py
+# ---------------------------------------------------------------------------
+
+def test_tracking_collections_unit():
+    vals = np.array([5, 1, 4, 1, 3], np.int64)
+    for cls in (oc.TrackingHeap, oc.TrackingBubblingArray):
+        c = cls(vals)
+        assert len(c) == 5
+        assert all(c.index(k) != -1 for k in range(5))
+        c.decrease_key(0)          # 5 -> 4
+        c.decrease_key(0)          # 4 -> 3
+        assert c.value(0) == 3
+        got = [c.pop_head() for _ in range(5)]
+        assert sorted(k for k, _ in got) == [0, 1, 2, 3, 4]
+        vs = [v for _, v in got]
+        assert vs == sorted(vs)
+        assert dict(got)[0] == 3
+        assert c.index(got[0][0]) == -1 and len(c) == 0
+        with pytest.raises(KeyError):
+            c.decrease_key(got[0][0])
+
+
+@pytest.mark.parametrize("collection", ["heap", "bubble"])
+def test_danisch_degeneracy_equals_gms_tpu(collection, pair):
+    g, jg = pair
+    rank, core = oc.degeneracy_ordering_rank_danisch(g, collection=collection)
+    jrank, jcore = joc.degeneracy_ordering_rank_danisch(
+        jg, collection=collection)
+    np.testing.assert_array_equal(rank, jrank)
+    assert core == jcore == dg.degeneracy_ordering_rank(g)[1]
+    assert dg.verify_degeneracy_order(g, rank)
+    with pytest.raises(ValueError, match="unknown collection"):
+        oc.degeneracy_ordering_rank_danisch(g, collection="list")

@@ -24,6 +24,7 @@ from gms_tpu_torch.graphs.tiles import SENTINEL
 from gms_tpu_torch.io.builder import build_csr
 from gms_tpu_torch.io.generators import generate_rmat_el
 from gms_tpu_torch.preprocessing import degeneracy
+from gms_tpu_torch.sets import bitmap_ops as bo
 
 torch.set_num_threads(1)
 
@@ -70,6 +71,23 @@ def test_wrappers_reject_bad_inputs():
                       _i32(2), k=3)
     with pytest.raises(ValueError, match="2WW\\+1"):
         ks.decode_star_rows(_i32(8, 4), _i32(2), _i32(3, 4))
+    with pytest.raises(ValueError, match="do not match"):
+        tc.count_dag_edges_per_vertex(_i32(8, 4), _i32(5, 2), _i32(4),
+                                      num_segments=8)
+    with pytest.raises(TypeError):
+        tc.count_hub_edges(_i32(8, 4), _i32(9).long(), _i32(5, 2), _i32(5),
+                           chunk=4)
+    with pytest.raises(ValueError, match="do not match"):
+        tc.count_hub_edges(_i32(8, 4), None, _i32(5, 3), _i32(5), chunk=4)
+    with pytest.raises(ValueError, match="shapes differ"):
+        bo.rows_count(_i32(3, 4), _i32(3, 5), op="and")
+    deg, alive = torch.zeros(4, dtype=torch.long), torch.ones(4, dtype=bool)
+    with pytest.raises(ValueError, match="expected"):
+        degeneracy.adg_round(torch.zeros(4, dtype=torch.long), _i32(0), deg,
+                             alive, boundary="avg", eps=0.1)
+    with pytest.raises(TypeError):
+        degeneracy.adg_round(torch.zeros(5, dtype=torch.long), _i32(0),
+                             deg.int(), alive, boundary="avg", eps=0.1)
 
 
 def test_every_source_has_a_binding():
@@ -522,3 +540,143 @@ def test_kclique_star_list_on_card(card):
                             1).astype(np.int64))
     got = ks.kclique_star_list(k5, 4, device=card)
     assert len(got) == 5 and set(got) == set(ks.kclique_star_oracle(k5, 4))
+
+
+# per-vertex and dense triangles, bitmap counts, ADG: K14 count_dag_edges_per_
+# vertex, K15 count_hub_edges, K16 bitmap_rows_count, K17 adg_round
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wa,wb,D", [(16, 16, 128), (3, 70, 128),
+                                     (512, 512, 512)])
+def test_per_vertex_on_card(card, wa, wb, D):
+    # edges with weights 0, 1, 2 and -1, a few ids past num_segments
+    rng = np.random.default_rng(wa * wb + D)
+    V, n, E = 700, 690, 3000
+    nbr = torch.from_numpy(_padded_rows(rng, V, D, n, max(wa, wb))).to(card)
+    edges = rng.integers(0, n, (E, 2)).astype(np.int32)
+    valid = rng.choice([0, 1, 1, 1, 2, -1], E).astype(np.int32)
+    args = [nbr] + [torch.from_numpy(x).to(card) for x in (edges, valid)]
+    for segs in (V, 500):
+        kw = dict(num_segments=segs, width_a=wa, width_b=wb)
+        got = _launched("count_dag_edges_per_vertex",
+                        lambda: tc.count_dag_edges_per_vertex(*args, **kw))
+        want = tc.count_dag_edges_per_vertex_plain(*args, chunk=512, **kw)
+        assert torch.equal(got, want) and int(want.sum()) > 0
+        # out= adds into what is there
+        acc = _launched("count_dag_edges_per_vertex",
+                        lambda: tc.count_dag_edges_per_vertex(
+                            *args, **kw, out=want.clone()))
+        assert torch.equal(acc, 2 * want)
+
+
+@pytest.mark.cuda
+def test_triangle_count_per_vertex_on_card(card):
+    g = build_csr(generate_rmat_el(11, 16, seed=27491095), num_nodes=2048)
+    want = tc.triangle_count_per_vertex(g, device="cpu")
+    before = tc.LAUNCHES["count_dag_edges_per_vertex"]
+    got = tc.triangle_count_per_vertex(g, device=card)
+    _, parts = tc.plan_per_vertex(g, device="cpu")
+    assert tc.LAUNCHES["count_dag_edges_per_vertex"] == before + len(parts)
+    assert np.array_equal(got, want)
+    got = tc.triangle_count_per_vertex(g, device=card, tiers=(2, 4, 8, 16))
+    assert np.array_equal(got, want)
+    assert np.array_equal(degeneracy.triangle_count_ordering_rank(g, device=card),
+                          degeneracy.triangle_count_ordering_rank(g, device="cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,width,row_of", [(64, None, False), (7, 5, False),
+                                             (130, 128, True), (9, None, True)])
+def test_hub_edges_on_card(card, hw, width, row_of):
+    # 16-byte loads at hw=64 and hw=130/width=128, word loads otherwise;
+    # edge and row ids clip into range
+    rng = np.random.default_rng(hw + (width or 0))
+    N, E = 120, 5000
+    rows = _words(rng, (N, hw)).to(card)
+    ro = (torch.from_numpy(rng.integers(-2, N + 3, 200).astype(np.int32))
+          .to(card) if row_of else None)
+    edges = torch.from_numpy(rng.integers(-3, (200 if row_of else N) + 3,
+                                          (E, 2)).astype(np.int32)).to(card)
+    valid = torch.from_numpy(rng.choice([0, 1, 1, 2], E).astype(np.int32)
+                             ).to(card)
+    got = _launched("count_hub_edges", lambda: tc.count_hub_edges(
+        rows, ro, edges, valid, chunk=256, width=width))
+    want = tc.count_hub_edges_plain(rows, ro, edges, valid, chunk=256,
+                                    width=width)
+    assert int(got) == int(want) > 0
+    # an unaligned view of the table takes the word loads
+    got = tc.count_hub_edges(rows[1:], ro, edges, valid, chunk=256,
+                             width=width)
+    assert int(got) == int(tc.count_hub_edges_plain(
+        rows[1:], ro, edges, valid, chunk=256, width=width))
+
+
+@pytest.mark.cuda
+def test_triangle_count_dense_on_card(card):
+    for scale in (9, 11):
+        g = build_csr(generate_rmat_el(scale, 16, seed=27491095),
+                      num_nodes=1 << scale)
+        want = tc.TrianglePlan(g, device="cpu").run()
+        assert _launched("count_hub_edges", lambda: tc.triangle_count_dense(
+            g, device=card)) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(50, 5), (333, 64), (7, 2048), (4, 6, 12)])
+def test_bitmap_rows_count_on_card(card, shape):
+    rng = np.random.default_rng(sum(shape))
+    a, b = _words(rng, shape).to(card), _words(rng, shape).to(card)
+    for op in ("card", "and", "or", "andnot"):
+        got = _launched("bitmap_rows_count",
+                        lambda: bo.rows_count(a, b, op=op), bo.LAUNCHES)
+        assert torch.equal(got, bo.rows_count_plain(a, b, op=op))
+    # rows v and v+1 of one table: b is a view one row in
+    t = _words(rng, (shape[0] + 1, shape[-1])).to(card)
+    assert torch.equal(bo.intersect_count(t[:-1], t[1:]),
+                       bo.rows_count_plain(t[:-1], t[1:], op="and"))
+
+
+def _adg_state(g, card, rounds):
+    """The device ADG state after `rounds` rounds of "min" at eps 0.1."""
+    indptr = torch.from_numpy(g.indptr).to(card)
+    indices = torch.from_numpy(g.indices).to(card)
+    deg = torch.from_numpy(g.degrees.astype(np.int64)).to(card)
+    alive = torch.ones(g.num_nodes, dtype=torch.bool, device=card)
+    for _ in range(rounds):
+        degeneracy.adg_round_plain(indptr, indices, deg, alive,
+                                   boundary="min", eps=0.1)
+    return indptr, indices, deg, alive
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounds", [0, 2])
+def test_adg_round_on_card(card, rounds):
+    g = build_csr(generate_rmat_el(12, 16, seed=27491095), num_nodes=4096)
+    indptr, indices, deg, alive = _adg_state(g, card, rounds)
+    for boundary, eps, bound in (("avg", 0.1, None), ("min", 0.01, None),
+                                 ("min", 0.5, None), ("prob_min", 0.1, 9.0),
+                                 ("prob_median", 0.1, -1.0)):
+        kd, ka, pd, pa = deg.clone(), alive.clone(), deg.clone(), alive.clone()
+        kw = dict(boundary=boundary, eps=eps, bound=bound)
+        peel = _launched("adg_round", lambda: degeneracy.adg_round(
+            indptr, indices, kd, ka, **kw), degeneracy.LAUNCHES)
+        want = degeneracy.adg_round_plain(indptr, indices, pd, pa, **kw)
+        assert torch.equal(peel, want) and want.any()
+        assert torch.equal(kd, pd) and torch.equal(ka, pa)
+
+
+@pytest.mark.cuda
+def test_adg_ordering_rank_device_on_card(card):
+    g = build_csr(generate_rmat_el(12, 16, seed=27491095), num_nodes=4096)
+    for boundary in ("avg", "min"):
+        for eps in (0.01, 0.5):
+            got = degeneracy.adg_ordering_rank_device(g, eps, boundary,
+                                                      device=card)
+            assert np.array_equal(got, degeneracy.adg_ordering_rank(
+                g, eps, boundary))
+    for boundary in ("prob_min", "prob_median"):
+        got = degeneracy.adg_ordering_rank_device(g, 0.1, boundary, seed=4,
+                                                  device=card)
+        assert np.array_equal(got, degeneracy.adg_ordering_rank_device(
+            g, 0.1, boundary, seed=4, device="cpu"))
+        assert degeneracy.verify_approx_degeneracy_order(g, got, 0.1)

@@ -17,10 +17,12 @@ from gms_tpu_torch.algorithms import bron_kerbosch as bk
 from gms_tpu_torch.algorithms import k_clique as kc
 from gms_tpu_torch.algorithms import k_clique_star as ks
 from gms_tpu_torch.algorithms import triangle_count as tc
+from gms_tpu_torch.graphs.bitmap import BitmapGraph
 from gms_tpu_torch.graphs.tiles import PaddedGraph
 from gms_tpu_torch.harness import benchmark, cli, printer, timers
 from gms_tpu_torch.io.builder import build_csr
 from gms_tpu_torch.io.generators import generate_rmat_el
+from gms_tpu_torch.preprocessing import degeneracy
 
 torch.set_num_threads(1)
 
@@ -96,6 +98,28 @@ def test_kclique_star_default_device_is_the_card():
     assert ks.kclique_star_list(g, 2, device="cpu", mode="count") == (3, 3)
 
 
+def test_per_vertex_dense_and_adg_default_device_is_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the default runs there")
+    g = _triangle()
+    for call in (lambda: tc.triangle_count_per_vertex(g),
+                 lambda: tc.plan_per_vertex(g),
+                 lambda: tc.triangle_count_dense(g),
+                 lambda: BitmapGraph.from_csr(g),
+                 lambda: degeneracy.triangle_count_ordering_rank(g),
+                 lambda: degeneracy.adg_ordering_rank_device(g),
+                 lambda: degeneracy.adg_ordering_rank_device(g, 0.1,
+                                                             "prob_min")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert tc.triangle_count_per_vertex(g, device="cpu").tolist() == [1, 1, 1]
+    assert tc.triangle_count_dense(g, device="cpu") == 1
+    assert degeneracy.adg_ordering_rank_device(g, device="cpu").tolist() == [
+        0, 1, 2]
+    assert degeneracy.triangle_count_ordering_rank(
+        g, device="cpu").tolist() == [0, 1, 2]
+
+
 def test_cli_parses_device():
     args = cli.Parser().parse(["-g", "kronecker", "8", "-n", "2"])
     assert (args.device, args.gen, args.scale, args.trials) == (
@@ -115,11 +139,28 @@ def test_bench_cli_prints_result_rows():
     assert out.returncode == 0, out.stderr
     rows = [ln.split() for ln in out.stdout.splitlines()
             if ln.startswith("@@@")]
-    assert rows and rows[0][2] == "verified" and rows[0][-1] == "tc-total-tiered-cpu"
+    assert [r[-1] for r in rows] == ["tc-total-tiered-cpu", "tc-vertex-cpu"]
+    assert all(r[2] == "verified" for r in rows)
     params = {ln.split()[1] for ln in out.stdout.splitlines()
               if ln.startswith("@@#")}
     assert params == {"tc_edges_per_sec", "tc_model_gbps"}
     assert "GraphExec buildTime:" in out.stdout
+
+
+def test_preprocessing_bench_cli_prints_result_rows():
+    out = _run(["-m", "gms_tpu_torch.bench.preprocessing", "-g", "kronecker",
+                "8", "-n", "1", "-v", "--device", "cpu"])
+    assert out.returncode == 0, out.stderr
+    rows = [ln.split() for ln in out.stdout.splitlines()
+            if ln.startswith("@@@")]
+    adg = [f"pp-adg-{b}-eps{e}" for b in ("avg", "min", "prob_min",
+                                          "prob_median")
+           for e in (0.01, 0.1, 0.5)]
+    assert [r[-1] for r in rows] == ["pp-degree", "pp-degeneracy-exact", *adg]
+    assert all(r[2] == "verified" for r in rows[2:])
+    ratios = [float(ln.split()[2]) for ln in out.stdout.splitlines()
+              if ln.startswith("@@# adg_ratio ")]
+    assert len(ratios) == 12 and all(1 <= r <= 5 for r in ratios)
 
 
 def test_bk_bench_cli_prints_result_rows():

@@ -4,7 +4,10 @@
   against its gms_tpu jax program on identical seeded inputs;
 * TrianglePlan(device="cpu") against gms_tpu's TrianglePlan (plan arrays
   element for element) and against triangle_count_oracle;
-* plan_from_numpy on gms_tpu's plan arrays.
+* plan_from_numpy on gms_tpu's plan arrays;
+* per-vertex counts (count_dag_edges_per_vertex, triangle_count_per_vertex)
+  and the dense-bitmap count (count_hub_edges, triangle_count_dense) against
+  gms_tpu's and the oracles.
 
 Every comparison is exact: all results are integers. The CUDA kernels
 themselves are held against these plain versions on the card by
@@ -290,6 +293,7 @@ def test_plan_from_numpy(materialize):
 
 
 @pytest.mark.parametrize("entry", ["count_tier_mat", "count_dag_edges",
+                                   "count_dag_edges_per_vertex",
                                    "plan_from_numpy"])
 def test_paranoid_rejects_unsorted_rows(entry, monkeypatch):
     pg, jpg, dag = oriented_padded()
@@ -304,6 +308,8 @@ def test_paranoid_rejects_unsorted_rows(entry, monkeypatch):
             torch.from_numpy(nbr[[0]].T.copy())),
         "count_dag_edges": lambda: tc.count_dag_edges(
             torch.from_numpy(nbr), edges, valid),
+        "count_dag_edges_per_vertex": lambda: tc.count_dag_edges_per_vertex(
+            torch.from_numpy(nbr), edges, valid, num_segments=nbr.shape[0]),
         "plan_from_numpy": lambda: plan_from_numpy(
             {"nbr": nbr, "tiers": []}, device="cpu"),
     }
@@ -364,3 +370,143 @@ def test_materialized_tier_counts_every_edge():
     jg = jbuild_csr(el)
     assert jtc.TrianglePlan(jg, rank=orient.id_rank(jg),
                             materialize=False).run() == want
+
+
+# ---------------------------------------------------------------------------
+# per-vertex and dense-bitmap counts
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("method", ["compare", "searchsorted"])
+@pytest.mark.parametrize("widths", [None, "tiers"])
+def test_count_dag_edges_per_vertex_plain_vs_jax(method, widths):
+    pg, jpg, dag = oriented_padded(n=80, p=0.25, seed=9)
+    edges = dag.edge_array()
+    parts = ({(None, None): edges} if widths is None else
+             tc.partition_edges_2d(edges, np.asarray(dag.degrees),
+                                   tc._tier_widths(pg.d_pad, (4, 8))))
+    total = np.zeros(pg.v_pad, dtype=np.int64)
+    acc = torch.zeros(pg.v_pad, dtype=torch.int64)   # added into by out=
+    for (wa, wb), part in parts.items():
+        e, v = tc._pad_edges(part, 64)
+        # the weights a caller may give: >1 scales the ends' counts but not
+        # the witnesses', <=0 counts nothing
+        weighted = v.copy()
+        weighted[:4] = (2, -1, 0, 3)
+        for val in (v, weighted):
+            want = np.asarray(jtc.count_dag_edges_per_vertex(
+                jpg.nbr, jnp.asarray(e), jnp.asarray(val), chunk=64,
+                num_segments=pg.v_pad, method=method, width_a=wa,
+                width_b=wb))
+            args = (pg.nbr, torch.from_numpy(e), torch.from_numpy(val))
+            kw = dict(num_segments=pg.v_pad, chunk=64, method=method,
+                      width_a=wa, width_b=wb)
+            got = tc.count_dag_edges_per_vertex_plain(*args, **kw)
+            assert got.dtype == torch.int64
+            assert np.array_equal(got.numpy(), want)
+            before = dict(tc.LAUNCHES)
+            assert np.array_equal(
+                tc.count_dag_edges_per_vertex(*args, **kw).numpy(), want)
+            assert tc.LAUNCHES == before
+            if val is v:
+                total += want
+                assert tc.count_dag_edges_per_vertex(*args, **kw,
+                                                     out=acc) is acc
+    assert np.array_equal(acc.numpy(), total)
+    with pytest.raises(ValueError, match="out"):
+        tc.count_dag_edges_per_vertex(
+            pg.nbr, torch.from_numpy(e), torch.from_numpy(v),
+            num_segments=pg.v_pad, out=acc[:-1].clone())
+    assert np.array_equal(total[:dag.num_nodes],
+                          tc.triangle_count_per_vertex_oracle(build_csr(
+                              random_graph(80, 0.25, 9), num_nodes=80)))
+
+
+PER_VERTEX_GRAPHS = ["fixtures", "random0", "random1", "rmat8", "rmat9",
+                     "rmat10"]
+
+
+def per_vertex_graphs(which, port_fixtures):
+    if which.startswith("rmat"):
+        s = int(which[4:])
+        return [build_csr(generate_rmat_el(s, 16, seed=s), num_nodes=1 << s)]
+    return plan_graphs(which, port_fixtures)
+
+
+@pytest.mark.parametrize("tiers", [tc.DEFAULT_TIERS, (2, 4, 8, 16)])
+@pytest.mark.parametrize("which", PER_VERTEX_GRAPHS)
+def test_per_vertex_vs_gms_tpu_and_oracle(which, tiers, port_fixtures):
+    for g in per_vertex_graphs(which, port_fixtures):
+        got = tc.triangle_count_per_vertex(g, device="cpu", tiers=tiers)
+        assert got.dtype == np.int64 and got.shape == (g.num_nodes,)
+        assert np.array_equal(got, tc.triangle_count_per_vertex_oracle(g))
+        assert got.sum() == 3 * tc.triangle_count_oracle(g)
+        jg = jbuild_csr(g.edge_array(), num_nodes=g.num_nodes)
+        assert np.array_equal(got, jtc.triangle_count_per_vertex(
+            jg, tiers=tiers))
+    if which.startswith("rmat") and len(tiers) == 4:
+        # the small tiers give every (wa, wb) pair of the five widths
+        pg, parts = tc.plan_per_vertex(g, device="cpu", tiers=tiers)
+        assert len(parts) == 15 and pg.d_pad > 16
+
+
+def test_plan_per_vertex_arrays():
+    g = build_csr(generate_rmat_el(9, 16, seed=9), num_nodes=512)
+    pg, parts = tc.plan_per_vertex(g, device="cpu", chunk=256)
+    dag = orient.orient(g, orient.degree_rank(g))
+    assert np.array_equal(pg.nbr.numpy(), np.asarray(
+        JPaddedGraph.from_csr(dag).nbr))
+    want = tc.partition_edges_2d(dag.edge_array(), np.asarray(dag.degrees),
+                                 tc._tier_widths(pg.d_pad, tc.DEFAULT_TIERS))
+    assert [(wa, wb) for wa, wb, *_ in parts] == list(want)
+    for (wa, wb, c, e, v), part in zip(parts, want.values()):
+        assert c == 256 and e.shape[0] % 256 == 0
+        assert np.array_equal(e.numpy()[:len(part)], part)
+        assert int(v.sum()) == len(part)
+
+
+@pytest.mark.parametrize("row_of", [False, True])
+@pytest.mark.parametrize("width", [None, 3])
+def test_count_hub_edges_plain_vs_jax(row_of, width):
+    rng = np.random.default_rng(17 + 2 * row_of + (width or 0))
+    N, HW, E, chunk = 40, 7, 256, 64
+    rows = words(rng, (N, HW))
+    rows[-1] = 0
+    if row_of:
+        ro = rng.integers(0, N, 61).astype(np.int32)
+        ro[-1] = N  # the clip slot: past the last row, clips to it
+        edges = rng.integers(0, 61, (E, 2)).astype(np.int32)
+        edges[:5] = [[70, 3], [-2, 5], [60, 60], [0, 61], [12, 100]]
+    else:
+        ro = None
+        edges = rng.integers(0, N, (E, 2)).astype(np.int32)
+        edges[:3] = [[N + 4, 1], [-1, 2], [7, N]]  # ids clip into range
+    valid = (rng.random(E) < 0.8).astype(np.int32)
+    want = int(jtc.count_hub_edges(
+        jnp.asarray(rows), None if ro is None else jnp.asarray(ro),
+        jnp.asarray(edges), jnp.asarray(valid), chunk=chunk, width=width))
+    args = (as_i32(rows), None if ro is None else torch.from_numpy(ro),
+            torch.from_numpy(edges), torch.from_numpy(valid))
+    got = tc.count_hub_edges_plain(*args, chunk=chunk, width=width)
+    assert got.dtype == torch.int64 and int(got) == want > 0
+    assert int(tc.count_hub_edges(*args, chunk=chunk, width=width)) == want
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_triangle_count_dense_vs_gms_tpu(seed):
+    """As tests/test_compressed.py's dense case, against gms_tpu too."""
+    g = build_csr(random_graph(90, 0.25, seed), num_nodes=90)
+    want = tc.triangle_count_oracle(g)
+    assert tc.triangle_count_dense(g, device="cpu", chunk=64) == want
+    assert tc.triangle_count_dense(g, device="cpu") == want
+    jg = jbuild_csr(g.edge_array(), num_nodes=90)
+    assert jtc.triangle_count_dense(jg, chunk=64) == want
+    assert tc.TrianglePlan(g, device="cpu").run() == want
+
+
+def test_triangle_count_dense_rmat_and_fixtures(port_fixtures):
+    g = build_csr(generate_rmat_el(10, 16, seed=2), num_nodes=1024)
+    assert tc.triangle_count_dense(g, device="cpu") == \
+        tc.TrianglePlan(g, device="cpu").run()
+    for name, want in {"micro": 0, "triangles_1": 1, "triangles_3": 3}.items():
+        assert tc.triangle_count_dense(port_fixtures[name], device="cpu",
+                                       chunk=64) == want
