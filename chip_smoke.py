@@ -9,10 +9,11 @@ graph of bench.py), k-clique counting on bench.py's three k-clique graphs,
 maximal clique enumeration (Bron–Kerbosch) on its RMAT scale 14 graph,
 k-clique-star counting on its RMAT scale 12 graph, per-vertex triangle
 counts, the triangle-count ordering and the device ADG ordering on RMAT 18,
-and dense-bitmap triangles and bitmap set counts on RMAT 16 — and holds
-every hand-written CUDA kernel of those paths against its plain PyTorch
-version on the card. Phases, each printing a line
-and each failing the run (non-zero exit) if it fails:
+dense-bitmap triangles and bitmap set counts on RMAT 16, and vertex
+similarity and link prediction (bench.py's lp_auc round: the sampled AUC
+and the top-q ranking) on RMAT 16 — and holds every hand-written CUDA kernel
+of those paths against its plain PyTorch version on the card. Phases, each
+printing a line and each failing the run (non-zero exit) if it fails:
 
   1. device and build: card name, power limit, nvcc build of csrc/*.cu;
   2. headline graph: generation and CSR build on the host;
@@ -118,7 +119,44 @@ and each failing the run (non-zero exit) if it fails:
      AND+popcount a word, bound it), bitmap_rows_count on phase 27's rows
      (the two views of one table are read once: their bytes count once),
      adg_round on every round state of the main path's "avg" eps 0.1 run
-     (times and bounds summed over its rounds).
+     (times and bounds summed over its rounds);
+ 30. link-prediction main path on RMAT 16 (bench.py's lp_auc protocol: test
+     split extract_random_test_edges(g, int(0.01 m), seed=1)), with the
+     similarity and link-prediction counters set to 0 just before it:
+     AUCPlan(g, train, test, 100,000, metric="jaccard", seed=2) then
+     run_steady(8); its eight timed trials' (higher, equal) must be the
+     golden LP_GOLDEN and the AUC 0.85176; the host plan, seconds a trial
+     and the launches (pair_scores, pair_scores_hub and auc_count 8 each in
+     the timed call, 8 in the first call) printed; run(0) equals the plain
+     versions' counts;
+ 31. score_auc for the bench's five metrics under gms_tpu's bench protocol
+     (test split seed 0, 100,000 samples): each AUC in [0, 1]; (higher,
+     equal) equal to the plain versions' for Jaccard, overlap and CN, the
+     AUC within 1e-4 for AA and RA;
+ 32. vertex_similarity for the seven metrics on RMAT 16: 100,000 uniform
+     pairs and 100,000 with a hub end against the plain version (bit for
+     bit, AA and RA within rtol 1e-5), a seeded 1,000 against the host
+     oracle;
+ 33. the top-q ranking, bench.py's call, the counters set to 0 just before:
+     link_prediction_similarity(train, 100, metric="jaccard") on phase 30's
+     train graph must return the 100 pairs of isolated vertices that
+     gms_tpu's keyed rule picks (keyed_isolated_topq), all of score 1.0; its
+     time and tile_topq's launches (one a u-block);
+ 34. top-q counting against the plain version on the card (float32 matmuls,
+     TF32 off): CN and AA at RMAT 14 (CN's pairs and scores exactly, AA's
+     scores within rtol 1e-5), the seven metrics at RMAT 12 with block 512,
+     and all_pairs_scores on RMAT 12's first 512 rows (its counter set to 0
+     just before: one tile_all_pairs a metric);
+ 35. each new kernel against its plain version, with CUDA-event times, L2
+     flushed, and bounds: pair_scores and pair_scores_hub on phase 30's
+     pairs (Jaccard; bytes: the pairs, their deg entries, each distinct row
+     to its first SENTINEL, K19's distinct bitmap words probed, the output),
+     auc_count on phase 30's scores, tile_topq on RMAT 16's first u-block
+     and on every u-block of RMAT 14 (CN), tile_all_pairs on phase 34's
+     block; tile_topq and tile_all_pairs are bound by their AND+popcounts
+     (one a word of each pair they must score: u < v < n for tile_topq,
+     all for tile_all_pairs), and their library time is the float32
+     torch.matmul of the same common counts.
 
 The line before the last is a JSON object describing every kernel; the last
 is {"ok": true, "device": {...}}. Imports nothing of jax or gms_tpu.
@@ -193,6 +231,16 @@ KERNELS = {
                           "gms_tpu/sets/bitmap_ops.py:22"),
     "adg_round": ("gms_tpu_torch/csrc/adg_round.cu",
                   "gms_tpu/preprocessing/degeneracy.py:178"),
+    "pair_scores": ("gms_tpu_torch/csrc/pair_scores.cu",
+                    "gms_tpu/algorithms/similarity.py:51"),
+    "pair_scores_hub": ("gms_tpu_torch/csrc/pair_scores.cu",
+                        "gms_tpu/algorithms/similarity.py:94"),
+    "auc_count": ("gms_tpu_torch/csrc/auc_count.cu",
+                  "gms_tpu/algorithms/link_prediction.py:208"),
+    "tile_topq": ("gms_tpu_torch/csrc/tile_scores.cu",
+                  "gms_tpu/algorithms/link_prediction.py:471"),
+    "tile_all_pairs": ("gms_tpu_torch/csrc/tile_scores.cu",
+                       "gms_tpu/algorithms/similarity.py:115"),
 }
 BK_GOLDEN = 165_402_717      # maximal cliques, RMAT-14 deg 16 (BENCH_r05)
 BK_SCALE, BK_SMALL, BK_SAMPLE = 14, 12, 1000
@@ -209,6 +257,18 @@ PV_SAMPLE, PV_TOP = 1000, 10
 DENSE_SCALE, DENSE_BYTES = 16, 536_870_912
 ADG_EPS, ADG_VERIFY_SCALE = (0.01, 0.1, 0.5), 14
 ADG_MAIN = ("avg", 0.1)      # the device ADG run whose launches K17 reports
+# phases 30-35: link prediction on RMAT-16 (bench.py's lp_auc round: test
+# split seed 1, AUCPlan seed 2, Jaccard, 100,000 samples, run_steady(8));
+# the (higher, equal) of run_steady's 8 timed trials, from shift 1, exact on
+# any device (Jaccard scores are exact ratios, the sampling numpy)
+LP_SCALE, LP_SAMPLES, LP_TRIALS = 16, 100_000, 8
+LP_GOLDEN = ((81927, 6611), (81932, 6586), (81913, 6637), (81920, 6646),
+             (81925, 6636), (81908, 6614), (81949, 6561), (81846, 6660))
+LP_Q, LP_BLOCK = 100, 2048   # bench.py's top-q ranking call
+LP_PAIRS, LP_ORACLE = 100_000, 1000
+LP_COUNT_SCALE, LP_SMALL_SCALE, LP_SMALL_BLOCK = 14, 12, 512
+LP_BENCH_METRICS = ("jaccard", "overlap", "adamic_adar", "resource",
+                    "common_neighbors")
 
 
 def check(cond: bool, what: str) -> None:
@@ -267,10 +327,12 @@ def max_abs_err(got, want) -> int:
     return int((got.long() - want.long()).abs().max())
 
 
-def compare(timing, calls, *, ops_rate=None, plain_reps=PLAIN_REPS):
+def compare(timing, calls, *, ops_rate=None, plain_reps=PLAIN_REPS,
+            err_fn=max_abs_err):
     """calls: [(label, kernel_fn, plain_fn, bytes[, ops])] of one kernel on
     one trial; prints one line per call. Both functions run once for the
-    comparison, which warms them up for the timing.
+    comparison (err_fn of their outputs), which warms them up for the
+    timing.
 
     Returns (max_abs_err, kernel_ms, plain_ms, bound_ms, bound_by), each
     summed (the error maximised) over the calls. A call's bound is the larger
@@ -279,7 +341,7 @@ def compare(timing, calls, *, ops_rate=None, plain_reps=PLAIN_REPS):
     err, k_ms, p_ms, bound, by_ops, by_bytes = 0, 0.0, 0.0, 0.0, 0.0, 0.0
     for label, kernel, plain, nbytes, *ops in calls:
         got, want = kernel(), plain()
-        diff = max_abs_err(got, want)
+        diff = err_fn(got, want)
         kt = timing.ms(kernel, KERNEL_REPS)
         pt = timing.ms(plain, plain_reps)
         bt = nbytes / HBM_BYTES_PER_S * 1e3
@@ -325,14 +387,17 @@ def distinct_rows(guard: int, *ids) -> int:
     return int((rows != guard).sum())
 
 
-def kernel_entry(name, launches, err, k_ms, p_ms, bound_ms, by) -> dict:
-    """One kernel's entry of the kernels line. No single PyTorch call
-    computes any of these functions, so there is no library time."""
+def kernel_entry(name, launches, err, k_ms, p_ms, bound_ms, by,
+                 library_ms=None) -> dict:
+    """One kernel's entry of the kernels line. library_ms is the time of the
+    one PyTorch call that computes the same function, where there is one
+    (K21's common counts are a float32 matmul); no single call computes the
+    others."""
     source, replaces = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-            "bound_by": by, "library_ms": None}
+            "bound_by": by, "library_ms": library_ms}
 
 
 def tiers(chunks, pad_id) -> str:
@@ -1353,6 +1418,452 @@ def vertex_phases(timing, report, g) -> None:
                                k_ms, p_ms, bound_ms, "bytes"))
 
 
+def score_err(got, want) -> float:
+    """Largest |got - want| of two float score arrays, NaN equal to NaN (0)
+    and inf to inf; a NaN or inf against anything else is inf."""
+    got, want = got.double(), want.double()
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    diff = torch.where(same, 0.0, (got - want).abs())
+    return float(torch.nan_to_num(diff, nan=math.inf).max()) if diff.numel() \
+        else 0.0
+
+
+def topq_err(got, want) -> float:
+    """tile_topq outputs (scores, u, v): the scores' error, inf if the pairs
+    differ."""
+    if got[0].shape != want[0].shape or not (
+            torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])):
+        return math.inf
+    return score_err(got[0], want[0])
+
+
+def scores_close(got, want, metric) -> bool:
+    """Kernel against plain: bit for bit for the count metrics, rtol 1e-5
+    for AA/RA (float32 weights summed in another order)."""
+    if metric not in ("adamic_adar", "resource"):
+        return score_err(got, want) == 0.0
+    return bool(torch.allclose(got, want, rtol=1e-5, atol=0.0,
+                               equal_nan=True))
+
+
+def keyed_isolated_topq(g, q: int, block: int):
+    """gms_tpu's top-q rule where the top scores are ties: the best q of
+    each u-block by (strip of v, u, v) among the pairs of isolated vertices
+    (Jaccard 1.0; any other pair scores at most 1/3), then the first q of
+    their union by (u, v)."""
+    iso = np.nonzero(g.degrees == 0)[0]
+    n = g.num_nodes
+    block = min(block, -(-n // 128) * 128)
+    n_pad = -(-n // block) * block
+    picks = []
+    for start in range(0, n, block):
+        us = iso[(iso >= start) & (iso < start + block)]
+        got = []
+        for vb in range(start, n_pad, block):
+            if len(got) >= q or not len(us):
+                break
+            vs_ = iso[(iso >= vb) & (iso < vb + block)]
+            uu, vv = np.meshgrid(us, vs_, indexing="ij")
+            keep = vv > uu
+            got.extend(zip(uu[keep].tolist(), vv[keep].tolist()))
+        picks.extend(got[:q])
+    return sorted(picks)[:q]
+
+
+def probed_words(nbr, deg, pairs, hub_idx, vw, n_words) -> int:
+    """Distinct hub bitmap words K19 tests for `pairs` (each u-row element's
+    word of v's bitmap)."""
+    seen = torch.zeros(n_words, dtype=torch.bool, device=nbr.device)
+    for s in range(0, pairs.shape[0], 4096):
+        p = pairs[s:s + 4096].long()
+        w = int(deg[p[:, 0]].max())
+        rows = nbr[p[:, 0], :max(w, 1)].long()
+        h = hub_idx[p[:, 1]].long()
+        ok = rows != 0x7FFFFFFF
+        widx = h[:, None] * vw + (rows.clamp(0, 32 * vw - 1) >> 5)
+        seen[widx[ok]] = True
+    return int(seen.sum())
+
+
+def nonzero_word_pairs(u_words, v_words, upper: bool) -> int:
+    """AND+popcounts a tile call's function needs: over the (u, v) pairs it
+    scores, the word columns where both rows' words are non-zero (a zero
+    word adds nothing to any metric). With upper, u_words are the first rows
+    of v_words (a u-block and the strips from its diagonal) and only v > u
+    counts."""
+    zu = (u_words != 0).long()
+    zv = v_words != 0
+    col = zv.sum(0, dtype=torch.int64)
+    if not upper:
+        return int((zu.sum(0) * col).sum())
+    after = col[None, :] - torch.cumsum(zv[:zu.shape[0]].long(), 0)
+    return int((zu * after).sum())
+
+
+def topq_calls(lp, bm, deg_p, n: int, metric: str, label: str):
+    """compare() calls of tile_topq on every u-block of
+    link_prediction_similarity(block=LP_BLOCK, q=LP_Q) over the whole-graph
+    bitmap `bm`: the u-block's rows against the strips from its diagonal.
+    Bytes: those strips' rows (the u-block's among them), their degrees and
+    the q candidates; operations: nonzero_word_pairs."""
+    calls = []
+    for start in range(0, n, LP_BLOCK):
+        u, v = bm[start:start + LP_BLOCK], bm[start:]
+        nu = u.shape[0]
+        pairs = nu * (n - start) - nu * (nu + 1) // 2
+        kw = dict(u_base=start, v_base=start, n=n, block=LP_BLOCK, q=LP_Q,
+                  metric=metric)
+        calls.append((
+            f"{label} u-block {start // LP_BLOCK} ({pairs} pairs; the dense "
+            f"design does {pairs * bm.shape[1]} AND+popcounts)",
+            lambda u=u, v=v, kw=kw: lp.tile_topq(u, v, deg_p, **kw),
+            lambda u=u, v=v, kw=kw: lp.tile_topq_plain(u, v, deg_p, **kw),
+            (v.numel() + (n - start)) * 4 + LP_Q * 12,
+            nonzero_word_pairs(u, v, upper=True)))
+    return calls
+
+
+def weighted_topq_fault(g, edges, scores, plain_scores, metric):
+    """AA and RA sum float32 weights in another order in the kernel than in
+    the plain version, so their top-q may pick other pairs among near-ties.
+    Holds each pair the kernels returned to what it must be: u < v < n, not
+    an edge, scoring as pair_scores_plain on that pair within rtol 1e-5, and
+    the q-th score not below plain's q-th by more than that. Returns the
+    first fault, or None."""
+    from gms_tpu_torch.algorithms import similarity as vs
+    from gms_tpu_torch.graphs.tiles import PaddedGraph
+
+    n = g.num_nodes
+    if len(edges) != len(plain_scores):
+        return f"{len(edges)} pairs, plain {len(plain_scores)}"
+    u, v = edges[:, 0].astype(np.int64), edges[:, 1].astype(np.int64)
+    if not ((u < v) & (v < n)).all():
+        return "a pair outside u < v < n"
+    und = g.undirected_edge_array().astype(np.int64)
+    if np.isin(u * n + v, und[:, 0] * n + und[:, 1]).any():
+        return "an edge among the pairs"
+    pg = PaddedGraph.from_csr(g, device="cuda")
+    want = vs.pair_scores_plain(pg.nbr, vs._deg_lookup(pg),
+                                torch.from_numpy(edges).cuda(),
+                                metric=metric).cpu().numpy()
+    if not np.allclose(scores, want, rtol=1e-5, atol=0.0):
+        return "a score differs from pair_scores_plain's"
+    if len(scores) and scores[-1] < plain_scores[-1] * (1 - 1e-5):
+        return f"q-th score {scores[-1]} < plain's {plain_scores[-1]}"
+    return None
+
+
+def lp_phases(timing, report) -> None:
+    """Phases 30-35: link prediction and vertex similarity (see the module
+    docstring)."""
+    from gms_tpu_torch.algorithms import link_prediction as lp
+    from gms_tpu_torch.algorithms import similarity as vs
+    from gms_tpu_torch.graphs.tiles import PaddedGraph
+    from gms_tpu_torch.io.builder import build_csr
+    from gms_tpu_torch.io.generators import generate_rmat_el
+
+    t0 = time.perf_counter()
+    g = build_csr(generate_rmat_el(LP_SCALE, DEGREE, seed=SEED),
+                  num_nodes=1 << LP_SCALE)
+    m = g.num_edges_undirected
+    train, test = lp.extract_random_test_edges(g, int(0.01 * m), seed=1)
+    print(f"[30] graph RMAT {LP_SCALE}: {g.num_nodes} nodes, {m} undirected "
+          f"edges, max degree {g.max_degree}; test split {test.num_edges_undirected}"
+          f" edges (seed 1); {time.perf_counter() - t0:.2f} s")
+
+    # [30] AUC main path, counters from 0
+    vs.reset_launches()
+    lp.reset_launches()
+    t0 = time.perf_counter()
+    plan = lp.AUCPlan(g, train, test, LP_SAMPLES, metric="jaccard", seed=2,
+                      device="cuda")
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    warm_t0 = time.perf_counter()
+    auc, trial_s = plan.run_steady(LP_TRIALS)
+    steady_s = time.perf_counter() - warm_t0
+    auc_launches = {"pair_scores": vs.LAUNCHES["pair_scores"],
+                    "pair_scores_hub": vs.LAUNCHES["pair_scores_hub"],
+                    "auc_count": lp.LAUNCHES["auc_count"]}
+    got = [tuple(int(x) for x in row) for row in plan.steady_counts]
+    pn, _ = plan._split.merge
+    ph, _ = plan._split.hub
+    print(f"[30] AUCPlan RMAT {LP_SCALE} Jaccard T={LP_SAMPLES}: host plan "
+          f"{plan_s:.4f} s (sampling, tables, split, copies); "
+          f"{pn.shape[0]} K18 pairs, {ph.shape[0]} K19 (hub) pairs; "
+          f"run_steady({LP_TRIALS}): AUC {auc}, {trial_s * 1e3:.4f} ms a "
+          f"trial (host clock to the read-back), both calls {steady_s:.4f} s")
+    print(f"    (higher, equal) of the timed trials {got}")
+    print(f"    launches {auc_launches}: {LP_TRIALS} in the timed call plus "
+          f"{LP_TRIALS} in the first call from shift 0, each")
+    check(got == [tuple(x) for x in LP_GOLDEN],
+          f"AUC trials {got} != {LP_GOLDEN}")
+    check(abs(auc - 0.85176) < 1e-12, f"AUC {auc} != 0.85176")
+    check(all(v == 2 * LP_TRIALS for v in auc_launches.values()),
+          f"AUC launches {auc_launches}")
+    k0 = plan.counts(0, 1)
+    p0 = plan._counts_with(0, 1, lp._score_into_plain, lp.auc_count_plain)
+    print(f"    run(0): kernels {k0[0].tolist()}, plain {p0[0].tolist()}")
+    check(np.array_equal(k0, p0), f"run(0) {k0} != plain {p0}")
+
+    # [31] score_auc, gms_tpu/bench/link_prediction.py's protocol
+    train0, test0 = lp.extract_random_test_edges(g, max(1, int(m * 0.01)),
+                                                 seed=0)
+    # score_auc's own pairs (seed 0), scored by the kernels and by plain
+    auc_true, auc_false = lp._auc_pairs(g, test0, LP_SAMPLES, 0)
+
+    def auc_counts(metric, score_into):
+        tables = lp._train_tables(train0, "cuda")
+        st = lp._pair_scores_np(tables, auc_true, metric, score_into)
+        sf = lp._pair_scores_np(tables, auc_false, metric, score_into)
+        return int(np.sum(st > sf)), int(np.sum(st == sf))
+
+    for metric in LP_BENCH_METRICS:
+        t0 = time.perf_counter()
+        auc_k = lp.score_auc(g, train0, test0, LP_SAMPLES, metric=metric,
+                             device="cuda")
+        call_s = time.perf_counter() - t0
+        hk = auc_counts(metric, lp._score_into)
+        hp = auc_counts(metric, lp._score_into_plain)
+        check((hk[0] + 0.5 * hk[1]) / LP_SAMPLES == auc_k,
+              f"score_auc {metric} {auc_k} is not its pairs' count {hk}")
+        auc_p = (hp[0] + 0.5 * hp[1]) / LP_SAMPLES
+        print(f"[31] score_auc {metric}: {auc_k} ({call_s:.4f} s, host clock, "
+              f"sampling included); (higher, equal) kernels {hk}, plain {hp}")
+        check(0.0 <= auc_k <= 1.0, f"score_auc {metric} {auc_k}")
+        if metric in ("adamic_adar", "resource"):
+            check(abs(auc_k - auc_p) <= 1e-4, f"{metric} AUC {auc_k} vs "
+                  f"plain {auc_p}")
+        else:
+            check(hk == hp, f"{metric} counts {hk} != plain {hp}")
+    del train0, test0, auc_true, auc_false
+
+    # [32] vertex_similarity, all seven metrics
+    rng = np.random.default_rng(SEED)
+    hubs = np.nonzero(g.degrees > lp.HUB_THRESHOLD)[0]
+    pairs = np.concatenate([
+        rng.integers(0, g.num_nodes, (LP_PAIRS, 2)),
+        np.stack([rng.integers(0, g.num_nodes, LP_PAIRS),
+                  rng.choice(hubs, LP_PAIRS)], axis=1)]).astype(np.int32)
+    pg = PaddedGraph.from_csr(g, device="cuda")
+    deg1 = vs._deg_lookup(pg)
+    tp = torch.from_numpy(pairs).cuda()
+    sample = rng.choice(len(pairs), LP_ORACLE, replace=False)
+    for metric in vs.METRICS:
+        t0 = time.perf_counter()
+        got = vs.vertex_similarity(g, pairs, metric, device="cuda")
+        call_s = time.perf_counter() - t0
+        plain = vs.pair_scores_plain(pg.nbr, deg1, tp, metric=metric)
+        want = vs.vertex_similarity_oracle(g, pairs[sample], metric)
+        ok_plain = scores_close(torch.from_numpy(got).cuda(), plain, metric)
+        ok_oracle = np.allclose(got[sample], want.astype(np.float32),
+                                rtol=1e-5, atol=0.0, equal_nan=True)
+        print(f"[32] vertex_similarity {metric}: {len(pairs)} pairs "
+              f"({LP_PAIRS} with a hub end) in {call_s:.4f} s (host clock, "
+              f"padded build included); = plain {ok_plain}; {LP_ORACLE} = "
+              f"oracle {ok_oracle}")
+        check(ok_plain and ok_oracle, f"vertex_similarity {metric}")
+    del pg, deg1, tp
+
+    # [33] top-q ranking, bench.py's call, counters from 0
+    lp.reset_launches()
+    t0 = time.perf_counter()
+    edges, scores = lp.link_prediction_similarity(train, LP_Q,
+                                                  metric="jaccard",
+                                                  device="cuda")
+    rank_s = time.perf_counter() - t0
+    rank_launches = dict(lp.LAUNCHES)
+    want = keyed_isolated_topq(train, LP_Q, LP_BLOCK)
+    got = [tuple(int(x) for x in e) for e in edges]
+    us = sorted({u for u, _ in got})
+    print(f"[33] link_prediction_similarity RMAT {LP_SCALE} train, q {LP_Q}, "
+          f"Jaccard: {rank_s:.4f} s (host clock, bitmap build and copy "
+          f"included); launches {rank_launches}; {len(got)} pairs, u in {us},"
+          f" first {got[:1]}, last {got[-1:]}; = keyed rule "
+          f"{got == want}; scores all 1.0 {bool((scores == 1.0).all())}")
+    check(got == want, "top-q pairs differ from the keyed rule")
+    check(bool((scores == 1.0).all()), "top-q scores are not all 1.0")
+    check(rank_launches["tile_topq"] == -(-train.num_nodes // LP_BLOCK),
+          f"K21 launches {rank_launches}")
+
+    # [34] top-q counting against the plain version on the card
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on; the plain top-q must count in float32")
+    g14 = build_csr(generate_rmat_el(LP_COUNT_SCALE, DEGREE, seed=SEED),
+                    num_nodes=1 << LP_COUNT_SCALE)
+    for metric in ("common_neighbors", "adamic_adar"):
+        t0 = time.perf_counter()
+        e_k, s_k = lp.link_prediction_similarity(g14, LP_Q, metric=metric,
+                                                 device="cuda")
+        k_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        e_p, s_p = lp._link_prediction_similarity_plain(g14, LP_Q,
+                                                        metric=metric,
+                                                        device="cuda")
+        p_s = time.perf_counter() - t0
+        same = np.array_equal(e_k, e_p) and np.array_equal(s_k, s_p)
+        fault = (None if metric not in vs.WEIGHTED
+                 else weighted_topq_fault(g14, e_k, s_k, s_p, metric))
+        print(f"[34] RMAT {LP_COUNT_SCALE} top-{LP_Q} {metric}: kernels "
+              f"{k_s:.4f} s, plain {p_s:.4f} s; pairs and scores equal "
+              f"{same}; each pair checked (AA, RA) {fault or 'ok'}; best "
+              f"{s_k[:3]}")
+        check(same if metric == "common_neighbors" else fault is None,
+              f"RMAT {LP_COUNT_SCALE} top-q {metric} differs from plain: "
+              f"{fault}")
+    g12 = build_csr(generate_rmat_el(LP_SMALL_SCALE, DEGREE, seed=SEED),
+                    num_nodes=1 << LP_SMALL_SCALE)
+    for metric in vs.METRICS:
+        e_k, s_k = lp.link_prediction_similarity(
+            g12, LP_Q, metric=metric, block=LP_SMALL_BLOCK, device="cuda")
+        e_p, s_p = lp._link_prediction_similarity_plain(
+            g12, LP_Q, metric=metric, block=LP_SMALL_BLOCK, device="cuda")
+        if metric in vs.WEIGHTED:
+            fault = weighted_topq_fault(g12, e_k, s_k, s_p, metric)
+        else:
+            same = np.array_equal(e_k, e_p) and np.array_equal(s_k, s_p)
+            fault = None if same else "pairs or scores differ"
+        check(fault is None, f"RMAT {LP_SMALL_SCALE} top-q {metric} differs "
+              f"from plain: {fault}")
+    print(f"[34] RMAT {LP_SMALL_SCALE} block {LP_SMALL_BLOCK}: the seven "
+          f"metrics' top-{LP_Q} equal the plain version's (AA, RA: each pair "
+          f"a non-edge u < v < n scoring as pair_scores_plain within rtol "
+          f"1e-5, the q-th score not below plain's)")
+    n12 = g12.num_nodes
+    adj = torch.zeros((n12, n12), dtype=torch.float32, device="cuda")
+    e12 = torch.from_numpy(g12.edge_array()).cuda().long()
+    adj[e12[:, 0], e12[:, 1]] = 1.0
+    d12 = torch.from_numpy(g12.degrees).cuda()
+    blk, dblk = adj[:LP_SMALL_BLOCK], d12[:LP_SMALL_BLOCK]
+    vs.reset_launches()
+    for metric in vs.METRICS:
+        got = vs.all_pairs_scores(blk, dblk, adj, d12, metric=metric)
+        want = vs.all_pairs_scores_plain(blk, dblk, adj, d12, metric=metric)
+        check(scores_close(got, want, metric),
+              f"all_pairs_scores {metric} differs from plain")
+    ap_launches = dict(vs.LAUNCHES)
+    print(f"[34] all_pairs_scores, RMAT {LP_SMALL_SCALE}'s first "
+          f"{LP_SMALL_BLOCK} rows x {n12}: the seven metrics equal the plain "
+          f"version's; launches {ap_launches}")
+    check(ap_launches["tile_all_pairs"] == len(vs.METRICS),
+          f"tile_all_pairs launches {ap_launches}")
+
+    # [35] each kernel against its plain version, CUDA-event times
+    rate = sm_rate(POPC_PER_CLOCK_PER_SM)
+    pgt, deg1t, bm, hub_idx, vw = plan._tables
+    dev_deg = pgt.deg
+    B2 = 2 * LP_SAMPLES
+
+    def pair_bytes(p, uses):
+        """pairs, their deg1 entries, the rows `uses` reads, the output."""
+        ends = torch.unique(p.reshape(-1)).numel()
+        return (p.numel() + ends + distinct_data_words(dev_deg, uses)
+                + p.shape[0]) * 4
+
+    k18 = [(f"K18 Jaccard, {pn.shape[0]} of phase 30's pairs",
+            lambda: vs.pair_scores(pgt.nbr, deg1t, pn, metric="jaccard"),
+            lambda: vs.pair_scores_plain(pgt.nbr, deg1t, pn, metric="jaccard"),
+            pair_bytes(pn, [(pn[:, 0], pgt.d_pad), (pn[:, 1], pgt.d_pad)]))]
+    probed = probed_words(pgt.nbr, dev_deg, ph, hub_idx, vw, bm.shape[0])
+    k19 = [(f"K19 Jaccard, {ph.shape[0]} hub pairs of phase 30",
+            lambda: vs.pair_scores_hub(pgt.nbr, deg1t, bm, hub_idx, ph,
+                                       metric="jaccard", vw=vw),
+            lambda: vs.pair_scores_hub_plain(pgt.nbr, deg1t, bm, hub_idx, ph,
+                                             metric="jaccard", vw=vw),
+            pair_bytes(ph, [(ph[:, 0], pgt.d_pad)])
+            + (probed + torch.unique(ph[:, 1]).numel()) * 4)]
+    sc = plan._scores.clone()
+    shift = torch.ones(1, dtype=torch.int32, device="cuda")
+    cnt = torch.zeros(2, dtype=torch.int32, device="cuda")
+    pshift, pcnt = shift.clone(), cnt.clone()
+
+    def k20():
+        shift.fill_(1)
+        lp.auc_count(sc, shift, cnt)
+        return torch.cat([cnt, shift])
+
+    def k20_plain():
+        pshift.fill_(1)
+        lp.auc_count_plain(sc, pshift, pcnt)
+        return torch.cat([pcnt, pshift])
+
+    k20c = [(f"K20 on phase 30's {B2} scores, shift 1", k20, k20_plain,
+             B2 * 4 + 4 + 8 + 4)]
+    for name, calls, launches in (("pair_scores", k18, auc_launches),
+                                  ("pair_scores_hub", k19, auc_launches),
+                                  ("auc_count", k20c, auc_launches)):
+        err, k_ms, p_ms, bound_ms, by = compare(timing, calls, ops_rate=rate,
+                                                err_fn=score_err)
+        print(f"[35] {name}: max_abs_err {err}, kernel {k_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({by}), plain {p_ms:.4f} ms")
+        check(err == 0, f"{name} disagrees with its plain version by {err}")
+        report.append(kernel_entry(name, launches[name], err, k_ms, p_ms,
+                                   bound_ms, by))
+    del plan, pgt, deg1t, bm, hub_idx, pn, ph, sc
+
+    # K21 tile_topq on every u-block of phase 33's call (bench.py's ranking
+    # call at RMAT-16), then of the whole RMAT-14 CN call
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    bm16 = torch.from_numpy(lp._host_bitmap(train, train.num_nodes)
+                            .view(np.int32)).cuda()
+    deg16 = torch.from_numpy(train.degrees).cuda()
+    t16 = topq_calls(lp, bm16, deg16, train.num_nodes, "jaccard",
+                     f"tile_topq RMAT {LP_SCALE} Jaccard")
+    err, k_ms, p_ms, bound_ms, by = compare(timing, t16, ops_rate=rate,
+                                            err_fn=topq_err)
+    check(err == 0, f"tile_topq disagrees with its plain version by {err}")
+    # the library call: torch.matmul of each u-block's common counts
+    dense16 = vs.unpack_rows(bm16)
+    lib_ms = 0.0
+    for start in range(0, train.num_nodes, LP_BLOCK):
+        u, v = dense16[start:start + LP_BLOCK], dense16[start:]
+        lib_ms += timing.ms(lambda u=u, v=v: torch.matmul(u, v.T), PLAIN_REPS)
+    print(f"[35] tile_topq, phase 33's RMAT {LP_SCALE} call ({len(t16)} "
+          f"launches): max_abs_err {err}, kernel {k_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({by}), plain {p_ms:.4f} ms, torch.matmul of "
+          f"its common counts (float32, TF32 off) {lib_ms:.4f} ms")
+    check(len(t16) == rank_launches["tile_topq"],
+          f"{len(t16)} u-blocks timed, {rank_launches} on the main path")
+    report.append(kernel_entry("tile_topq", rank_launches["tile_topq"], err,
+                               k_ms, p_ms, bound_ms, by, library_ms=lib_ms))
+    del bm16, deg16, dense16, u, v
+    bm14 = torch.from_numpy(lp._host_bitmap(g14, g14.num_nodes)
+                            .view(np.int32)).cuda()
+    deg14 = torch.from_numpy(g14.degrees).cuda()
+    t14 = topq_calls(lp, bm14, deg14, g14.num_nodes, "common_neighbors",
+                     f"tile_topq RMAT {LP_COUNT_SCALE} CN")
+    err, k_ms, p_ms, bound_ms, by = compare(timing, t14, ops_rate=rate,
+                                            err_fn=topq_err)
+    print(f"[35] tile_topq, the whole RMAT {LP_COUNT_SCALE} CN call "
+          f"({len(t14)} launches): max_abs_err {err}, kernel {k_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({by}), plain {p_ms:.4f} ms")
+    check(err == 0, f"tile_topq RMAT {LP_COUNT_SCALE} disagrees by {err}")
+    del bm14
+
+    # tile_all_pairs on phase 34's block, Jaccard
+    ub, va = vs.pack_rows(blk), vs.pack_rows(adj)
+    tap = [(f"tile_all_pairs RMAT {LP_SMALL_SCALE} {LP_SMALL_BLOCK} x {n12} "
+            f"Jaccard",
+            lambda: vs.tile_all_pairs(ub, va, dblk, d12, metric="jaccard"),
+            lambda: vs.all_pairs_scores_plain(blk, dblk, adj, d12,
+                                              metric="jaccard"),
+            (ub.numel() + va.numel() + LP_SMALL_BLOCK + n12
+             + LP_SMALL_BLOCK * n12) * 4,
+            nonzero_word_pairs(ub, va, upper=False))]
+    err, k_ms, p_ms, bound_ms, by = compare(timing, tap, ops_rate=rate,
+                                            err_fn=score_err)
+    lib_ms = timing.ms(lambda: torch.matmul(blk, adj.T), KERNEL_REPS)
+    print(f"    (the dense design does {LP_SMALL_BLOCK * n12 * ub.shape[1]} "
+          f"AND+popcounts, one for every word of every pair)")
+    print(f"[35] tile_all_pairs: max_abs_err {err}, kernel {k_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({by}), plain {p_ms:.4f} ms, torch.matmul"
+          f" of its common counts {lib_ms:.4f} ms")
+    check(err == 0, f"tile_all_pairs disagrees with its plain version by {err}")
+    report.append(kernel_entry("tile_all_pairs", ap_launches["tile_all_pairs"],
+                               err, k_ms, p_ms, bound_ms, by,
+                               library_ms=lib_ms))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -1514,7 +2025,10 @@ def main() -> None:
     star_phases(timing, report)
     print(f"[22] total so far {time.perf_counter() - t_start:.1f} s")
     vertex_phases(timing, report, g)
-    print(f"[29] total {time.perf_counter() - t_start:.1f} s")
+    del g
+    print(f"[29] total so far {time.perf_counter() - t_start:.1f} s")
+    lp_phases(timing, report)
+    print(f"[36] total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

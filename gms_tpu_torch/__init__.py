@@ -22,4 +22,21 @@ __version__ = "0.1.0"
 
 from gms_tpu_torch.graphs.bitmap import BitmapGraph
 
-__all__ = ["BitmapGraph"]
+__all__ = ["BitmapGraph", "vertex_similarity", "AUCPlan"]
+
+# lazy top-level conveniences, as gms_tpu's
+_LAZY = {
+    "vertex_similarity": ("gms_tpu_torch.algorithms.similarity",
+                          "vertex_similarity"),
+    "AUCPlan": ("gms_tpu_torch.algorithms.link_prediction", "AUCPlan"),
+}
+
+
+def __getattr__(name):
+    if name not in _LAZY:
+        raise AttributeError(f"module 'gms_tpu_torch' has no attribute "
+                             f"{name!r}")
+    import importlib
+
+    mod, attr = _LAZY[name]
+    return getattr(importlib.import_module(mod), attr)

@@ -109,6 +109,29 @@ SIGNATURES = {
         # stream
         "adg_round": (_P, _P, _L, _P, _P, _P, _P, _I, _D, _D, _P),
     },
+    "pair_scores": {
+        # nbr_a, va, wa, nbr_b, vb, wb, deg1, len(deg1), pairs, B, metric,
+        # out_pos (or null), out, stream
+        "pair_scores_merge": (_P, _L, _I, _P, _L, _I, _P, _L, _P, _L, _I, _P,
+                              _P, _P),
+        # nbr_a, va, wa, deg1, len(deg1), bm, len(bm), hub_idx, len(hub_idx),
+        # vw, pairs, B, metric, out_pos (or null), out, stream
+        "pair_scores_hub": (_P, _L, _I, _P, _L, _P, _L, _P, _L, _L, _P, _L, _I,
+                            _P, _P, _P),
+    },
+    "auc_count": {
+        # scores, T, shift, counts row, stream
+        "auc_count": (_P, _L, _P, _P, _P),
+    },
+    "tile_scores": {
+        # U, Bu, V, Vn, W, deg_u, deg_v, wcol (or null), metric, out, stream
+        "tile_all_pairs": (_P, _L, _P, _L, _L, _P, _P, _P, _I, _P, _P),
+        # U, nu, V, nv, W, deg_p, n, u_base, v_base, block, wcol (or null),
+        # metric, q, tiles_per_strip, n_vtiles, group, ctas_v, out_s, out_u,
+        # out_v, out_n, stream
+        "tile_topq": (_P, _I, _P, _L, _L, _P, _L, _L, _L, _L, _P, _I, _I, _I,
+                      _L, _L, _I, _P, _P, _P, _P, _P),
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -25,13 +25,12 @@ def main(argv=None):
         state["plan"] = tc.TrianglePlan(g, device=args.device)
         return state["plan"]
 
-    where = "gpu" if args.device == "cuda" else "cpu"
     benchmark.benchmark_kernel_bk(
         args, g,
         build=build,
         kernel=lambda plan: plan.run(),
         verifier=verify if args.verify else None,
-        labels=(f"tc-total-tiered-{where}",),
+        labels=(f"tc-total-tiered-{args.device}",),
         # PAPIW analog: modeled operand traffic -> achieved GB/s
         counters=lambda r, s: {
             "tc_edges_per_sec": g.num_edges_undirected / s,
@@ -44,7 +43,7 @@ def main(argv=None):
     benchmark.benchmark_kernel(
         args, g, lambda g: tc.triangle_count_per_vertex(g, device=args.device),
         verifier=pv_verify if args.verify else None,
-        labels=(f"tc-vertex-{where}",),
+        labels=(f"tc-vertex-{args.device}",),
     )
 
 

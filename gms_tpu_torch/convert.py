@@ -9,6 +9,8 @@ port's carrier for the same bits.
   layout of k-clique counting) as a port PaddedGraph.
 * `plan_from_numpy`: a triangle-count plan.
 * `bitmap_from_numpy`: a BitmapGraph's uint32 words as a port BitmapGraph.
+* `train_tables_from_numpy`: link prediction's train tables (`_train_tables`
+  of gms_tpu's algorithms/link_prediction.py) as the port's.
 
 The adjacency `nbr` must be gms_tpu's padded layout (rows sorted, SENTINEL
 tail, guard row): the port's merge and search kernels rely on it, and
@@ -73,6 +75,36 @@ def bitmap_from_numpy(words, *, device="cuda", num_nodes: int | None = None,
         num_edges = int(np.unpackbits(words.view(np.uint8)).sum())
     return BitmapGraph(tensor_from_numpy(words, device=device), num_nodes,
                        num_edges)
+
+
+def train_tables_from_numpy(nbr, deg, bm_words, hub_idx, vw, hub_t, *,
+                            device="cuda"):
+    """The port's train tables (algorithms/link_prediction._Tables) from
+    gms_tpu's `_train_tables` arrays: nbr int32[V_pad, D_pad] and deg
+    int32[V_pad] (its PaddedGraph), bm_words uint32[H * vw] hub bitmaps,
+    hub_idx int32[V_pad + 1], and the ints vw and hub_t. hub_t must be the
+    port's HUB_THRESHOLD, where its pair scorer splits the pairs."""
+    from gms_tpu_torch.algorithms import link_prediction as lp
+    from gms_tpu_torch.algorithms.similarity import _deg_lookup
+
+    if int(hub_t) != lp.HUB_THRESHOLD:
+        raise ValueError(f"train_tables_from_numpy: hub_t {hub_t} != "
+                         f"{lp.HUB_THRESHOLD}")
+    dev = resolve(device)
+    nbr = np.asarray(nbr, dtype=np.int32)
+    deg = np.asarray(deg, dtype=np.int32)
+    if checks.paranoid():
+        checks.validate_padded(nbr, deg, nbr.shape[0] - 1,
+                               name="train_tables_from_numpy")
+    pg = PaddedGraph(tensor_from_numpy(nbr, device=dev),
+                     tensor_from_numpy(deg, device=dev), nbr.shape[0] - 1,
+                     int(deg.sum()))
+    return lp._Tables(
+        pg, _deg_lookup(pg),
+        tensor_from_numpy(np.asarray(bm_words, np.uint32).reshape(-1),
+                          device=dev),
+        tensor_from_numpy(np.asarray(hub_idx, np.int32), device=dev),
+        int(vw))
 
 
 def plan_from_numpy(state: dict, *, device="cuda") -> TrianglePlan:

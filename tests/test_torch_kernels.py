@@ -19,8 +19,10 @@ from gms_tpu_torch import _kernels
 from gms_tpu_torch.algorithms import bron_kerbosch as bk
 from gms_tpu_torch.algorithms import k_clique as kc
 from gms_tpu_torch.algorithms import k_clique_star as ks
+from gms_tpu_torch.algorithms import link_prediction as lp
+from gms_tpu_torch.algorithms import similarity as vs
 from gms_tpu_torch.algorithms import triangle_count as tc
-from gms_tpu_torch.graphs.tiles import SENTINEL
+from gms_tpu_torch.graphs.tiles import SENTINEL, PaddedGraph
 from gms_tpu_torch.io.builder import build_csr
 from gms_tpu_torch.io.generators import generate_rmat_el
 from gms_tpu_torch.preprocessing import degeneracy
@@ -88,6 +90,53 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(TypeError):
         degeneracy.adg_round(torch.zeros(5, dtype=torch.long), _i32(0),
                              deg.int(), alive, boundary="avg", eps=0.1)
+
+
+def test_similarity_wrappers_reject_bad_inputs():
+    nbr, deg1 = _i32(8, 4), _i32(9)
+    with pytest.raises(ValueError, match="pairs must be"):
+        vs.pair_scores(nbr, deg1, _i32(5, 3), metric="jaccard")
+    with pytest.raises(ValueError, match="unknown metric"):
+        vs.pair_scores(nbr, deg1, _i32(5, 2), metric="cosine")
+    with pytest.raises(TypeError):
+        vs.pair_scores(nbr.long(), deg1, _i32(5, 2), metric="jaccard")
+    with pytest.raises(ValueError, match="out_pos needs out"):
+        vs.pair_scores(nbr, deg1, _i32(5, 2), metric="jaccard",
+                       out_pos=_i32(5))
+    with pytest.raises(ValueError, match="no rows"):
+        vs.pair_scores(_i32(0, 4), deg1, _i32(5, 2), metric="jaccard")
+    with pytest.raises(ValueError, match="vw"):
+        vs.pair_scores_hub(nbr, deg1, _i32(4), _i32(9), _i32(5, 2),
+                           metric="jaccard", vw=0)
+    with pytest.raises(ValueError, match="do not match"):
+        vs.tile_all_pairs(_i32(4, 3), _i32(5, 2), _i32(4), _i32(5),
+                          metric="jaccard")
+    with pytest.raises(ValueError, match="32\\*W"):
+        vs.tile_all_pairs(_i32(4, 2), _i32(5, 2), _i32(4), _i32(5),
+                          metric="resource", wcol=torch.zeros(63))
+    with pytest.raises(ValueError, match="v_base"):
+        lp.tile_topq(_i32(4, 4), _i32(4, 4), _i32(128), u_base=0, v_base=3,
+                     n=100, block=64, q=5, metric="jaccard")
+    with pytest.raises(ValueError, match="words"):
+        lp.tile_topq(_i32(4, 2), _i32(4, 2), _i32(128), u_base=0, v_base=0,
+                     n=100, block=64, q=5, metric="jaccard")
+    with pytest.raises(ValueError, match="2T"):
+        lp.auc_count(torch.zeros(5), _i32(1), _i32(2))
+    with pytest.raises(TypeError):
+        lp.auc_count(torch.zeros(4, dtype=torch.float64), _i32(1), _i32(2))
+
+
+def test_pair_scores_check_sorted_rows_when_paranoid(monkeypatch):
+    rows = torch.tensor([[1, 3, SENTINEL], [4, 2, SENTINEL],
+                         [SENTINEL] * 3], dtype=torch.int32)
+    deg1, pairs = _i32(4), _i32(2, 2)
+    vs.pair_scores(rows, deg1, pairs, metric="jaccard")   # unchecked
+    monkeypatch.setenv("GMS_TPU_PARANOID", "1")
+    with pytest.raises(AssertionError, match="not strictly sorted"):
+        vs.pair_scores(rows, deg1, pairs, metric="jaccard")
+    with pytest.raises(AssertionError, match="not strictly sorted"):
+        vs.pair_scores_hub(rows, deg1, _i32(1), _i32(4), pairs,
+                           metric="jaccard", vw=1)
 
 
 def test_every_source_has_a_binding():
@@ -680,3 +729,177 @@ def test_adg_ordering_rank_device_on_card(card):
         assert np.array_equal(got, degeneracy.adg_ordering_rank_device(
             g, 0.1, boundary, seed=4, device="cpu"))
         assert degeneracy.verify_approx_degeneracy_order(g, got, 0.1)
+
+
+def _assert_scores(got, want, metric):
+    """Kernel against plain: bit for bit (NaN where NaN) for the count
+    metrics; rtol 1e-5 for AA/RA, whose float32 sums run in another order."""
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    if metric in vs.WEIGHTED:
+        np.testing.assert_allclose(got, want, rtol=1e-5, equal_nan=True)
+        return
+    nan = np.isnan(want)
+    assert np.array_equal(np.isnan(got), nan)
+    assert np.array_equal(got[~nan].view(np.int32), want[~nan].view(np.int32))
+
+
+def _hub_rmat(card, scale=11):
+    g = build_csr(generate_rmat_el(scale, 16, seed=27491095),
+                  num_nodes=1 << scale)
+    pg = PaddedGraph.from_csr(g, device=card)
+    return g, pg, vs._deg_lookup(pg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", vs.METRICS)
+def test_pair_scores_on_card(card, metric):
+    g, pg, deg1 = _hub_rmat(card)
+    n = g.num_nodes
+    rng = np.random.default_rng(len(metric))
+    top = np.argsort(-g.degrees)[:20]
+    pairs = np.concatenate([
+        rng.integers(0, n, (3000, 2)),
+        np.stack([rng.integers(0, n, 500), rng.choice(top, 500)], axis=1),
+        np.stack([top, top], axis=1), [[-4, 7], [3, n + 50], [0, 0]]])
+    p = torch.from_numpy(pairs.astype(np.int32)).to(card)
+    got = _launched("pair_scores", lambda: vs.pair_scores(
+        pg.nbr, deg1, p, metric=metric), vs.LAUNCHES)
+    _assert_scores(got, vs.pair_scores_plain(pg.nbr, deg1, p, metric=metric),
+                   metric)
+    # a narrower v-side table, and scores placed through out_pos
+    nb = pg.nbr[:, :64].contiguous()
+    want = vs.pair_scores_plain(pg.nbr, deg1, p, metric=metric, nbr_b=nb)
+    out = torch.full((p.shape[0] + 5,), -7.0, device=card)
+    pos = torch.from_numpy(rng.permutation(p.shape[0] + 5)[:p.shape[0]]
+                           .astype(np.int32)).to(card)
+    vs.pair_scores(pg.nbr, deg1, p, metric=metric, nbr_b=nb, out=out,
+                   out_pos=pos)
+    _assert_scores(out[pos.long()], want, metric)
+    assert int((out == -7.0).sum()) == 5
+    # hub bitmaps (deg > 40) against the merge on the same pairs
+    deg = pg.deg.cpu().numpy()
+    bm, hub_idx, vw = lp._hub_bitmaps(g, deg, pg.v_pad, 40)
+    bm = torch.from_numpy(bm.reshape(-1).view(np.int32)).to(card)
+    hub_idx = torch.from_numpy(hub_idx).to(card)
+    hp = p[torch.from_numpy(deg[pairs[:, 1].clip(0, pg.v_pad - 1)] > 40)
+           .to(card)]
+    got = _launched("pair_scores_hub", lambda: vs.pair_scores_hub(
+        pg.nbr, deg1, bm, hub_idx, hp, metric=metric, vw=vw), vs.LAUNCHES)
+    _assert_scores(got, vs.pair_scores_hub_plain(
+        pg.nbr, deg1, bm, hub_idx, hp, metric=metric, vw=vw), metric)
+    _assert_scores(got, vs.pair_scores(pg.nbr, deg1, hp, metric=metric),
+                   metric)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 1001, 70000])
+def test_auc_count_on_card(card, T):
+    rng = np.random.default_rng(T)
+    scores = rng.integers(0, 6, 2 * T).astype(np.float32)
+    scores[rng.integers(0, 2 * T, 3)] = np.nan
+    for s in (0, 1, T, max(T - 3, 0)):
+        sc = torch.from_numpy(scores).to(card)
+        ks_, ps_ = (torch.tensor([s], dtype=torch.int32, device=card)
+                    for _ in range(2))
+        kc_ = torch.full((2,), 9, dtype=torch.int32, device=card)
+        pc_ = torch.zeros(2, dtype=torch.int32, device=card)
+        _launched("auc_count", lambda: lp.auc_count(sc, ks_, kc_),
+                  lp.LAUNCHES)
+        lp.auc_count_plain(sc, ps_, pc_)
+        assert torch.equal(kc_, pc_) and torch.equal(ks_, ps_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", vs.METRICS)
+def test_tile_all_pairs_on_card(card, metric):
+    rng = np.random.default_rng(7)
+    C = 200
+    adj = (rng.random((150, C)) < 0.08).astype(np.float32)
+    deg = torch.from_numpy(adj.sum(1).astype(np.int32)).to(card)
+    deg[3] = 1   # a deg-1 column: AA's +inf
+    a = torch.from_numpy(adj).to(card)
+    got = _launched("tile_all_pairs", lambda: vs.all_pairs_scores(
+        a[10:80], deg[10:80], a, deg, metric=metric), vs.LAUNCHES)
+    want = vs.all_pairs_scores_plain(a[10:80], deg[10:80], a, deg,
+                                     metric=metric)
+    _assert_scores(got, want, metric)
+
+
+def _assert_weighted_topq(g, edges, scores, want_scores, metric, card):
+    """AA and RA sum float32 weights in another order in the kernel, so
+    their top-q may pick other pairs among near-ties: each returned pair is a
+    non-edge u < v < n scoring as pair_scores_plain within rtol 1e-5, and
+    the q-th score is not below the plain top-q's."""
+    n = g.num_nodes
+    assert len(edges) == len(want_scores)
+    u, v = edges[:, 0].astype(np.int64), edges[:, 1].astype(np.int64)
+    assert ((u < v) & (v < n)).all()
+    und = g.undirected_edge_array().astype(np.int64)
+    assert not np.isin(u * n + v, und[:, 0] * n + und[:, 1]).any()
+    pg = PaddedGraph.from_csr(g, device=card)
+    want = vs.pair_scores_plain(pg.nbr, vs._deg_lookup(pg),
+                                torch.from_numpy(edges).to(card),
+                                metric=metric).cpu().numpy()
+    np.testing.assert_allclose(scores, want, rtol=1e-5, atol=0)
+    assert scores[-1] >= want_scores[-1] * (1 - 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric,block,q", [
+    ("jaccard", 128, 30), ("common_neighbors", 96, 100),
+    ("adamic_adar", 256, 40), ("overlap", 2048, 7),
+    ("preferential_attachment", 128, 300)])
+def test_link_prediction_similarity_on_card(card, metric, block, q,
+                                            monkeypatch):
+    g = build_csr(generate_rmat_el(11, 16, seed=27491095), num_nodes=2048)
+    lp.reset_launches()
+    got_e, got_s = lp.link_prediction_similarity(g, q, metric=metric,
+                                                 block=block, device=card)
+    assert lp.LAUNCHES["tile_topq"] == -(-2048 // min(block, 2048))
+    want_e, want_s = lp._link_prediction_similarity_plain(
+        g, q, metric=metric, block=block, device=card)
+    if metric in vs.WEIGHTED:
+        _assert_weighted_topq(g, got_e, got_s, want_s, metric, card)
+    else:
+        assert np.array_equal(got_e, want_e)
+        assert np.array_equal(got_s, want_s)
+        cpu_e, cpu_s = lp.link_prediction_similarity(
+            g, q, metric=metric, block=block, device="cpu")
+        assert np.array_equal(got_e, cpu_e) and np.array_equal(got_s, cpu_s)
+    # the per-block rows of the unpacked layout, built by K3
+    monkeypatch.setattr(lp, "PACKED_BYTES", 0)
+    up_e, up_s = lp.link_prediction_similarity(g, q, metric=metric,
+                                               block=block, device=card)
+    assert np.array_equal(up_e, got_e) and np.array_equal(up_s, got_s)
+    with pytest.raises(ValueError, match="4096"):
+        lp.link_prediction_similarity(g, 5000, metric=metric, device=card)
+
+
+@pytest.mark.cuda
+def test_auc_plan_on_card(card):
+    n = 800
+    rng = np.random.default_rng(21)
+    mask = np.triu(rng.random((n, n)) < 0.01, 1)
+    el = np.concatenate([np.stack(np.nonzero(mask), axis=1),
+                         np.stack([np.full(600, 5), np.arange(100, 700)],
+                                  axis=1)])
+    g = build_csr(el.astype(np.int64), num_nodes=n)
+    train, test = lp.extract_random_test_edges(g, 200, seed=1)
+    for metric in ("jaccard", "overlap", "adamic_adar"):
+        plan = lp.AUCPlan(g, train, test, 3000, metric=metric, seed=2,
+                          device=card)
+        assert plan._split.hub[0].shape[0] > 0   # some pairs take K19
+        vs.reset_launches()
+        lp.reset_launches()
+        got = plan.counts(1, 5)
+        assert vs.LAUNCHES["pair_scores"] == vs.LAUNCHES["pair_scores_hub"] \
+            == lp.LAUNCHES["auc_count"] == 5
+        want = plan._counts_with(1, 5, lp._score_into_plain,
+                                 lp.auc_count_plain)
+        if metric == "adamic_adar":
+            assert np.abs(got - want).max() <= 3
+        else:
+            assert np.array_equal(got, want)
+            cpu = lp.AUCPlan(g, train, test, 3000, metric=metric, seed=2,
+                             device="cpu")
+            assert np.array_equal(got, cpu.counts(1, 5))

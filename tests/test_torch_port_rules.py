@@ -16,6 +16,8 @@ import torch
 from gms_tpu_torch.algorithms import bron_kerbosch as bk
 from gms_tpu_torch.algorithms import k_clique as kc
 from gms_tpu_torch.algorithms import k_clique_star as ks
+from gms_tpu_torch.algorithms import link_prediction as lp
+from gms_tpu_torch.algorithms import similarity as vs
 from gms_tpu_torch.algorithms import triangle_count as tc
 from gms_tpu_torch.graphs.bitmap import BitmapGraph
 from gms_tpu_torch.graphs.tiles import PaddedGraph
@@ -120,6 +122,31 @@ def test_per_vertex_dense_and_adg_default_device_is_the_card():
         g, device="cpu").tolist() == [0, 1, 2]
 
 
+def test_similarity_and_lp_default_device_is_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the default runs there")
+    g = build_csr(generate_rmat_el(6, 8, seed=1), num_nodes=64)
+    train, test = lp.extract_random_test_edges(g, 20, seed=1)
+    pairs = np.array([[0, 1], [2, 3]])
+    for call in (lambda: vs.vertex_similarity(g, pairs, "jaccard"),
+                 lambda: lp.AUCPlan(g, train, test, 50),
+                 lambda: lp.score_auc(g, train, test, 50),
+                 lambda: lp.link_prediction_similarity(train, 5),
+                 lambda: lp._link_prediction_similarity_plain(train, 5),
+                 lambda: lp._train_tables(train)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert vs.vertex_similarity(g, pairs, "common_neighbors",
+                                device="cpu").dtype == np.float32
+    assert 0 <= lp.AUCPlan(g, train, test, 50, device="cpu").run() <= 1
+    assert 0 <= lp.score_auc(g, train, test, 50, device="cpu") <= 1
+    edges, scores = lp.link_prediction_similarity(train, 5, device="cpu")
+    assert edges.shape == (5, 2) and scores.shape == (5,)
+    import gms_tpu_torch
+    assert gms_tpu_torch.vertex_similarity is vs.vertex_similarity
+    assert gms_tpu_torch.AUCPlan is lp.AUCPlan
+
+
 def test_cli_parses_device():
     args = cli.Parser().parse(["-g", "kronecker", "8", "-n", "2"])
     assert (args.device, args.gen, args.scale, args.trials) == (
@@ -198,6 +225,24 @@ def test_kcstar_bench_cli_prints_result_rows():
     assert int(params["kcs_cliques"]) == kc.kclique_count(g, 3, device="cpu")
     assert int(params["kcstar_star_total"]) == \
         4 * kc.kclique_count(g, 4, device="cpu")
+
+
+def test_lp_bench_cli_prints_result_rows():
+    out = _run(["-m", "gms_tpu_torch.bench.link_prediction", "-g",
+                "kronecker", "8", "-n", "1", "-v", "--device", "cpu", "-p",
+                "samples=500", "-p", "q-best=20"])
+    assert out.returncode == 0, out.stderr
+    rows = [ln.split() for ln in out.stdout.splitlines()
+            if ln.startswith("@@@")]
+    metrics = ("jaccard", "overlap", "adamic_adar", "resource",
+               "common_neighbors")
+    assert [r[-2:] for r in rows] == [
+        *([f"lp-auc-{m}", "500"] for m in metrics), ["lp-rank-jaccard", "20"]]
+    assert all(r[2] == "verified" for r in rows[:5])
+    aucs = {ln.split()[1]: float(ln.split()[2]) for ln in out.stdout.splitlines()
+            if ln.startswith("@@# auc_")}
+    assert set(aucs) == {f"auc_{m}" for m in metrics}
+    assert all(0.5 < a <= 1 for a in aucs.values())
 
 
 def test_printer_protocol():
