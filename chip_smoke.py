@@ -11,8 +11,10 @@ k-clique-star counting on its RMAT scale 12 graph, per-vertex triangle
 counts, the triangle-count ordering and the device ADG ordering on RMAT 18,
 dense-bitmap triangles and bitmap set counts on RMAT 16, and vertex
 similarity and link prediction (bench.py's lp_auc round: the sampled AUC
-and the top-q ranking) on RMAT 16 — and holds every hand-written CUDA kernel
-of those paths against its plain PyTorch version on the card. Phases, each
+and the top-q ranking) on RMAT 16, and graph coloring (Jones–Plassmann,
+Johansson, Barenboim/Elkin, dense/sparse) on RMAT 16 — and holds every
+hand-written CUDA kernel of those paths against its plain PyTorch version on
+the card. Phases, each
 printing a line and each failing the run (non-zero exit) if it fails:
 
   1. device and build: card name, power limit, nvcc build of csrc/*.cu;
@@ -156,7 +158,42 @@ printing a line and each failing the run (non-zero exit) if it fails:
      block; tile_topq and tile_all_pairs are bound by their AND+popcounts
      (one a word of each pair they must score: u < v < n for tile_topq,
      all for tile_all_pairs), and their library time is the float32
-     torch.matmul of the same common counts.
+     torch.matmul of the same common counts;
+ 37. coloring main path on RMAT 16 (bench.py's coloring graph), with every
+     coloring launch counter set to 0 just before it:
+     jones_plassmann(g, speculative=True, priority="degree") must give 104
+     colors and digest c7b066c1de1c6f34 (COLOR_GOLDEN, gms_tpu's on the CPU);
+     the first call's time (its round-start states recorded by wrapping the
+     module's spec_round for the call),
+     the median of 3 warm calls and of 3 host tier builds with their copy,
+     the rounds and launches; color_spec must have launched;
+ 38. the other deterministic variants at RMAT 16, the counters set to 0
+     before each: speculative random, strict JP-LF (its jp_round states
+     recorded), strict random and dense_sparse(g, seed=0), each against its
+     digest; color_jp must have launched;
+ 39. dense_sparse on RMAT 14 with friend_number 32 (its friend components
+     fire): 265 colors, digest dc688ce0f6f78322 (its component_step
+     states recorded); color_components and K18 (pair_scores) must have
+     launched;
+ 40. the randomized runs at RMAT 16, the counters set to 0 before each
+     (their round states and draws recorded): johansson (proper, color <=
+     deg), barenboim_elkin "barenboim" (proper, <= Δ+1 colors) and "elkin"
+     (both bounds); each color count, time and launches; color_johansson
+     and color_one_shot must have launched;
+ 41. each coloring kernel against its plain version, exactly, on the
+     round-start states recorded in 37-40 — the first round and the last
+     with an uncolored vertex, every bucket: color_jp on strict JP-LF's,
+     color_spec (its three passes) on the main path's, color_johansson on
+     Johansson's, color_one_shot (pick and resolve) on Barenboim's (and,
+     off the kernels line, on Elkin's), color_components on phase 39's
+     first and last label steps; CUDA-event times, L2 flushed, and bytes
+     bounds of what each function needs (each row's id, own color and
+     output; for an uncolored row its own words and, entry by entry, the
+     index word and only the neighbour words whose condition holds, up to
+     the entry that decides the row: bucket_bytes); color_components'
+     library time is one scatter_reduce_ (amin) over the friend edge list
+     a step, on the same two states. Each kernels-line entry takes its
+     launches from the run whose states it times.
 
 The line before the last is a JSON object describing every kernel; the last
 is {"ok": true, "device": {...}}. Imports nothing of jax or gms_tpu.
@@ -164,6 +201,8 @@ is {"ok": true, "device": {...}}. Imports nothing of jax or gms_tpu.
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
 import json
 import math
 import statistics
@@ -241,6 +280,16 @@ KERNELS = {
                   "gms_tpu/algorithms/link_prediction.py:471"),
     "tile_all_pairs": ("gms_tpu_torch/csrc/tile_scores.cu",
                        "gms_tpu/algorithms/similarity.py:115"),
+    "color_jp": ("gms_tpu_torch/csrc/color_jp.cu",
+                 "gms_tpu/algorithms/coloring.py:106"),
+    "color_spec": ("gms_tpu_torch/csrc/color_spec.cu",
+                   "gms_tpu/algorithms/coloring.py:202"),
+    "color_johansson": ("gms_tpu_torch/csrc/color_random.cu",
+                        "gms_tpu/algorithms/coloring.py:127"),
+    "color_one_shot": ("gms_tpu_torch/csrc/color_random.cu",
+                       "gms_tpu/algorithms/coloring.py:404"),
+    "color_components": ("gms_tpu_torch/csrc/color_components.cu",
+                         "gms_tpu/algorithms/coloring.py:486"),
 }
 BK_GOLDEN = 165_402_717      # maximal cliques, RMAT-14 deg 16 (BENCH_r05)
 BK_SCALE, BK_SMALL, BK_SAMPLE = 14, 12, 1000
@@ -269,6 +318,19 @@ LP_PAIRS, LP_ORACLE = 100_000, 1000
 LP_COUNT_SCALE, LP_SMALL_SCALE, LP_SMALL_BLOCK = 14, 12, 512
 LP_BENCH_METRICS = ("jaccard", "overlap", "adamic_adar", "resource",
                     "common_neighbors")
+# phases 37-41: coloring on RMAT-16 (bench.py's coloring graph) and
+# dense_sparse on RMAT-14 with friend_number 32; goldens (colors, digest:
+# the first 16 hex digits of sha256 over the int32 colors) of gms_tpu on the
+# CPU
+COLOR_SCALE, COLOR_DS_SCALE, COLOR_DS_FRIENDS, COLOR_WARM = 16, 14, 32, 3
+COLOR_GOLDEN = {
+    "spec-lf": ({"speculative": True, "priority": "degree"}, 104,
+                "c7b066c1de1c6f34"),
+    "spec-random": ({"speculative": True}, 145, "373936d8668860a3"),
+    "strict-lf": ({"priority": "degree"}, 82, "8c0f69ed106f236d"),
+    "strict-random": ({"priority": "random"}, 111, "17b30d7e3092b7c3"),
+}
+COLOR_DS_GOLDEN = ((111, "17b30d7e3092b7c3"), (265, "dc688ce0f6f78322"))
 
 
 def check(cond: bool, what: str) -> None:
@@ -1864,6 +1926,454 @@ def lp_phases(timing, report) -> None:
                                library_ms=lib_ms))
 
 
+def color_digest(colors) -> str:
+    return hashlib.sha256(np.ascontiguousarray(
+        colors, dtype=np.int32).tobytes()).hexdigest()[:16]
+
+
+class RoundStates:
+    """Records a coloring run's round-start states: inside the `with` block
+    the coloring module's round function `fn` (the entry points call it only
+    while a vertex is uncolored) is wrapped to copy its inputs before each
+    call. Keeps the first and the last."""
+
+    def __init__(self, gc, fn: str):
+        self.gc, self.fn = gc, fn
+        self.first = self.last = None
+        self.rounds = 0
+
+    def __enter__(self):
+        inner = self.inner = getattr(self.gc, self.fn)
+
+        def record(*state, **kw):
+            snap = tuple(x.clone() if isinstance(x, torch.Tensor) else x
+                         for x in state) + (kw,)
+            if self.first is None:
+                self.first = snap
+            self.last = snap
+            self.rounds += 1
+            return inner(*state, **kw)
+
+        setattr(self.gc, self.fn, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.gc, self.fn, self.inner)
+
+    def both(self):
+        """[(label, state)] of the first and the last round."""
+        k = self.rounds
+        return [(f"round 1 of {k}", self.first),
+                (f"round {k} of {k}", self.last)]
+
+
+def nbr_take(state, nbrt):
+    """state[w] for each entry w of nbrt, the SENTINEL slots clipped."""
+    return state[nbrt.long().clamp(max=state.shape[0] - 1)]
+
+
+def bucket_bytes(ids, nbrt, colors, own, entry, stop=None, live=None,
+                 writes=4) -> int:
+    """The bytes a bucket launch's function needs. Every row: its id, its
+    own color and `writes` bytes of output (int, or int64[Vt] a row). Each
+    live row (by default the uncolored ones) also `own` bytes (int or
+    int64[Vt]) and, over its row in order, `entry` bytes an entry
+    (int64[Vt, Dt]: the index word and the neighbour's state words the
+    function needs there, 0 where their condition fails) up to and
+    including the first entry where `stop` holds (the row's answer is known
+    there), else to the end of the row and its SENTINEL where Dt has room."""
+    from gms_tpu_torch.graphs.tiles import SENTINEL
+    n = colors.shape[0] - 1
+    idl = ids.long()
+    if live is None:
+        live = (colors[idl] == -1) & (idl < n)
+    valid = nbrt != SENTINEL
+    entry = torch.where(valid, entry, torch.zeros_like(entry))
+    ended = torch.ones_like(live)
+    if stop is not None:
+        hit = (stop & valid).long()
+        entry = torch.where(torch.cumsum(hit, 1) - hit == 0, entry,
+                            torch.zeros_like(entry))
+        ended = hit.sum(1) == 0
+    term = 4 * (ended & (valid.sum(1) < nbrt.shape[1])).long()
+    per_live = own + entry.sum(1) + term
+    out = (writes * ids.numel() if isinstance(writes, int)
+           else int(writes.sum()))
+    return 8 * ids.numel() + out + int(per_live[live].sum())
+
+
+def color_compare(timing, calls):
+    """calls: [(label, kernel, plain, bytes, setup)]. setup (or None)
+    restores the kernel's buffer before each run, untimed; each function
+    runs once for the comparison. Returns compare()'s tuple (bytes bound
+    every call)."""
+    err, k_ms, p_ms, bound = 0, 0.0, 0.0, 0.0
+    for label, kernel, plain, nbytes, setup in calls:
+        if setup is not None:
+            setup()
+        got, want = kernel(), plain()
+        diff = max_abs_err(got, want)
+        kt = timing.ms(kernel, KERNEL_REPS, setup=setup)
+        pt = timing.ms(plain, PLAIN_REPS)
+        bt = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"    {label}: max_abs_err {diff}, kernel {kt:.4f} ms, bound "
+              f"{bt:.4f} ms ({nbytes} bytes), plain {pt:.4f} ms")
+        err, k_ms, p_ms, bound = (max(err, diff), k_ms + kt, p_ms + pt,
+                                  bound + bt)
+    return err, k_ms, p_ms, bound, "bytes"
+
+
+def jp_calls(gc, label, state):
+    """color_jp on each bucket of a strict JP round-start state. Bytes, for
+    an uncolored row: its priority; each entry's index word and color, and
+    an uncolored neighbour's priority, up to the first rival (an uncolored
+    neighbour of higher priority: the row loses); a write only for a row
+    that wins (the colors are updated in place)."""
+    from gms_tpu_torch.graphs.tiles import SENTINEL
+    col, prio, tiers = state[:3]
+    calls = []
+    for ids, nbrt in tiers:
+        idl = ids.long()
+        unc_n = nbr_take(col, nbrt) == -1
+        rival = unc_n & (nbr_take(prio, nbrt) > prio[idl][:, None])
+        live = (col[idl] == -1) & (idl < col.shape[0] - 1)
+        wins = live & ~(rival & (nbrt != SENTINEL)).any(1)
+        nbytes = bucket_bytes(ids, nbrt, col, 4, 8 + 4 * unc_n.long(),
+                              stop=rival, writes=4 * wins.long())
+        kbuf, pbuf = col.clone(), col.clone()
+
+        def plain(ids=ids, nbrt=nbrt, pbuf=pbuf):
+            pbuf.copy_(col)
+            return gc.jp_bucket_plain(pbuf, prio, ids, nbrt)
+
+        calls.append((
+            f"color_jp {label}, Dt {nbrt.shape[1]}, Vt {ids.numel()}",
+            lambda ids=ids, nbrt=nbrt, kbuf=kbuf: gc.jp_bucket(
+                kbuf, prio, ids, nbrt),
+            plain, nbytes, lambda kbuf=kbuf: kbuf.copy_(col)))
+    return calls
+
+
+def spec_calls(gc, label, state):
+    """The three passes on each bucket of a speculative round-start state.
+    Bytes, for an uncolored row: pick, each entry's index word and color;
+    rank, its own pick and priority, each entry's index word and color, an
+    uncolored neighbour's pick, and the priority of one whose pick is the
+    row's; clash, its own tent and priority, each entry's index word and
+    tent, and the priority of one whose tent is the row's, up to the first
+    such neighbour of higher priority (the row loses)."""
+    col, prio, tiers = state[:3]
+    pick0 = col.clone()
+    for ids, nbrt in tiers:
+        gc.spec_pick_plain(col, ids, nbrt, pick0)
+    tent = col.clone()
+    for ids, nbrt in tiers:
+        gc.spec_rank_plain(col, pick0, prio, ids, nbrt, tent)
+    calls = []
+    for ids, nbrt in tiers:
+        tag = f"{label}, Dt {nbrt.shape[1]}, Vt {ids.numel()}"
+        idl = ids.long()
+        unc_n = (nbr_take(col, nbrt) == -1).long()
+        same_pk = (nbr_take(pick0, nbrt) == pick0[idl][:, None]).long()
+        same_t = nbr_take(tent, nbrt) == tent[idl][:, None]
+        higher = nbr_take(prio, nbrt) > prio[idl][:, None]
+        bufs = [col.clone() for _ in range(6)]
+        calls += [
+            (f"spec_pick {tag}",
+             lambda ids=ids, nbrt=nbrt, b=bufs[0]: gc.spec_pick(
+                 col, ids, nbrt, b),
+             lambda ids=ids, nbrt=nbrt, b=bufs[1]: gc.spec_pick_plain(
+                 col, ids, nbrt, b),
+             bucket_bytes(ids, nbrt, col, 0, torch.full_like(unc_n, 8)),
+             None),
+            (f"spec_rank {tag}",
+             lambda ids=ids, nbrt=nbrt, b=bufs[2]: gc.spec_rank(
+                 col, pick0, prio, ids, nbrt, b),
+             lambda ids=ids, nbrt=nbrt, b=bufs[3]: gc.spec_rank_plain(
+                 col, pick0, prio, ids, nbrt, b),
+             bucket_bytes(ids, nbrt, col, 8,
+                          8 + 4 * unc_n + 4 * unc_n * same_pk), None),
+            (f"spec_clash {tag}",
+             lambda ids=ids, nbrt=nbrt, b=bufs[4]: gc.spec_clash(
+                 col, tent, prio, ids, nbrt, b),
+             lambda ids=ids, nbrt=nbrt, b=bufs[5]: gc.spec_clash_plain(
+                 col, tent, prio, ids, nbrt, b),
+             bucket_bytes(ids, nbrt, col, 8, 8 + 4 * same_t.long(),
+                          stop=same_t & higher), None)]
+    return calls
+
+
+def johansson_calls(gc, label, state):
+    """johansson_bucket on each bucket of a Johansson round-start state,
+    with that round's draws. Bytes, for an uncolored row: its draw and
+    deg1; each entry's index word and color, and an uncolored neighbour's
+    draw and deg1, up to the first neighbour whose pick is the row's."""
+    col, deg1, draws, tiers = state[:4]
+    calls = []
+    for ids, nbrt in tiers:
+        idl = ids.long()
+        ncol = nbr_take(col, nbrt)
+        npick = torch.where(ncol == -1, torch.remainder(
+            nbr_take(draws, nbrt), nbr_take(deg1, nbrt)), ncol)
+        vpick = torch.remainder(draws[idl], deg1[idl])
+        kb, pb = col.clone(), col.clone()
+        calls.append((
+            f"color_johansson {label}, Dt {nbrt.shape[1]}, Vt {ids.numel()}",
+            lambda ids=ids, nbrt=nbrt, b=kb: gc.johansson_bucket(
+                col, deg1, draws, ids, nbrt, b),
+            lambda ids=ids, nbrt=nbrt, b=pb: gc.johansson_bucket_plain(
+                col, deg1, draws, ids, nbrt, b),
+            bucket_bytes(ids, nbrt, col, 8, 8 + 8 * (ncol == -1).long(),
+                         stop=npick == vpick[:, None]), None))
+    return calls
+
+
+def one_shot_calls(gc, label, state):
+    """one_shot_pick and one_shot_resolve on each bucket of a Barenboim or
+    Elkin round-start state, with that round's draws. Bytes, for an
+    uncolored row: pick, its draw (and its deg1 for Elkin's palette), each
+    entry's index word and color, two writes a row (pick and nfree);
+    resolve, its nfree, and where nfree > 0 its pick and, over the entries
+    w > v only, the index word, the color and an uncolored neighbour's
+    pick, up to the first uncolored w > v with the row's pick."""
+    col, deg1, draws, tiers, kw = state
+    pick, nfree = col.clone(), torch.zeros_like(col)
+    for ids, nbrt in tiers:
+        gc.one_shot_pick_plain(col, deg1, draws, ids, nbrt, pick, nfree, **kw)
+    calls = []
+    for ids, nbrt in tiers:
+        tag = f"{label}, Dt {nbrt.shape[1]}, Vt {ids.numel()}"
+        idl = ids.long()
+        unc_v = (col[idl] == -1) & (idl < col.shape[0] - 1)
+        unc_n = (nbr_take(col, nbrt) == -1).long()
+        above = (nbrt.long() > idl[:, None]).long()
+        free = nfree[idl] > 0
+        clash = (above * unc_n).bool() & (nbr_take(pick, nbrt)
+                                          == pick[idl][:, None])
+        kp, kn, pp, pn = col.clone(), col.clone(), col.clone(), col.clone()
+        ko, po = col.clone(), col.clone()
+        calls += [
+            (f"one_shot_pick {tag}",
+             lambda ids=ids, nbrt=nbrt, a=kp, b=kn: gc.one_shot_pick(
+                 col, deg1, draws, ids, nbrt, a, b, **kw),
+             lambda ids=ids, nbrt=nbrt, a=pp, b=pn: gc.one_shot_pick_plain(
+                 col, deg1, draws, ids, nbrt, a, b, **kw),
+             bucket_bytes(ids, nbrt, col, 8 if kw["palette_deg"] else 4,
+                          torch.full_like(unc_n, 8), writes=8), None),
+            (f"one_shot_resolve {tag}",
+             lambda ids=ids, nbrt=nbrt, b=ko: gc.one_shot_resolve(
+                 col, pick, nfree, ids, nbrt, b),
+             lambda ids=ids, nbrt=nbrt, b=po: gc.one_shot_resolve_plain(
+                 col, pick, nfree, ids, nbrt, b),
+             bucket_bytes(ids, nbrt, col, 8, above * (8 + 4 * unc_n),
+                          stop=clash, live=unc_v & free)
+             + 4 * int((unc_v & ~free).sum()), None)]
+    return calls
+
+
+def component_calls(gc, label, state):
+    indptr, indices, comp = state[:3]
+    n, nnz = comp.numel(), indices.numel()
+    return [(f"color_components {label}, n {n}, {nnz} friend entries",
+             lambda: gc.component_step(indptr, indices, comp),
+             lambda: gc.component_step_plain(indptr, indices, comp),
+             8 * (n + 1) + 8 * nnz + 8 * n + 4, None)]
+
+
+def coloring_phases(timing, report) -> None:
+    """Phases 37-41: graph coloring (see the module docstring)."""
+    from gms_tpu_torch.algorithms import coloring as gc
+    from gms_tpu_torch.algorithms import similarity as vs
+    from gms_tpu_torch.io.builder import build_csr
+    from gms_tpu_torch.io.generators import generate_rmat_el
+
+    t0 = time.perf_counter()
+    g = build_csr(generate_rmat_el(COLOR_SCALE, DEGREE, seed=SEED),
+                  num_nodes=1 << COLOR_SCALE)
+    deg = g.degrees
+    buckets = [(ids.size, t.shape[1]) for ids, t in gc._TierGraph(g).tiers]
+    print(f"[37] graph RMAT {COLOR_SCALE}: {g.num_nodes} nodes "
+          f"({int((deg == 0).sum())} isolated), {g.num_edges_undirected} "
+          f"undirected edges, max degree {g.max_degree}; buckets (vertices, "
+          f"width) {buckets}; {time.perf_counter() - t0:.2f} s")
+
+    def held(graph, c, want_n, want_d, what):
+        n_col, d = gc.unique_colors_count(c), color_digest(c)
+        check(gc.verify_coloring(graph, c), f"{what}: not a proper coloring")
+        if want_n is not None:
+            check((n_col, d) == (want_n, want_d),
+                  f"{what}: {n_col} colors, digest {d}; want {want_n}, "
+                  f"{want_d}")
+        return n_col, d
+
+    # [37] main path: speculative JP-LF, counters from 0
+    kw, want_n, want_d = COLOR_GOLDEN["spec-lf"]
+    gc.reset_launches()
+    t0 = time.perf_counter()
+    with RoundStates(gc, "spec_round") as spec_states:
+        c = gc.jones_plassmann(g, device="cuda", **kw)
+    first_s = time.perf_counter() - t0
+    main_launches = dict(gc.LAUNCHES)
+    rounds = gc.ROUNDS["jones_plassmann"]
+    n_col, d = held(g, c, want_n, want_d, "speculative JP-LF")
+    check(gc.verify_degree_bound(g, c), "speculative JP-LF over deg(v)")
+    warm = []
+    for _ in range(COLOR_WARM):
+        t0 = time.perf_counter()
+        c = gc.jones_plassmann(g, device="cuda", **kw)
+        warm.append(time.perf_counter() - t0)
+        check(color_digest(c) == want_d, "a warm call's colors differ")
+    tier_s = []
+    for _ in range(COLOR_WARM):
+        t0 = time.perf_counter()
+        gc._TierGraph(g).to("cuda")
+        torch.cuda.synchronize()
+        tier_s.append(time.perf_counter() - t0)
+    print(f"[37] main path jones_plassmann(g, speculative=True, "
+          f"priority=\"degree\"): {n_col} colors, digest {d}; first call "
+          f"(round states recorded) {first_s:.4f} s, median of {COLOR_WARM} warm calls "
+          f"{statistics.median(warm):.4f} s, of which the host tier build "
+          f"and its copy {statistics.median(tier_s):.4f} s (median of "
+          f"{COLOR_WARM} apart); {rounds} rounds; launches {main_launches}")
+    check(main_launches["color_spec"] > 0, "K23 never launched")
+
+    # [38] the other deterministic variants, counters from 0 before each
+    run_launches = {}
+    strict_states = RoundStates(gc, "jp_round")
+    for key in ("spec-random", "strict-lf", "strict-random"):
+        kw, want_n, want_d = COLOR_GOLDEN[key]
+        gc.reset_launches()
+        t0 = time.perf_counter()
+        with (strict_states if key == "strict-lf"
+              else contextlib.nullcontext()):
+            c = gc.jones_plassmann(g, device="cuda", **kw)
+        dt = time.perf_counter() - t0
+        run_launches[key] = dict(gc.LAUNCHES)
+        n_col, d = held(g, c, want_n, want_d, key)
+        print(f"[38] JP {key}: {n_col} colors, digest {d}, "
+              f"{gc.ROUNDS['jones_plassmann']} rounds, {dt:.4f} s; launches "
+              f"{run_launches[key]}")
+    check(run_launches["strict-lf"]["color_jp"] > 0, "K22 never launched")
+    gc.reset_launches()
+    vs.reset_launches()
+    t0 = time.perf_counter()
+    c = gc.dense_sparse(g, seed=0, device="cuda")
+    dt = time.perf_counter() - t0
+    n_col, d = held(g, c, *COLOR_DS_GOLDEN[0], "dense_sparse RMAT 16")
+    print(f"[38] dense_sparse(g, seed=0): {n_col} colors, digest {d}, "
+          f"{gc.ROUNDS['dense_sparse']} JP rounds, {dt:.4f} s; launches "
+          f"{dict(gc.LAUNCHES)}, pair_scores {vs.LAUNCHES['pair_scores']}")
+    check(gc.LAUNCHES["color_jp"] > 0, "dense_sparse: K22 never launched")
+
+    # [39] dense_sparse with its friend components firing
+    g14 = build_csr(generate_rmat_el(COLOR_DS_SCALE, DEGREE, seed=SEED),
+                    num_nodes=1 << COLOR_DS_SCALE)
+    gc.reset_launches()
+    vs.reset_launches()
+    t0 = time.perf_counter()
+    with RoundStates(gc, "component_step") as ds_states:
+        c = gc.dense_sparse(g14, seed=0, friend_number=COLOR_DS_FRIENDS,
+                            device="cuda")
+    dt = time.perf_counter() - t0
+    ds_launches = dict(gc.LAUNCHES)
+    n_col, d = held(g14, c, *COLOR_DS_GOLDEN[1], "dense_sparse RMAT 14")
+    print(f"[39] dense_sparse(RMAT {COLOR_DS_SCALE}, friend_number="
+          f"{COLOR_DS_FRIENDS}): {n_col} colors, digest {d}, "
+          f"{gc.ROUNDS['component_labels']} label steps, "
+          f"{gc.ROUNDS['dense_sparse']} JP rounds, {dt:.4f} s; launches "
+          f"{ds_launches}, pair_scores {vs.LAUNCHES['pair_scores']}")
+    check(ds_launches["color_components"] > 0, "K25 never launched")
+    check(vs.LAUNCHES["pair_scores"] > 0, "K18 never launched")
+
+    # [40] the randomized runs, counters from 0 before each
+    rand_states, rand_launches = {}, {}
+    for label, call, fn, bound in (
+            ("johansson", lambda: gc.johansson(g, device="cuda"),
+             "johansson_round", gc.verify_degree_bound),
+            ("barenboim", lambda: gc.barenboim_elkin(
+                g, variant="barenboim", device="cuda"), "one_shot_round",
+             gc.verify_delta_plus_one),
+            ("elkin", lambda: gc.barenboim_elkin(
+                g, variant="elkin", device="cuda"), "one_shot_round",
+             gc.verify_degree_bound)):
+        gc.reset_launches()
+        t0 = time.perf_counter()
+        with RoundStates(gc, fn) as rand_states[label]:
+            c = call()
+        dt = time.perf_counter() - t0
+        rand_launches[label] = dict(gc.LAUNCHES)
+        n_col, _ = held(g, c, None, None, label)
+        check(bound(g, c) and gc.verify_delta_plus_one(g, c),
+              f"{label} breaks its color bound")
+        print(f"[40] {label}: {n_col} colors, rounds "
+              f"{rand_states[label].rounds}, {dt:.4f} s; launches "
+              f"{rand_launches[label]}")
+    check(rand_launches["johansson"]["color_johansson"] > 0,
+          "K24's johansson entry never launched")
+    check(all(rand_launches[v]["color_one_shot"] > 0
+              for v in ("barenboim", "elkin")), "K24's one-shot never launched")
+
+    # [41] each kernel against its plain version on the recorded round-start
+    # states (the round's own draws for K24): the first round and the last
+    # with an uncolored vertex, every bucket. Each kernels-line entry takes
+    # its launches and its times from one run.
+    groups = {
+        "color_jp": (run_launches["strict-lf"], [
+            c for lab, st in strict_states.both()
+            for c in jp_calls(gc, f"JP-LF {lab}", st)]),
+        "color_spec": (main_launches, [
+            c for lab, st in spec_states.both()
+            for c in spec_calls(gc, f"spec JP-LF {lab}", st)]),
+        "color_johansson": (rand_launches["johansson"], [
+            c for lab, st in rand_states["johansson"].both()
+            for c in johansson_calls(gc, f"Johansson {lab}", st)]),
+        "color_one_shot": (rand_launches["barenboim"], [
+            c for lab, st in rand_states["barenboim"].both()
+            for c in one_shot_calls(gc, f"Barenboim {lab}", st)]),
+        "color_components": (ds_launches, [
+            c for lab, st in ds_states.both()
+            for c in component_calls(gc, f"RMAT {COLOR_DS_SCALE}, label "
+                                     f"step {lab.split()[1]}", st)]),
+    }
+    # Elkin's per-vertex palettes: held to plain too, not on the kernels line
+    err, k_ms, p_ms, bound_ms, _ = color_compare(timing, [
+        c for lab, st in rand_states["elkin"].both()
+        for c in one_shot_calls(gc, f"Elkin {lab}", st)])
+    print(f"[41] color_one_shot on Elkin's first and last round: max_abs_err "
+          f"{err}, kernel {k_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes), "
+          f"plain {p_ms:.4f} ms; its launches "
+          f"{rand_launches['elkin']['color_one_shot']}")
+    check(err == 0, f"color_one_shot (Elkin) disagrees with plain by {err}")
+    for name, (launches, calls) in groups.items():
+        err, k_ms, p_ms, bound_ms, by = color_compare(timing, calls)
+        lib_ms = None
+        if name == "color_components":
+            # one scatter_reduce_ (amin) over the friend edge list computes
+            # the same step; on the same two states as the kernel
+            lib_ms = 0.0
+            for _, (indptr, indices, comp, _) in ds_states.both():
+                rows = torch.repeat_interleave(
+                    torch.arange(comp.numel(), device="cuda"),
+                    indptr[1:] - indptr[:-1])
+
+                def lib(comp=comp, rows=rows, idx=indices.long()):
+                    return comp.clone().scatter_reduce_(0, rows, comp[idx],
+                                                        reduce="amin")
+
+                check(torch.equal(lib(), gc.component_step(
+                    indptr, indices, comp)[0]),
+                    "scatter_reduce_ differs from K25")
+                lib_ms += timing.ms(lib, KERNEL_REPS)
+            print(f"    library scatter_reduce_ (amin) on both steps "
+                  f"{lib_ms:.4f} ms")
+        print(f"[41] {name}: {len(calls)} launches held, max_abs_err {err}, "
+              f"kernel {k_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), plain "
+              f"{p_ms:.4f} ms; launches of its run {launches[name]}")
+        check(err == 0, f"{name} disagrees with its plain version by {err}")
+        report.append(kernel_entry(name, launches[name], err, k_ms, p_ms,
+                                   bound_ms, by, library_ms=lib_ms))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -2028,7 +2538,9 @@ def main() -> None:
     del g
     print(f"[29] total so far {time.perf_counter() - t_start:.1f} s")
     lp_phases(timing, report)
-    print(f"[36] total {time.perf_counter() - t_start:.1f} s")
+    print(f"[36] total so far {time.perf_counter() - t_start:.1f} s")
+    coloring_phases(timing, report)
+    print(f"[41] total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

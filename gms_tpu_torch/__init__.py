@@ -22,13 +22,15 @@ __version__ = "0.1.0"
 
 from gms_tpu_torch.graphs.bitmap import BitmapGraph
 
-__all__ = ["BitmapGraph", "vertex_similarity", "AUCPlan"]
+__all__ = ["BitmapGraph", "vertex_similarity", "AUCPlan", "jones_plassmann"]
 
 # lazy top-level conveniences, as gms_tpu's
 _LAZY = {
     "vertex_similarity": ("gms_tpu_torch.algorithms.similarity",
                           "vertex_similarity"),
     "AUCPlan": ("gms_tpu_torch.algorithms.link_prediction", "AUCPlan"),
+    "jones_plassmann": ("gms_tpu_torch.algorithms.coloring",
+                        "jones_plassmann"),
 }
 
 

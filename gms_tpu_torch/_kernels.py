@@ -132,6 +132,31 @@ SIGNATURES = {
         "tile_topq": (_P, _I, _P, _L, _L, _P, _L, _L, _L, _L, _P, _I, _I, _I,
                       _L, _L, _I, _P, _P, _P, _P, _P),
     },
+    "color_jp": {
+        # ids, nbrt, Vt, Dt, colors, prio, cw, dec, stream
+        "color_jp": (_P, _P, _L, _I, _P, _P, _I, _P, _P),
+    },
+    "color_spec": {
+        # ids, nbrt, Vt, Dt, colors, cw, pick0, stream
+        "spec_pick": (_P, _P, _L, _I, _P, _I, _P, _P),
+        # ids, nbrt, Vt, Dt, colors, pick0, prio, cw, tent, stream
+        "spec_rank": (_P, _P, _L, _I, _P, _P, _P, _I, _P, _P),
+        # ids, nbrt, Vt, Dt, colors, tent, prio, out, stream
+        "spec_clash": (_P, _P, _L, _I, _P, _P, _P, _P, _P),
+    },
+    "color_random": {
+        # ids, nbrt, Vt, Dt, colors, deg1, draws, out, stream
+        "johansson": (_P, _P, _L, _I, _P, _P, _P, _P, _P),
+        # ids, nbrt, Vt, Dt, colors, deg1, draws, palette_deg, delta, cw,
+        # pick, nfree, stream
+        "one_shot_pick": (_P, _P, _L, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+        # ids, nbrt, Vt, Dt, colors, pick, nfree, out, stream
+        "one_shot_resolve": (_P, _P, _L, _I, _P, _P, _P, _P, _P),
+    },
+    "color_components": {
+        # indptr, indices, n, comp, nxt, changed, stream
+        "component_step": (_P, _P, _L, _P, _P, _P, _P),
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -11,6 +11,8 @@ port's carrier for the same bits.
 * `bitmap_from_numpy`: a BitmapGraph's uint32 words as a port BitmapGraph.
 * `train_tables_from_numpy`: link prediction's train tables (`_train_tables`
   of gms_tpu's algorithms/link_prediction.py) as the port's.
+* `tiers_from_numpy`: coloring's degree tiers (`_TierGraph.tiers` of gms_tpu's
+  algorithms/coloring.py, (ids_pad, nbrt) pairs) as port tensors.
 
 The adjacency `nbr` must be gms_tpu's padded layout (rows sorted, SENTINEL
 tail, guard row): the port's merge and search kernels rely on it, and
@@ -105,6 +107,23 @@ def train_tables_from_numpy(nbr, deg, bm_words, hub_idx, vw, hub_t, *,
                           device=dev),
         tensor_from_numpy(np.asarray(hub_idx, np.int32), device=dev),
         int(vw))
+
+
+def tiers_from_numpy(tiers, *, device="cuda") -> list:
+    """[(ids int32[Vt], nbrt int32[Vt, Dt])] tensors from gms_tpu's
+    `_TierGraph.tiers`, the rows the coloring rounds of both packages take
+    (each row sorted with a SENTINEL tail, checked under
+    GMS_TPU_PARANOID=1)."""
+    dev = resolve(device)
+    out = []
+    for ids, nbrt in tiers:
+        nbrt = np.asarray(nbrt, dtype=np.int32)
+        if checks.paranoid():
+            checks.validate_sorted_rows(nbrt, name="tiers_from_numpy")
+        out.append((tensor_from_numpy(np.asarray(ids, dtype=np.int32),
+                                      device=dev),
+                    tensor_from_numpy(nbrt, device=dev)))
+    return out
 
 
 def plan_from_numpy(state: dict, *, device="cuda") -> TrianglePlan:

@@ -17,6 +17,7 @@ import torch
 
 from gms_tpu_torch import _kernels
 from gms_tpu_torch.algorithms import bron_kerbosch as bk
+from gms_tpu_torch.algorithms import coloring as gc
 from gms_tpu_torch.algorithms import k_clique as kc
 from gms_tpu_torch.algorithms import k_clique_star as ks
 from gms_tpu_torch.algorithms import link_prediction as lp
@@ -124,6 +125,38 @@ def test_similarity_wrappers_reject_bad_inputs():
         lp.auc_count(torch.zeros(5), _i32(1), _i32(2))
     with pytest.raises(TypeError):
         lp.auc_count(torch.zeros(4, dtype=torch.float64), _i32(1), _i32(2))
+
+
+def test_coloring_wrappers_reject_bad_inputs():
+    ids, nbrt, st = _i32(8), _i32(8, 32), _i32(11)
+    with pytest.raises(ValueError, match="does not match"):
+        gc.jp_bucket(st, st, ids, _i32(7, 32))
+    with pytest.raises(ValueError, match="state arrays"):
+        gc.jp_bucket(st, _i32(12), ids, nbrt)
+    with pytest.raises(TypeError):
+        gc.spec_pick(st.long(), ids, nbrt, st)
+    with pytest.raises(TypeError):
+        gc.johansson_bucket(st, st, st, ids, nbrt.float(), st)
+    with pytest.raises(ValueError, match="contiguous"):
+        gc.one_shot_resolve(st, st, st, ids, _i32(32, 8).T, st)
+    with pytest.raises(ValueError, match="indptr"):
+        gc.component_step(torch.zeros(5, dtype=torch.long), _i32(3), _i32(5))
+    with pytest.raises(TypeError):
+        gc.component_step(_i32(6), _i32(3), _i32(5))
+
+
+def test_coloring_wrappers_check_ids_when_paranoid(monkeypatch):
+    st, ids = _i32(11), torch.full((8,), 10, dtype=torch.int32)
+    nbrt = torch.full((8, 32), SENTINEL, dtype=torch.int32)
+    nbrt[0, 0] = 10                      # the dump slot is no neighbour
+    gc.jp_bucket(st.clone(), st, ids, nbrt)     # unchecked
+    monkeypatch.setenv("GMS_TPU_PARANOID", "1")
+    with pytest.raises(ValueError, match="outside"):
+        gc.jp_bucket(st.clone(), st, ids, nbrt)
+    nbrt[0, 0] = 3
+    ids[1] = 11
+    with pytest.raises(ValueError, match="outside"):
+        gc.spec_clash(st, st, st, ids, nbrt, st.clone())
 
 
 def test_pair_scores_check_sorted_rows_when_paranoid(monkeypatch):
@@ -903,3 +936,117 @@ def test_auc_plan_on_card(card):
             cpu = lp.AUCPlan(g, train, test, 3000, metric=metric, seed=2,
                              device="cpu")
             assert np.array_equal(got, cpu.counts(1, 5))
+
+
+def _coloring_graph(seed):
+    """RMAT-11 plus two hubs (degrees about 1,600 and 600, buckets 2,048
+    and 1,024) and a 40-clique: every bucket width from 32 to 2,048, and
+    same-bucket races everywhere."""
+    rng = np.random.default_rng(seed)
+    n = 2048
+    el = [generate_rmat_el(11, 16, seed=27491095),
+          np.stack([np.full(3000, 7), rng.choice(n, 3000)], axis=1),
+          np.stack([np.full(700, 11), rng.choice(n, 700)], axis=1)]
+    blk = rng.choice(n, 40, replace=False)
+    el.append(np.array([[a, b] for i, a in enumerate(blk)
+                        for b in blk[i + 1:]]))
+    return build_csr(np.concatenate(el).astype(np.int64), num_nodes=n)
+
+
+def _states(g, card, rounds=3):
+    """Round-start colors of a speculative JP run from all-uncolored
+    (plain), with its random priorities."""
+    n = g.num_nodes
+    prio = torch.from_numpy(gc.jp_priorities(g, "random", 1)).to(card)
+    tiers = gc._TierGraph(g).to(card)
+    col = gc._initial_colors(n, card)
+    states = [col]
+    for _ in range(rounds):
+        col = gc.spec_round_plain(col, prio, tiers)
+        states.append(col)
+    return prio, tiers, states
+
+
+@pytest.mark.cuda
+def test_color_rounds_on_card(card):
+    g = _coloring_graph(3)
+    n = g.num_nodes
+    prio, tiers, states = _states(g, card)
+    assert [t.shape[1] for _, t in tiers][-1] == 2048
+    deg1 = torch.from_numpy(np.concatenate([g.degrees + 1, [1]])
+                            .astype(np.int32)).to(card)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(5)
+    for col in states:
+        for ids, nbrt in tiers:
+            got = _launched("color_jp", lambda: gc.jp_bucket(
+                col.clone(), prio, ids, nbrt), gc.LAUNCHES)
+            assert torch.equal(got, gc.jp_bucket_plain(col.clone(), prio,
+                                                       ids, nbrt))
+            pk = _launched("color_spec", lambda: gc.spec_pick(
+                col, ids, nbrt, col.clone()), gc.LAUNCHES)
+            assert torch.equal(pk, gc.spec_pick_plain(col, ids, nbrt,
+                                                      col.clone()))
+        assert torch.equal(gc.jp_round(col, prio, tiers),
+                           gc.jp_round_plain(col, prio, tiers))
+        assert torch.equal(gc.spec_round(col, prio, tiers),
+                           gc.spec_round_plain(col, prio, tiers))
+        draws = torch.randint(0, (1 << 31) - 1, (n + 1,), generator=gen,
+                              device=card, dtype=torch.int32)
+        assert torch.equal(gc.johansson_round(col, deg1, draws, tiers),
+                           gc.johansson_round_plain(col, deg1, draws, tiers))
+        for palette_deg in (False, True):
+            got = gc.one_shot_round(col, deg1, draws, tiers,
+                                    palette_deg=palette_deg,
+                                    delta=g.max_degree)
+            want = gc.one_shot_round_plain(col, deg1, draws, tiers,
+                                           palette_deg=palette_deg,
+                                           delta=g.max_degree)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1])
+    assert gc.LAUNCHES["color_johansson"] >= len(tiers)
+    assert gc.LAUNCHES["color_one_shot"] >= 4 * len(tiers)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("limit", [1, 3, 64])
+def test_component_step_on_card(card, limit):
+    rng = np.random.default_rng(limit)
+    n = 3000
+    p = rng.permutation(n)
+    el = np.concatenate([np.stack([p[:-1], p[1:]], axis=1)[:2000],
+                         rng.integers(0, n, (500, 2))])
+    fg = build_csr(el.astype(np.int64), num_nodes=n)
+    indptr = torch.from_numpy(fg.indptr).to(card)
+    indices = torch.from_numpy(fg.indices).to(card)
+    comp = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(card)
+    nxt, changed = _launched("color_components", lambda: gc.component_step(
+        indptr, indices, comp), gc.LAUNCHES)
+    want, wchanged = gc.component_step_plain(indptr, indices, comp)
+    assert torch.equal(nxt, want) and torch.equal(changed, wchanged)
+    assert torch.equal(gc.component_labels(indptr, indices, limit),
+                       gc.component_labels_plain(indptr, indices, limit))
+
+
+@pytest.mark.cuda
+def test_coloring_entry_points_on_card(card):
+    g = _coloring_graph(4)
+    for speculative in (False, True):
+        for priority in ("random", "degree", "id"):
+            got = gc.jones_plassmann(g, priority=priority,
+                                     speculative=speculative, device=card)
+            assert np.array_equal(got, gc.jones_plassmann(
+                g, priority=priority, speculative=speculative, device="cpu"))
+    for fn in (6, 12):
+        gc.reset_launches()
+        got = gc.dense_sparse(g, friend_number=fn, device=card)
+        assert gc.LAUNCHES["color_components"] > 0
+        assert np.array_equal(got, gc.dense_sparse(g, friend_number=fn,
+                                                   device="cpu"))
+    c = gc.johansson(g, device=card)
+    assert gc.verify_coloring(g, c) and gc.verify_degree_bound(g, c)
+    for variant in ("barenboim", "elkin"):
+        c = gc.barenboim_elkin(g, variant=variant, device=card)
+        assert gc.verify_coloring(g, c) and gc.verify_delta_plus_one(g, c)
+        if variant == "elkin":
+            assert gc.verify_degree_bound(g, c)

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from gms_tpu_torch.algorithms import bron_kerbosch as bk
+from gms_tpu_torch.algorithms import coloring as gc
 from gms_tpu_torch.algorithms import k_clique as kc
 from gms_tpu_torch.algorithms import k_clique_star as ks
 from gms_tpu_torch.algorithms import link_prediction as lp
@@ -147,6 +148,28 @@ def test_similarity_and_lp_default_device_is_the_card():
     assert gms_tpu_torch.AUCPlan is lp.AUCPlan
 
 
+def test_coloring_default_device_is_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the default runs there")
+    g = _triangle()
+    calls = (lambda **kw: gc.jones_plassmann(g, **kw),
+             lambda **kw: gc.jones_plassmann(g, speculative=True, **kw),
+             lambda **kw: gc.johansson(g, **kw),
+             lambda **kw: gc.barenboim_elkin(g, **kw),
+             lambda **kw: gc.barenboim_elkin(g, variant="elkin", **kw),
+             lambda **kw: gc.dense_sparse(g, **kw),
+             lambda **kw: gc._TierGraph(g).to(**kw))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    for call in calls[:-1]:
+        assert sorted(call(device="cpu").tolist()) == [0, 1, 2]
+    import gms_tpu_torch
+    from gms_tpu_torch import algorithms
+    assert gms_tpu_torch.jones_plassmann is gc.jones_plassmann
+    assert algorithms.dense_sparse is gc.dense_sparse
+
+
 def test_cli_parses_device():
     args = cli.Parser().parse(["-g", "kronecker", "8", "-n", "2"])
     assert (args.device, args.gen, args.scale, args.trials) == (
@@ -243,6 +266,24 @@ def test_lp_bench_cli_prints_result_rows():
             if ln.startswith("@@# auc_")}
     assert set(aucs) == {f"auc_{m}" for m in metrics}
     assert all(0.5 < a <= 1 for a in aucs.values())
+
+
+def test_coloring_bench_cli_prints_result_rows():
+    out = _run(["-m", "gms_tpu_torch.bench.coloring", "-g", "kronecker", "8",
+                "-n", "1", "-v", "--device", "cpu"])
+    assert out.returncode == 0, out.stderr
+    rows = [ln.split() for ln in out.stdout.splitlines()
+            if ln.startswith("@@@")]
+    names = ("jp-spec", "jp-spec-lf", "jp-random", "jp-lf", "johansson",
+             "greedy-seq")
+    assert [r[-1] for r in rows] == [f"coloring-{n}" for n in names]
+    assert all(r[2] == "verified" for r in rows)
+    counts = {ln.split()[1]: int(ln.split()[2]) for ln in out.stdout.splitlines()
+              if ln.startswith("@@# colors_")}
+    assert set(counts) == {f"colors_{n}" for n in names}
+    g = build_csr(generate_rmat_el(8, 16, seed=27491095), num_nodes=256)
+    assert counts["colors_jp-lf"] == gc.unique_colors_count(
+        gc.jones_plassmann(g, priority="degree", device="cpu"))
 
 
 def test_printer_protocol():
