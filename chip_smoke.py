@@ -12,7 +12,9 @@ counts, the triangle-count ordering and the device ADG ordering on RMAT 18,
 dense-bitmap triangles and bitmap set counts on RMAT 16, and vertex
 similarity and link prediction (bench.py's lp_auc round: the sampled AUC
 and the top-q ranking) on RMAT 16, and graph coloring (Jones–Plassmann,
-Johansson, Barenboim/Elkin, dense/sparse) on RMAT 16 — and holds every
+Johansson, Barenboim/Elkin, dense/sparse) on RMAT 16, subgraph isomorphism
+(VF2) on RMAT 14 and 17 and the compressed graph forms on RMAT 14 — and
+holds every
 hand-written CUDA kernel of those paths against its plain PyTorch version on
 the card. Phases, each
 printing a line and each failing the run (non-zero exit) if it fails:
@@ -193,7 +195,42 @@ printing a line and each failing the run (non-zero exit) if it fails:
      the entry that decides the row: bucket_bytes); color_components'
      library time is one scatter_reduce_ (amin) over the friend edge list
      a step, on the same two states. Each kernels-line entry takes its
-     launches from the run whose states it times.
+     launches from the run whose states it times;
+ 42. VF2 main path, bench.py's vf2 round on RMAT 14 (average degree 16,
+     seed 27491095): subgraph_isomorphism(g, p, induced=True, limit=1) for
+     k4, p4 and c5 in hybrid mode (host_budget=200,000) and device mode
+     (host_budget=0), best of 3 warm calls after a first; each mapping must
+     be gms_tpu's (VF2_GOLDEN, its mappings on the CPU; the same in both
+     modes) and pass verify_mapping; every hybrid call launches nothing;
+     the launch counters are set to 0 just before c5's device run, the main
+     path, whose level inputs are recorded (wrapping the module's feasible)
+     and whose launches vf2_feasible's and vf2_emit's entries carry;
+ 43. the search branch: c5 in device mode on RMAT 17, whose id-space bitmap
+     (2 GB) is over the 1 GB gate, against gms_tpu's [0, 1, 47, 4631,
+     51464]; its level inputs recorded;
+ 44. enumeration (limit=None, non-induced): the triangle on RMAT 14 gives
+     6 x 2,819,074 = 16,914,444 mappings, K4 on the largest of RMAT 10-12
+     whose mappings fit 1 GB gives 24 x kclique_count(g, 4); all rows
+     distinct, a seeded 1,000 pass verify_mapping;
+ 45. the compressed layer on RMAT 14, K28's counter set to 0 just before:
+     KbitGraph, KbitGraphBucketed and HybridGraph built on the host and
+     moved to the card; as_csr of each equals the CSR and triangle_count of
+     each is 2,819,074; K28 over every row equals PaddedGraph's rows;
+     KbitWeightedGraph.weight_rows equals the weights; bits per edge of
+     each form;
+ 46. K26-K28 against their plain versions, exactly, with CUDA-event times,
+     L2 flushed, and bytes bounds: vf2_feasible and vf2_emit on the first
+     and last level of the c5 runs of phases 42 (bitmap) and 43 (search),
+     kbit_decode_rows on RMAT 14's rows, on each filled width bucket's rows
+     (8 and 16 bits: its ids fit 14) and on its first 2,048 rows packed at
+     k = 24 and 32.
+     K26's bytes: M and the candidates, the deg1 entries of the live
+     candidates and, check by check in gms_tpu's order, the distinct
+     bitmap words or row words (binary-search probes) consulted for the
+     candidates still alive, and the mask; K27's: the mask, each child's
+     item row once and candidate, the cap x P output; K28's: each row's
+     words up to its last live lane, deg, vids and the output. No single
+     PyTorch call computes any of the three, so library_ms is null.
 
 The line before the last is a JSON object describing every kernel; the last
 is {"ok": true, "device": {...}}. Imports nothing of jax or gms_tpu.
@@ -290,6 +327,12 @@ KERNELS = {
                        "gms_tpu/algorithms/coloring.py:404"),
     "color_components": ("gms_tpu_torch/csrc/color_components.cu",
                          "gms_tpu/algorithms/coloring.py:486"),
+    "vf2_feasible": ("gms_tpu_torch/csrc/vf2_feasible.cu",
+                     "gms_tpu/algorithms/subgraph_iso.py:81"),
+    "vf2_emit": ("gms_tpu_torch/csrc/vf2_emit.cu",
+                 "gms_tpu/algorithms/subgraph_iso.py:128"),
+    "kbit_decode_rows": ("gms_tpu_torch/csrc/kbit_decode.cu",
+                         "gms_tpu/graphs/compressed.py:43"),
 }
 BK_GOLDEN = 165_402_717      # maximal cliques, RMAT-14 deg 16 (BENCH_r05)
 BK_SCALE, BK_SMALL, BK_SAMPLE = 14, 12, 1000
@@ -331,6 +374,19 @@ COLOR_GOLDEN = {
     "strict-random": ({"priority": "random"}, 111, "17b30d7e3092b7c3"),
 }
 COLOR_DS_GOLDEN = ((111, "17b30d7e3092b7c3"), (265, "dc688ce0f6f78322"))
+# phases 42-46: VF2 on RMAT-14 (bench.py's vf2 round: induced, limit=1) and
+# RMAT-17 (the search branch), gms_tpu's first mappings on the CPU, the same
+# in hybrid and device mode; enumeration against 6 x triangles and 24 x K4
+# (the largest RMAT 10-12 whose mappings fit VF2_ENUM_BYTES); the compressed
+# forms of RMAT-14 against its triangle count
+VF2_SCALE, VF2_SEARCH_SCALE, VF2_SAMPLE = 14, 17, 1000
+VF2_GOLDEN = {"k4": [0, 1, 2, 3], "p4": [43, 0, 1, 15],
+              "c5": [0, 1, 15, 748, 9270]}
+VF2_SEARCH_GOLDEN = [0, 1, 47, 4631, 51464]
+KBIT_TRI_GOLDEN = 2_819_074   # triangles, RMAT-14 deg 16 seed 27491095
+VF2_TRI_GOLDEN = 6 * KBIT_TRI_GOLDEN
+VF2_ENUM_BYTES = 1 << 30
+VF2_WIDE_ROWS = 2048          # RMAT-14 rows K28 also decodes at k = 24, 32
 
 
 def check(cond: bool, what: str) -> None:
@@ -2373,6 +2429,369 @@ def coloring_phases(timing, report) -> None:
         report.append(kernel_entry(name, launches[name], err, k_ms, p_ms,
                                    bound_ms, by, library_ms=lib_ms))
 
+# ---------------------------------------------------------------------------
+# phases 42-46: subgraph isomorphism (VF2) and the compressed graph layer
+# ---------------------------------------------------------------------------
+
+class LevelStates:
+    """Records a VF2 run's level inputs: inside the `with` block the module's
+    `feasible` is wrapped to keep its arguments (by reference: a level's
+    inputs are never written after the call). Keeps the first and the
+    last."""
+
+    def __init__(self, si):
+        self.si = si
+        self.first = self.last = None
+        self.levels = 0
+
+    def __enter__(self):
+        inner = self.inner = self.si.feasible
+
+        def record(*args, **kw):
+            if self.first is None:
+                self.first = (args, kw)
+            self.last = (args, kw)
+            self.levels += 1
+            return inner(*args, **kw)
+
+        self.si.feasible = record
+        return self
+
+    def __exit__(self, *exc):
+        self.si.feasible = self.inner
+
+    def both(self, label):
+        k = self.levels
+        return [(f"{label} level 1 of {k}", self.first),
+                (f"{label} level {k} of {k}", self.last)]
+
+
+def verify_rows(si, g, pattern, rows, induced) -> bool:
+    """si.verify_mapping for each row, on the subgraph of g induced by the
+    row's vertices (relabelled 0..P-1 in row order, mapped by the identity):
+    it has an edge (a, b) exactly where g has (row[a], row[b]), so the check
+    is the same as on g, without verify_mapping's V sets a call."""
+    from gms_tpu_torch.graphs.csr import _csr_from_sorted_pairs
+
+    P = pattern.num_nodes
+    for row in np.asarray(rows, dtype=np.int64):
+        if len(set(row.tolist())) != P:
+            return False
+        el = []  # (a, b) ascending, both directions: already CSR order
+        for a in range(P):
+            r = g.out_neigh(int(row[a]))
+            for b in range(P):
+                i = np.searchsorted(r, row[b])
+                if a != b and i < len(r) and r[i] == row[b]:
+                    el.append((a, b))
+        sub = _csr_from_sorted_pairs(
+            np.array(el, dtype=np.int64).reshape(-1, 2), P, directed=False)
+        if not si.verify_mapping(sub, pattern, np.arange(P), induced=induced):
+            return False
+    return True
+
+
+def distinct_rows_count(rows) -> int:
+    """Distinct rows of an int32[n, P] array of ids below 2^15 (P <= 4),
+    each row one int64 key, counted by torch.unique on the card."""
+    key = torch.zeros(len(rows), dtype=torch.int64, device="cuda")
+    for j in range(rows.shape[1]):
+        col = torch.from_numpy(np.ascontiguousarray(rows[:, j])).to("cuda")
+        key = (key << 16) | col.long()
+    return int(torch.unique(key).numel())
+
+
+def feasible_bytes(si, args, kw) -> int:
+    """Bytes K26 must move for one level: M and the candidates read, ok
+    written and the count; the deg1 entries of the live candidates and, in
+    gms_tpu's order of checks, the bitmap words or padded-row words (the
+    binary search's probes) each check consults for the candidates still
+    alive at it, each distinct word once."""
+    from gms_tpu_torch.graphs.tiles import SENTINEL
+
+    M, cand, nbr, deg1, bmp, pdeg = args
+    d = kw["d"]
+    use_bmp = bmp.shape[0] > 1
+    nbytes = 4 * M.numel() + 5 * cand.numel() + 8
+    alive = (cand != int(SENTINEL)) & (M[:, :1] >= 0)
+    nbytes += 4 * int(torch.unique(cand[alive]).numel())
+    alive &= deg1[cand.long().clamp(0, deg1.numel() - 1)] >= pdeg
+    for j in range(d):
+        alive &= cand != M[:, j:j + 1]
+    checks = [(p, True) for p in kw["parents"]]
+    if kw["induced"]:
+        checks += [(p, False) for p in kw["nonparents"]]
+    words = []
+    for p, want in checks:
+        n, i = alive.nonzero(as_tuple=True)
+        a, c = M[n, p].long(), cand[n, i].long()
+        if use_bmp:
+            V, vw = bmp.shape
+            q = c.clamp(0, 32 * vw - 1)
+            w = a.clamp(0, V - 1) * vw + (q >> 5)
+            words.append(w)
+            hit = ((bmp.reshape(-1)[w].long() >> (q & 31)) & 1) == 1
+        else:
+            width = nbr.shape[1]
+            base = a.clamp(0, nbr.shape[0] - 1) * width
+            flat = nbr.reshape(-1)
+            lo = torch.zeros_like(c)
+            hi = torch.full_like(c, width)
+            while bool((lo < hi).any()):
+                live = lo < hi
+                mid = (lo + hi) >> 1
+                words.append((base + mid)[live])
+                less = flat[base + mid.clamp(max=width - 1)].long() < c
+                lo = torch.where(live & less, mid + 1, lo)
+                hi = torch.where(live & ~less, mid, hi)
+            idx = lo.clamp(max=width - 1)
+            words.append(base + idx)
+            hit = flat[base + idx].long() == c
+        alive[n, i] = hit == want
+    if words:
+        nbytes += 4 * int(torch.unique(torch.cat(words)).numel())
+    return nbytes
+
+
+def emit_bytes(M, ok, cap: int) -> int:
+    """Bytes K27 must move: ok read, each emitted child's M row (each item
+    once) and candidate, the cap x P output and n_out written."""
+    n = ok.nonzero(as_tuple=True)[0][:cap]
+    items = int(torch.unique(n).numel())
+    return ok.numel() + 4 * (items * M.shape[1] + n.numel()
+                             + cap * M.shape[1]) + 8
+
+
+def kbit_bytes(deg, vids, k: int, d_pad: int) -> int:
+    """Bytes K28 must move: each distinct row's packed words up to its last
+    live lane, its deg entry, vids read and the output written."""
+    v = torch.unique(vids.long().clamp(0, deg.numel() - 1))
+    words = (deg[v].long() * k + 31) // 32
+    return 4 * (int(words.sum()) + v.numel() + vids.numel()
+                + vids.numel() * d_pad)
+
+
+def vf2_compare(si, label, states):
+    """K26 and K27 against their plain versions on recorded level inputs:
+    (feasible calls, emit calls) for compare()."""
+    from gms_tpu_torch.algorithms.k_clique import _bucket
+
+    fcalls, ecalls = [], []
+    for lab, (args, kw) in states:
+        M, cand = args[0], args[1]
+        fcalls.append((f"K26 {label} {lab}: N={M.shape[0]} Dc={cand.shape[1]}",
+                       lambda a=args, k=kw: si.feasible(*a, **k),
+                       lambda a=args, k=kw: si.feasible_plain(*a, **k),
+                       feasible_bytes(si, args, kw)))
+        ok, count = si.feasible(*args, **kw)
+        cap = _bucket(int(count))
+        ecalls.append((f"K27 {label} {lab}: {int(count)} children, cap {cap}",
+                       lambda M=M, c=cand, ok=ok, d=kw["d"], cap=cap:
+                       si.emit(M, c, ok, d=d, cap=cap),
+                       lambda M=M, c=cand, ok=ok, d=kw["d"], cap=cap:
+                       si.emit_plain(M, c, ok, d=d, cap=cap),
+                       emit_bytes(M, ok, cap)))
+    return fcalls, ecalls
+
+
+def vf2_phases(g14):
+    """Phases 42-44: VF2 (see the module docstring). g14 is RMAT 14.
+    Returns the main path's launches and the recorded level inputs of the
+    two c5 device runs."""
+    from gms_tpu_torch.algorithms import k_clique as kc
+    from gms_tpu_torch.algorithms import subgraph_iso as si
+    from gms_tpu_torch.io.builder import build_csr
+    from gms_tpu_torch.io.generators import generate_rmat_el
+
+    def pat(name):
+        return build_csr(np.array(si.VF2_PATTERNS[name], dtype=np.int64))
+
+    print(f"[42] graph RMAT {VF2_SCALE}: {g14.num_nodes} nodes, "
+          f"{g14.num_edges_undirected} undirected edges, max degree "
+          f"{g14.max_degree}")
+    # [42] bench.py's vf2 round at RMAT 14: induced, limit=1, best of 3 warm
+    recorded = {}
+    for name in si.VF2_PATTERNS:
+        p = pat(name)
+        for mode, hb in (("hybrid", 200_000), ("device", 0)):
+            si.reset_launches()
+            main = name == "c5" and mode == "device"
+            t0 = time.perf_counter()
+            with (LevelStates(si) if main
+                  else contextlib.nullcontext()) as states:
+                res = si.subgraph_isomorphism(g14, p, induced=True, limit=1,
+                                              host_budget=hb, device="cuda")
+            first_s = time.perf_counter() - t0
+            launches = dict(si.LAUNCHES)
+            ts = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                again = si.subgraph_isomorphism(g14, p, induced=True,
+                                                limit=1, host_budget=hb,
+                                                device="cuda")
+                ts.append(time.perf_counter() - t0)
+                check(np.array_equal(again, res), f"vf2 {name} {mode}: a "
+                      f"warm call's mapping differs")
+            got = res.tolist()
+            print(f"[42] vf2 {name} {mode}: {got}, best of 3 warm "
+                  f"{min(ts):.4f} s (first {first_s:.4f} s); launches "
+                  f"{launches}"
+                  + (f", {states.levels} levels" if main else ""))
+            check(got == [VF2_GOLDEN[name]], f"vf2 {name} {mode}: {got} != "
+                  f"gms_tpu's {VF2_GOLDEN[name]}")
+            check(verify_rows(si, g14, p, res, induced=True),
+                  f"vf2 {name} {mode}: not an induced mapping")
+            if mode == "hybrid":
+                check(not any(si.LAUNCHES.values()),
+                      f"hybrid vf2 {name} launched {dict(si.LAUNCHES)}")
+            if main:
+                recorded["main"] = (launches, states)
+                check(all(n > 0 for n in launches.values()),
+                      f"a VF2 kernel never launched: {launches}")
+
+    # [43] the search branch: RMAT 17's id-space bitmap would take 2 GB
+    t0 = time.perf_counter()
+    g17 = build_csr(generate_rmat_el(VF2_SEARCH_SCALE, DEGREE, seed=SEED),
+                    num_nodes=1 << VF2_SEARCH_SCALE)
+    build_s = time.perf_counter() - t0
+    si.reset_launches()
+    t0 = time.perf_counter()
+    with LevelStates(si) as states17:
+        res = si.subgraph_isomorphism(g17, pat("c5"), induced=True, limit=1,
+                                      host_budget=0, device="cuda")
+    dt = time.perf_counter() - t0
+    got = res.tolist()
+    bmp = states17.first[0][4]
+    print(f"[43] vf2 c5 device at RMAT {VF2_SEARCH_SCALE} ({g17.num_nodes} "
+          f"nodes, max degree {g17.max_degree}, built in {build_s:.2f} s): "
+          f"{got} in {dt:.4f} s (padded rows and all), {states17.levels} "
+          f"levels, bitmap {tuple(bmp.shape)}; launches {dict(si.LAUNCHES)}")
+    check(tuple(bmp.shape) == (1, 1), "RMAT 17 did not take the search branch")
+    check(got == [VF2_SEARCH_GOLDEN], f"vf2 c5 RMAT {VF2_SEARCH_SCALE}: "
+          f"{got} != gms_tpu's {VF2_SEARCH_GOLDEN}")
+    check(verify_rows(si, g17, pat("c5"), res, induced=True),
+          "vf2 c5 RMAT 17: not an induced mapping")
+    recorded["search"] = states17
+    del g17
+
+    # [44] enumeration (limit=None, non-induced) against independent counts
+    rng = np.random.default_rng(SEED)
+    tri = build_csr(np.array([[0, 1], [1, 2], [0, 2]], dtype=np.int64))
+    k4_scale = k4_count = None
+    for s in (12, 11, 10):
+        gk = build_csr(generate_rmat_el(s, DEGREE, seed=SEED), num_nodes=1 << s)
+        k4_count = kc.kclique_count(gk, 4, device="cuda")
+        if 24 * k4_count * 16 <= VF2_ENUM_BYTES:
+            k4_scale = s
+            break
+    check(k4_scale is not None, "no RMAT 10-12 K4 enumeration fits 1 GB")
+    for label, g, p, want in (
+            (f"triangle RMAT {VF2_SCALE}", g14, tri, VF2_TRI_GOLDEN),
+            (f"K4 RMAT {k4_scale}", gk, pat("k4"), 24 * k4_count)):
+        t0 = time.perf_counter()
+        rows = si.subgraph_isomorphism(g, p, limit=None, device="cuda")
+        dt = time.perf_counter() - t0
+        distinct = distinct_rows_count(rows)
+        sample = rows[rng.choice(len(rows), VF2_SAMPLE, replace=False)]
+        print(f"[44] enumerate {label}: {len(rows)} mappings ({distinct} "
+              f"distinct), want {want}, {dt:.4f} s")
+        check(len(rows) == want == distinct, f"enumerate {label}: "
+              f"{len(rows)} rows, {distinct} distinct, want {want}")
+        check(verify_rows(si, g, p, sample, induced=False),
+              f"enumerate {label}: a sampled row is not a mapping")
+        del rows
+    return recorded
+
+
+def compressed_phases(timing, report, g14, recorded):
+    """Phases 45-46: the compressed layer at RMAT 14, then K26-K28 against
+    their plain versions (see the module docstring)."""
+    from gms_tpu_torch.algorithms import subgraph_iso as si
+    from gms_tpu_torch.algorithms import triangle_count as tc
+    from gms_tpu_torch.graphs import compressed as cp
+    from gms_tpu_torch.graphs.tiles import PaddedGraph
+
+    # [45] the three compressed forms: decode, triangle count, footprint
+    cp.reset_launches()
+    forms = {}
+    for name, make in (("KbitGraph", cp.KbitGraph.from_csr),
+                       ("KbitGraphBucketed", cp.KbitGraphBucketed.from_csr),
+                       ("HybridGraph", cp.HybridGraph.from_csr)):
+        t0 = time.perf_counter()
+        rep = forms[name] = make(g14, device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        csr = cp.as_csr(rep)
+        dec_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        count = tc.triangle_count(rep, device="cuda")
+        tc_s = time.perf_counter() - t0
+        print(f"[45] {name} of RMAT {VF2_SCALE}: {rep.bits_per_edge():.4f} "
+              f"bits/edge, host pack {build_s:.4f} s, as_csr {dec_s:.4f} s, "
+              f"triangle_count {count} in {tc_s:.4f} s")
+        check(csr == g14, f"as_csr({name}) differs from the CSR")
+        check(count == KBIT_TRI_GOLDEN, f"triangle_count({name}) {count} != "
+              f"{KBIT_TRI_GOLDEN}")
+    kbit_launches = cp.LAUNCHES["kbit_decode_rows"]
+    check(kbit_launches > 0, "K28 never launched")
+    kg = forms["KbitGraph"]
+    pg = PaddedGraph.from_csr(g14, device="cuda")
+    check(torch.equal(kg.nbr, pg.nbr), "K28's rows differ from the padded rows")
+    w = np.random.default_rng(SEED).integers(1, 256, g14.num_edges,
+                                             dtype=np.int32)
+    kw = cp.KbitWeightedGraph.from_csr(g14, w, device="cuda")
+    deg = g14.degrees.astype(np.int64)
+    wrows = np.zeros((pg.v_pad, pg.d_pad), dtype=np.int32)
+    wrows[np.repeat(np.arange(g14.num_nodes), deg),
+          np.arange(g14.num_edges) - np.repeat(g14.indptr[:-1], deg)] = w
+    check(torch.equal(kw.weight_rows().cpu(), torch.from_numpy(wrows)),
+          "KbitWeightedGraph.weight_rows differs from the weights")
+    print(f"[45] K28 rows of RMAT {VF2_SCALE} (k={kg.k}, d_pad {kg.d_pad}) "
+          f"equal PaddedGraph's; KbitWeightedGraph (kw={kw.kw}) "
+          f"{kw.bits_per_edge():.4f} bits/edge, weight_rows equal; K28 "
+          f"launches {kbit_launches}; padded int32 "
+          f"{32 * pg.nbr.numel() / g14.num_edges:.4f} bits/edge")
+
+    # [46] each kernel against its plain version, CUDA-event times, L2
+    # flushed; K26 and K27 on the first and last level of both c5 runs
+    main_launches, states14 = recorded["main"]
+    f14, e14 = vf2_compare(si, f"RMAT {VF2_SCALE}",
+                           states14.both("bitmap"))
+    f17, e17 = vf2_compare(si, f"RMAT {VF2_SEARCH_SCALE}",
+                           recorded["search"].both("search"))
+    vids = torch.arange(kg.packed.shape[0], dtype=torch.int32, device="cuda")
+    k28 = [(f"K28 RMAT {VF2_SCALE} all {vids.numel()} rows, k={kg.k}",
+            lambda: kg.rows(vids),
+            lambda: cp.kbit_decode_rows_plain(kg.packed, kg.deg, vids,
+                                              k=kg.k, d_pad=kg.d_pad),
+            kbit_bytes(kg.deg, vids, kg.k, kg.d_pad))]
+    # RMAT 14's ids fill only the 8- and 16-bit buckets: the 24- and 32-bit
+    # widths (k = 32's full mask) on its first rows, packed at those k
+    head = cp._induce_rows(g14, np.arange(VF2_WIDE_ROWS, dtype=np.int32))
+    parts = [*forms["KbitGraphBucketed"].parts.items(),
+             *((kb, (cp.KbitGraph.from_csr(head, k=kb, device="cuda"),
+                     np.arange(VF2_WIDE_ROWS))) for kb in (24, 32))]
+    for kb, (part, pv) in parts:
+        v = torch.arange(len(pv), dtype=torch.int32, device="cuda")
+        k28.append((f"K28 k={kb}, {len(pv)} rows, d_pad {part.d_pad}",
+                    lambda part=part, v=v: part.rows(v),
+                    lambda part=part, v=v: cp.kbit_decode_rows_plain(
+                        part.packed, part.deg, v, k=part.k,
+                        d_pad=part.d_pad),
+                    kbit_bytes(part.deg, v, part.k, part.d_pad)))
+    for name, launches, calls in (
+            ("vf2_feasible", main_launches["vf2_feasible"], f14 + f17),
+            ("vf2_emit", main_launches["vf2_emit"], e14 + e17),
+            ("kbit_decode_rows", kbit_launches, k28)):
+        err, k_ms, p_ms, bound_ms, by = compare(timing, calls)
+        print(f"[46] {name}: {len(calls)} launches held, max_abs_err {err}, "
+              f"kernel {k_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), plain "
+              f"{p_ms:.4f} ms; launches of its run {launches}")
+        check(err == 0, f"{name} disagrees with its plain version by {err}")
+        report.append(kernel_entry(name, launches, err, k_ms, p_ms, bound_ms,
+                                   by))
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -2540,7 +2959,13 @@ def main() -> None:
     lp_phases(timing, report)
     print(f"[36] total so far {time.perf_counter() - t_start:.1f} s")
     coloring_phases(timing, report)
-    print(f"[41] total {time.perf_counter() - t_start:.1f} s")
+    print(f"[41] total so far {time.perf_counter() - t_start:.1f} s")
+    g14 = build_csr(generate_rmat_el(VF2_SCALE, DEGREE, seed=SEED),
+                    num_nodes=1 << VF2_SCALE)
+    recorded = vf2_phases(g14)
+    print(f"[44] total so far {time.perf_counter() - t_start:.1f} s")
+    compressed_phases(timing, report, g14, recorded)
+    print(f"[46] total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,8 @@ __version__ = "0.1.0"
 
 from gms_tpu_torch.graphs.bitmap import BitmapGraph
 
-__all__ = ["BitmapGraph", "vertex_similarity", "AUCPlan", "jones_plassmann"]
+__all__ = ["BitmapGraph", "vertex_similarity", "AUCPlan", "jones_plassmann",
+           "subgraph_isomorphism"]
 
 # lazy top-level conveniences, as gms_tpu's
 _LAZY = {
@@ -31,6 +32,8 @@ _LAZY = {
     "AUCPlan": ("gms_tpu_torch.algorithms.link_prediction", "AUCPlan"),
     "jones_plassmann": ("gms_tpu_torch.algorithms.coloring",
                         "jones_plassmann"),
+    "subgraph_isomorphism": ("gms_tpu_torch.algorithms.subgraph_iso",
+                             "subgraph_isomorphism"),
 }
 
 

@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
+_U = ctypes.c_ulonglong
 
 # library -> {C function: argument types, the trailing stream included}
 SIGNATURES = {
@@ -156,6 +157,21 @@ SIGNATURES = {
     "color_components": {
         # indptr, indices, n, comp, nxt, changed, stream
         "component_step": (_P, _P, _L, _P, _P, _P, _P),
+    },
+    "vf2_feasible": {
+        # M, P, cand, N, Dc, nbr, v_pad, d_pad, deg1, len(deg1), bmp (or
+        # null), V, vw, pdeg, d, parents mask, nonparents mask, induced, ok,
+        # count, stream
+        "vf2_feasible": (_P, _I, _P, _L, _I, _P, _L, _I, _P, _L, _P, _L, _L,
+                         _I, _I, _U, _U, _I, _P, _P, _P),
+    },
+    "vf2_emit": {
+        # M, P, cand, ok, N, Dc, d, cap, item counts, out, n_out, stream
+        "vf2_emit": (_P, _I, _P, _P, _L, _I, _I, _L, _P, _P, _P, _P),
+    },
+    "kbit_decode": {
+        # packed, v_pad, W, deg, vids, B, d_pad, k, out, stream
+        "kbit_decode_rows": (_P, _L, _I, _P, _P, _L, _I, _I, _P, _P),
     },
 }
 

@@ -13,6 +13,7 @@ _LAZY = {
     "johansson": "coloring",
     "barenboim_elkin": "coloring",
     "dense_sparse": "coloring",
+    "subgraph_isomorphism": "subgraph_iso",
 }
 
 __all__ = list(_LAZY)

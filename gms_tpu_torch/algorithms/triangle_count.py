@@ -32,7 +32,8 @@ runs its `*_plain` PyTorch version, for CUDA tensors it launches the kernel
 versions are never used on the main path when a card is present; chip_smoke.py
 holds each kernel against its plain version on the card.
 
-Compressed graph inputs are not ported yet.
+`triangle_count` also takes the compressed forms of graphs/compressed.py,
+decoded to a CSRGraph first.
 """
 
 from __future__ import annotations
@@ -756,14 +757,16 @@ class TrianglePlan:
 def triangle_count(g, *, device="cuda", rank: np.ndarray | None = None,
                    chunk: int | None = None, method: str = "compare",
                    tiers=DEFAULT_TIERS) -> int:
-    """End-to-end total triangle count of an undirected CSRGraph.
+    """End-to-end total triangle count of an undirected graph.
 
-    Compressed graph forms (gms_tpu/graphs/compressed.py) are not ported
-    yet and raise TypeError.
+    Accepts a CSRGraph or a compressed form (KbitGraph, KbitGraphBucketed,
+    HybridGraph), which decodes through graphs.compressed.as_csr, as
+    gms_tpu's does (triangle_count.py:720-724).
     """
     if not isinstance(g, CSRGraph):
-        raise TypeError(f"triangle_count takes a CSRGraph, got "
-                        f"{type(g).__name__}")
+        from gms_tpu_torch.graphs.compressed import as_csr
+
+        g = as_csr(g)
     return TrianglePlan(g, device=device, rank=rank, chunk=chunk,
                         method=method, tiers=tiers).run()
 

@@ -13,6 +13,8 @@ port's carrier for the same bits.
   of gms_tpu's algorithms/link_prediction.py) as the port's.
 * `tiers_from_numpy`: coloring's degree tiers (`_TierGraph.tiers` of gms_tpu's
   algorithms/coloring.py, (ids_pad, nbrt) pairs) as port tensors.
+* `kbit_from_numpy`: a k-bit packed graph (gms_tpu's graphs/compressed.py
+  KbitGraph: packed words, degrees, k, d_pad) as a port KbitGraph.
 
 The adjacency `nbr` must be gms_tpu's padded layout (rows sorted, SENTINEL
 tail, guard row): the port's merge and search kernels rely on it, and
@@ -124,6 +126,27 @@ def tiers_from_numpy(tiers, *, device="cuda") -> list:
                                       device=dev),
                     tensor_from_numpy(nbrt, device=dev)))
     return out
+
+
+def kbit_from_numpy(packed, deg, k: int, d_pad: int, num_nodes: int,
+                    num_edges: int, *, device="cuda"):
+    """A port KbitGraph from gms_tpu's KbitGraph arrays: packed
+    uint32[V_pad, W] (k bits a lane), deg int32[V_pad], and its k, d_pad,
+    num_nodes and num_edges."""
+    from gms_tpu_torch.graphs.compressed import KbitGraph
+
+    dev = resolve(device)
+    packed = np.asarray(packed, dtype=np.uint32)
+    deg = np.asarray(deg, dtype=np.int32)
+    if packed.ndim != 2 or deg.shape != (packed.shape[0],):
+        raise ValueError(f"kbit_from_numpy: packed {packed.shape} and deg "
+                         f"{deg.shape} do not match")
+    if not 1 <= int(k) <= 32 or int(d_pad) * int(k) > 32 * packed.shape[1]:
+        raise ValueError(f"kbit_from_numpy: {d_pad} lanes of {k} bits do not "
+                         f"fit {packed.shape[1]} words")
+    return KbitGraph(tensor_from_numpy(packed, device=dev),
+                     tensor_from_numpy(deg, device=dev), int(k), int(d_pad),
+                     int(num_nodes), int(num_edges))
 
 
 def plan_from_numpy(state: dict, *, device="cuda") -> TrianglePlan:

@@ -22,7 +22,9 @@ from gms_tpu_torch.algorithms import k_clique as kc
 from gms_tpu_torch.algorithms import k_clique_star as ks
 from gms_tpu_torch.algorithms import link_prediction as lp
 from gms_tpu_torch.algorithms import similarity as vs
+from gms_tpu_torch.algorithms import subgraph_iso as si
 from gms_tpu_torch.algorithms import triangle_count as tc
+from gms_tpu_torch.graphs import compressed as cp
 from gms_tpu_torch.graphs.tiles import SENTINEL, PaddedGraph
 from gms_tpu_torch.io.builder import build_csr
 from gms_tpu_torch.io.generators import generate_rmat_el
@@ -1050,3 +1052,130 @@ def test_coloring_entry_points_on_card(card):
         assert gc.verify_coloring(g, c) and gc.verify_delta_plus_one(g, c)
         if variant == "elkin":
             assert gc.verify_degree_bound(g, c)
+
+
+# --- VF2 (K26, K27) and the k-bit decode (K28) --------------------------------
+
+def _vf2_level(card, scale, use_bmp):
+    """A level's inputs from the port's own search on RMAT `scale`: the
+    items and candidates of c5's level 2 (induced), on `card`."""
+    g = build_csr(generate_rmat_el(scale, 8, seed=3), num_nodes=1 << scale)
+    pg = PaddedGraph.from_csr(g, device=card)
+    deg1 = torch.cat([pg.deg, pg.deg.new_zeros(1)])
+    bmp = (si._id_bitmap(g, card) if use_bmp
+           else torch.zeros((1, 1), dtype=torch.int32, device=card))
+    roots = torch.arange(0, 1 << scale, 3, dtype=torch.int32, device=card)
+    M = torch.full((roots.numel(), 5), -1, dtype=torch.int32, device=card)
+    M[:, 0] = roots
+    M[::7, 0] = -1
+    cand = pg.nbr.index_select(0, M[:, 0].long().clamp(0, pg.v_pad - 1))
+    ok, _ = si.feasible_plain(M, cand, pg.nbr, deg1, bmp, 2, d=1,
+                              parents=(0,), nonparents=(), induced=True)
+    M2, _ = si.emit_plain(M, cand, ok, d=1, cap=int(ok.sum()))
+    cand2 = pg.nbr.index_select(0, M2[:, 1].long())
+    return M2, cand2, pg.nbr, deg1, bmp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_bmp", [True, False])
+@pytest.mark.parametrize("induced", [True, False])
+def test_vf2_feasible_on_card(card, use_bmp, induced):
+    M, cand, nbr, deg1, bmp = _vf2_level(card, 10, use_bmp)
+    for d, parents, nonparents in ((2, (1,), (0,)), (2, (0, 1), ())):
+        ok, count = _launched("vf2_feasible", lambda: si.feasible(
+            M, cand, nbr, deg1, bmp, 2, d=d, parents=parents,
+            nonparents=nonparents, induced=induced), si.LAUNCHES)
+        want, wcount = si.feasible_plain(M, cand, nbr, deg1, bmp, 2, d=d,
+                                         parents=parents,
+                                         nonparents=nonparents,
+                                         induced=induced)
+        assert torch.equal(ok, want) and torch.equal(count, wcount)
+        assert int(count) > 0
+    # a disconnected level: blocks of all ids
+    ids = torch.full((256,), int(SENTINEL), dtype=torch.int32, device=card)
+    ids[:200] = torch.arange(200, dtype=torch.int32, device=card)
+    blk = ids.expand(M.shape[0], 256).contiguous()
+    got = si.feasible(M, blk, nbr, deg1, bmp, 1, d=2, parents=(),
+                      nonparents=(0, 1), induced=induced)
+    want = si.feasible_plain(M, blk, nbr, deg1, bmp, 1, d=2, parents=(),
+                             nonparents=(0, 1), induced=induced)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", ["bucket", 7, "beyond", 0])
+def test_vf2_emit_on_card(card, cap):
+    M, cand, nbr, deg1, bmp = _vf2_level(card, 9, True)
+    ok, count = si.feasible(M, cand, nbr, deg1, bmp, 2, d=2, parents=(1,),
+                            nonparents=(0,), induced=True)
+    nc = int(count)
+    cap = {"bucket": kc._bucket(nc), 7: 7, "beyond": ok.numel() + 5,
+           0: 0}[cap]
+    out, n_out = _launched("vf2_emit", lambda: si.emit(M, cand, ok, d=2,
+                                                   cap=cap), si.LAUNCHES)
+    want, want_n = si.emit_plain(M, cand, ok, d=2, cap=cap)
+    assert torch.equal(out, want) and torch.equal(n_out, want_n)
+    assert int(n_out) == nc
+
+
+@pytest.mark.cuda
+def test_subgraph_isomorphism_on_card(card):
+    g = build_csr(generate_rmat_el(9, 16, seed=27491095), num_nodes=512)
+    for pedges in si.VF2_PATTERNS.values():
+        p = build_csr(np.array(pedges, dtype=np.int64))
+        si.reset_launches()
+        hyb = si.subgraph_isomorphism(g, p, induced=True, device=card)
+        assert si.LAUNCHES == {"vf2_feasible": 0, "vf2_emit": 0}
+        dev = si.subgraph_isomorphism(g, p, induced=True, host_budget=0,
+                                      device=card)
+        assert si.LAUNCHES["vf2_feasible"] > 0 and si.LAUNCHES["vf2_emit"] > 0
+        want = si.subgraph_isomorphism(g, p, induced=True, host_budget=0,
+                                       device="cpu")
+        assert np.array_equal(dev, want) and np.array_equal(hyb, want)
+    small = build_csr(generate_rmat_el(7, 4, seed=1), num_nodes=128)
+    p = build_csr(np.array(si.VF2_PATTERNS["p4"], dtype=np.int64))
+    for budget in (1 << 18, 1 << 11):
+        got = si.subgraph_isomorphism(small, p, limit=None,
+                                      item_budget=budget, device=card)
+        assert np.array_equal(got, si.subgraph_isomorphism(
+            small, p, limit=None, item_budget=budget, device="cpu"))
+    two = build_csr(np.array([[0, 1], [2, 3]], dtype=np.int64), num_nodes=4)
+    assert np.array_equal(
+        si.subgraph_isomorphism(small, two, limit=None, device=card),
+        si.subgraph_isomorphism(small, two, limit=None, device="cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 8, 13, 16, 17, 24, 31, 32])
+def test_kbit_decode_rows_on_card(card, k):
+    rng = np.random.default_rng(k)
+    V, d_pad = 301, 200
+    W = (d_pad * k + 31) // 32 + 1
+    packed = torch.from_numpy(rng.integers(0, 1 << 32, (V, W), dtype=np.uint64)
+                              .astype(np.uint32).view(np.int32)).to(card)
+    deg = torch.from_numpy(rng.integers(0, d_pad + 1, V).astype(np.int32)
+                           ).to(card)
+    vids = torch.from_numpy(rng.integers(-9, V + 9, 5000).astype(np.int32)
+                            ).to(card)
+    got = _launched("kbit_decode_rows", lambda: cp.kbit_decode_rows(
+        packed, deg, vids, k=k, d_pad=d_pad), cp.LAUNCHES)
+    assert torch.equal(got, cp.kbit_decode_rows_plain(packed, deg, vids, k=k,
+                                                      d_pad=d_pad))
+
+
+@pytest.mark.cuda
+def test_compressed_forms_on_card(card):
+    g = build_csr(generate_rmat_el(10, 16, seed=27491095), num_nodes=1024)
+    want_rows = PaddedGraph.from_csr(g, device="cpu").nbr
+    want = tc.triangle_count_oracle(g)
+    for make in (cp.KbitGraph.from_csr, cp.KbitGraphBucketed.from_csr,
+                 cp.HybridGraph.from_csr):
+        rep = make(g, device=card)
+        assert cp.as_csr(rep) == g
+        assert tc.triangle_count(rep, device=card) == want
+    kg = cp.KbitGraph.from_csr(g, device=card)
+    assert torch.equal(kg.nbr.cpu(), want_rows)
+    w = np.arange(g.num_edges, dtype=np.int32) % 13 + 1
+    kw = cp.KbitWeightedGraph.from_csr(g, w, device=card)
+    assert torch.equal(kw.weight_rows().cpu(), cp.KbitWeightedGraph.from_csr(
+        g, w, device="cpu").weight_rows())

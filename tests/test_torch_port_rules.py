@@ -19,7 +19,9 @@ from gms_tpu_torch.algorithms import k_clique as kc
 from gms_tpu_torch.algorithms import k_clique_star as ks
 from gms_tpu_torch.algorithms import link_prediction as lp
 from gms_tpu_torch.algorithms import similarity as vs
+from gms_tpu_torch.algorithms import subgraph_iso as si
 from gms_tpu_torch.algorithms import triangle_count as tc
+from gms_tpu_torch.graphs import compressed as cp
 from gms_tpu_torch.graphs.bitmap import BitmapGraph
 from gms_tpu_torch.graphs.tiles import PaddedGraph
 from gms_tpu_torch.harness import benchmark, cli, printer, timers
@@ -170,6 +172,28 @@ def test_coloring_default_device_is_the_card():
     assert algorithms.dense_sparse is gc.dense_sparse
 
 
+def test_vf2_and_compressed_default_device_is_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the default runs there")
+    g = _triangle()
+    kg = cp.KbitGraph.from_csr(g, device="cpu")
+    for call in (lambda: si.subgraph_isomorphism(g, g),
+                 lambda: si.subgraph_isomorphism(g, g, host_budget=0),
+                 lambda: cp.KbitGraph.from_csr(g),
+                 lambda: cp.KbitGraphBucketed.from_csr(g),
+                 lambda: cp.KbitWeightedGraph.from_csr(g),
+                 lambda: cp.HybridGraph.from_csr(g),
+                 lambda: tc.triangle_count(kg)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert si.subgraph_isomorphism(g, g, device="cpu").shape == (1, 3)
+    assert tc.triangle_count(kg, device="cpu") == 1
+    import gms_tpu_torch
+    from gms_tpu_torch import algorithms
+    assert gms_tpu_torch.subgraph_isomorphism is si.subgraph_isomorphism
+    assert algorithms.subgraph_isomorphism is si.subgraph_isomorphism
+
+
 def test_cli_parses_device():
     args = cli.Parser().parse(["-g", "kronecker", "8", "-n", "2"])
     assert (args.device, args.gen, args.scale, args.trials) == (
@@ -284,6 +308,17 @@ def test_coloring_bench_cli_prints_result_rows():
     g = build_csr(generate_rmat_el(8, 16, seed=27491095), num_nodes=256)
     assert counts["colors_jp-lf"] == gc.unique_colors_count(
         gc.jones_plassmann(g, priority="degree", device="cpu"))
+
+
+def test_vf2_bench_cli_prints_result_rows():
+    out = _run(["-m", "gms_tpu_torch.bench.subgraph_iso", "-g", "kronecker",
+                "8", "-n", "1", "-v", "--device", "cpu"])
+    assert out.returncode == 0, out.stderr
+    rows = [ln.split() for ln in out.stdout.splitlines()
+            if ln.startswith("@@@")]
+    assert [r[-1] for r in rows] == ["vf2-first-cpu"]
+    assert rows[0][2] == "verified"
+    assert "Param pattern-file = " in out.stdout
 
 
 def test_printer_protocol():
