@@ -13,11 +13,11 @@ dense-bitmap triangles and bitmap set counts on RMAT 16, and vertex
 similarity and link prediction (bench.py's lp_auc round: the sampled AUC
 and the top-q ranking) on RMAT 16, and graph coloring (Jones–Plassmann,
 Johansson, Barenboim/Elkin, dense/sparse) on RMAT 16, subgraph isomorphism
-(VF2) on RMAT 14 and 17 and the compressed graph forms on RMAT 14 — and
-holds every
+(VF2) on RMAT 14 and 17, the compressed graph forms on RMAT 14, and the
+GAPBS kernels (BFS, PageRank, connected components, SSSP, betweenness
+centrality) on RMAT 18 and on RMAT 14's compressed forms — and holds every
 hand-written CUDA kernel of those paths against its plain PyTorch version on
-the card. Phases, each
-printing a line and each failing the run (non-zero exit) if it fails:
+the card. Phases, each printing a line and each failing the run (non-zero exit) if it fails:
 
   1. device and build: card name, power limit, nvcc build of csrc/*.cu;
   2. headline graph: generation and CSR build on the host;
@@ -110,10 +110,12 @@ printing a line and each failing the run (non-zero exit) if it fails:
  26. device ADG at RMAT 18, the ADG counter set to 0 just before each run:
      "avg" and "min" at eps 0.01, 0.1 and 0.5 equal the host
      adg_ordering_rank rank for rank; "prob_min" and "prob_median" give the
-     same permutation twice for a seed and pass
-     verify_approx_degeneracy_order at RMAT 14; each run's rounds (adg_round
-     launches) and time; the main path is the "avg" eps 0.1 run, whose
-     launches adg_round's entry in the kernels line carries;
+     same permutation twice for a seed and, at RMAT 14, pass
+     verify_approx_degeneracy_order and equal gms_tpu's ranks (their
+     digests, ADG_PROB_GOLDEN: the draws are jax.random's, prng.py); each
+     run's rounds (adg_round launches) and time; the main path is the "avg"
+     eps 0.1 run, whose launches adg_round's entry in the kernels line
+     carries;
  27. bitmap_ops on RMAT 16's bitmap rows, row v against row v+1, the
      counter set to 0 just before: the four counts keep |A∪B| =
      |A|+|B|-|A∩B| and |A∖B| = |A|-|A∩B|, and |A| is v's out-degree;
@@ -181,7 +183,9 @@ printing a line and each failing the run (non-zero exit) if it fails:
      (their round states and draws recorded): johansson (proper, color <=
      deg), barenboim_elkin "barenboim" (proper, <= Δ+1 colors) and "elkin"
      (both bounds); each color count, time and launches; color_johansson
-     and color_one_shot must have launched;
+     and color_one_shot must have launched; then the three on phase 39's
+     RMAT 14 against gms_tpu's colors (COLOR_RANDOM_GOLDEN: gms_tpu's keys
+     and jax.random's draws, prng.py);
  41. each coloring kernel against its plain version, exactly, on the
      round-start states recorded in 37-40 — the first round and the last
      with an uncolored vertex, every bucket: color_jp on strict JP-LF's,
@@ -231,6 +235,50 @@ printing a line and each failing the run (non-zero exit) if it fails:
      item row once and candidate, the cap x P output; K28's: each row's
      words up to its last live lane, deg, vids and the output. No single
      PyTorch call computes any of the three, so library_ms is null.
+ 47. GAPBS main path on phase 2's RMAT 18, every GAPBS counter set to 0
+     just before it, one call each: bfs(g, 0) direction-optimizing (its
+     levels must run push, pull, pull, push, push: f_cap 16,384) and
+     pull-only, connected_components, sssp unit and weighted (w = 1 + ((u ^
+     v) % 9) per slot), pagerank (20 iterations); gates: scipy's
+     shortest_path (173,898 reached), connected_components mapped to each
+     component's min id (88,200), dijkstra (max 23, sum 804,946) and a
+     vectorised float64 PageRank (rtol 1e-4, atol 1e-7); each call's first
+     and best of 3 warm times (host clock to the read-back), the host CSR
+     copy timed apart; bfs_pull, frontier_ids, bfs_push, pr_pull, cc_step
+     and sssp_step must have launched;
+ 48. betweenness_centrality(g, num_samples=64, seed=0) at RMAT 18, its
+     counters set to 0 just before: max_depth 12, max_depth launches of each
+     BC step a batch; its first and best warm time; the kernels against the
+     plain version over the same 64 sources, one batch (rtol 1e-4);
+ 49. RMAT 14 and phase 45's compressed forms against gms_tpu's digests
+     (GAPBS_GOLDEN_14): bfs over the CSR, KbitGraph, KbitGraphBucketed and
+     HybridGraph, bfs_kbit (its counter set to 0 just before), connected
+     components, sssp unit and weighted, and the KbitWeightedGraph's sssp;
+     PageRank's sum and max (rtol 1e-5) and argmax, BC's argmax and sum
+     (rtol 1e-4);
+ 50. K29-K34 against their plain versions on that work, with CUDA-event
+     times, L2 flushed, and bytes bounds: bfs_pull on every level of RMAT
+     18's pull-only BFS (bytes: dist once, the unreached rows' distinct
+     indptr words and entries up to the one that decides them, the
+     writes); frontier_ids on the level the d-opt BFS compacts, bfs_push on
+     its push levels (the frontier's ids, distinct indptr words and rows,
+     each distinct neighbour's dist, the writes), each timed bare (the ids,
+     in any order, are sorted only to compare them); bfs_kbit_pull on every level of RMAT 14's KbitGraph (the
+     unreached rows' packed words up to the deciding lane); pr_pull on
+     PageRank's first and last iteration, cc_step and sssp_step (weighted)
+     on their first and last step (indptr, indices, weights, the state and
+     the output once); bc_forward and bc_backward as whole passes of
+     max_depth steps on phase 48's batch of 64 sources, state [64, n] (per
+     step the pairs' dist words, each row some pair scans read once with
+     its distinct indptr words, the per-pair state words of distinct
+     neighbours, the writes). Library time: scatter_reduce_ (amax) of the frontier over the
+     edge list for bfs_pull, torch.sparse.mm of the CSR matrix (with the
+     division and axpy) for pr_pull, scatter_reduce_ (amin) over the edge
+     list for cc_step and sssp_step; no single PyTorch call computes the
+     others. pr_pull and the BC steps are held at rtol 1e-5 and 1e-4 (both
+     sides sum each row in float64 and round it once, but the two float64
+     sums, and total's float32 atomics, may still round apart); the rest
+     exactly.
 
 The line before the last is a JSON object describing every kernel; the last
 is {"ok": true, "device": {...}}. Imports nothing of jax or gms_tpu.
@@ -333,6 +381,24 @@ KERNELS = {
                  "gms_tpu/algorithms/subgraph_iso.py:128"),
     "kbit_decode_rows": ("gms_tpu_torch/csrc/kbit_decode.cu",
                          "gms_tpu/graphs/compressed.py:43"),
+    "bfs_pull": ("gms_tpu_torch/csrc/gapbs_bfs.cu",
+                 "gms_tpu/algorithms/gapbs.py:85"),
+    "frontier_ids": ("gms_tpu_torch/csrc/gapbs_bfs.cu",
+                     "gms_tpu/algorithms/gapbs.py:108"),
+    "bfs_push": ("gms_tpu_torch/csrc/gapbs_bfs.cu",
+                 "gms_tpu/algorithms/gapbs.py:108"),
+    "bfs_kbit_pull": ("gms_tpu_torch/csrc/gapbs_kbit_bfs.cu",
+                      "gms_tpu/algorithms/gapbs.py:185"),
+    "pr_pull": ("gms_tpu_torch/csrc/gapbs_pr.cu",
+                "gms_tpu/algorithms/gapbs.py:216"),
+    "cc_step": ("gms_tpu_torch/csrc/gapbs_min.cu",
+                "gms_tpu/algorithms/gapbs.py:245"),
+    "sssp_step": ("gms_tpu_torch/csrc/gapbs_min.cu",
+                  "gms_tpu/algorithms/gapbs.py:275"),
+    "bc_forward": ("gms_tpu_torch/csrc/gapbs_bc.cu",
+                   "gms_tpu/algorithms/gapbs.py:337"),
+    "bc_backward": ("gms_tpu_torch/csrc/gapbs_bc.cu",
+                    "gms_tpu/algorithms/gapbs.py:375"),
 }
 BK_GOLDEN = 165_402_717      # maximal cliques, RMAT-14 deg 16 (BENCH_r05)
 BK_SCALE, BK_SMALL, BK_SAMPLE = 14, 12, 1000
@@ -387,6 +453,29 @@ KBIT_TRI_GOLDEN = 2_819_074   # triangles, RMAT-14 deg 16 seed 27491095
 VF2_TRI_GOLDEN = 6 * KBIT_TRI_GOLDEN
 VF2_ENUM_BYTES = 1 << 30
 VF2_WIDE_ROWS = 2048          # RMAT-14 rows K28 also decodes at k = 24, 32
+# the randomized colorings of RMAT-14 (phase 39's graph, seed 0) and its
+# sampled device ADG ranks (eps 0.1, seed SEED): gms_tpu's on the CPU (its
+# one-shot round's [V, D_pad, cw] one-hot does not run at RMAT-16 there)
+COLOR_RANDOM_GOLDEN = {"johansson": (366, "5cc27b172fcfeac7"),
+                       "barenboim": (3546, "61ae6153572d3e70"),
+                       "elkin": (359, "d53ba90684225ee8")}
+ADG_PROB_GOLDEN = {"prob_min": "9329e06f63e07fe6",
+                   "prob_median": "8dbdee0e0aa1baa2"}
+# phases 47-50: the GAPBS kernels on RMAT-18 (scipy's answers) and the
+# compressed forms of RMAT-14 (gms_tpu's digests on the CPU)
+GAPBS_DIRECTIONS = ["push", "pull", "pull", "push", "push"]
+GAPBS_REACHED, GAPBS_COMPONENTS = 173_898, 88_200
+GAPBS_SSSP = (23, 804_946)    # weighted SSSP from 0: max, sum over reached
+GAPBS_BC_DEPTH = 12           # min(n, max(4, 2 (ecc(0) + 2)))
+GAPBS_GOLDEN_14 = {"bfs": "250a4c7a40d80c31", "bfs_kbit": "250a4c7a40d80c31",
+                   "cc": "d5266183761978d8", "sssp": "b25bf5b46229f421",
+                   "sssp weighted": "0d84116ab140d598"}
+# gms_tpu's PageRank (20 iterations: sum, argmax, max) and sampled BC
+# (num_samples 64, seed 0: argmax, sum) at RMAT-14
+PR_GOLDEN_14 = (0.7995363473892212, 0, 0.0065852003172039986)
+BC_GOLDEN_14 = (0, 18.94045066833496)
+BC_SAMPLES = 64
+INT32_MAX = int(np.iinfo(np.int32).max)   # unreached (gms_tpu's _INF)
 
 
 def check(cond: bool, what: str) -> None:
@@ -1409,13 +1498,18 @@ def vertex_phases(timing, report, g) -> None:
         r14 = degeneracy.adg_ordering_rank_device(g14, 0.1, boundary,
                                                   seed=SEED, device="cuda")
         ok = degeneracy.verify_approx_degeneracy_order(g14, r14, 0.1)
+        d14 = color_digest(r14)
         print(f"[26] ADG {boundary} eps 0.1 seed {SEED}: {rounds} rounds, "
               f"device {dev_s:.4f} s; the same rank twice "
               f"{np.array_equal(r1, r2)}; a permutation "
               f"{np.array_equal(np.sort(r1), np.arange(g.num_nodes))}; RMAT "
-              f"{ADG_VERIFY_SCALE} passes the verifier {ok}")
+              f"{ADG_VERIFY_SCALE} passes the verifier {ok}, rank digest "
+              f"{d14} (gms_tpu {ADG_PROB_GOLDEN[boundary]})")
         check(np.array_equal(r1, r2) and ok and np.array_equal(
             np.sort(r1), np.arange(g.num_nodes)), f"device ADG {boundary}")
+        check(d14 == ADG_PROB_GOLDEN[boundary],
+              f"device ADG {boundary} at RMAT {ADG_VERIFY_SCALE}: ranks "
+              f"differ from gms_tpu's")
     print(f"[26] main path ({ADG_MAIN[0]} eps {ADG_MAIN[1]}) launches "
           f"{adg_launches}")
     check(adg_launches["adg_round"] > 0, f"K17 {adg_launches}")
@@ -2187,7 +2281,8 @@ def johansson_calls(gc, label, state):
 def one_shot_calls(gc, label, state):
     """one_shot_pick and one_shot_resolve on each bucket of a Barenboim or
     Elkin round-start state, with that round's draws. Bytes, for an
-    uncolored row: pick, its draw (and its deg1 for Elkin's palette), each
+    uncolored row: pick, its two 64-bit draw words (and its deg1 for Elkin's
+    palette), each
     entry's index word and color, two writes a row (pick and nfree);
     resolve, its nfree, and where nfree > 0 its pick and, over the entries
     w > v only, the index word, the color and an uncolored neighbour's
@@ -2214,7 +2309,7 @@ def one_shot_calls(gc, label, state):
                  col, deg1, draws, ids, nbrt, a, b, **kw),
              lambda ids=ids, nbrt=nbrt, a=pp, b=pn: gc.one_shot_pick_plain(
                  col, deg1, draws, ids, nbrt, a, b, **kw),
-             bucket_bytes(ids, nbrt, col, 8 if kw["palette_deg"] else 4,
+             bucket_bytes(ids, nbrt, col, 20 if kw["palette_deg"] else 16,
                           torch.full_like(unc_n, 8), writes=8), None),
             (f"one_shot_resolve {tag}",
              lambda ids=ids, nbrt=nbrt, b=ko: gc.one_shot_resolve(
@@ -2327,11 +2422,13 @@ def coloring_phases(timing, report) -> None:
     gc.reset_launches()
     vs.reset_launches()
     t0 = time.perf_counter()
-    with RoundStates(gc, "component_step") as ds_states:
+    with RoundStates(gc, "component_step") as ds_states, \
+            RoundStates(vs, "pair_scores") as ds_pairs:
         c = gc.dense_sparse(g14, seed=0, friend_number=COLOR_DS_FRIENDS,
                             device="cuda")
     dt = time.perf_counter() - t0
     ds_launches = dict(gc.LAUNCHES)
+    ds_k18 = vs.LAUNCHES["pair_scores"]
     n_col, d = held(g14, c, *COLOR_DS_GOLDEN[1], "dense_sparse RMAT 14")
     print(f"[39] dense_sparse(RMAT {COLOR_DS_SCALE}, friend_number="
           f"{COLOR_DS_FRIENDS}): {n_col} colors, digest {d}, "
@@ -2366,6 +2463,15 @@ def coloring_phases(timing, report) -> None:
               f"{rand_launches[label]}")
     check(rand_launches["johansson"]["color_johansson"] > 0,
           "K24's johansson entry never launched")
+    # gms_tpu's colors at RMAT 14 (its keys, jax.random's draws)
+    for label, (want_n, want_d) in COLOR_RANDOM_GOLDEN.items():
+        t0 = time.perf_counter()
+        c = (gc.johansson(g14, device="cuda") if label == "johansson"
+             else gc.barenboim_elkin(g14, variant=label, device="cuda"))
+        dt = time.perf_counter() - t0
+        n_col, d = held(g14, c, want_n, want_d, f"{label} RMAT 14")
+        print(f"[40] {label} RMAT {COLOR_DS_SCALE}: {n_col} colors, digest "
+              f"{d} = gms_tpu's, {dt:.4f} s")
     check(all(rand_launches[v]["color_one_shot"] > 0
               for v in ("barenboim", "elkin")), "K24's one-shot never launched")
 
@@ -2391,6 +2497,30 @@ def coloring_phases(timing, report) -> None:
             for c in component_calls(gc, f"RMAT {COLOR_DS_SCALE}, label "
                                      f"step {lab.split()[1]}", st)]),
     }
+    # K18 on dense_sparse's RMAT 14 friend counts (its first and last
+    # launch; K18's kernels-line entry is phase 35's): bytes, the pairs,
+    # their ends' deg1 entries, each distinct row to its first SENTINEL and
+    # the output
+    k18 = []
+    for lab, (nbr, deg1, pairs, kw) in ds_pairs.both():
+        ends = torch.unique(pairs.reshape(-1))
+        k18.append((
+            f"pair_scores dense_sparse RMAT {COLOR_DS_SCALE} launch "
+            f"{lab.split()[1]}, {pairs.shape[0]} pairs",
+            lambda nbr=nbr, deg1=deg1, pairs=pairs, kw=kw: vs.pair_scores(
+                nbr, deg1, pairs, **kw),
+            lambda nbr=nbr, deg1=deg1, pairs=pairs, kw=kw:
+                vs.pair_scores_plain(nbr, deg1, pairs, **kw),
+            (pairs.numel() + ends.numel() + distinct_data_words(
+                deg1[:-1], [(pairs[:, 0], nbr.shape[1]),
+                            (pairs[:, 1], nbr.shape[1])])
+             + pairs.shape[0]) * 4))
+    err, k_ms, p_ms, bound_ms, by = compare(timing, k18, err_fn=score_err)
+    print(f"[41] pair_scores (K18) on dense_sparse's friend counts, first "
+          f"and last of its {ds_k18} launches: max_abs_err {err}, kernel "
+          f"{k_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), plain {p_ms:.4f} "
+          f"ms | {card_line()}")
+    check(err == 0, f"K18 (dense_sparse) disagrees with plain by {err}")
     # Elkin's per-vertex palettes: held to plain too, not on the kernels line
     err, k_ms, p_ms, bound_ms, _ = color_compare(timing, [
         c for lab, st in rand_states["elkin"].both()
@@ -2791,6 +2921,557 @@ def compressed_phases(timing, report, g14, recorded):
         check(err == 0, f"{name} disagrees with its plain version by {err}")
         report.append(kernel_entry(name, launches, err, k_ms, p_ms, bound_ms,
                                    by))
+    return forms
+
+
+# ---------------------------------------------------------------------------
+# phases 47-50: the GAPBS kernels (BFS, PageRank, CC, SSSP, BC)
+# ---------------------------------------------------------------------------
+
+def rmat_weights(g):
+    """w = 1 + ((u ^ v) % 9) per CSR slot (u the row, v the entry):
+    symmetric, 1..9."""
+    u = np.repeat(np.arange(g.num_nodes), g.degrees.astype(np.int64))
+    return (1 + ((u ^ g.indices) % 9)).astype(np.int32)
+
+
+def scipy_refs(g, w):
+    """scipy's BFS hops (unweighted shortest_path), component labels mapped
+    to each component's min id, and Dijkstra distances from vertex 0."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import (connected_components, dijkstra,
+                                      shortest_path)
+
+    n = g.num_nodes
+    a = sp.csr_matrix((np.ones(g.num_edges), g.indices, g.indptr),
+                      shape=(n, n))
+    hops = shortest_path(a, unweighted=True, indices=0)
+    hops = np.where(np.isinf(hops), -1, hops).astype(np.int64)
+    nc, lab = connected_components(a, directed=False)
+    mins = np.full(nc, n, dtype=np.int64)
+    np.minimum.at(mins, lab, np.arange(n))
+    wa = sp.csr_matrix((w.astype(np.float64), g.indices, g.indptr),
+                       shape=(n, n))
+    dj = dijkstra(wa, indices=0)
+    dj = np.where(np.isinf(dj), -1, dj).astype(np.int64)
+    return hops, mins[lab], nc, dj
+
+
+def pagerank_f64(g, iters: int, damp: float = 0.85) -> np.ndarray:
+    """A vectorised numpy float64 PageRank (pagerank_oracle's semantics)."""
+    n = g.num_nodes
+    rows = np.repeat(np.arange(n), g.degrees.astype(np.int64))
+    outdeg = np.maximum(g.degrees, 1).astype(np.float64)
+    pr = np.full(n, 1.0 / n)
+    for _ in range(iters):
+        contrib = pr / outdeg
+        pr = (1 - damp) / n + damp * np.bincount(
+            rows, weights=contrib[g.indices], minlength=n)
+    return pr
+
+
+def warm(fn, reps: int = 3):
+    """(result, best host seconds of `reps` warm calls to the read-back)."""
+    best, out = float("inf"), None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        best = min(best, time.perf_counter() - t0)
+    return out, best
+
+
+def rel_err(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
+
+
+def state_calls(timing, calls, canon=None):
+    """Kernels whose step updates state in place: calls are (label,
+    kernel(state), plain(state), make_state(), bytes[, library(state)]).
+    Each timed rep starts from a fresh make_state() (untimed) and times the
+    bare call; canon(outputs) puts both outputs in one form (sorts ids
+    given in any order) for the comparison only. Integer outputs are
+    compared exactly, float ones also by relative error. Returns
+    (max_abs_err, max_rel_err, kernel_ms, plain_ms, bound_ms, library_ms or
+    None), each summed (the errors maximised) over the calls."""
+    canon = canon or (lambda out: out)
+    err, rel, k_ms, p_ms, bound, lib = 0, 0.0, 0.0, 0.0, 0.0, None
+    for label, kernel, plain, make, nbytes, *library in calls:
+        got, want = canon(kernel(make())), canon(plain(make()))
+        flat = [(a, b) for a, b in zip(got, want)]
+        for a, b in flat:
+            if a.is_floating_point():
+                err = max(err, float((a - b).abs().max()) if a.numel() else 0)
+                rel = max(rel, rel_err(a, b) if a.numel() else 0.0)
+            else:
+                err = max(err, max_abs_err(a, b) if a.numel() else 0)
+        box = {}
+
+        def setup(make=make):
+            box["s"] = make()
+
+        kt = timing.ms(lambda: kernel(box["s"]), KERNEL_REPS, setup)
+        pt = timing.ms(lambda: plain(box["s"]), PLAIN_REPS, setup)
+        bt = nbytes / HBM_BYTES_PER_S * 1e3
+        note = ""
+        if library:
+            library[0](make())
+            lt = timing.ms(lambda: library[0](box["s"]), KERNEL_REPS, setup)
+            lib, note = (lib or 0.0) + lt, f", library {lt:.4f} ms"
+        print(f"    {label}: max_abs_err {err}, max rel err {rel:.3e}, kernel "
+              f"{kt:.4f} ms, bound {bt:.4f} ms ({nbytes} bytes), plain "
+              f"{pt:.4f} ms{note}")
+        k_ms, p_ms, bound = k_ms + kt, p_ms + pt, bound + bt
+    return err, rel, k_ms, p_ms, bound, lib
+
+
+def indptr_bytes(rows) -> int:
+    """The indptr words that the rows of a bool mask over n need (v and
+    v + 1 of each row v), each distinct word once: 8 (n + 1) when every
+    row is."""
+    need = torch.zeros(rows.numel() + 1, dtype=torch.bool,
+                       device=rows.device)
+    need[:-1] |= rows
+    need[1:] |= rows
+    return 8 * int(need.sum())
+
+
+def row_prefix_words(indptr, indices, live, hit):
+    """Entries a pull step must read: for each live row, up to and including
+    its first entry with hit, else the whole row (a mask over the CSR
+    slots)."""
+    n = indptr.numel() - 1
+    deg = indptr.diff()
+    src = torch.repeat_interleave(torch.arange(n, device=indptr.device), deg)
+    pos = torch.arange(indices.numel(), device=indptr.device) - indptr[src]
+    first = deg.clone()
+    first.scatter_reduce_(0, src[hit], pos[hit], reduce="amin")
+    need = torch.where(first < deg, first + 1, deg)
+    return live[src] & (pos < need[src])
+
+
+def pull_bytes(indptr, indices, dist, it: int, reached: int) -> int:
+    """K29's bound: dist read once (4n: every row's own word, every
+    neighbour's), the unreached rows' distinct indptr words, their entries
+    up to the one that decides them, the reached rows' writes and the
+    count."""
+    n = dist.numel()
+    live = dist == INT32_MAX
+    hit = dist[indices.long()] == it
+    mask = row_prefix_words(indptr, indices, live, hit)
+    return (4 * n + indptr_bytes(live) + 4 * int(mask.sum()) + 4 * reached
+            + 8)
+
+
+def push_bytes(indptr, indices, ids, won: int) -> int:
+    """K30 push: the frontier ids, their distinct indptr words and rows,
+    the dist word of each distinct neighbour, the won vertices' dist and id
+    writes."""
+    f = ids.long()
+    rows = torch.zeros(indptr.numel() - 1, dtype=torch.bool,
+                       device=ids.device)
+    rows[f] = True
+    starts, ends = indptr[f], indptr[f + 1]
+    lens = ends - starts
+    pos = (torch.repeat_interleave(starts - (torch.cumsum(lens, 0) - lens),
+                                   lens)
+           + torch.arange(int(lens.sum()), device=ids.device))
+    distinct = torch.unique(indices[pos]).numel()
+    return 4 * f.numel() + indptr_bytes(rows) + 4 * int(lens.sum()) \
+        + 4 * distinct + 8 * won + 8
+
+
+def kbit_pull_bytes(kg, dist, it: int, reached: int) -> int:
+    """K31's bound: dist read once, deg of the unreached rows, each unreached
+    row's packed words up to the lane that decides it, the writes."""
+    from gms_tpu_torch.graphs.compressed import kbit_decode_rows_plain
+
+    n = dist.numel()
+    live = dist == INT32_MAX
+    vids = torch.arange(n, dtype=torch.int32, device=dist.device)
+    words = 0
+    step = max(1, (1 << 24) // max(kg.d_pad, 1))
+    for v0 in range(0, n, step):
+        v = vids[v0:v0 + step]
+        rows = kbit_decode_rows_plain(kg.packed, kg.deg, v, k=kg.k,
+                                      d_pad=kg.d_pad)
+        deg = kg.deg[v.long()].long()
+        hit = (rows != INT32_MAX) & (dist[rows.long().clamp(0, n - 1)] == it)
+        first = torch.where(hit.any(1), hit.int().argmax(1).long() + 1, deg)
+        lanes = torch.where(live[v.long()], first, 0)
+        words += int(((lanes * kg.k + 31) // 32).sum())
+    return 4 * n + 4 * int(live.sum()) + 4 * words + 4 * reached + 8
+
+
+def bc_pass_bytes(indptr, indices, dist_final, sigma_final, max_depth,
+                  forward: bool) -> int:
+    """K34's bound over a whole pass of max_depth steps on a batch, from the
+    pass's final state (a step's inputs are that state cut at its depth).
+    Per step: the dist word of every pair; each row that some pair scans
+    (forward: unreached; backward: at depth it), read once for the whole
+    batch, with its distinct indptr words; forward, the sigma word of each
+    distinct (source, neighbour at depth it) that an unreached pair reads,
+    and the new pairs' dist and sigma writes; backward, each pair at depth
+    it's own sigma and its delta write, the sigma and delta words of each
+    distinct (source, successor), and for it > 0 total's word of each
+    scanned row, read and written."""
+    B, n = dist_final.shape
+    deg = indptr.diff()
+    src = torch.repeat_interleave(torch.arange(n, device=indptr.device), deg)
+    idx = indices.long()
+    total = 0
+    for it in range(max_depth):
+        scan = dist_final > it if forward else dist_final == it
+        rows = scan.any(0)
+        total += 4 * B * n + 4 * int(deg[rows].sum()) + indptr_bytes(rows)
+        for b in range(B):
+            d = dist_final[b]
+            if forward:
+                nb, words = (d[idx] == it) & scan[b][src], 4
+            else:
+                nb = ((d[idx] == it + 1) & (sigma_final[b][idx] > 0)
+                      & scan[b][src])
+                words = 8
+            seen = torch.zeros(n, dtype=torch.bool, device=d.device)
+            seen[idx[nb]] = True
+            total += words * int(seen.sum())
+        if forward:
+            total += 8 * int((dist_final == it + 1).sum())
+        else:
+            total += 8 * int(scan.sum()) + (8 * int(rows.sum()) if it > 0
+                                            else 0)
+    return total
+
+
+def gapbs_phases(timing, report, g, g14, forms) -> None:
+    """Phases 47-50: the GAPBS kernels (see the module docstring). g is
+    phase 2's RMAT 18, g14 RMAT 14, forms phase 45's compressed forms."""
+    from gms_tpu_torch.algorithms import gapbs as gb
+    from gms_tpu_torch.graphs import compressed as cp
+
+    n, card = g.num_nodes, card_line()
+    w = rmat_weights(g)
+    t0 = time.perf_counter()
+    hops, cc_ref, nc, dj = scipy_refs(g, w)
+    print(f"[47] scipy references at RMAT {SCALE}: {time.perf_counter() - t0:.2f}"
+          f" s; {(hops >= 0).sum()} reached, levels "
+          f"{np.bincount(hops[hops >= 0]).tolist()}, {nc} components")
+    # the host-side CSR copy each call makes (_prep), timed apart
+    _, copy_s = warm(lambda: (gb._prep(g, "cuda"), torch.cuda.synchronize()))
+
+    # [47] main path, counters from 0 just before it: one call of each
+    gb.reset_launches()
+    runs = {
+        "bfs": lambda: gb.bfs(g, 0, device="cuda"),
+        "bfs pull-only": lambda: gb.bfs(g, 0, direction_optimizing=False,
+                                        device="cuda"),
+        "connected_components": lambda: gb.connected_components(
+            g, device="cuda"),
+        "sssp unit": lambda: gb.sssp(g, 0, device="cuda"),
+        "sssp weighted": lambda: gb.sssp(g, 0, w, device="cuda"),
+        "pagerank": lambda: gb.pagerank(g, iters=20, device="cuda"),
+    }
+    out, steps, first = {}, {}, {}
+    for label, fn in runs.items():
+        t0 = time.perf_counter()
+        out[label] = fn()
+        first[label] = time.perf_counter() - t0
+        steps[label] = (list(gb.STEPS["bfs"]) if label.startswith("bfs")
+                        else gb.STEPS["cc"] if label.startswith("conn")
+                        else gb.STEPS["sssp"] if label.startswith("sssp")
+                        else 20)
+    main_launches = dict(gb.LAUNCHES)
+    dirs = steps["bfs"]
+    d = out["bfs"]
+    print(f"[47] bfs(g, 0) d-opt: levels {dirs} (f_cap "
+          f"{max(64, (n + 8) // 8 * 8 // 16)}); {(d >= 0).sum()} reached")
+    check(dirs == GAPBS_DIRECTIONS, f"BFS directions {dirs}")
+    check(np.array_equal(d, hops) and np.array_equal(out["bfs pull-only"],
+                                                     hops),
+          "BFS differs from scipy's shortest_path")
+    check(int((d >= 0).sum()) == GAPBS_REACHED, "BFS reached count")
+    check(np.array_equal(out["connected_components"], cc_ref)
+          and nc == GAPBS_COMPONENTS, "CC differs from scipy's")
+    check(np.array_equal(out["sssp unit"], hops), "unit SSSP != BFS")
+    s = out["sssp weighted"]
+    check(np.array_equal(s, dj) and (int(s.max()), int(s[s >= 0].sum()))
+          == GAPBS_SSSP, "weighted SSSP differs from scipy's dijkstra")
+    pr = out["pagerank"]
+    want_pr = pagerank_f64(g, 20)
+    ok_pr = np.allclose(pr, want_pr, rtol=1e-4, atol=1e-7)
+    print(f"[47] connected_components: {nc} components, "
+          f"{steps['connected_components']} rounds; sssp unit "
+          f"{steps['sssp unit']} rounds, weighted {steps['sssp weighted']} "
+          f"rounds, max {int(s.max())}, sum {int(s[s >= 0].sum())}; pagerank "
+          f"sum {float(pr.sum())}, max rel err to the float64 oracle "
+          f"{float(np.max(np.abs(pr - want_pr) / want_pr)):.3e}")
+    check(ok_pr, "PageRank differs from the float64 oracle")
+    for label, fn in runs.items():
+        _, best = warm(fn)
+        print(f"[47] {label}: first call {first[label]:.4f} s, best "
+              f"of 3 warm {best:.4f} s (host clock to the read-back; the "
+              f"host CSR copy alone {copy_s:.4f} s) | {card}")
+        if label == "bfs":
+            print(f"    reference informal scale-18 Kronecker BFS "
+                  f"(BASELINE.md:13, another machine, another graph "
+                  f"generator): ~0.0053 s parallel plain bfs")
+    print(f"[47] main path launches {main_launches}")
+    for name in ("bfs_pull", "frontier_ids", "bfs_push", "pr_pull",
+                 "cc_step", "sssp_step"):
+        check(main_launches[name] > 0, f"{name} never launched")
+
+    # [48] BC at RMAT 18, counters from 0 just before
+    gb.reset_launches()
+    depth = gb.bc_max_depth(g, device="cuda")
+    t0 = time.perf_counter()
+    bc = gb.betweenness_centrality(g, num_samples=BC_SAMPLES, seed=0,
+                                   device="cuda")
+    first_s = time.perf_counter() - t0
+    bc_launches = dict(gb.LAUNCHES)
+    _, best = warm(lambda: gb.betweenness_centrality(
+        g, num_samples=BC_SAMPLES, seed=0, device="cuda"))
+    indptr, indices, _, _, _ = gb._prep(g, "cuda")
+    # the main path's own batch: all its sources, state [len(src), n]
+    src = gb.bc_sources(n, None, BC_SAMPLES, 0)
+    check(len(src) <= gb.BC_BATCH, f"{len(src)} BC sources, not one batch")
+    kt = gb._bc_total(indptr, indices, n, src, depth)
+    pt = gb._bc_total(indptr, indices, n, src, depth, gb.bc_forward_plain,
+                      gb.bc_backward_plain)
+    bc_rel = rel_err(kt[pt > 0], pt[pt > 0])
+    print(f"[48] betweenness_centrality(g, num_samples={BC_SAMPLES}, seed=0):"
+          f" max_depth {depth}; argmax {int(bc.argmax())}; first call "
+          f"{first_s:.4f} s, best of 3 warm {best:.4f} s | {card}; launches "
+          f"{bc_launches}; kernels vs plain on its batch of {len(src)} "
+          f"sources: max rel err {bc_rel:.3e}")
+    check(depth == GAPBS_BC_DEPTH, f"BC max_depth {depth}")
+    check(bc_launches["bc_forward"] == bc_launches["bc_backward"]
+          == depth * -(-BC_SAMPLES // gb.BC_BATCH), "BC launches")
+    check(bool(torch.allclose(kt, pt, rtol=1e-4, atol=1e-5)),
+          "BC kernels differ from the plain version")
+
+    # [49] the compressed forms and the goldens at RMAT 14
+    w14 = rmat_weights(g14)
+
+    def dig(a, dtype):
+        return hashlib.sha256(np.ascontiguousarray(
+            a, dtype=dtype).tobytes()).hexdigest()[:16]
+
+    got = {f"bfs {name}": dig(gb.bfs(rep, 0, device="cuda"), np.int32)
+           for name, rep in forms.items()}
+    got["bfs CSR"] = dig(gb.bfs(g14, 0, device="cuda"), np.int32)
+    gb.reset_launches()
+    got["bfs_kbit"] = dig(gb.bfs_kbit(forms["KbitGraph"], 0, device="cuda"),
+                          np.int32)
+    kbit_launches = gb.LAUNCHES["bfs_kbit_pull"]
+    got["cc"] = dig(gb.connected_components(g14, device="cuda"), np.int32)
+    got["sssp"] = dig(gb.sssp(g14, 0, device="cuda"), np.int64)
+    got["sssp weighted"] = dig(gb.sssp(g14, 0, w14, device="cuda"), np.int64)
+    kw = cp.KbitWeightedGraph.from_csr(g14, w14, device="cuda")
+    got["sssp KbitWeightedGraph"] = dig(gb.sssp(kw, 0, device="cuda"),
+                                        np.int64)
+    for key, val in got.items():
+        want = GAPBS_GOLDEN_14[key.split()[0] if key.startswith("bfs")
+                               else key.replace(" KbitWeightedGraph",
+                                                " weighted")]
+        print(f"[49] RMAT {VF2_SCALE} {key}: {val} (gms_tpu {want})")
+        check(val == want, f"{key} digest {val} != gms_tpu's {want}")
+    pr14 = gb.pagerank(g14, iters=20, device="cuda")
+    bc14 = gb.betweenness_centrality(g14, num_samples=BC_SAMPLES, seed=0,
+                                     device="cuda")
+    ps, pa, pm = PR_GOLDEN_14
+    bs = BC_GOLDEN_14[1]
+    print(f"[49] pagerank: sum {float(pr14.sum())} (gms_tpu {ps}), argmax "
+          f"{int(pr14.argmax())}, max {float(pr14.max())} ({pm}); bc argmax "
+          f"{int(bc14.argmax())}, sum {float(bc14.sum())} ({bs})")
+    check(int(pr14.argmax()) == pa and abs(pr14.sum() - ps) <= 1e-5 * ps
+          and abs(pr14.max() - pm) <= 1e-5 * pm, "PageRank RMAT 14")
+    check(int(bc14.argmax()) == BC_GOLDEN_14[0]
+          and abs(bc14.sum() - bs) <= 1e-4 * bs, "BC RMAT 14")
+    check(kbit_launches > 0, "bfs_kbit_pull never launched")
+
+    # [50] each kernel against its plain version on the work above
+    inf = INT32_MAX
+    dist18 = torch.from_numpy(np.where(hops < 0, inf, hops).astype(
+        np.int32)).cuda()
+
+    def at_level(final, it):
+        return torch.where(final <= it, final, inf).to(torch.int32)
+
+    src_rows = torch.repeat_interleave(torch.arange(n, device="cuda"),
+                                       indptr.diff())
+    idx = indices.long()
+    adj = torch.sparse_csr_tensor(indptr, idx, torch.ones(
+        indices.numel(), device="cuda"), (n, n), check_invariants=True)
+    levels = int(hops.max()) + 1
+    counts = np.bincount(hops[hops >= 0])
+    calls = {"bfs_pull": [], "frontier_ids": [], "bfs_push": [],
+             "bfs_kbit_pull": [], "pr_pull": [], "cc_step": [],
+             "sssp_step": []}
+    for it in range(levels):
+        reached = int(counts[it + 1]) if it + 1 < len(counts) else 0
+        calls["bfs_pull"].append((
+            f"bfs_pull RMAT {SCALE} level {it}",
+            lambda s, it=it: (gb.bfs_pull(indptr, indices, s, it), s),
+            lambda s, it=it: (gb.bfs_pull_plain(indptr, indices, s, it), s),
+            lambda it=it: at_level(dist18, it),
+            pull_bytes(indptr, indices, at_level(dist18, it), it, reached),
+            # "any neighbour in the frontier" as one scatter_reduce_ (amax)
+            # of the frontier over the edge list
+            lambda s, it=it: torch.zeros(
+                n, dtype=torch.int32, device="cuda").scatter_reduce_(
+                    0, src_rows, (s[idx] == it).int(), reduce="amax")))
+    for it, dname in enumerate(dirs):
+        if dname != "push":
+            continue
+        st = at_level(dist18, it)
+        ids, fc = gb.frontier_ids_plain(st, it)
+        fc = int(fc)
+        reached = int(counts[it + 1]) if it + 1 < len(counts) else 0
+
+        if it > 0 and dirs[it - 1] == "pull":     # compacted, not pushed
+            calls["frontier_ids"].append((
+                f"frontier_ids RMAT {SCALE} level {it} ({fc} ids)",
+                lambda s, it=it: gb.frontier_ids(s, it),
+                lambda s, it=it: gb.frontier_ids_plain(s, it),
+                lambda st=st: st, 4 * n + 4 * fc + 8))
+        calls["bfs_push"].append((
+            f"bfs_push RMAT {SCALE} level {it} ({fc} frontier)",
+            lambda s, it=it, ids=ids, fc=fc: gb.bfs_push(
+                indptr, indices, ids, fc, s, it) + (s,),
+            lambda s, it=it, ids=ids, fc=fc: gb.bfs_push_plain(
+                indptr, indices, ids, fc, s, it) + (s,),
+            lambda st=st: st.clone(),
+            push_bytes(indptr, indices, ids[:fc], reached)))
+    kg = forms["KbitGraph"]
+    h14 = gb.bfs(g14, 0, device="cuda")
+    d14 = torch.from_numpy(np.where(h14 < 0, inf, h14).astype(
+        np.int32)).cuda()
+    c14 = np.bincount(h14[h14 >= 0])
+    for it in range(int(h14.max()) + 1):
+        reached = int(c14[it + 1]) if it + 1 < len(c14) else 0
+        calls["bfs_kbit_pull"].append((
+            f"bfs_kbit_pull RMAT {VF2_SCALE} k={kg.k} level {it}",
+            lambda s, it=it: (gb.bfs_kbit_pull(kg.packed, kg.deg, s, it,
+                                               k=kg.k, d_pad=kg.d_pad), s),
+            lambda s, it=it: (gb.bfs_kbit_pull_plain(
+                kg.packed, kg.deg, s, it, k=kg.k, d_pad=kg.d_pad), s),
+            lambda it=it: at_level(d14, it),
+            kbit_pull_bytes(kg, at_level(d14, it), it, reached)))
+    deg18 = torch.from_numpy(g.degrees.astype(np.int32)).cuda()
+    e = indices.numel()
+    nbrs = torch.unique(indices).numel()
+    pr0 = torch.full((n,), float(np.float32(1.0) / np.float32(n)),
+                     device="cuda")
+    base = float(np.float32(1.0 - 0.85) / np.float32(n))
+    damp = float(np.float32(0.85))
+    prn = torch.from_numpy(pr).cuda()
+    for lab, p in (("iteration 1", pr0), ("iteration 21", prn)):
+        calls["pr_pull"].append((
+            f"pr_pull RMAT {SCALE} {lab}",
+            lambda s: (gb.pr_pull(indptr, indices, deg18, s, base, damp),),
+            lambda s: (gb.pr_pull_plain(indptr, indices, deg18, s, base,
+                                        damp),),
+            lambda p=p: p, 8 * (n + 1) + 4 * e + 8 * nbrs + 4 * n,
+            # torch.sparse.mm of the CSR matrix with contrib, the division
+            # and the axpy beside it
+            lambda s: base + damp * torch.sparse.mm(
+                adj, (s / deg18.clamp(min=1).float())[:, None])[:, 0]))
+    lab18 = torch.arange(n, dtype=torch.int32, device="cuda")
+    ccf = torch.from_numpy(out["connected_components"]).cuda()
+    for lab, st in (("step 1", lab18), ("last step", ccf)):
+        calls["cc_step"].append((
+            f"cc_step RMAT {SCALE} {lab}",
+            lambda s: gb.cc_step(indptr, indices, s),
+            lambda s: gb.cc_step_plain(indptr, indices, s),
+            lambda st=st: st, 8 * (n + 1) + 4 * e + 4 * n + 4 * n + 4,
+            lambda s: s.clone().scatter_reduce_(0, src_rows, s[idx],
+                                                reduce="amin")))
+    w18 = torch.from_numpy(w).cuda()
+    big = gb.BIG
+    s0 = torch.full((n,), big, dtype=torch.int64, device="cuda")
+    s0[0] = 0
+    sf = torch.from_numpy(np.where(s < 0, big, s)).cuda()
+    for lab, st in (("step 1", s0), ("last step", sf)):
+        calls["sssp_step"].append((
+            f"sssp_step RMAT {SCALE} weighted {lab}",
+            lambda s: gb.sssp_step(indptr, indices, w18, s),
+            lambda s: gb.sssp_step_plain(indptr, indices, w18, s),
+            lambda st=st: st, 8 * (n + 1) + 8 * e + 8 * n + 8 * n + 4,
+            lambda s: s.clone().scatter_reduce_(0, src_rows, s[idx] + w18,
+                                                reduce="amin")))
+    launches = dict(main_launches, bfs_kbit_pull=kbit_launches, **{
+        k: bc_launches[k] for k in ("bc_forward", "bc_backward")})
+    def sorted_ids(out):
+        """(ids, count, *rest) with the first count ids sorted."""
+        ids, c = out[:2]
+        return (ids[:int(c)].sort().values, c) + tuple(out[2:])
+
+    for name, kcalls in calls.items():
+        rtol = 1e-5 if name == "pr_pull" else None
+        err, rel, k_ms, p_ms, bound_ms, lib_ms = state_calls(
+            timing, kcalls, sorted_ids if name in ("frontier_ids", "bfs_push")
+            else None)
+        print(f"[50] {name}: {len(kcalls)} launches held, max_abs_err {err}, "
+              f"max rel err {rel:.3e}, kernel {k_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms (bytes), plain {p_ms:.4f} ms, library "
+              f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms; launches "
+              f"of its run {launches[name]} | {card}")
+        if rtol is None:
+            check(err == 0, f"{name} disagrees with its plain version by "
+                            f"{err}")
+        else:
+            check(rel <= rtol, f"{name} off its plain version by {rel}")
+        report.append(kernel_entry(name, launches[name], err, k_ms, p_ms,
+                                   bound_ms, "bytes", library_ms=lib_ms))
+    # K34: the forward and the backward pass of phase 48's batch
+    rows = torch.arange(len(src), device="cuda")
+    sl = torch.from_numpy(src).long().cuda()
+
+    def fwd_state():
+        dist = torch.full((len(src), n), inf, dtype=torch.int32,
+                          device="cuda")
+        sigma = torch.zeros((len(src), n), dtype=torch.float32,
+                            device="cuda")
+        dist[rows, sl] = 0
+        sigma[rows, sl] = 1.0
+        return dist, sigma
+
+    def forward(step):
+        def run(st):
+            for it in range(depth):
+                step(indptr, indices, st[0], st[1], it)
+            return st
+        return run
+
+    fin = forward(gb.bc_forward)(fwd_state())
+
+    def bwd_state():
+        return (fin[0], fin[1], torch.zeros_like(fin[1]),
+                torch.zeros(n, dtype=torch.float32, device="cuda"))
+
+    def backward(step):
+        def run(st):
+            for it in range(depth - 1, -1, -1):
+                step(indptr, indices, st[0], st[1], st[2], it, st[3])
+            return st[2], st[3]
+        return run
+
+    for name, kernel, plain, make, fwd in (
+            ("bc_forward", forward(gb.bc_forward),
+             forward(gb.bc_forward_plain), fwd_state, True),
+            ("bc_backward", backward(gb.bc_backward),
+             backward(gb.bc_backward_plain), bwd_state, False)):
+        nbytes = bc_pass_bytes(indptr, indices, fin[0], fin[1], depth, fwd)
+        err, rel, k_ms, p_ms, bound_ms, _ = state_calls(timing, [(
+            f"{name} RMAT {SCALE}, {len(src)} sources, {depth} steps",
+            kernel, plain, make, nbytes)])
+        print(f"[50] {name}: {depth} launches held, max_abs_err {err}, max "
+              f"rel err {rel:.3e}, kernel {k_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms (bytes), plain {p_ms:.4f} ms; launches of "
+              f"its run {launches[name]} | {card}")
+        check(rel <= 1e-4, f"{name} off its plain version by {rel}")
+        report.append(kernel_entry(name, launches[name], err, k_ms, p_ms,
+                                   bound_ms, "bytes"))
 
 
 def main() -> None:
@@ -2954,7 +3635,6 @@ def main() -> None:
     star_phases(timing, report)
     print(f"[22] total so far {time.perf_counter() - t_start:.1f} s")
     vertex_phases(timing, report, g)
-    del g
     print(f"[29] total so far {time.perf_counter() - t_start:.1f} s")
     lp_phases(timing, report)
     print(f"[36] total so far {time.perf_counter() - t_start:.1f} s")
@@ -2964,8 +3644,10 @@ def main() -> None:
                     num_nodes=1 << VF2_SCALE)
     recorded = vf2_phases(g14)
     print(f"[44] total so far {time.perf_counter() - t_start:.1f} s")
-    compressed_phases(timing, report, g14, recorded)
-    print(f"[46] total {time.perf_counter() - t_start:.1f} s")
+    forms = compressed_phases(timing, report, g14, recorded)
+    print(f"[46] total so far {time.perf_counter() - t_start:.1f} s")
+    gapbs_phases(timing, report, g, g14, forms)
+    print(f"[50] total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -27,7 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
-_U = ctypes.c_ulonglong
+_U, _F = ctypes.c_ulonglong, ctypes.c_float
 
 # library -> {C function: argument types, the trailing stream included}
 SIGNATURES = {
@@ -148,9 +148,10 @@ SIGNATURES = {
     "color_random": {
         # ids, nbrt, Vt, Dt, colors, deg1, draws, out, stream
         "johansson": (_P, _P, _L, _I, _P, _P, _P, _P, _P),
-        # ids, nbrt, Vt, Dt, colors, deg1, draws, palette_deg, delta, cw,
-        # pick, nfree, stream
-        "one_shot_pick": (_P, _P, _L, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+        # ids, nbrt, Vt, Dt, colors, deg1, draws, n1, palette_deg, delta,
+        # cw, pick, nfree, stream
+        "one_shot_pick": (_P, _P, _L, _I, _P, _P, _P, _L, _I, _I, _I, _P, _P,
+                          _P),
         # ids, nbrt, Vt, Dt, colors, pick, nfree, out, stream
         "one_shot_resolve": (_P, _P, _L, _I, _P, _P, _P, _P, _P),
     },
@@ -172,6 +173,34 @@ SIGNATURES = {
     "kbit_decode": {
         # packed, v_pad, W, deg, vids, B, d_pad, k, out, stream
         "kbit_decode_rows": (_P, _L, _I, _P, _P, _L, _I, _I, _P, _P),
+    },
+    "gapbs_bfs": {
+        # indptr, indices, n, dist, it, count, stream
+        "bfs_pull": (_P, _P, _L, _P, _I, _P, _P),
+        # dist, n, it, ids, count, stream
+        "frontier_ids": (_P, _L, _I, _P, _P, _P),
+        # indptr, indices, ids, fcount, dist, it, next ids, next count, stream
+        "bfs_push": (_P, _P, _P, _L, _P, _I, _P, _P, _P),
+    },
+    "gapbs_kbit_bfs": {
+        # packed, W, deg, n, k, dist, it, count, stream
+        "bfs_kbit_pull": (_P, _I, _P, _L, _I, _P, _I, _P, _P),
+    },
+    "gapbs_pr": {
+        # indptr, indices, n, deg, pr, base, damp, out, stream
+        "pr_pull": (_P, _P, _L, _P, _P, _F, _F, _P, _P),
+    },
+    "gapbs_min": {
+        # indptr, indices, n, cur, nxt, changed, stream
+        "cc_step": (_P, _P, _L, _P, _P, _P, _P),
+        # indptr, indices, weights (or null), n, cur, nxt, changed, stream
+        "sssp_step": (_P, _P, _P, _L, _P, _P, _P, _P),
+    },
+    "gapbs_bc": {
+        # indptr, indices, n, B, dist, sigma, it, stream
+        "bc_forward": (_P, _P, _L, _L, _P, _P, _I, _P),
+        # indptr, indices, n, B, dist, sigma, delta, it, total, stream
+        "bc_backward": (_P, _P, _L, _L, _P, _P, _P, _I, _P, _P),
     },
 }
 

@@ -14,6 +14,12 @@ _LAZY = {
     "barenboim_elkin": "coloring",
     "dense_sparse": "coloring",
     "subgraph_isomorphism": "subgraph_iso",
+    "bfs": "gapbs",
+    "bfs_kbit": "gapbs",
+    "pagerank": "gapbs",
+    "connected_components": "gapbs",
+    "sssp": "gapbs",
+    "betweenness_centrality": "gapbs",
 }
 
 __all__ = list(_LAZY)

@@ -23,27 +23,30 @@ raises for CUDA tensors, and adds one to LAUNCHES[name] per launch:
     three passes of the speculative round, each into a fresh buffer;
   * `johansson_bucket` (K24, csrc/color_random.cu, LAUNCHES
     "color_johansson") and `one_shot_pick` + `one_shot_resolve` (K24,
-    "color_one_shot"): the randomized rounds on explicit draws;
+    "color_one_shot"): the randomized rounds on explicit draws (Johansson's
+    picks; the one-shot's two raw 64-bit words a vertex, reduced to a pick
+    in the kernel once the free palette is counted);
   * `component_step` (K25, csrc/color_components.cu): one Jacobi min-label
     step on the friend graph of `dense_sparse`.
 The round functions (`jp_round`, `spec_round`, `johansson_round`,
 `one_shot_round`, `component_labels`) walk the buckets through the wrappers;
 their `*_plain` twins walk them through the plain versions, on any device.
 
-Differences from gms_tpu that the port keeps: Johansson and Barenboim/Elkin
-draw from a torch.Generator seeded by `seed` (gms_tpu draws from
-jax.random), so their colors differ from gms_tpu's and are held by the
-verifiers; fed gms_tpu's draws, one round equals gms_tpu's. The one-shot
-round works over the tiers with a bitmask a row, where gms_tpu builds a
-[V, D_pad, cw] one-hot, so it runs at sizes gms_tpu cannot.
+Johansson and Barenboim/Elkin draw gms_tpu's jax.random numbers from
+gms_tpu's keys (gms_tpu_torch/prng.py, threefry bit for bit), so their
+colors equal gms_tpu's vertex for vertex. The one-shot round works over the
+tiers with a bitmask a row, where gms_tpu builds a [V, D_pad, cw] one-hot,
+so it runs at sizes gms_tpu cannot.
 """
 
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import torch
 
-from gms_tpu_torch import _kernels
+from gms_tpu_torch import _kernels, prng
 from gms_tpu_torch.device import resolve
 from gms_tpu_torch.graphs.csr import CSRGraph, _csr_from_sorted_pairs
 from gms_tpu_torch.graphs.tiles import SENTINEL, round_up
@@ -62,8 +65,6 @@ ROUNDS = {"jones_plassmann": 0, "johansson": 0, "barenboim_elkin": 0,
           "dense_sparse": 0, "component_labels": 0}
 
 _SENT = int(SENTINEL)
-# draws are int32 words in [0, _DRAW_HIGH)
-_DRAW_HIGH = (1 << 31) - 1
 # elements a plain version materialises at once
 _PLAIN_BUDGET = 1 << 24
 
@@ -358,8 +359,9 @@ def johansson_bucket_plain(colors, deg1, draws, ids, nbrt, out):
 
 def johansson_bucket(colors, deg1, draws, ids, nbrt, out):
     """One Johansson round over a bucket into out[ids]: an uncolored row
-    picks draws mod deg1 (draws non-negative int32) and keeps it unless a
-    neighbour holds or picked the same."""
+    picks draws mod deg1 (draws non-negative int32; johansson feeds
+    gms_tpu's picks, already in [0, deg1)) and keeps it unless a neighbour
+    holds or picked the same."""
     name = "johansson_bucket"
     if not _check_bucket(name, ids, nbrt, colors, deg1, draws, out):
         return johansson_bucket_plain(colors, deg1, draws, ids, nbrt, out)
@@ -379,7 +381,7 @@ def _johansson_round(colors, deg1, draws, tiers, bucket):
 
 def johansson_round(colors, deg1, draws, tiers):
     """One Johansson round (gms_tpu _johansson_round_tiered, coloring.py:127)
-    with the draws given: int32[n + 1] words in [0, 2^31)."""
+    with the draws given: int32[n + 1], non-negative (`johansson_draws`)."""
     return _johansson_round(colors, deg1, draws, tiers, johansson_bucket)
 
 
@@ -395,7 +397,7 @@ def one_shot_pick_plain(colors, deg1, draws, ids, nbrt, pick, nfree, *,
              else torch.full_like(vcol, delta + 1, dtype=torch.long))
     s, nused = _used_sorted(ncol, nbrt != _SENT, limit)
     nf = limit - nused
-    r = torch.remainder(draws[ids.long()].long(), nf.clamp(min=1))
+    r = prng.randint_from_bits(draws[:, ids.long()], 0, nf.clamp(min=1), 64)
     p = torch.where(nf > 0, _kth_from_sorted(s, r), torch.zeros_like(r))
     unc = vcol == UNCOLORED
     pick[ids.long()] = torch.where(unc, p.to(torch.int32), vcol)
@@ -418,16 +420,25 @@ def one_shot_pick(colors, deg1, draws, ids, nbrt, pick, nfree, *,
                   palette_deg: bool, delta: int):
     """Barenboim/Elkin's pick over a bucket into pick[ids], nfree[ids]: the
     free palette ([0, deg1) for Elkin, [0, delta + 1) for Barenboim) less
-    the committed neighbours' colors; r = draws mod max(nfree, 1); the r-th
-    free color (0 when none). Colored rows: their color and nfree 0."""
+    the committed neighbours' colors; r = jax's randint in [0, max(nfree,
+    1)) of the row's two 64-bit words draws[:, v] (int64[2, n + 1],
+    `one_shot_draws`); the r-th free color (0 when none). Colored rows:
+    their color and nfree 0."""
     name = "one_shot_pick"
-    if not _check_bucket(name, ids, nbrt, colors, deg1, draws, pick, nfree):
+    _kernels.check_tensor(name, "draws", draws, 2, torch.int64)
+    if draws.shape != (2, colors.shape[0]):
+        raise ValueError(f"{name}: draws {tuple(draws.shape)} for "
+                         f"{colors.shape[0]} state slots")
+    cuda = _check_bucket(name, ids, nbrt, colors, deg1, pick, nfree)
+    _kernels.on_cuda(name, ids, draws)      # raises on another device
+    if not cuda:
         return one_shot_pick_plain(colors, deg1, draws, ids, nbrt, pick,
                                    nfree, palette_deg=palette_deg,
                                    delta=delta)
     Vt, Dt = nbrt.shape
     _kernels.launch("color_random", "one_shot_pick", ids, nbrt, Vt, Dt,
-                    colors, deg1, draws, int(palette_deg), int(delta),
+                    colors, deg1, draws, draws.shape[1], int(palette_deg),
+                    int(delta),
                     _color_words((Dt if palette_deg else delta) + 2), pick,
                     nfree)
     LAUNCHES["color_one_shot"] += 1
@@ -464,7 +475,8 @@ def _one_shot_round(colors, deg1, draws, tiers, palette_deg, delta, pick_fn,
 def one_shot_round(colors, deg1, draws, tiers, *, palette_deg: bool,
                    delta: int):
     """One Barenboim/Elkin round (gms_tpu _one_shot_round, coloring.py:404)
-    with the draws given; returns (colors, nfree)."""
+    with the draws given (int64[2, n + 1], `one_shot_draws`); returns
+    (colors, nfree)."""
     return _one_shot_round(colors, deg1, draws, tiers, palette_deg, delta,
                            one_shot_pick, one_shot_resolve)
 
@@ -642,21 +654,31 @@ def jones_plassmann(g: CSRGraph, *, priority: str = "random", seed: int = 0,
                        -(-budget // 64), "jones_plassmann", "jones_plassmann")
 
 
-def _draws(gen: torch.Generator, n1: int, dev) -> torch.Tensor:
-    return torch.randint(0, _DRAW_HIGH, (n1,), generator=gen, device=dev,
-                         dtype=torch.int32)
+def johansson_draws(key, r: int, deg1) -> torch.Tensor:
+    """Round r's picks of gms_tpu's Johansson round (coloring.py:133):
+    randint(fold_in(key, r), (n + 1,), 0, deg1, int32)."""
+    return prng.randint(prng.fold_in(key, r), deg1.shape, 0, deg1,
+                        torch.int32)
 
 
-def _generator(seed: int, dev) -> torch.Generator:
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    return gen
+def one_shot_draws(key, r: int, n1: int) -> torch.Tensor:
+    """Round r's two 64-bit words a vertex of gms_tpu's one-shot randint
+    (coloring.py:432, int64 with x64 on): int64[2, n1]; the kernel reduces
+    them into [0, max(nfree, 1)) as jax's randint does."""
+    return prng.randint_bits(prng.fold_in(key, r), (n1,), 64)
+
+
+def _counted(round_fn):
+    """round_fn(r, ...) as a round function of _run: r counts its calls
+    from 0 (gms_tpu's fold_in of the round counter)."""
+    rounds = itertools.count()
+    return lambda *args: round_fn(next(rounds), *args)
 
 
 def johansson(g: CSRGraph, *, seed: int = 0, device="cuda") -> np.ndarray:
-    """Johansson randomized (deg+1)-coloring; returns int32[n]. Dispatch r
-    (of up to 64, of up to 128 rounds) draws from a generator seeded
-    seed + 1000 r, one int32 word a vertex a round."""
+    """Johansson randomized (deg+1)-coloring; returns int32[n], equal to
+    gms_tpu's. Dispatch d (of up to 64, of up to 128 rounds) keys its
+    rounds jax.random.key(seed + 1000 d) folded with the round."""
     dev = resolve(device)
     n = g.num_nodes
     ROUNDS["johansson"] = 0
@@ -667,9 +689,10 @@ def johansson(g: CSRGraph, *, seed: int = 0, device="cuda") -> np.ndarray:
                             .astype(np.int32)).to(dev)
 
     def dispatch(d, colors, unc):
-        gen = _generator(seed + 1000 * d, dev)
-        return _run(lambda c, d1, t: johansson_round(
-            c, d1, _draws(gen, n + 1, dev), t), colors, n, 128, deg1, tiers)
+        key = prng.key(seed + 1000 * d, dev)
+        return _run(_counted(lambda r, c, d1, t: johansson_round(
+            c, d1, johansson_draws(key, r, d1), t)), colors, n, 128, deg1,
+            tiers)
 
     return _dispatches(dispatch, _initial_colors(n, dev), n, n + 1, 64,
                        "johansson", "johansson")
@@ -680,8 +703,8 @@ def barenboim_elkin(g: CSRGraph, *, variant: str = "barenboim",
     """Barenboim / Elkin randomized palette coloring; returns int32[n].
 
     variant="barenboim": the global Δ+1 palette; "elkin": per-vertex deg+1
-    palettes. Up to 64 (floor(log2(n + 2)) + 8) rounds, as gms_tpu, with
-    draws from a generator seeded `seed`."""
+    palettes. Up to 64 (floor(log2(n + 2)) + 8) rounds, as gms_tpu, keyed
+    jax.random.key(seed) folded with the round: equal to gms_tpu's."""
     dev = resolve(device)
     n = g.num_nodes
     ROUNDS["barenboim_elkin"] = 0
@@ -693,11 +716,11 @@ def barenboim_elkin(g: CSRGraph, *, variant: str = "barenboim",
                             .astype(np.int32)).to(dev)
     palette_deg = variant == "elkin"
     delta = g.max_degree
-    gen = _generator(seed, dev)
+    key = prng.key(seed, dev)
     limit = 64 * (int(np.log2(n + 2)) + 8)
-    colors, r = _run(lambda c, d, t: one_shot_round(
-        c, d, _draws(gen, n + 1, dev), t, palette_deg=palette_deg,
-        delta=delta)[0], colors, n, limit, deg1, tiers)
+    colors, r = _run(_counted(lambda r, c, d, t: one_shot_round(
+        c, d, one_shot_draws(key, r, n + 1), t, palette_deg=palette_deg,
+        delta=delta)[0]), colors, n, limit, deg1, tiers)
     ROUNDS["barenboim_elkin"] = r
     out = colors[:n].cpu().numpy()
     if (out == UNCOLORED).any():

@@ -8,15 +8,19 @@
 //   one_shot_pick    — `_one_shot_round` (:404), the pick: nfree = the colors
 //                      of the palette [0, L) (L = deg1[v] for Elkin, delta + 1
 //                      for Barenboim) absent from the committed neighbours'
-//                      colors, r = draws[v] mod max(nfree, 1), pick = the
-//                      r-th free color (0 when nfree is 0); a colored row's
-//                      pick is its color and its nfree 0;
+//                      colors, r = jax's randint of the row's two 64-bit
+//                      words into [0, max(nfree, 1)), pick = the r-th free
+//                      color (0 when nfree is 0); a colored row's pick is
+//                      its color and its nfree 0;
 //   one_shot_resolve — its conflict rule: an uncolored row keeps its pick
 //                      when nfree > 0 and no uncolored neighbour of higher id
 //                      picked the same color (coloring_barenboim.h:44-47).
-// The draws are an input (non-negative int32 words, one a vertex), so the
-// kernel and its plain version give the same colors on the same draws;
-// gms_tpu draws them from jax.random inside its rounds. Every entry reads the
+// The draws are an input, so the kernel and its plain version give the same
+// colors on the same draws: Johansson's are gms_tpu's picks (non-negative
+// int32, already below deg1); the one-shot's are jax.random's two 64-bit
+// words a vertex (draws[v] and draws[n1 + v]), which jax_randint reduces as
+// jax's `_randint` does (gms_tpu's int64 randint with x64 on) once the row's
+// span, max(nfree, 1), is known. Every entry reads the
 // round-start colors (and picks) and writes a fresh buffer, so the order of
 // rows and buckets does not matter.
 //
@@ -32,6 +36,18 @@
 #include "color_pick.cuh"
 
 namespace {
+
+// jax.random.randint's reduction of two 64-bit words into [0, span), span
+// below 2^31: ((higher % span) * ((2^32 % span)^2 % span) + lower % span) %
+// span, exact in 64 bits.
+__device__ __forceinline__ int jax_randint(unsigned long long higher,
+                                           unsigned long long lower,
+                                           int span) {
+  const unsigned long long s = (unsigned long long)span;
+  const unsigned long long m = (1ull << 32) % s;
+  const unsigned long long mult = (m * m) % s;
+  return (int)(((higher % s) * mult + lower % s) % s);
+}
 
 __global__ void johansson_kernel(const int* __restrict__ ids,
                                  const int* __restrict__ nbrt, long long Vt,
@@ -66,8 +82,9 @@ __global__ void one_shot_pick_kernel(const int* __restrict__ ids,
                                      long long Vt, int Dt,
                                      const int* __restrict__ colors,
                                      const int* __restrict__ deg1,
-                                     const int* __restrict__ draws,
-                                     int palette_deg, int delta, int cw,
+                                     const unsigned long long* __restrict__ draws,
+                                     long long n1, int palette_deg,
+                                     int delta, int cw,
                                      int wpb, int* __restrict__ pick,
                                      int* __restrict__ nfree) {
   extern __shared__ unsigned smem[];
@@ -95,7 +112,10 @@ __global__ void one_shot_pick_kernel(const int* __restrict__ ids,
   __syncwarp();
   const int nf = color::free_count(mask, cw, limit, lane);
   int p = 0;
-  if (nf > 0) p = color::kth_free(mask, cw, limit, draws[id] % nf, lane);
+  if (nf > 0) {
+    p = color::kth_free(mask, cw, limit,
+                        jax_randint(draws[id], draws[n1 + id], nf), lane);
+  }
   if (lane == 0) {
     pick[id] = p;
     nfree[id] = nf;
@@ -132,8 +152,8 @@ __global__ void one_shot_resolve_kernel(const int* __restrict__ ids,
 
 }  // namespace
 
-// ids int32[Vt], nbrt int32[Vt, Dt]; colors, deg1, draws and the outputs
-// int32[n + 1].
+// ids int32[Vt], nbrt int32[Vt, Dt]; colors, deg1 and the outputs int32[n +
+// 1]; draws int32[n + 1] (johansson) or uint64[2, n1 = n + 1] (one_shot_pick).
 extern "C" int johansson(const void* ids, const void* nbrt, long long Vt,
                          int Dt, const void* colors, const void* deg1,
                          const void* draws, void* out, void* stream) {
@@ -148,8 +168,9 @@ extern "C" int johansson(const void* ids, const void* nbrt, long long Vt,
 
 extern "C" int one_shot_pick(const void* ids, const void* nbrt, long long Vt,
                              int Dt, const void* colors, const void* deg1,
-                             const void* draws, int palette_deg, int delta,
-                             int cw, void* pick, void* nfree, void* stream) {
+                             const void* draws, long long n1,
+                             int palette_deg, int delta, int cw, void* pick,
+                             void* nfree, void* stream) {
   if (Vt > 0) {
     int wpb = 0;
     const int smem = color::prepare_smem(one_shot_pick_kernel, cw, &wpb);
@@ -157,7 +178,8 @@ extern "C" int one_shot_pick(const void* ids, const void* nbrt, long long Vt,
     one_shot_pick_kernel<<<(unsigned)((Vt + wpb - 1) / wpb), 32 * wpb, smem,
                            (cudaStream_t)stream>>>(
         (const int*)ids, (const int*)nbrt, Vt, Dt, (const int*)colors,
-        (const int*)deg1, (const int*)draws, palette_deg, delta, cw, wpb,
+        (const int*)deg1, (const unsigned long long*)draws, n1, palette_deg,
+        delta, cw, wpb,
         (int*)pick, (int*)nfree);
   }
   return (int)cudaGetLastError();

@@ -6,16 +6,16 @@
 // string. out[b, j] (int32[B, d_pad]) is lane j of row v = clip(vids[b]) for
 // j < deg[v], else SENTINEL.
 //
-// One thread per output lane: two word loads (w0 and its successor, clamped
-// to W - 1), two shifts, an OR and a mask. The C traps gms_tpu's uint32
-// arithmetic does not have: at s == 0 the high part is 0 (w1 << 32 is
-// undefined in C), and at k == 32 the mask is all ones ((1u << 32) - 1 is
-// undefined). Bound on an H100: bytes — the packed words up to each row's
-// last live lane, deg and vids read once, the output written.
+// One thread per output lane, decoded by kbit_lane (kbit_lane.cuh, shared
+// with K31): two word loads, two shifts, an OR and a mask, with the C traps
+// at s == 0 and k == 32 handled there. Bound on an H100: bytes — the packed
+// words up to each row's last live lane, deg and vids read once, the output
+// written.
 
 #include <cuda_runtime.h>
 
 #include "block_sum.cuh"
+#include "kbit_lane.cuh"
 #include "row_search.cuh"
 
 namespace {
@@ -31,17 +31,7 @@ __global__ void kbit_decode_kernel(const unsigned* __restrict__ packed,
   const int j = (int)(t - b * d_pad);
   const long long v = clip_index(vids[b], v_pad);
   int val = GMS_SENTINEL;
-  if (j < deg[v]) {
-    const long long bitpos = (long long)j * k;
-    const long long w0i = bitpos >> 5;
-    const unsigned s = (unsigned)(bitpos & 31);
-    const long long w1i = w0i + 1 < W ? w0i + 1 : W - 1;
-    const unsigned* row = packed + v * W;
-    const unsigned lo = row[w0i] >> s;
-    const unsigned hi = s == 0 ? 0u : row[w1i] << (32 - s);
-    const unsigned mask = k == 32 ? 0xffffffffu : ((1u << k) - 1u);
-    val = (int)((lo | hi) & mask);
-  }
+  if (j < deg[v]) val = kbit_lane(packed + v * W, W, j, k);
   out[t] = val;
 }
 

@@ -31,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gms_tpu_torch import _kernels
+from gms_tpu_torch import _kernels, prng
 from gms_tpu_torch.device import resolve
 from gms_tpu_torch.graphs.csr import CSRGraph
 
@@ -263,10 +263,11 @@ def adg_ordering_rank_device(
     of the peeled vertices by (deg, id); the loop is Python, with one
     read-back a round (the peeled count). "avg" and "min" match gms_tpu's
     device and host versions rank for rank. "prob_min" and "prob_median"
-    draw ADG_SAMPLES degrees a round, with replacement, from the alive
-    vertices, by a CPU torch.Generator seeded with `seed`: deterministic per
-    seed and equal on every device, but not jax.random's draws; the median
-    averages the two middle samples, as np.median and jnp.median do.
+    draw ADG_SAMPLES positions a round, with replacement, into the sorted
+    alive degrees — gms_tpu's draw, jax.random's int64 randint over
+    [0, n_alive) keyed PRNGKey(seed) folded with the round (prng.py) — so
+    they too equal gms_tpu's ranks; the median averages the two middle
+    samples, as jnp.median does.
     """
     dev = resolve(device)
     n = g.num_nodes
@@ -279,15 +280,15 @@ def adg_ordering_rank_device(
     deg = torch.from_numpy(g.degrees.astype(np.int64)).to(dev)
     alive = torch.ones(n, dtype=torch.bool, device=dev)
     rank = torch.empty(n, dtype=torch.int32, device=dev)
-    gen = torch.Generator().manual_seed(seed)
-    next_rank = 0
+    key0 = prng.PRNGKey(seed, dev)
+    next_rank, rnd = 0, 0
     while next_rank < n:
         bound = None
         if _ADG_MODE[boundary] == 2:
-            live = deg[alive]
-            take = torch.randint(0, live.numel(), (ADG_SAMPLES,),
-                                 generator=gen)
-            vals = live[take.to(dev)].cpu().numpy().astype(np.float64)
+            live = torch.sort(deg[alive]).values
+            take = prng.randint(prng.fold_in(key0, rnd), (ADG_SAMPLES,), 0,
+                                max(live.numel(), 1), torch.int64)
+            vals = live[take].cpu().numpy().astype(np.float64)
             bound = ((2.0 + eps) * vals.min() if boundary == "prob_min"
                      else (1.0 + eps) * np.median(vals))
         peel = adg_round(indptr, indices, deg, alive, boundary=boundary,
@@ -297,6 +298,7 @@ def adg_ordering_rank_device(
         rank[order] = torch.arange(next_rank, next_rank + len(ids),
                                    dtype=torch.int32, device=dev)
         next_rank += len(ids)
+        rnd += 1
     return rank.cpu().numpy()
 
 

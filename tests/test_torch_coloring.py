@@ -1,7 +1,9 @@
 """The port's algorithms/coloring.py: the mirror of tests/test_coloring.py on
 the plain versions (device="cpu"), and the port against gms_tpu on the same
 numpy inputs — colors equal vertex for vertex for Jones–Plassmann (strict and
-speculative, three priorities) and dense_sparse. Exact throughout: every
+speculative, three priorities), dense_sparse, and Johansson and
+Barenboim/Elkin, whose draws are jax.random's own (gms_tpu_torch/prng.py).
+Exact throughout: every
 value is an integer. tests/test_torch_coloring_rounds.py holds one round of
 each device program against gms_tpu's."""
 
@@ -81,13 +83,15 @@ def test_jp_random_graphs(n, p, seed):
     assert np.array_equal(colors, jc.jones_plassmann(jg, seed=seed))
 
 
-def test_johansson(port_fixtures):
+def test_johansson(port_fixtures, fixture_graphs):
     for name, g in port_fixtures.items():
         colors = gc.johansson(g, seed=3, device="cpu")
         assert colors.dtype == np.int32
         assert gc.verify_coloring(g, colors), name
         assert gc.verify_degree_bound(g, colors), name
         assert np.array_equal(colors, gc.johansson(g, seed=3, device="cpu"))
+        assert np.array_equal(colors, jc.johansson(fixture_graphs[name],
+                                                   seed=3)), name
 
 
 def test_greedy_oracle_props():
@@ -132,13 +136,15 @@ def test_empty_graph():
 
 
 @pytest.mark.parametrize("variant", ["barenboim", "elkin"])
-def test_barenboim_elkin(port_fixtures, variant):
+def test_barenboim_elkin(port_fixtures, fixture_graphs, variant):
     for name, g in port_fixtures.items():
         colors = gc.barenboim_elkin(g, variant=variant, seed=1, device="cpu")
         assert gc.verify_coloring(g, colors), name
         assert gc.verify_delta_plus_one(g, colors), name
         if variant == "elkin":
             assert gc.verify_degree_bound(g, colors), name
+        assert np.array_equal(colors, jc.barenboim_elkin(
+            fixture_graphs[name], variant=variant, seed=1)), name
 
 
 def test_dense_sparse(port_fixtures, fixture_graphs):
@@ -151,11 +157,13 @@ def test_dense_sparse(port_fixtures, fixture_graphs):
 
 def test_barenboim_elkin_random():
     for seed in range(2):
-        g = build_csr(random_graph(60, 0.15, seed), num_nodes=60)
+        g, jg = _both(random_graph(60, 0.15, seed), 60)
         for variant in ("barenboim", "elkin"):
             colors = gc.barenboim_elkin(g, variant=variant, seed=seed,
                                         device="cpu")
             assert gc.verify_coloring(g, colors)
+            assert np.array_equal(colors, jc.barenboim_elkin(
+                jg, variant=variant, seed=seed))
 
 
 def test_dense_sparse_on_cliquey_graph():
@@ -218,6 +226,23 @@ def test_jp_equals_gms_tpu_on_rmat(scale, speculative, priority):
     assert np.array_equal(got, jc.jones_plassmann(
         jg, priority=priority, speculative=speculative))
     assert gc.verify_coloring(g, got) and gc.verify_degree_bound(g, got)
+
+
+@pytest.mark.parametrize("variant", ["johansson", "barenboim", "elkin"])
+def test_randomized_equal_gms_tpu_on_rmat(variant):
+    """The randomized colorings draw jax.random's numbers from gms_tpu's
+    keys, so their colors equal gms_tpu's vertex for vertex."""
+    g, jg = _rmat(10)
+    for seed in (0, 7):
+        if variant == "johansson":
+            got = gc.johansson(g, seed=seed, device="cpu")
+            want = jc.johansson(jg, seed=seed)
+        else:
+            got = gc.barenboim_elkin(g, variant=variant, seed=seed,
+                                     device="cpu")
+            want = jc.barenboim_elkin(jg, variant=variant, seed=seed)
+        assert np.array_equal(got, want), seed
+        assert gc.verify_coloring(g, got)
 
 
 def test_jp_max_rounds_raises_like_gms_tpu():

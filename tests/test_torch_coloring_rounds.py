@@ -147,23 +147,19 @@ def test_one_shot_round_fed_gms_tpu_draws(variant):
         key = jax.random.fold_in(jax.random.key(7), r)
         col = np.concatenate([np.asarray(jcol)[:n], [0]]).astype(np.int32)
         t_col = torch.from_numpy(col)
-        _, nfree = gc.one_shot_round_plain(
-            t_col, torch.from_numpy(deg1),
-            torch.zeros(n + 1, dtype=torch.int32),
-            tiers, palette_deg=palette_deg, delta=delta)
-        # gms_tpu's draw (coloring.py:432) with its maxval max(nfree, 1);
-        # the rows colored at the start take no draw
-        maxval = np.ones(V, np.int32)
-        maxval[:n] = np.maximum(nfree.numpy()[:n], 1)
-        w = np.zeros(n + 1, np.int32)
-        w[:n] = np.asarray(jax.random.randint(key, (V,), 0,
-                                              jnp.asarray(maxval)))[:n]
+        # gms_tpu's draw (coloring.py:432): int64 randint with maxval
+        # max(nfree, 1), i.e. two 64-bit words a vertex from split(key),
+        # fed raw; the port reduces them once nfree is known
+        k1, k2 = jax.random.split(key)
+        w = torch.from_numpy(np.stack([
+            np.asarray(jax.random.bits(k, (n + 1,), jnp.uint64)).view(np.int64)
+            for k in (k1, k2)]))
         want = np.asarray(jc._one_shot_round(pg.nbr, pg.deg, jcol, key, cw=cw,
                                              palette_deg=palette_deg,
                                              delta=delta))
         for fn in (gc.one_shot_round, gc.one_shot_round_plain):
-            got, _ = fn(t_col, torch.from_numpy(deg1), torch.from_numpy(w),
-                        tiers, palette_deg=palette_deg, delta=delta)
+            got, _ = fn(t_col, torch.from_numpy(deg1), w, tiers,
+                        palette_deg=palette_deg, delta=delta)
             assert np.array_equal(got.numpy()[:n], want[:n])
         jcol = jnp.asarray(want)
     assert (np.asarray(jcol)[:n] >= 0).mean() > 0.5

@@ -206,8 +206,12 @@ def _weighted_case():
 
 
 def test_kbit_weighted_roundtrip_and_sssp():
-    """The round trip of tests/test_compressed.py's test of the same name;
-    its SSSP half waits for the port of algorithms/gapbs.py."""
+    """tests/test_compressed.py's test of the same name: the round trip,
+    then SSSP straight from the packed planes against the oracle and
+    gms_tpu."""
+    from gms_tpu.algorithms import gapbs as jgapbs
+    from gms_tpu_torch.algorithms import gapbs
+
     g, w = _weighted_case()
     kg = cp.KbitWeightedGraph.from_csr(g, w, **CPU)
     rows = kg.nbr.numpy()[: g.num_nodes]
@@ -227,6 +231,9 @@ def test_kbit_weighted_roundtrip_and_sssp():
     np.testing.assert_array_equal(words(kg.wplane), np.asarray(jkg.wplane))
     np.testing.assert_array_equal(kg.weight_rows().numpy(),
                                   np.asarray(jkg.weight_rows()))
+    got = gapbs.sssp(kg, 0, **CPU)
+    np.testing.assert_array_equal(got, gapbs.sssp_oracle(g, 0, w))
+    np.testing.assert_array_equal(got, jgapbs.sssp(jkg, 0))
 
 
 # --- the port against gms_tpu ------------------------------------------------

@@ -8,8 +8,9 @@ gms_tpu's numpy peel, and the core numbers against both.
 
 The device ADG runs here on its plain round (device="cpu"): "avg" and "min"
 equal gms_tpu's device and host versions rank for rank; the sampled
-boundaries draw from torch, not jax.random, so they are held to the verifier
-and to determinism per seed. The ordered collections mirror
+boundaries draw jax.random's numbers from gms_tpu's keys
+(gms_tpu_torch/prng.py), so they equal gms_tpu's device ranks too, and are
+held to the verifier as well. The ordered collections mirror
 tests/test_preprocessing.py.
 """
 
@@ -138,16 +139,22 @@ def test_adg_device_matches_host_random(seed):
 @pytest.mark.parametrize("boundary", ["prob_min", "prob_median"])
 def test_adg_device_prob_boundaries(boundary):
     for seed in range(2):
-        g = build_csr(random_graph(70, 0.15, seed), num_nodes=70)
+        el = random_graph(70, 0.15, seed)
+        g, jg = build_csr(el, num_nodes=70), jbuild_csr(el, num_nodes=70)
         r1 = dg.adg_ordering_rank_device(g, 0.1, boundary, seed=3,
                                          device="cpu")
         r2 = dg.adg_ordering_rank_device(g, 0.1, boundary, seed=3,
                                          device="cpu")
         np.testing.assert_array_equal(r1, r2)
+        np.testing.assert_array_equal(r1, jdg.adg_ordering_rank_device(
+            jg, 0.1, boundary, seed=3))
         assert sorted(r1.tolist()) == list(range(70))
         assert dg.verify_approx_degeneracy_order(g, r1, 0.1)
-    g = build_csr(generate_rmat_el(12, 16, seed=27491095), num_nodes=4096)
+    el = generate_rmat_el(12, 16, seed=27491095)
+    g, jg = build_csr(el, num_nodes=4096), jbuild_csr(el, num_nodes=4096)
     r1 = dg.adg_ordering_rank_device(g, 0.1, boundary, seed=5, device="cpu")
+    np.testing.assert_array_equal(r1, jdg.adg_ordering_rank_device(
+        jg, 0.1, boundary, seed=5))
     assert dg.verify_approx_degeneracy_order(g, r1, 0.1)
     assert not np.array_equal(r1, dg.adg_ordering_rank_device(
         g, 0.1, boundary, seed=6, device="cpu"))

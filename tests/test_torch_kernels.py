@@ -997,6 +997,9 @@ def test_color_rounds_on_card(card):
                               device=card, dtype=torch.int32)
         assert torch.equal(gc.johansson_round(col, deg1, draws, tiers),
                            gc.johansson_round_plain(col, deg1, draws, tiers))
+        # the one-shot's raw 64-bit words, any bit pattern
+        draws = torch.randint(-(1 << 63), (1 << 63) - 1, (2, n + 1),
+                              generator=gen, device=card, dtype=torch.int64)
         for palette_deg in (False, True):
             got = gc.one_shot_round(col, deg1, draws, tiers,
                                     palette_deg=palette_deg,
@@ -1047,11 +1050,14 @@ def test_coloring_entry_points_on_card(card):
                                                    device="cpu"))
     c = gc.johansson(g, device=card)
     assert gc.verify_coloring(g, c) and gc.verify_degree_bound(g, c)
+    assert np.array_equal(c, gc.johansson(g, device="cpu"))
     for variant in ("barenboim", "elkin"):
         c = gc.barenboim_elkin(g, variant=variant, device=card)
         assert gc.verify_coloring(g, c) and gc.verify_delta_plus_one(g, c)
         if variant == "elkin":
             assert gc.verify_degree_bound(g, c)
+        assert np.array_equal(c, gc.barenboim_elkin(g, variant=variant,
+                                                    device="cpu"))
 
 
 # --- VF2 (K26, K27) and the k-bit decode (K28) --------------------------------
@@ -1179,3 +1185,168 @@ def test_compressed_forms_on_card(card):
     kw = cp.KbitWeightedGraph.from_csr(g, w, device=card)
     assert torch.equal(kw.weight_rows().cpu(), cp.KbitWeightedGraph.from_csr(
         g, w, device="cpu").weight_rows())
+
+
+# --- the GAPBS steps (K29-K34) -------------------------------------------------
+
+def _gapbs_graph(card, scale=9, isolated=7):
+    """RMAT `scale` plus isolated vertices (empty rows, degree 0) on the card:
+    (g, indptr, indices)."""
+    from gms_tpu_torch.algorithms import gapbs  # noqa: F401
+
+    n = (1 << scale) + isolated
+    g = build_csr(generate_rmat_el(scale, 8, seed=3), num_nodes=n)
+    return (g, torch.from_numpy(g.indptr).to(card),
+            torch.from_numpy(g.indices).to(card))
+
+
+def _bfs_state(g, card, source, levels):
+    from gms_tpu_torch.algorithms import gapbs
+
+    d = gapbs.bfs_oracle(g, source)
+    dist = np.where((d < 0) | (d > levels), gapbs.INF, d).astype(np.int32)
+    return torch.from_numpy(dist).to(card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", [0, "isolated"])
+def test_bfs_steps_on_card(card, source):
+    from gms_tpu_torch.algorithms import gapbs
+
+    g, indptr, indices = _gapbs_graph(card)
+    s = 0 if source == 0 else g.num_nodes - 1     # no neighbours
+    for it in range(4):
+        dist = _bfs_state(g, card, s, it)
+        got, want = dist.clone(), dist.clone()
+        c = _launched("bfs_pull", lambda: gapbs.bfs_pull(
+            indptr, indices, got, it), gapbs.LAUNCHES)
+        wc = gapbs.bfs_pull_plain(indptr, indices, want, it)
+        assert torch.equal(got, want) and int(c) == int(wc)
+        ids, fc = _launched("frontier_ids", lambda: gapbs.frontier_ids(
+            dist, it), gapbs.LAUNCHES)
+        wids, wfc = gapbs.frontier_ids_plain(dist, it)
+        assert int(fc) == int(wfc)
+        assert torch.equal(ids[:int(fc)].sort().values,
+                           wids[:int(wfc)].sort().values)
+        got, want = dist.clone(), dist.clone()
+        nxt, nc = _launched("bfs_push", lambda: gapbs.bfs_push(
+            indptr, indices, ids, int(fc), got, it), gapbs.LAUNCHES)
+        wn, wnc = gapbs.bfs_push_plain(indptr, indices, wids, int(wfc), want,
+                                       it)
+        assert torch.equal(got, want) and int(nc) == int(wnc)
+        assert torch.equal(nxt[:int(nc)].sort().values,
+                           wn[:int(wnc)].sort().values)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 13, 17, 32])
+def test_bfs_kbit_pull_on_card(card, k):
+    from gms_tpu_torch.algorithms import gapbs
+
+    g, indptr, indices = _gapbs_graph(card)
+    n = g.num_nodes
+    if k == 1:
+        # 1-bit ids: a graph on vertices {0, 1} plus isolated ones
+        g = build_csr(np.array([[0, 1]], dtype=np.int64), num_nodes=2)
+        n = 2
+    kg = cp.KbitGraph.from_csr(g, k=max(k, cp._bits_for(n)), device=card)
+    for it in range(3):
+        dist = _bfs_state(g, card, 0, it)
+        got, want = dist.clone(), dist.clone()
+        c = _launched("bfs_kbit_pull", lambda: gapbs.bfs_kbit_pull(
+            kg.packed, kg.deg, got, it, k=kg.k, d_pad=kg.d_pad),
+            gapbs.LAUNCHES)
+        wc = gapbs.bfs_kbit_pull_plain(kg.packed, kg.deg, want, it, k=kg.k,
+                                       d_pad=kg.d_pad)
+        assert torch.equal(got, want) and int(c) == int(wc)
+    assert np.array_equal(gapbs.bfs_kbit(kg, 0, device=card),
+                          gapbs.bfs_oracle(g, 0).astype(np.int32))
+
+
+@pytest.mark.cuda
+def test_pr_and_min_steps_on_card(card):
+    from gms_tpu_torch.algorithms import gapbs
+
+    g, indptr, indices = _gapbs_graph(card)
+    n = g.num_nodes
+    rng = np.random.default_rng(2)
+    deg = torch.from_numpy(g.degrees.astype(np.int32)).to(card)
+    pr = torch.from_numpy(rng.random(n).astype(np.float32)).to(card)
+    got = _launched("pr_pull", lambda: gapbs.pr_pull(
+        indptr, indices, deg, pr, 1e-4, 0.85), gapbs.LAUNCHES)
+    torch.testing.assert_close(got, gapbs.pr_pull_plain(
+        indptr, indices, deg, pr, 1e-4, 0.85), rtol=1e-5, atol=0)
+    cur = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(card)
+    nxt, ch = _launched("cc_step", lambda: gapbs.cc_step(indptr, indices, cur),
+                        gapbs.LAUNCHES)
+    want, wch = gapbs.cc_step_plain(indptr, indices, cur)
+    assert torch.equal(nxt, want) and torch.equal(ch, wch)
+    d = np.where(rng.random(n) < 0.2, rng.integers(0, 30, n), gapbs.BIG)
+    cur = torch.from_numpy(d).to(card)
+    w = torch.from_numpy(rng.integers(1, 10, g.num_edges).astype(np.int32)
+                         ).to(card)
+    for weights in (w, None):
+        nxt, ch = _launched("sssp_step", lambda: gapbs.sssp_step(
+            indptr, indices, weights, cur), gapbs.LAUNCHES)
+        want, wch = gapbs.sssp_step_plain(indptr, indices, weights, cur)
+        assert torch.equal(nxt, want) and torch.equal(ch, wch)
+    fixed = gapbs.cc_step(indptr, indices, torch.from_numpy(
+        gapbs.cc_oracle(g).astype(np.int32)).to(card))
+    assert int(fixed[1]) == 0
+
+
+@pytest.mark.cuda
+def test_bc_steps_on_card(card):
+    from gms_tpu_torch.algorithms import gapbs
+
+    g, indptr, indices = _gapbs_graph(card)
+    n = g.num_nodes
+    sources = np.array([0, 5, n - 1, 17], np.int32)   # n - 1: no neighbours
+    depth = gapbs.bc_max_depth(g, device=card)
+    before = gapbs.LAUNCHES["bc_forward"], gapbs.LAUNCHES["bc_backward"]
+    got = gapbs._bc_total(indptr, indices, n, sources, depth)
+    assert (gapbs.LAUNCHES["bc_forward"] - before[0]
+            == gapbs.LAUNCHES["bc_backward"] - before[1] == depth)
+    want = gapbs._bc_total(indptr, indices, n, sources, depth,
+                           gapbs.bc_forward_plain, gapbs.bc_backward_plain)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    # the forward state exactly (sigma's sums are exact small integers here)
+    dist = torch.full((2, n), gapbs.INF, dtype=torch.int32, device=card)
+    sigma = torch.zeros((2, n), dtype=torch.float32, device=card)
+    dist[[0, 1], [0, 5]] = 0
+    sigma[[0, 1], [0, 5]] = 1.0
+    pd, ps = dist.clone(), sigma.clone()
+    for it in range(depth):
+        gapbs.bc_forward(indptr, indices, dist, sigma, it)
+        gapbs.bc_forward_plain(indptr, indices, pd, ps, it)
+    assert torch.equal(dist, pd) and torch.equal(sigma, ps)
+
+
+@pytest.mark.cuda
+def test_gapbs_entry_points_on_card(card):
+    from gms_tpu_torch.algorithms import gapbs
+
+    g = build_csr(generate_rmat_el(10, 16, seed=27491095), num_nodes=1030)
+    w = (np.arange(g.num_edges) % 7 + 1).astype(np.int32)
+    for dopt in (True, False):
+        assert np.array_equal(gapbs.bfs(g, 0, direction_optimizing=dopt,
+                                        device=card),
+                              gapbs.bfs(g, 0, direction_optimizing=dopt,
+                                        device="cpu"))
+    for make in (cp.KbitGraph.from_csr, cp.HybridGraph.from_csr,
+                 cp.KbitGraphBucketed.from_csr):
+        assert np.array_equal(gapbs.bfs(make(g, device=card), 0, device=card),
+                              gapbs.bfs(g, 0, device="cpu"))
+    assert np.array_equal(gapbs.connected_components(g, device=card),
+                          gapbs.connected_components(g, device="cpu"))
+    assert np.array_equal(gapbs.sssp(g, 0, w, device=card),
+                          gapbs.sssp(g, 0, w, device="cpu"))
+    kw = cp.KbitWeightedGraph.from_csr(g, w, device=card)
+    assert np.array_equal(gapbs.sssp(kw, 0, device=card),
+                          gapbs.sssp(g, 0, w, device="cpu"))
+    np.testing.assert_allclose(gapbs.pagerank(g, device=card),
+                               gapbs.pagerank(g, device="cpu"), rtol=1e-5)
+    np.testing.assert_allclose(
+        gapbs.betweenness_centrality(g, num_samples=40, device=card),
+        gapbs.betweenness_centrality(g, num_samples=40, device="cpu"),
+        rtol=1e-4, atol=1e-6)
