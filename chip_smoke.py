@@ -15,9 +15,12 @@ and the top-q ranking) on RMAT 16, and graph coloring (Jones–Plassmann,
 Johansson, Barenboim/Elkin, dense/sparse) on RMAT 16, subgraph isomorphism
 (VF2) on RMAT 14 and 17, the compressed graph forms on RMAT 14, and the
 GAPBS kernels (BFS, PageRank, connected components, SSSP, betweenness
-centrality) on RMAT 18 and on RMAT 14's compressed forms — and holds every
-hand-written CUDA kernel of those paths against its plain PyTorch version on
-the card. Phases, each printing a line and each failing the run (non-zero exit) if it fails:
+centrality) on RMAT 18 and on RMAT 14's compressed forms, the direct=True
+Bron–Kerbosch variant on RMAT 14 and 12, and the multi-device layer
+(parallel/: the sharded k-clique count, triangle count, pair scores and BK
+fan-out over torch.distributed, NCCL at world size 1 and gloo at world size
+2 on the one card) — and holds every hand-written CUDA kernel of those
+paths against its plain PyTorch version on the card. Phases, each printing a line and each failing the run (non-zero exit) if it fails:
 
   1. device and build: card name, power limit, nvcc build of csrc/*.cu;
   2. headline graph: generation and CSR build on the host;
@@ -280,6 +283,52 @@ the card. Phases, each printing a line and each failing the run (non-zero exit) 
      sums, and total's float32 atomics, may still round apart); the rest
      exactly.
 
+ 51. direct Bron–Kerbosch main path on phase 12's RMAT 14, with every BK
+     launch counter and K4's set to 0 just before it:
+     bron_kerbosch(g, device="cuda", rank=rank, direct=True), timed warm
+     after one first call, must give BK_GOLDEN; the roots of degree above
+     1024 take the fused path (their share of the count printed), and
+     init_items, bk_direct_stack and K4 must have launched; the fused
+     default call timed beside it; hub_threshold=64 gives BK_GOLDEN too;
+     RMAT 12 gives 725,641 (tests/test_soak.py's reference count);
+ 52. the main path's RMAT 14 direct jobs: K36 bk_direct_stack timed on
+     each whole, with the items its warps took (the root items and the
+     queued nodes) and the most one warp took; K35 init_items against its
+     plain version on each, exactly, its kernels-line times and bound
+     (bytes: the roots, their rows' first min(W, deg + 1) slots, the ranks
+     read, the two bitsets written) summed over them; K36 against its plain
+     version, exactly (count and overflow), on each job whole while its
+     cliques times W * WW stay within BK_DIRECT_PLAIN_WORDS (W <= 256), the
+     wider ones (W = 512 and 1024, whose paths lie in device memory) cut to
+     their roots in job order within it, after K36 root by root has summed
+     to the job's count (direct_cut); its kernels-line times and bound
+     summed over those compared runs, the bound the larger of bytes (the
+     adj rows of each live root's slots below its degree, the live roots'
+     bitsets) and its tree's popcounts at 16 and bitwise operations at 64 a
+     clock per SM;
+ 53. sharded_kclique_count at world size 1 over NCCL (its store on
+     127.0.0.1) on RMAT 16, k = 5, with the k-clique counters
+     set to 0 just before it: 4,600,426,489 (KCLIQUE_RUNS); its chunks and
+     cap doublings; timed warm beside kclique_count on the same graph;
+     build_local_adj, expand_level and total_popcount must have launched;
+     K37 expand_level against its plain version, exactly (the four
+     outputs), on every level of the first chunk's first run (a level there
+     has cap below n_children) and of its last run (the caps that fit), K38
+     total_popcount on the last level; bounds: K37 the larger of bytes (S
+     and R, each adj row the set bits need, the rows written) and its
+     AND+popcounts (WW a set bit) at 16 a clock per SM, K38 bytes;
+ 54. the same group: sharded_triangle_count on phase 2's RMAT 18 gives
+     82,647,223; sharded_pair_scores (Jaccard) equals pair_scores bit for
+     bit on phase 30's RMAT 16 pairs; sharded_bron_kerbosch_count(g,
+     ["cuda:0"]) on RMAT 14 gives BK_GOLDEN; the world-size-1 counts and
+     warm times of phase 55's two calls; then the group is destroyed;
+ 55. world size 2 on the one card: two spawned processes joined over gloo
+     (NCCL takes one rank a GPU) each run sharded_triangle_count on RMAT 16
+     and sharded_kclique_count on RMAT 12, k = 5, twice; both ranks' counts
+     must equal phase 54's world-size-1 counts; the warm times beside
+     world size 1's, and how many collectives gloo took through the host
+     (Mesh.staged).
+
 The line before the last is a JSON object describing every kernel; the last
 is {"ok": true, "device": {...}}. Imports nothing of jax or gms_tpu.
 """
@@ -290,6 +339,7 @@ import contextlib
 import hashlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import time
@@ -314,6 +364,8 @@ KCLIQUE_RUNS = ((16, 5, 4_600_426_489), (13, 6, 681_595_966),
 # the kernels of the total triangle count (phase 3)
 TC_PATH = ("count_tier_mat", "count_hub_groups_mat", "build_hub_rows",
            "count_dag_edges", "count_hub_groups")
+# the kernels of kclique_count (phase 8)
+KCLIQUE_PATH = ("build_local_adj", "kclique_dense_count", "kc_stack_count")
 
 # kernel -> (source, gms_tpu program it replaces)
 KERNELS = {
@@ -399,6 +451,14 @@ KERNELS = {
                    "gms_tpu/algorithms/gapbs.py:337"),
     "bc_backward": ("gms_tpu_torch/csrc/gapbs_bc.cu",
                     "gms_tpu/algorithms/gapbs.py:375"),
+    "init_items": ("gms_tpu_torch/csrc/bk_init.cu",
+                   "gms_tpu/algorithms/bron_kerbosch.py:254"),
+    "bk_direct_stack": ("gms_tpu_torch/csrc/bk_direct.cu",
+                        "gms_tpu/algorithms/bron_kerbosch.py:131"),
+    "expand_level": ("gms_tpu_torch/csrc/kc_expand.cu",
+                     "gms_tpu/algorithms/k_clique.py:161"),
+    "total_popcount": ("gms_tpu_torch/csrc/popcount_sum.cu",
+                       "gms_tpu/algorithms/k_clique.py:209"),
 }
 BK_GOLDEN = 165_402_717      # maximal cliques, RMAT-14 deg 16 (BENCH_r05)
 BK_SCALE, BK_SMALL, BK_SAMPLE = 14, 12, 1000
@@ -476,6 +536,17 @@ PR_GOLDEN_14 = (0.7995363473892212, 0, 0.0065852003172039986)
 BC_GOLDEN_14 = (0, 18.94045066833496)
 BC_SAMPLES = 64
 INT32_MAX = int(np.iinfo(np.int32).max)   # unreached (gms_tpu's _INF)
+# phases 51-55: the direct BK variant (RMAT 14: BK_GOLDEN, also with
+# hub_threshold 64; RMAT 12: tests/test_soak.py's count against the
+# reference binary) and the multi-device layer (world size 1 over NCCL,
+# world size 2 over gloo on the one card)
+BK_DIRECT_SMALL_GOLDEN = 725_641
+BK_DIRECT_HUB = 64
+# phase 52 holds K36 to its plain version on a job whole while its cliques
+# times W * WW (the words the plain search gathers a node) stay within
+# this, else on the job's roots cut to it (direct_cut)
+BK_DIRECT_PLAIN_WORDS = 1 << 30
+MULTI_TC_SCALE, MULTI_KC_SCALE, MULTI_K = 16, 12, 5
 
 
 def check(cond: bool, what: str) -> None:
@@ -666,7 +737,7 @@ def kclique_phases(timing, report) -> None:
               f" (synchronised); {count / count_s:.1f} cliques/s; "
               f"launches {used}")
         check(count == golden, f"RMAT {scale} k={k}: {count} != {golden}")
-    launches = dict(kc.LAUNCHES)
+    launches = {n: kc.LAUNCHES[n] for n in KCLIQUE_PATH}
     print(f"[8] k-clique main path launches: {launches}")
     check(all(n > 0 for n in launches.values()),
           f"a k-clique kernel of the path never launched: {launches}")
@@ -995,7 +1066,9 @@ def bk_phases(timing, report) -> None:
     rows = sum(len(c[0]) for c in chunks)
     check(none is None and n_emit == want == rows,
           f"RMAT {BK_SMALL} sink: {rows} rows, count {n_emit} != {want}")
-    check(all(n > 0 for n in enum.values()),
+    enum_path = ("build_local_adj", "symmetrize_bits", "hub_cover_bits",
+                 "bk_stack_machine", "decode_clique_members")
+    check(all(enum[n] > 0 for n in enum_path),
           f"a kernel of the BK enumerate path never launched: {enum}")
     nbrs = [set(small.out_neigh(v).tolist()) for v in range(small.num_nodes)]
     ends = np.cumsum([len(c[0]) for c in chunks])
@@ -2011,6 +2084,8 @@ def lp_phases(timing, report) -> None:
         check(err == 0, f"{name} disagrees with its plain version by {err}")
         report.append(kernel_entry(name, launches[name], err, k_ms, p_ms,
                                    bound_ms, by))
+    # phase 54 scores phase 30's K18 pairs again
+    lp_pairs = (pgt.nbr, deg1t, pn)
     del plan, pgt, deg1t, bm, hub_idx, pn, ph, sc
 
     # K21 tile_topq on every u-block of phase 33's call (bench.py's ranking
@@ -2074,6 +2149,7 @@ def lp_phases(timing, report) -> None:
     report.append(kernel_entry("tile_all_pairs", ap_launches["tile_all_pairs"],
                                err, k_ms, p_ms, bound_ms, by,
                                library_ms=lib_ms))
+    return lp_pairs
 
 
 def color_digest(colors) -> str:
@@ -3474,6 +3550,424 @@ def gapbs_phases(timing, report, g, g14, forms) -> None:
                                    bound_ms, "bytes"))
 
 
+def direct_plan(g, rank):
+    """The direct path's inputs for the roots of degree <= 1024: (padded
+    undirected rows, rank_pad, core bound, [(chunk, ww)]) on the card, as
+    bron_kerbosch(direct=True) builds them."""
+    from gms_tpu_torch.algorithms import bron_kerbosch as bk
+    from gms_tpu_torch.algorithms import k_clique as kc
+    from gms_tpu_torch.graphs.tiles import PaddedGraph
+    n = g.num_nodes
+    pg = PaddedGraph.from_csr(g, device="cuda", lane=32)
+    rank_pad = np.full(pg.v_pad + 1, INT32_MAX, np.int32)
+    rank_pad[:n] = rank
+    e = g.edge_array()
+    higher = rank[e[:, 1]] > rank[e[:, 0]]
+    core = int(np.bincount(e[:, 0][higher], minlength=n).max(initial=1))
+    roots = np.nonzero(g.degrees <= 1024)[0].astype(np.int32)
+    chunks = [(torch.from_numpy(c).cuda(), ww) for c, ww in
+              kc.plan_tier_chunks(g.degrees, roots, np.int32(pg.v_pad),
+                                  root_chunk=bk.DEFAULT_ROOT_CHUNK)]
+    return pg, torch.from_numpy(rank_pad).cuda(), core, chunks
+
+
+def init_items_bytes(pg, chunk, ww) -> int:
+    """K35's bytes: the roots, their rows' first min(W, deg + 1) slots, the
+    ranks of the roots and of their neighbours, cand and fini written."""
+    roots = chunk.long().clamp(0, pg.v_pad - 1)
+    deg = pg.deg[roots].long().clamp(max=32 * ww)
+    c = chunk.numel()
+    return (c + data_words(pg.deg, roots, 32 * ww) + c + int(deg.sum())
+            + 2 * c * ww) * 4
+
+
+def direct_bytes(pg, chunk, live, ww) -> int:
+    """K36's bytes: the adj rows of each live root's slots j < deg (its
+    search reads no other: cand | fini lie in those slots, padded slots and
+    dead roots' rows stay unread), the live roots' cand0 and fini0, live0,
+    and the count and overflow written."""
+    deg = pg.deg[chunk[live].long()].long().clamp(max=32 * ww)
+    return ((int(deg.sum()) + 2 * int(live.sum())) * ww * 4 + live.numel()
+            + 8)
+
+
+def direct_cut(univ, depth, total):
+    """A wide job's roots that the plain search can take: K36's count with
+    each live root alone (the counts must sum to the job's `total`), then
+    the roots in job order, each kept while the cut's cliques times W * WW
+    (the words the plain search gathers a node) stay within
+    BK_DIRECT_PLAIN_WORDS. Returns (the cut's live mask, a note)."""
+    from gms_tpu_torch.algorithms import bron_kerbosch as bk
+    adj, cand, fini, live = univ
+    C, W, WW = adj.shape
+    ids = live.nonzero()[:, 0].tolist()
+    runs = []
+    for b in ids:
+        one = torch.zeros_like(live)
+        one[b] = True
+        runs.append(torch.stack([t.long() for t in bk.bk_direct_stack(
+            adj, cand, fini, one, depth=depth)]))
+    counts, ovf = torch.stack(runs).T.tolist()
+    check(sum(counts) == total and not any(ovf),
+          f"W={W}: K36 root by root {sum(counts)} (overflow {any(ovf)}) != "
+          f"the job's {total}")
+    cut, kept = torch.zeros_like(live), 0
+    for b, c in zip(ids, counts):
+        if (kept + c) * W * WW <= BK_DIRECT_PLAIN_WORDS:
+            cut[b], kept = True, kept + c
+    check(kept > 0, f"W={W}: no root fits the plain search's budget")
+    return cut, (f", cut to {int(cut.sum())} of {len(ids)} roots ({kept} "
+                 f"cliques; root by root = the job's count, the largest "
+                 f"root {max(counts)})")
+
+
+def direct_compare(timing, label, univ, depth, rates, nbytes):
+    """K36 against one plain run on a job's (adj, cand0, fini0, live0): its
+    count and overflow; bound as K9's (search_compare), with nbytes from
+    direct_bytes. Returns search_compare's tuple, with no emit time."""
+    from gms_tpu_torch.algorithms import bron_kerbosch as bk
+    stats = {}
+    want = bk.bk_direct_stack_plain(*univ, depth=depth, stats=stats)
+    diff = max_abs_err(bk.bk_direct_stack(*univ, depth=depth), want)
+    kt = timing.ms(lambda: bk.bk_direct_stack(*univ, depth=depth),
+                   KERNEL_REPS)
+    pt = timing.ms(lambda: bk.bk_direct_stack_plain(*univ, depth=depth), 1)
+    bt = nbytes / HBM_BYTES_PER_S * 1e3
+    popc, bit = stats["popc_ops"], stats["bit_ops"]
+    ot = max(popc / rates[0], bit / rates[1]) * 1e3
+    print(f"    {label}: count {int(want[0])}, max_abs_err {diff}, kernel "
+          f"{kt:.4f} ms, bound {max(bt, ot):.4f} ms ({nbytes} bytes -> "
+          f"{bt:.4f} ms; {popc} popcounts, {bit} bitwise ops -> {ot:.4f} "
+          f"ms), plain {pt:.4f} ms")
+    return diff, kt, 0.0, pt, bt, ot, popc, bit
+
+
+def direct_phases(timing, report, g):
+    """Phases 51-52: the direct=True Bron-Kerbosch variant (see the module
+    docstring); g is RMAT 14. Returns RMAT 12 and its rank."""
+    from gms_tpu_torch.algorithms import bron_kerbosch as bk
+    from gms_tpu_torch.algorithms import k_clique as kc
+    from gms_tpu_torch.io.builder import build_csr
+    from gms_tpu_torch.io.generators import generate_rmat_el
+    from gms_tpu_torch.preprocessing import degeneracy
+
+    def launches():
+        return dict(bk.LAUNCHES,
+                    build_local_adj=kc.LAUNCHES["build_local_adj"])
+
+    rank, _ = degeneracy.degeneracy_ordering_rank(g)
+    t0 = time.perf_counter()
+    first = bk.bron_kerbosch(g, device="cuda", rank=rank, direct=True)
+    first_s = time.perf_counter() - t0
+    # [51] main path, counters from 0
+    bk.reset_launches()
+    kc.reset_launches()
+    t0 = time.perf_counter()
+    count = bk.bron_kerbosch(g, device="cuda", rank=rank, direct=True)
+    warm_s = time.perf_counter() - t0
+    main = launches()
+    t0 = time.perf_counter()
+    fused = bk.bron_kerbosch(g, device="cuda", rank=rank)
+    fused_s = time.perf_counter() - t0
+    hubs = np.nonzero(g.degrees > 1024)[0].astype(np.int32)
+    hub_n, _ = bk._bk_fused(g, rank, hubs, ["cuda"])
+    print(f"[51] RMAT {BK_SCALE} direct=True: count {count} (first call "
+          f"{first}, {first_s:.4f} s), golden {BK_GOLDEN}; warm call "
+          f"{warm_s:.4f} s, {count / warm_s:.1f} cliques/s; the fused "
+          f"default call {fused_s:.4f} s (count {fused}); {len(hubs)} roots "
+          f"of degree > 1024 on the fused path hold {hub_n} cliques, the "
+          f"{g.num_nodes - len(hubs)} direct roots {count - hub_n}; "
+          f"launches {main}")
+    check(count == first == fused == BK_GOLDEN,
+          f"RMAT {BK_SCALE} direct BK: {count}, {first}, fused {fused}")
+    check(all(main[n] > 0 for n in ("init_items", "bk_direct_stack",
+                                    "build_local_adj")),
+          f"a kernel of the direct path never launched: {main}")
+    check((main["bk_stack_machine"] > 0) == bool(len(hubs)),
+          f"the hub roots' fused path: {main}")
+    hubs64 = np.nonzero(g.degrees > BK_DIRECT_HUB)[0].astype(np.int32)
+    bk.reset_launches()
+    t0 = time.perf_counter()
+    count64 = bk.bron_kerbosch(g, device="cuda", rank=rank, direct=True,
+                               hub_threshold=BK_DIRECT_HUB)
+    s64 = time.perf_counter() - t0
+    hub64_n, _ = bk._bk_fused(g, rank, hubs64, ["cuda"])
+    print(f"    hub_threshold={BK_DIRECT_HUB}: count {count64}, "
+          f"{s64:.4f} s; {len(hubs64)} fused roots hold {hub64_n} cliques, "
+          f"the direct roots {count64 - hub64_n}; launches {dict(bk.LAUNCHES)}")
+    check(count64 == BK_GOLDEN, f"hub_threshold={BK_DIRECT_HUB}: {count64}")
+    small = build_csr(generate_rmat_el(BK_SMALL, DEGREE, seed=SEED),
+                      num_nodes=1 << BK_SMALL)
+    srank, _ = degeneracy.degeneracy_ordering_rank(small)
+    t0 = time.perf_counter()
+    c12 = bk.bron_kerbosch(small, device="cuda", rank=srank, direct=True)
+    s12 = time.perf_counter() - t0
+    f12 = bk.bron_kerbosch(small, device="cuda", rank=srank)
+    print(f"    RMAT {BK_SMALL} direct=True: {c12} ({s12:.4f} s), fused "
+          f"{f12}, reference {BK_DIRECT_SMALL_GOLDEN}")
+    check(c12 == f12 == BK_DIRECT_SMALL_GOLDEN,
+          f"RMAT {BK_SMALL} direct BK {c12}, fused {f12}")
+
+    # [52] the main path's jobs: K36 timed whole; K35 against plain on
+    # each, K36 on each whole or cut to the roots the plain search can take
+    pg, rank_pad, core, chunks = direct_plan(g, rank)
+    rates = (sm_rate(POPC_PER_CLOCK_PER_SM), sm_rate(BITWISE_PER_CLOCK_PER_SM))
+    k35_calls, results, k36_main = [], [], 0.0
+    print(f"[52] RMAT {BK_SCALE} direct jobs (core bound {core}, K36 path "
+          f"min(W, {core}) + 2 levels; a block's 8 paths in device memory "
+          f"above 100 KB):")
+    for chunk, ww in chunks:
+        W = 32 * ww
+        label = f"RMAT {BK_SCALE} W={W} C={chunk.numel()}"
+        k35_calls.append((
+            label, lambda c=chunk, w=ww: bk.init_items(pg.nbr, rank_pad, c,
+                                                       w_words=w),
+            lambda c=chunk, w=ww: bk.init_items_plain(pg.nbr, rank_pad, c,
+                                                      w_words=w),
+            init_items_bytes(pg, chunk, ww)))
+        adj, _ = kc.build_local_adj(pg.nbr, chunk, w_words=ww)
+        cand, fini = bk.init_items(pg.nbr, rank_pad, chunk, w_words=ww)
+        univ = (adj, cand, fini, chunk != pg.v_pad)
+        depth = min(W, core) + 2
+        stats = {}
+        n, ovf = (int(x) for x in bk.bk_direct_stack(*univ, depth=depth,
+                                                      stats=stats))
+        ms = timing.ms(lambda u=univ, d=depth: bk.bk_direct_stack(
+            *u, depth=d), 3)
+        k36_main += ms
+        path_kb = 8 * depth * (2 * ww + 1) * 4 / 1024
+        print(f"    {label} real roots {int(univ[3].sum())}: {n} cliques, "
+              f"overflow {bool(ovf)}, {ms:.4f} ms; items {stats['items']} "
+              f"over {stats['warps']} warps, at most {stats['max_items']} a "
+              f"warp; paths {path_kb:.1f} KB a block")
+        check(not ovf, f"K36 overflowed at W={W}")
+        if n * W * ww > BK_DIRECT_PLAIN_WORDS:
+            live, note = direct_cut(univ, depth, n)
+            univ, label = (adj, cand, fini, live), label + note
+        results.append(direct_compare(
+            timing, label, univ, depth, rates,
+            direct_bytes(pg, chunk, univ[3], ww)))
+    err, k_ms, p_ms, bound_ms, by = compare(timing, k35_calls)
+    print(f"[52] init_items: {len(k35_calls)} RMAT {BK_SCALE} jobs, "
+          f"max_abs_err {err}, kernel {k_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({by}), plain {p_ms:.4f} ms")
+    check(err == 0, f"init_items disagrees with its plain version by {err}")
+    report.append(kernel_entry("init_items", main["init_items"], err, k_ms,
+                               p_ms, bound_ms, by))
+    err, k_ms, _, p_ms, popc, bit, bound, by = search_summary(results)
+    print(f"[52] bk_direct_stack: {len(results)} RMAT {BK_SCALE} jobs (the "
+          f"wide ones cut), max_abs_err {err} (count and overflow), kernel "
+          f"{k_ms:.4f} ms, bound {bound:.4f} ms ({by}; {popc} popcounts, "
+          f"{bit} bitwise ops), plain {p_ms:.4f} ms; the whole jobs "
+          f"{k36_main:.4f} ms (median of 3)")
+    check(err == 0, f"bk_direct_stack disagrees with its plain version by "
+                    f"{err}")
+    report.append(kernel_entry("bk_direct_stack", main["bk_direct_stack"],
+                               err, k_ms, p_ms, bound, by))
+    return small, srank
+
+
+def expand_bytes_ops(S, R, adj, cap, n_children):
+    """K37's bytes (S and R read, each adj row the set bits need, the rows
+    written) and AND+popcounts (WW a set bit of S), counted in batches of
+    items."""
+    from gms_tpu_torch.algorithms import k_clique as kc
+    C, W, WW = adj.shape
+    used = torch.zeros(C * W, dtype=torch.bool, device=S.device)
+    bits = 0
+    step = max(1, (1 << 24) // W)
+    for n0 in range(0, S.shape[0], step):
+        item, i = kc.unpack_bits(S[n0:n0 + step]).nonzero(as_tuple=True)
+        used[R[n0 + item].long().clamp(0, C - 1) * W + i] = True
+        bits += item.numel()
+    kept = min(cap, n_children)
+    return ((S.numel() + R.numel() + int(used.sum()) * WW
+             + kept * (WW + 1)) * 4 + 16, bits * WW)
+
+
+def world_rank_counts(mesh):
+    """Phase 55's run on one rank of a spawned world: the sharded triangle
+    count on RMAT 16 and the sharded k-clique count on RMAT 12, each twice
+    (the second timed warm)."""
+    from gms_tpu_torch.io.builder import build_csr
+    from gms_tpu_torch.io.generators import generate_rmat_el
+    from gms_tpu_torch.parallel import multi, sharding
+    out = {"rank": mesh.rank, "size": mesh.size, "device": str(mesh.device)}
+    g16 = build_csr(generate_rmat_el(MULTI_TC_SCALE, DEGREE, seed=SEED),
+                    num_nodes=1 << MULTI_TC_SCALE)
+    g12 = build_csr(generate_rmat_el(MULTI_KC_SCALE, DEGREE, seed=SEED),
+                    num_nodes=1 << MULTI_KC_SCALE)
+    for key, call in (
+            ("tc", lambda: sharding.sharded_triangle_count(g16, mesh)),
+            ("kc", lambda: multi.sharded_kclique_count(g12, MULTI_K, mesh))):
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[key] = call()
+        out[key + "_s"] = time.perf_counter() - t0
+    out["staged"] = dict(mesh.staged)
+    return out
+
+
+def multi_phases(timing, report, g18, g14, g12, lp_pairs):
+    """Phases 53-55: the multi-device layer (see the module docstring)."""
+    import torch.distributed as dist
+    from gms_tpu_torch.algorithms import k_clique as kc
+    from gms_tpu_torch.algorithms import similarity as vs
+    from gms_tpu_torch.algorithms import triangle_count as tc
+    from gms_tpu_torch.graphs.tiles import PaddedGraph
+    from gms_tpu_torch.io.builder import build_csr
+    from gms_tpu_torch.io.generators import generate_rmat_el
+    from gms_tpu_torch.parallel import multi, sharding, world
+    from gms_tpu_torch.preprocessing import degeneracy, orient
+
+    # [53] world size 1 over NCCL; its bootstrap stays on the loopback
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    store = world.init_local("nccl")
+    mesh = sharding.make_mesh()
+    print(f"[53] torch.distributed {dist.get_backend()}: world {mesh.size}, "
+          f"rank {mesh.rank}, device {mesh.device}, store "
+          f"tcp://127.0.0.1:{store.port}")
+    scale, k, golden = KCLIQUE_RUNS[0]
+    g = build_csr(generate_rmat_el(scale, DEGREE, seed=SEED),
+                  num_nodes=1 << scale)
+    rank, _ = degeneracy.degeneracy_ordering_rank(g)
+    kc.reset_launches()
+    stats = {}
+    t0 = time.perf_counter()
+    got = multi.sharded_kclique_count(g, k, mesh, rank=rank, stats=stats)
+    first_s = time.perf_counter() - t0
+    main = {n: kc.LAUNCHES[n] for n in ("build_local_adj", "expand_level",
+                                        "total_popcount")}
+    t0 = time.perf_counter()
+    warm = multi.sharded_kclique_count(g, k, mesh, rank=rank)
+    warm_s = time.perf_counter() - t0
+    kc.kclique_count(g, k, device="cuda", rank=rank)
+    t0 = time.perf_counter()
+    single = kc.kclique_count(g, k, device="cuda", rank=rank)
+    single_s = time.perf_counter() - t0
+    print(f"[53] RMAT {scale} k={k} sharded_kclique_count: {got}, golden "
+          f"{golden}; first call {first_s:.4f} s, warm {warm_s:.4f} s; "
+          f"{stats['chunks']} chunks of 256 roots, {stats['doublings']} cap "
+          f"doublings; kclique_count on the same graph {single_s:.4f} s "
+          f"(warm); launches {main}")
+    check(got == warm == single == golden,
+          f"sharded k-clique {got}, {warm}, kclique_count {single}")
+    check(all(v > 0 for v in main.values()),
+          f"a kernel of the sharded k-clique path never launched: {main}")
+    # K37 and K38 on the first chunk's levels, at the first caps and at the
+    # caps that fit
+    dag = orient.orient(g, rank)
+    pg = PaddedGraph.from_csr(dag, device="cuda", lane=32)
+    W, WW = pg.d_pad, pg.d_pad // 32
+    roots = np.nonzero(np.asarray(dag.degrees) >= k - 1)[0][:256]
+    adj, S0 = kc.build_local_adj(pg.nbr, torch.from_numpy(
+        roots.astype(np.int32)).cuda(), w_words=WW)
+
+    def levels(caps):
+        S = S0
+        R = torch.arange(S0.shape[0], dtype=torch.int32, device="cuda")
+        out = []
+        for need, cap in zip(range(k - 2, 0, -1), caps):
+            inputs = (S, R)
+            S, R, n, _ = kc.expand_level(S, R, adj, cap=cap, need=need)
+            out.append((inputs, cap, need, int(n)))
+        return out, S
+
+    caps = [max(256, 256 * W)] * (k - 2)
+    first, _ = levels(caps)
+    while True:
+        last, S_last = levels(caps)
+        if all(n <= cap for _, cap, _, n in last):
+            break
+        caps = [c * 2 for c in caps]
+    check(any(n > cap for _, cap, _, n in first),
+          "no level of the first chunk's first run has cap < n_children")
+    rate = sm_rate(POPC_PER_CLOCK_PER_SM)
+    k37 = []
+    for run, lv in (("first", first), ("last", last)):
+        for l, ((S, R), cap, need, n) in enumerate(lv):
+            nbytes, ops = expand_bytes_ops(S, R, adj, cap, n)
+            k37.append((
+                f"{run} run, level {l + 1}: N={S.shape[0]} cap={cap} "
+                f"need={need} n_children={n}",
+                lambda S=S, R=R, c=cap, d=need: kc.expand_level(
+                    S, R, adj, cap=c, need=d),
+                lambda S=S, R=R, c=cap, d=need: kc.expand_level_plain(
+                    S, R, adj, cap=c, need=d), nbytes, ops))
+    err, k_ms, p_ms, bound_ms, by = compare(timing, k37, ops_rate=rate)
+    print(f"[53] expand_level: {len(k37)} levels of the first chunk (W={W}, "
+          f"{len(roots)} roots; caps {caps[0]} after the doublings), "
+          f"max_abs_err {err}, kernel {k_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({by}), plain {p_ms:.4f} ms")
+    check(err == 0, f"expand_level disagrees with its plain version by {err}")
+    report.append(kernel_entry("expand_level", main["expand_level"], err,
+                               k_ms, p_ms, bound_ms, by))
+    k38 = [(f"last level S {tuple(S_last.shape)}",
+            lambda: kc.total_popcount(S_last),
+            lambda: kc.total_popcount_plain(S_last), S_last.numel() * 4 + 8)]
+    err, k_ms, p_ms, bound_ms, by = compare(timing, k38)
+    print(f"[53] total_popcount: max_abs_err {err}, kernel {k_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({by}), plain {p_ms:.4f} ms")
+    check(err == 0, f"total_popcount disagrees with its plain version by "
+                    f"{err}")
+    report.append(kernel_entry("total_popcount", main["total_popcount"], err,
+                               k_ms, p_ms, bound_ms, by))
+    del adj, S0, first, last, S_last, k37, k38
+
+    # [54] the other sharded functions, and the world-size-1 counts of 55
+    tc.reset_launches()
+    t0 = time.perf_counter()
+    tri = sharding.sharded_triangle_count(g18, mesh)
+    tri_s = time.perf_counter() - t0
+    print(f"[54] sharded_triangle_count RMAT {SCALE}: {tri}, golden {GOLDEN}, "
+          f"{tri_s:.4f} s (host orient and pad included), count_dag_edges "
+          f"launches {tc.LAUNCHES['count_dag_edges']}")
+    check(tri == GOLDEN, f"sharded triangle count {tri} != {GOLDEN}")
+    nbr, deg1, pairs = lp_pairs
+    got = multi.sharded_pair_scores(mesh, metric="jaccard")(nbr, deg1, pairs)
+    want = vs.pair_scores(nbr, deg1, pairs, metric="jaccard")
+    same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    print(f"    sharded_pair_scores Jaccard on phase 30's {pairs.shape[0]} "
+          f"pairs: bit for bit equal to pair_scores: {same}")
+    check(same, "sharded_pair_scores differs from pair_scores")
+    t0 = time.perf_counter()
+    nbk = multi.sharded_bron_kerbosch_count(g14, ["cuda:0"])
+    print(f"    sharded_bron_kerbosch_count RMAT {BK_SCALE} on cuda:0: {nbk}, "
+          f"{time.perf_counter() - t0:.4f} s")
+    check(nbk == BK_GOLDEN, f"sharded BK {nbk} != {BK_GOLDEN}")
+    one = world_rank_counts(mesh)
+    print(f"    world size 1 (NCCL): RMAT {MULTI_TC_SCALE} triangles "
+          f"{one['tc']} ({one['tc_s']:.4f} s warm), RMAT {MULTI_KC_SCALE} "
+          f"k={MULTI_K} {one['kc']} ({one['kc_s']:.4f} s warm)")
+    check(one["tc"] == tc.triangle_count(build_csr(generate_rmat_el(
+        MULTI_TC_SCALE, DEGREE, seed=SEED), num_nodes=1 << MULTI_TC_SCALE),
+        device="cuda") and one["kc"] == kc.kclique_count(
+            g12, MULTI_K, device="cuda"),
+          "world size 1 differs from the single-device calls")
+    dist.destroy_process_group()
+
+    # [55] world size 2 over gloo, both ranks on this card
+    t0 = time.perf_counter()
+    ranks = world.spawn_world(world_rank_counts, 2, backend="gloo",
+                              devices="cuda:0")
+    spawn_s = time.perf_counter() - t0
+    for r in ranks:
+        print(f"[55] rank {r['rank']}/{r['size']} on {r['device']} (gloo): "
+              f"triangles {r['tc']} ({r['tc_s']:.4f} s warm, world size 1 "
+              f"{one['tc_s']:.4f} s), k-cliques {r['kc']} ({r['kc_s']:.4f} s "
+              f"warm, world size 1 {one['kc_s']:.4f} s); collectives staged "
+              f"through the host {r['staged']}")
+        check(r["tc"] == one["tc"] and r["kc"] == one["kc"],
+              f"world size 2 rank {r['rank']}: {r['tc']}, {r['kc']} != "
+              f"{one['tc']}, {one['kc']}")
+        check(r["staged"]["all_reduce"] > 0,
+              f"gloo took CUDA tensors without staging: {r['staged']}")
+    print(f"[55] two gloo ranks on one card agree with world size 1; spawn, "
+          f"CUDA start-up and both runs {spawn_s:.2f} s; gloo takes the "
+          f"8-byte counts through the host (staged explicitly)")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -3636,7 +4130,7 @@ def main() -> None:
     print(f"[22] total so far {time.perf_counter() - t_start:.1f} s")
     vertex_phases(timing, report, g)
     print(f"[29] total so far {time.perf_counter() - t_start:.1f} s")
-    lp_phases(timing, report)
+    lp_pairs = lp_phases(timing, report)
     print(f"[36] total so far {time.perf_counter() - t_start:.1f} s")
     coloring_phases(timing, report)
     print(f"[41] total so far {time.perf_counter() - t_start:.1f} s")
@@ -3647,7 +4141,12 @@ def main() -> None:
     forms = compressed_phases(timing, report, g14, recorded)
     print(f"[46] total so far {time.perf_counter() - t_start:.1f} s")
     gapbs_phases(timing, report, g, g14, forms)
-    print(f"[50] total {time.perf_counter() - t_start:.1f} s")
+    print(f"[50] total so far {time.perf_counter() - t_start:.1f} s")
+    del forms
+    g12, rank12 = direct_phases(timing, report, g14)
+    print(f"[52] total so far {time.perf_counter() - t_start:.1f} s")
+    multi_phases(timing, report, g, g14, g12, lp_pairs)
+    print(f"[55] total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

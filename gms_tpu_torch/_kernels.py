@@ -9,6 +9,13 @@ stderr. Nothing here runs at import: the first launch builds what it needs.
 Every C entry takes device pointers, sizes and the CUDA stream, launches on
 that stream without synchronising, and returns cudaGetLastError(); `launch`
 raises if that is not 0.
+
+Each library links its own static CUDA runtime, whose current device is
+device 0 until told otherwise, for each host thread. csrc/set_device.cuh,
+compiled into every library (nvcc's -include), adds the C entry
+`gms_set_device`; `launch` calls it when the device of the tensor arguments
+is not the one this thread last set in that library, so a kernel runs on
+the card its tensors lie on, on that card's current stream.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -24,7 +32,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-include", str(CSRC / "set_device.cuh"))
 
 _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 _U, _F = ctypes.c_ulonglong, ctypes.c_float
@@ -202,9 +211,33 @@ SIGNATURES = {
         # indptr, indices, n, B, dist, sigma, delta, it, total, stream
         "bc_backward": (_P, _P, _L, _L, _P, _P, _P, _I, _P, _P),
     },
+    "bk_init": {
+        # nbr, v_pad, d_pad, rank_pad, len(rank_pad), roots, C, w_words,
+        # cand, fini, stream
+        "init_items": (_P, _L, _I, _P, _L, _P, _L, _I, _P, _P, _P),
+    },
+    "bk_direct": {
+        # adj, cand0, fini0, live0, C, w_words, depth, root offsets, root
+        # ext, control words, queue, ready flags, queue capacity, total,
+        # stream
+        "bk_direct_stack": (_P, _P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P,
+                            _L, _P, _P),
+    },
+    "kc_expand": {
+        # S, R, N, adj, C, w_words, need, cap, counts, tile sums, n_tiles,
+        # S_out, R_out, n_children and child popcounts, stream
+        "expand_level": (_P, _P, _L, _P, _L, _I, _I, _L, _P, _P, _L, _P, _P,
+                         _P, _P),
+    },
+    "popcount_sum": {
+        # words, n, out, stream
+        "total_popcount": (_P, _L, _P, _P),
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# per host thread: library -> the device its runtime was last set to
+_SET = threading.local()
 
 
 def _library(name: str) -> Path:
@@ -267,24 +300,50 @@ def _load(name: str) -> ctypes.CDLL:
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(_library(name)))
-        for fn, argtypes in SIGNATURES[name].items():
+        for fn, argtypes in (*SIGNATURES[name].items(),
+                             ("gms_set_device", (_I,))):
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
 
 
+def launch_device(fn: str, args) -> torch.device:
+    """The one CUDA device of the tensor arguments of a launch of `fn`;
+    raises if they lie on several devices, or on none that is CUDA."""
+    devices = {a.device for a in args if isinstance(a, torch.Tensor)}
+    if len(devices) != 1:
+        raise ValueError(f"{fn}: tensor arguments on {len(devices)} devices: "
+                         f"{sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type != "cuda":
+        raise ValueError(f"{fn}: tensor arguments on {dev}, not a CUDA device")
+    return dev
+
+
 def launch(name: str, fn: str, *args) -> None:
-    """Call C entry `fn` of library `name` on the current CUDA stream.
+    """Call C entry `fn` of library `name` on the device of its tensor
+    arguments, on that device's current CUDA stream.
 
     Tensor arguments pass as device pointers (None as a null pointer), ints
-    and floats as themselves; the stream is appended. Raises if the launch
-    reported a CUDA error.
+    and floats as themselves; the stream is appended. The library's runtime
+    is set to the tensors' device first, where this thread last set it to
+    another. Raises if the tensors lie on
+    several devices, or if the launch reported a CUDA error.
     """
+    dev = launch_device(fn, args)
+    lib = _load(name)
     c_args = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
               else a for a in args]
-    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    err = getattr(_load(name), fn)(*c_args, stream)
+    set_to = _SET.__dict__
+    if set_to.get(name) != dev.index:
+        err = lib.gms_set_device(dev.index)
+        if err:
+            raise RuntimeError(f"{fn}: cudaSetDevice({dev.index}) failed, "
+                               f"CUDA error {err}")
+        set_to[name] = dev.index
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    err = getattr(lib, fn)(*c_args, stream)
     if err:
         raise RuntimeError(f"{fn}: CUDA error {err}")
 

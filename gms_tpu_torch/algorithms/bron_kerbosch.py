@@ -21,13 +21,25 @@ The path, as gms_tpu's default (fused DAG-universe) path:
      maximal clique is counted once, at its lowest-ranked member.
 
 Four device programs of gms_tpu carry this path besides build_local_adj
-(K4, k_clique.py); each is a hand-written CUDA kernel here (csrc/):
+(K4, k_clique.py), and two more the direct=True variant; each is a
+hand-written CUDA kernel here (csrc/):
 
     symmetrize_bits        csrc/bk_symmetrize.cu  (_symmetrize_bits, :406)
     hub_cover_bits         csrc/bk_cover.cu       (_gather_wlists, :876, and
                                                    _hub_cover_bits, :376)
     bk_stack_machine       csrc/bk_stack.cu       (bk_stack_machine, :550)
     decode_clique_members  csrc/bk_decode.cu      (decode_clique_members, :832)
+    init_items             csrc/bk_init.cu        (init_items, :254)
+    bk_direct_stack        csrc/bk_direct.cu      (the search of
+                                                   bk_count_chunk, :131)
+
+The direct=True variant, as gms_tpu's (:1115-1140): roots of degree above
+hub_threshold (at most 1024) take the fused path; the others are cut into
+degree tiers of the undirected graph padded at lane 32, and per chunk
+`bk_count_chunk` builds the local adjacency of each root's full
+neighbourhood (K4), its starting sets cand = the higher-ranked neighbours
+and fini = the lower-ranked ones (K35), and counts the maximal cliques by
+the Tomita search over (cand, fini) (K36), which needs no leaf filter.
 
 Each wrapper checks device, dtype, shape and contiguity; for CPU tensors it
 runs its `*_plain` PyTorch version, for CUDA tensors it launches the kernel
@@ -41,8 +53,10 @@ stack and output capacities with their overflow flag and split-and-retry,
 and the `iter_budget` segments with resumable state (a dispatch watchdog).
 The depth-first kernel keeps one node per level of a warp's path, so in
 count mode nothing can overflow; enumerate mode counts first and sizes its
-output exactly. The `direct=True` variant (`bk_count_chunk`, `init_items`)
-and the `devices=` fan-out are not ported yet (ROADMAP Queue 1 item 7).
+output exactly. K36 walks its tree depth-first too, with a path sized from
+the core bound, so `bk_count_async`'s split-and-retry is never entered.
+`_bk_fused(devices=)` and `bk_count_async(devices=)` place the plan on every
+device and hand out the jobs round-robin (parallel/multi.py's fan-out).
 """
 
 from __future__ import annotations
@@ -52,8 +66,8 @@ import torch
 
 from gms_tpu_torch import _kernels
 from gms_tpu_torch.algorithms.k_clique import (
-    _bucket, _check_adj, _extent, build_local_adj, pack_bits,
-    plan_tier_chunks, unpack_bits)
+    _bucket, _check_adj, _extent, build_local_adj, build_local_adj_plain,
+    pack_bits, plan_tier_chunks, unpack_bits)
 from gms_tpu_torch.algorithms.triangle_count import (
     _check, _on_cuda, _zero, popcount32)
 from gms_tpu_torch.device import resolve
@@ -67,7 +81,8 @@ _SENT = int(SENTINEL)
 
 # Kernel launches per wrapper, counted only where the CUDA kernel launches.
 LAUNCHES = dict.fromkeys(("symmetrize_bits", "hub_cover_bits",
-                          "bk_stack_machine", "decode_clique_members"), 0)
+                          "bk_stack_machine", "decode_clique_members",
+                          "init_items", "bk_direct_stack"), 0)
 
 # elements per step of the plain versions' broadcast tensors
 _PLAIN_BUDGET = 1 << 24
@@ -77,6 +92,8 @@ _PLAIN_BUDGET = 1 << 24
 # its search paths lie
 _QUEUE_NODES = 1 << 20
 _QUEUE_BYTES = 1 << 28
+
+_INT32_MAX = int(np.iinfo(np.int32).max)
 
 
 def reset_launches() -> None:
@@ -459,6 +476,275 @@ def bk_fused_chunk(dag_nbr, chunk, M, wvalid, *, w_words: int,
 
 
 # ---------------------------------------------------------------------------
+# the direct=True variant: K35 starting sets, K36 the search
+# ---------------------------------------------------------------------------
+
+def init_items_plain(nbr, rank_pad, roots, *, w_words: int):
+    """Plain version of init_items: gms_tpu's gathers and compares."""
+    V, D = nbr.shape
+    W = 32 * w_words
+    C = roots.shape[0]
+    r_nbr = nbr[roots.long().clamp(0, V - 1), :min(W, D)]
+    if r_nbr.shape[1] < W:
+        r_nbr = torch.cat([r_nbr, r_nbr.new_full((C, W - r_nbr.shape[1]),
+                                                 _SENT)], 1)
+    valid = r_nbr != _SENT
+    nr = rank_pad.shape[0]
+    nbr_rank = rank_pad[r_nbr.long().clamp(0, nr - 1)]
+    root_rank = rank_pad[roots.long().clamp(0, nr - 1)]
+    higher = valid & (nbr_rank > root_rank[:, None])
+    return pack_bits(higher), pack_bits(valid & ~higher)
+
+
+def init_items(nbr, rank_pad, roots, *, w_words: int):
+    """The starting sets of each root's direct search: (cand, fini), each
+    int32[C, w_words], over the first W = 32*w_words slots of the root's
+    padded row: bit j of cand iff slot j holds a neighbour ranked above the
+    root, of fini iff it holds one ranked at or below it. nbr int32[V_pad,
+    D] padded rows (roots clip to [0, V_pad-1]), rank_pad int32[n_rank]
+    ranks (ids clip to [0, n_rank-1]; gms_tpu pads it with INT32_MAX), roots
+    int32[C]. gms_tpu's init_items (:254), bit for bit."""
+    name = "init_items"
+    _check(name, "nbr", nbr, 2)
+    _check(name, "rank_pad", rank_pad, 1)
+    _check(name, "roots", roots, 1)
+    if w_words < 1 or rank_pad.shape[0] < 1:
+        raise ValueError(f"{name}: w_words ({w_words}) and rank_pad's "
+                         f"length ({rank_pad.shape[0]}) must be >= 1")
+    if not _on_cuda(name, nbr, rank_pad, roots):
+        return init_items_plain(nbr, rank_pad, roots, w_words=w_words)
+    C = roots.shape[0]
+    cand = torch.empty((C, w_words), dtype=torch.int32, device=nbr.device)
+    fini = torch.empty_like(cand)
+    _kernels.launch("bk_init", "init_items", nbr, nbr.shape[0], nbr.shape[1],
+                    rank_pad, rank_pad.shape[0], roots, C, w_words, cand,
+                    fini)
+    LAUNCHES[name] += 1
+    return cand, fini
+
+
+def _check_direct_inputs(name, adj, cand0, fini0, live0):
+    _check_adj(name, adj)
+    C, _, WW = adj.shape
+    for what, t in (("cand0", cand0), ("fini0", fini0)):
+        _check(name, what, t, 2)
+        if t.shape != (C, WW):
+            raise ValueError(f"{name}: {what} {tuple(t.shape)} does not "
+                             f"match adj {tuple(adj.shape)}")
+    if live0.dtype != torch.bool or tuple(live0.shape) != (C,):
+        raise TypeError(f"{name}: live0 must be bool {(C,)}, got "
+                        f"{live0.dtype} {tuple(live0.shape)}")
+    if not live0.is_contiguous():
+        raise ValueError(f"{name}: live0 must be contiguous")
+
+
+def bk_direct_stack_plain(adj, cand0, fini0, live0, *,
+                          depth: int | None = None,
+                          stats: dict | None = None):
+    """Plain version of bk_direct_stack: the same tree expanded breadth-wise
+    in batches of nodes (cand, fini, root) kept in a LIFO. It counts every
+    maximal clique; its overflow says whether the kernel's path of `depth`
+    levels would have been too short (a searched node at level >= depth,
+    the root's children being level 0).
+
+    With `stats`, adds the tree's word operations by type, as
+    bk_stack_machine_plain: stats["popc_ops"], |cand ∪ fini|·WW per expanded
+    node (the pivot's popcounts), and stats["bit_ops"], the pivot's ANDs
+    and 2·WW per child.
+    """
+    C, W, WW = adj.shape
+    dev = adj.device
+    below = _below_words(W, WW, dev)
+    c_empty = (cand0 == 0).all(1)
+    total = (live0 & c_empty & (fini0 == 0).all(1)).sum()
+    popc, bit = _zero(dev), _zero(dev)
+    work = (live0 & ~c_empty).nonzero()[:, 0]
+    stack = [(cand0[work], fini0[work], work, -1)]
+    batch = max(1, _PLAIN_BUDGET // (W * WW))
+    overflow = False
+    while stack:
+        cand, fini, root, level = stack.pop()
+        if cand.shape[0] > batch:
+            stack.append((cand[batch:], fini[batch:], root[batch:], level))
+            cand, fini, root = cand[:batch], fini[:batch], root[:batch]
+        A = adj[root]                                          # [B, W, WW]
+        member = unpack_bits(cand | fini)                      # [B, W]
+        scores = popcount32(cand[:, None, :] & A).sum(2)
+        pivot = torch.where(member, scores, -1).argmax(1)      # first max
+        ext = cand & ~A[torch.arange(A.shape[0], device=dev), pivot]
+        item, i = unpack_bits(ext).nonzero(as_tuple=True)
+        extb = ext[item] & below[i]
+        ai = A[item, i]
+        cC = (cand[item] & ~extb) & ai
+        cF = (fini[item] | extb) & ai
+        popc += member.sum() * WW
+        bit += member.sum() * WW + 2 * WW * item.shape[0]
+        ce = (cC == 0).all(1)
+        total += (ce & (cF == 0).all(1)).sum()
+        if not ce.all():
+            overflow |= depth is not None and level + 1 >= depth
+            push = ~ce
+            stack.append((cC[push], cF[push], root[item[push]], level + 1))
+    if stats is not None:
+        stats["popc_ops"] = stats.get("popc_ops", 0) + int(popc)
+        stats["bit_ops"] = stats.get("bit_ops", 0) + int(bit)
+    return total, torch.tensor(overflow, device=dev)
+
+
+def bk_direct_stack(adj, cand0, fini0, live0, *, depth: int | None = None,
+                    stats: dict | None = None):
+    """The maximal cliques rooted at a chunk, by the Tomita search over
+    each root's full neighbourhood: adj int32[C, W, WW] the undirected local
+    adjacency (build_local_adj of the undirected padded rows), cand0, fini0
+    int32[C, WW] (init_items), live0 bool[C] the real roots. The search of
+    gms_tpu's bk_count_chunk (:131), with the same tree.
+
+    `depth` is the kernel's path length, min(W, core bound) + 2 in
+    bk_count_async (default W + 1, which no tree exceeds). Returns (count
+    int64 0-d, overflow bool 0-d), no read-back; overflow means a path was
+    too short and the count is short. With `stats` the kernel's run reads
+    back stats["items"] (the items its warps took: the root items and the
+    queued nodes), stats["max_items"] (the most one warp took) and
+    stats["warps"].
+    """
+    name = "bk_direct_stack"
+    _check_direct_inputs(name, adj, cand0, fini0, live0)
+    C, W, WW = adj.shape
+    depth = W + 1 if depth is None else depth
+    if depth < 1:
+        raise ValueError(f"{name}: depth must be >= 1, got {depth}")
+    if not _on_cuda(name, adj, cand0, fini0, live0):
+        return bk_direct_stack_plain(adj, cand0, fini0, live0, depth=depth,
+                                     stats=stats)
+    dev = adj.device
+    stride = 2 * WW + 1
+    cap = max(1024, min(_QUEUE_NODES, _QUEUE_BYTES // (stride * 4)))
+    total = _zero(dev)
+    ctl = torch.zeros(64, dtype=torch.int64, device=dev)  # 4 lines
+    _kernels.launch(
+        "bk_direct", "bk_direct_stack", adj, cand0, fini0, live0, C, WW,
+        depth, torch.empty(C + 2, dtype=torch.int64, device=dev),
+        torch.empty(C * WW, dtype=torch.int32, device=dev), ctl,
+        torch.empty(cap * stride, dtype=torch.int32, device=dev),
+        torch.zeros(cap, dtype=torch.int32, device=dev), cap, total)
+    LAUNCHES[name] += 1
+    if stats is not None:  # the fourth line: overflow, items, most, warps
+        _, items, most, warps = ctl[48:52].tolist()
+        stats.update(items=items, max_items=most, warps=warps)
+    return total, ctl[48] != 0
+
+
+def bk_count_chunk_plain(nbr, rank_pad, chunk, root_live, *, w_words: int,
+                         depth: int | None = None):
+    """Plain version of bk_count_chunk: the plain versions of K4, K35 and
+    K36."""
+    adj, _ = build_local_adj_plain(nbr, chunk, w_words=w_words)
+    cand, fini = init_items_plain(nbr, rank_pad, chunk, w_words=w_words)
+    return bk_direct_stack_plain(adj, cand, fini, root_live, depth=depth)
+
+
+def bk_count_chunk(nbr, rank_pad, chunk, root_live, *, w_words: int,
+                   depth: int | None = None):
+    """The maximal cliques rooted at one chunk, direct variant: gms_tpu's
+    bk_count_chunk (:131) — build_local_adj (K4) over the undirected padded
+    rows nbr, init_items (K35), bk_direct_stack (K36). chunk int32[C] root
+    ids (pad ids V_pad), root_live bool[C]; every root's degree fits W =
+    32*w_words. Returns (count int64 0-d, overflow bool 0-d). Its capacity,
+    batch and iter_budget shaped gms_tpu's stack and have no counterpart;
+    `depth` is K36's path length."""
+    adj, _ = build_local_adj(nbr, chunk, w_words=w_words)
+    cand, fini = init_items(nbr, rank_pad, chunk, w_words=w_words)
+    return bk_direct_stack(adj, cand, fini, root_live, depth=depth)
+
+
+def _read_back(outs):
+    """[(tensors on one device)] -> their values as lists: one stack and one
+    copy to the host per device."""
+    by_dev = {}
+    for j, ts in enumerate(outs):
+        by_dev.setdefault(ts[0].device, []).append(
+            (j, torch.stack([t.to(torch.int64) for t in ts])))
+    vals = [None] * len(outs)
+    for group in by_dev.values():
+        for (j, _), v in zip(group, torch.stack([x for _, x in group])
+                             .tolist()):
+            vals[j] = v
+    return vals
+
+
+def _placed(tensors):
+    """device -> `tensors` on that device, copied there on first use."""
+    cache = {tensors[0].device: tensors}
+
+    def on(dev):
+        if dev not in cache:
+            cache[dev] = tuple(t.to(dev) for t in tensors)
+        return cache[dev]
+
+    return on
+
+
+def bk_count_async(nbr, rank_pad, chunks, devices=None, *,
+                   core_bound: int | None = None) -> int:
+    """Count the maximal cliques of every (chunk, w_words) job with
+    bk_count_chunk, jobs round-robin over `devices` (default: nbr's), every
+    job launched before the one read-back a device. gms_tpu's
+    bk_count_async (:290).
+
+    K36's path takes min(W, core_bound) + 2 levels (W + 1 without a bound):
+    a node at level d holds d + 1 of the root's higher-ranked neighbours, so
+    with the orientation's largest out-degree as core_bound no path is too
+    short and no chunk overflows. gms_tpu's retry stays for a wrong bound,
+    and a kernel that reports no overflow never enters it: an overflowed
+    chunk splits its roots in half (same padded shape), a single root
+    doubles its depth; after 12 retries it raises. gms_tpu's words_budget,
+    max_inflight and batch shaped its stack capacity and have no
+    counterpart.
+    """
+    devs = ([nbr.device] if devices is None
+            else [resolve(d) for d in devices])
+    table = _placed((nbr, rank_pad))
+    pad_id = nbr.shape[0]
+
+    def depth_of(ww):
+        W = 32 * ww
+        return min(W, core_bound) + 2 if core_bound else W + 1
+
+    queue = [(np.asarray(chunk), ww, depth_of(ww), 0) for chunk, ww in chunks]
+    total = 0
+    while queue:
+        outs = []
+        for i, (chunk, ww, depth, _) in enumerate(queue):
+            dev = devs[i % len(devs)]
+            nbr_d, rank_d = table(dev)
+            ch = torch.from_numpy(chunk).to(dev)
+            outs.append(bk_count_chunk(nbr_d, rank_d, ch, ch != pad_id,
+                                       w_words=ww, depth=depth))
+        retry = []
+        for (chunk, ww, depth, retries), (count, ovf) in zip(
+                queue, _read_back(outs)):
+            if not ovf:
+                total += count
+                continue
+            if retries > 12:
+                raise RuntimeError(
+                    "bk_count_chunk (direct=True) overflowed 12 times; the "
+                    "core bound given is below the graph's")
+            real = chunk[chunk != pad_id]
+            if len(real) > 1:  # split roots, keep the padded shape
+                h = len(real) // 2
+                for part in (real[:h], real[h:]):
+                    sub = np.full(len(chunk), pad_id, chunk.dtype)
+                    sub[:len(part)] = part
+                    retry.append((sub, ww, depth, retries + 1))
+            else:
+                retry.append((chunk, ww, min(2 * depth, 32 * ww + 1),
+                              retries + 1))
+        queue = retry
+    return total
+
+
+# ---------------------------------------------------------------------------
 # K10: decode
 # ---------------------------------------------------------------------------
 
@@ -516,30 +802,34 @@ def ordering_rank(g: CSRGraph, ordering: str) -> np.ndarray:
     raise ValueError(f"unknown ordering {ordering!r}")
 
 
-def _bk_fused(g: CSRGraph, rank: np.ndarray, roots: np.ndarray, *,
-              device="cuda", collect: bool = False,
-              root_chunk: int = DEFAULT_ROOT_CHUNK, sink=None):
+def _bk_fused(g: CSRGraph, rank: np.ndarray, roots: np.ndarray, devices, *,
+              collect: bool = False, root_chunk: int = DEFAULT_ROOT_CHUNK,
+              sink=None):
     """Count (or enumerate) the maximal cliques rooted at `roots`; returns
-    (count, cliques or None). In count mode every job's launches are
-    enqueued before the one read-back; enumerate mode reads each job's count
-    back to size its rows."""
-    plan = BKPlan(g, rank, roots, device=device, root_chunk=root_chunk)
-    nbr = plan.padded.nbr
+    (count, cliques or None). The plan is built once and copied to every
+    device of `devices`; jobs go round-robin over them (gms_tpu's
+    _bk_fused(devices=), :893). In count mode every job's launches are
+    enqueued before the one read-back a device; enumerate mode reads each
+    job's count back to size its rows."""
+    devs = [resolve(d) for d in devices]
+    plan = BKPlan(g, rank, roots, device=devs[0], root_chunk=root_chunk)
+    table = _placed((plan.padded.nbr, plan.lo_indptr, plan.lo_cols))
 
-    def cover(chunk, ww, in_w):
-        return hub_cover_bits(nbr, plan.lo_indptr, plan.lo_cols, chunk,
-                              in_width=in_w, w_words=ww)
+    def run(i, chunk, ww, in_w, emit):
+        nbr, lo_indptr, lo_cols = table(devs[i % len(devs)])
+        chunk = chunk.to(nbr.device)
+        m, wv = hub_cover_bits(nbr, lo_indptr, lo_cols, chunk,
+                               in_width=in_w, w_words=ww)
+        return nbr, chunk, bk_fused_chunk(nbr, chunk, m, wv, w_words=ww,
+                                          emit=emit)
 
     if not collect:
-        outs = [bk_fused_chunk(nbr, chunk, *cover(chunk, ww, in_w),
-                               w_words=ww)
-                for chunk, ww, in_w in plan.jobs]
-        return (int(torch.stack(outs).sum()) if outs else 0), None
+        outs = [(run(i, *job, False)[2],) for i, job in enumerate(plan.jobs)]
+        return sum(v[0] for v in _read_back(outs)), None
     total = 0
     cliques: list[frozenset] | None = None if sink is not None else []
-    for chunk, ww, in_w in plan.jobs:
-        count, out = bk_fused_chunk(nbr, chunk, *cover(chunk, ww, in_w),
-                                    w_words=ww, emit=True)
+    for i, job in enumerate(plan.jobs):
+        nbr, chunk, (count, out) = run(i, *job, True)
         total += int(count)
         if not out.shape[0]:
             continue
@@ -563,8 +853,8 @@ def bron_kerbosch(
     root_chunk: int = DEFAULT_ROOT_CHUNK,
     collect: bool = False,
     roots: np.ndarray | None = None,
+    hub_threshold: int = 1024,
     direct: bool = False,
-    devices=None,
     sink=None,
 ):
     """Count (or enumerate) all maximal cliques of the undirected graph g.
@@ -576,32 +866,50 @@ def bron_kerbosch(
     each job's decoded cliques as numpy arrays ({gid[l]} ∪ members[l][
     members[l] >= 0]) and returns (count, None). `roots` limits the root
     set: each maximal clique is reported at its lowest-ranked member, so
-    disjoint root sets sum exactly.
+    disjoint root sets sum exactly (parallel/multi.py fans root chunks out
+    over devices through _bk_fused).
 
-    The port has the fused DAG-universe path only, with no waves, segments
-    or split-and-retry: the depth-first kernel cannot overflow in count
-    mode, and enumerate mode sizes its rows from a count pass. direct=True
-    and devices= raise NotImplementedError (ROADMAP Queue 1 item 7).
+    The default is the fused DAG-universe path for every root, with no
+    waves, segments or split-and-retry: the depth-first kernel cannot
+    overflow in count mode, and enumerate mode sizes its rows from a count
+    pass. direct=True counts the roots of degree at most `hub_threshold`
+    (capped at 1024, as in gms_tpu) by the full-neighbourhood search
+    (bk_count_async) and the rest on the fused path; collect=True always
+    takes the fused path, as gms_tpu's.
     """
     dev = resolve(device)
-    if direct:
-        raise NotImplementedError(
-            "bron_kerbosch(direct=True): the direct full-neighbourhood "
-            "variant is not ported yet (ROADMAP Queue 1 item 7)")
-    if devices is not None:
-        raise NotImplementedError(
-            "bron_kerbosch(devices=...): the multi-device fan-out is not "
-            "ported yet (ROADMAP Queue 1 items 7 and 13)")
     n = g.num_nodes
     if n == 0:
         return (0, []) if collect else 0
     rank = np.asarray(ordering_rank(g, ordering) if rank is None else rank)
     roots_all = (np.arange(n, dtype=np.int32) if roots is None
                  else np.asarray(roots, dtype=np.int32))
-    total, cliques = _bk_fused(g, rank, roots_all, device=dev,
-                               collect=collect, root_chunk=root_chunk,
-                               sink=sink)
-    return (total, cliques) if collect else total
+    if not direct or collect:
+        total, cliques = _bk_fused(g, rank, roots_all, [dev],
+                                   collect=collect, root_chunk=root_chunk,
+                                   sink=sink)
+        return (total, cliques) if collect else total
+
+    hub_threshold = min(hub_threshold, 1024)
+    deg_all = g.degrees
+    hub_sel = deg_all[roots_all] > hub_threshold
+    hub_roots, roots_all = roots_all[hub_sel], roots_all[~hub_sel]
+    total = 0
+    if len(hub_roots):
+        total, _ = _bk_fused(g, rank, hub_roots, [dev],
+                             root_chunk=root_chunk)
+    pg = PaddedGraph.from_csr(g, device=dev, lane=32)
+    rank_pad = np.full(pg.v_pad + 1, _INT32_MAX, np.int32)
+    rank_pad[:n] = rank
+    e = g.edge_array()
+    higher = rank[e[:, 1]] > rank[e[:, 0]]
+    core_bound = int(np.bincount(e[:, 0][higher], minlength=n)
+                     .max(initial=1))
+    return total + bk_count_async(
+        pg.nbr, torch.from_numpy(rank_pad).to(dev),
+        plan_tier_chunks(deg_all, roots_all, np.int32(pg.v_pad),
+                         root_chunk=root_chunk),
+        core_bound=core_bound)
 
 
 # ---------------------------------------------------------------------------

@@ -19,12 +19,15 @@ The path, as in gms_tpu:
      k >= 6: `kc_stack_count` walks the pruned search tree of each (root,
      first-level child) item depth-first.
 
-Three device programs of gms_tpu carry this path; each is a hand-written
-CUDA kernel here (csrc/), wrapped by the function named:
+Three device programs of gms_tpu carry this path, and two more the sharded
+count (parallel/multi.py); each is a hand-written CUDA kernel here (csrc/),
+wrapped by the function named:
 
     build_local_adj      csrc/local_adj.cu       (k_clique.py:82)
     kclique_dense_count  csrc/kclique_dense.cu   (kclique_dense_chunk, :548)
     kc_stack_count       csrc/kclique_stack.cu   (kc_fused_chunk, :343)
+    expand_level         csrc/kc_expand.cu       (expand_level, :161)
+    total_popcount       csrc/popcount_sum.cu    (total_popcount, :209)
 
 `kclique_dense_chunk` and `kc_fused_chunk` keep gms_tpu's names: each builds
 the chunk's local adjacency and counts on it (two launches). Each wrapper
@@ -37,8 +40,8 @@ What gms_tpu's k >= 6 program does only for its platform is not ported: the
 resumable `state` and `iter_budget` (a dispatch watchdog), the bounded push
 window with its band sort and overflow retry (the depth-first kernel needs at
 most k-3 bitsets per warp, so nothing overflows), and the rem==4 matrix-unit
-branch. `expand_level`, `total_popcount` and `kc_stack_machine` (whose only
-callers are in gms_tpu's parallel/) are not ported yet.
+branch. `kc_stack_machine` and `kclique_count_chunk` (whose only caller is
+gms_tpu's vertex-sharded plan) are not ported yet.
 """
 
 from __future__ import annotations
@@ -60,7 +63,8 @@ _SENT = int(SENTINEL)
 
 # Kernel launches per wrapper, counted only where the CUDA kernel launches.
 LAUNCHES = dict.fromkeys(
-    ("build_local_adj", "kclique_dense_count", "kc_stack_count"), 0)
+    ("build_local_adj", "kclique_dense_count", "kc_stack_count",
+     "expand_level", "total_popcount"), 0)
 
 # elements per step of the plain versions' broadcast tensors
 _PLAIN_BUDGET = 1 << 24
@@ -329,6 +333,100 @@ def kc_fused_chunk(nbr, chunk, *, w_words: int, k: int):
     in one pass with no resumable state and no overflow."""
     adj, s0 = build_local_adj(nbr, chunk, w_words=w_words)
     return kc_stack_count(adj, s0, k=k)
+
+
+# ---------------------------------------------------------------------------
+# K37: one breadth-wise expansion; K38: the popcount sum
+# ---------------------------------------------------------------------------
+
+def expand_level_plain(S, root_idx, adj, *, cap: int, need: int):
+    """Plain version of expand_level: the set bits of S in (item, i) order,
+    their children ANDed and counted in batches, the first `cap` survivors
+    written in that order."""
+    N, WW = S.shape
+    C = adj.shape[0]
+    dev = S.device
+    S_out = torch.zeros((cap, WW), dtype=torch.int32, device=dev)
+    R_out = torch.zeros(cap, dtype=torch.int32, device=dev)
+    n_children, pcs = _zero(dev), _zero(dev)
+    ib = max(1, _PLAIN_BUDGET // (32 * WW))
+    for n0 in range(0, N, ib):
+        item, i = unpack_bits(S[n0:n0 + ib]).nonzero(as_tuple=True)
+        item = item + n0
+        r = root_idx[item]
+        child = S[item] & adj[r.long().clamp(0, C - 1), i]
+        pc = popcount32(child).sum(1)
+        ok = pc >= need
+        pos = n_children + torch.cumsum(ok, 0) - 1
+        put = ok & (pos < cap)
+        S_out[pos[put]] = child[put]
+        R_out[pos[put]] = r[put]
+        n_children += ok.sum()
+        pcs += pc[ok].sum()
+    return S_out, R_out, n_children, pcs
+
+
+def expand_level(S, root_idx, adj, *, cap: int, need: int):
+    """One breadth-wise expansion of all items: gms_tpu's expand_level
+    (k_clique.py:161), bit for bit.
+
+    S:        int32[N, WW] candidate bitsets (zero rows emit nothing)
+    root_idx: int32[N] index into adj's first axis, in [0, C)
+    adj:      int32[C, W, WW], W = 32*WW
+    cap:      output rows; the survivors beyond it are counted, not written
+    need:     a child survives iff its popcount is at least `need`
+    Returns (S_out int32[cap, WW], R_out int32[cap], n_children, pcs): the
+    first `cap` surviving children S[n] & adj[root_idx[n], i] in (item, i)
+    order with their items' root_idx, unfilled rows zero with R 0;
+    n_children (int64 0-d) every survivor, also beyond cap; pcs (int64
+    0-d) the sum of their popcounts. The kernel forms no [N, W, WW] tensor:
+    a count pass, a scan, a write pass.
+    """
+    name = "expand_level"
+    _check(name, "S", S, 2)
+    _check(name, "root_idx", root_idx, 1)
+    _check_adj(name, adj)
+    if adj.shape[2] != S.shape[1] or root_idx.shape[0] != S.shape[0]:
+        raise ValueError(f"{name}: S {tuple(S.shape)}, root_idx "
+                         f"{tuple(root_idx.shape)} and adj {tuple(adj.shape)}"
+                         " do not match")
+    if cap < 0:
+        raise ValueError(f"{name}: cap must be >= 0, got {cap}")
+    if not _on_cuda(name, S, root_idx, adj):
+        return expand_level_plain(S, root_idx, adj, cap=cap, need=need)
+    N, WW = S.shape
+    dev = S.device
+    S_out = torch.zeros((cap, WW), dtype=torch.int32, device=dev)
+    R_out = torch.zeros(cap, dtype=torch.int32, device=dev)
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    if N and adj.shape[0]:
+        n_tiles = -(-N // 1024)
+        _kernels.launch("kc_expand", "expand_level", S, root_idx, N, adj,
+                        adj.shape[0], WW, need, cap,
+                        torch.empty(N, dtype=torch.int32, device=dev),
+                        torch.empty(n_tiles, dtype=torch.int64, device=dev),
+                        n_tiles, S_out, R_out, stats)
+        LAUNCHES[name] += 1
+    return S_out, R_out, stats[0], stats[1]
+
+
+def total_popcount_plain(S):
+    """Plain version of total_popcount."""
+    return popcount32(S).sum(dtype=torch.int64)
+
+
+def total_popcount(S):
+    """The set bits of the int32 words S (any shape), int64 0-d tensor:
+    gms_tpu's total_popcount (k_clique.py:209)."""
+    name = "total_popcount"
+    _kernels.check_tensor(name, "S", S, S.dim())
+    if not _on_cuda(name, S):
+        return total_popcount_plain(S)
+    out = _zero(S.device)
+    if S.numel():
+        _kernels.launch("popcount_sum", "total_popcount", S, S.numel(), out)
+        LAUNCHES[name] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

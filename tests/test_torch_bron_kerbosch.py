@@ -9,14 +9,15 @@
   emitted rows as sorted sets) and decode_clique_members;
 * bron_kerbosch(device="cpu") against gms_tpu's bron_kerbosch and
   bron_kerbosch_simple, as counts and as sets of cliques, mirroring
-  tests/test_bron_kerbosch.py case for case, except the four cases whose
-  subjects have no counterpart in the port: test_direct_variant_matches_
-  oracle and test_hub_and_direct_split_agree (the direct=True variant is
-  not ported, ROADMAP Queue 1 item 7), test_resume_segments_equal_counts
-  (the depth-first kernel has no iter_budget segments) and
+  tests/test_bron_kerbosch.py case for case, except test_direct_variant_
+  matches_oracle and test_hub_and_direct_split_agree, whose port
+  counterparts are in test_torch_bk_direct.py, and the two cases whose
+  subjects have no counterpart in the port: test_resume_segments_equal_
+  counts (the depth-first kernel has no iter_budget segments) and
   test_band_compact_both_paths (no band-sort compaction). The hub_threshold
-  of test_hub_path_matches_oracle selects the direct variant's roots and
-  has no counterpart either; its three graphs run on the port's one path.
+  of test_hub_path_matches_oracle selects the direct variant's roots, which
+  its direct=False calls do not take; its three graphs run on the fused
+  path.
 
 Every comparison is exact. Arrays that depend on the order are compared
 under one rank, gms_tpu's. The CUDA kernels are held against these plain
@@ -417,10 +418,19 @@ def test_disjoint_roots_sum_to_the_whole():
 
 
 def test_direct_and_devices_are_not_ported():
+    """(The name dates from when direct=True raised.) bron_kerbosch takes
+    no devices=, as gms_tpu's: the fan-out is _bk_fused(devices=) and
+    parallel/multi.py. direct=True counts, and with collect=True it takes
+    the fused path, as gms_tpu's `if not direct or collect`."""
     g = build_csr(np.array([[0, 1]], dtype=np.int64))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bk.bron_kerbosch(g, device="cpu", direct=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="devices"):
         bk.bron_kerbosch(g, device="cpu", devices=["cpu", "cpu"])
+    assert bk.bron_kerbosch(g, device="cpu", direct=True) == 1
+    g = build_csr(random_graph(40, 0.3, 5), num_nodes=40)
+    want = set(bk.bron_kerbosch_simple(g))
+    for threshold in (1024, 4):
+        count, got = bk.bron_kerbosch(g, device="cpu", direct=True,
+                                      collect=True, hub_threshold=threshold)
+        assert count == len(want) and set(got) == want
     with pytest.raises(ValueError, match="ordering"):
         bk.bron_kerbosch(g, device="cpu", ordering="random")

@@ -207,6 +207,70 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     assert not (tmp_path / "build").exists()
 
 
+def test_direct_bk_and_level_wrappers_reject_bad_inputs():
+    live = torch.ones(2, dtype=torch.bool)
+    with pytest.raises(TypeError):
+        bk.init_items(_i32(8, 4), _i32(9), _i32(3).long(), w_words=1)
+    with pytest.raises(ValueError, match="w_words"):
+        bk.init_items(_i32(8, 4), _i32(9), _i32(3), w_words=0)
+    with pytest.raises(ValueError, match="does not match"):
+        bk.bk_direct_stack(_i32(2, 32, 1), _i32(3, 1), _i32(2, 1), live)
+    with pytest.raises(TypeError, match="live0"):
+        bk.bk_direct_stack(_i32(2, 32, 1), _i32(2, 1), _i32(2, 1), _i32(2))
+    with pytest.raises(ValueError, match="depth"):
+        bk.bk_direct_stack(_i32(2, 32, 1), _i32(2, 1), _i32(2, 1), live,
+                           depth=0)
+    with pytest.raises(ValueError, match="do not match"):
+        kc.expand_level(_i32(5, 2), _i32(5), _i32(3, 32, 1), cap=4, need=1)
+    with pytest.raises(ValueError, match="cap"):
+        kc.expand_level(_i32(5, 1), _i32(5), _i32(3, 32, 1), cap=-1, need=1)
+    with pytest.raises(TypeError):
+        kc.total_popcount(_i32(5).long())
+
+
+def test_launch_device_rule():
+    cpu = torch.zeros(4, dtype=torch.int32)
+    meta = torch.zeros(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        _kernels.launch_device("f", (cpu, 3, None))
+    with pytest.raises(ValueError, match="on 2 devices"):
+        _kernels.launch_device("f", (cpu, meta))
+    with pytest.raises(ValueError, match="on 0 devices"):
+        _kernels.launch_device("f", (3, None))
+    flags = " ".join(_kernels.NVCC_FLAGS)
+    assert "-include" in flags and flags.endswith("set_device.cuh")
+
+
+def test_launch_sets_a_library_device_only_when_it_changes(monkeypatch):
+    """launch calls gms_set_device in a library when this thread last set
+    it to another device (or never), and always calls the entry."""
+    calls = []
+
+    class Lib:
+        def gms_set_device(self, i):
+            calls.append(("set", i))
+            return 0
+
+        def entry(self, *args):
+            calls.append(("entry", args[-2]))
+            return 0
+
+    libs = {"a": Lib(), "b": Lib()}
+    devs = iter([0, 0, 1, 1, 0, 0])
+    monkeypatch.setattr(_kernels, "_load", libs.__getitem__)
+    monkeypatch.setattr(_kernels, "launch_device",
+                        lambda fn, args: torch.device("cuda", next(devs)))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: type("S", (), {"cuda_stream": 0}))
+    monkeypatch.setattr(_kernels, "_SET", type(_kernels._SET)())
+    for name, tag in (("a", 1), ("a", 2), ("a", 3), ("b", 4), ("b", 5),
+                      ("a", 6)):
+        _kernels.launch(name, "entry", tag)
+    assert calls == [("set", 0), ("entry", 1), ("entry", 2), ("set", 1),
+                     ("entry", 3), ("set", 1), ("entry", 4), ("set", 0),
+                     ("entry", 5), ("set", 0), ("entry", 6)]
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -1350,3 +1414,175 @@ def test_gapbs_entry_points_on_card(card):
         gapbs.betweenness_centrality(g, num_samples=40, device=card),
         gapbs.betweenness_centrality(g, num_samples=40, device="cpu"),
         rtol=1e-4, atol=1e-6)
+
+
+# the direct Bron–Kerbosch variant (K35 init_items, K36 bk_direct_stack), the
+# sharded k-clique levels (K37 expand_level, K38 total_popcount), and
+# launches on a second card
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ww,D", [(1, 96), (3, 64), (32, 160)])
+def test_init_items_on_card(card, ww, D):
+    # W < D, W > D and W = 1024; roots include pad and negative ids, ranks a
+    # permutation with the INT32_MAX tail gms_tpu gives rank_pad
+    rng = np.random.default_rng(ww + D)
+    V, n = 300, 290
+    nbr = torch.from_numpy(_padded_rows(rng, V, D, n, D)).to(card)
+    rank = np.full(V + 1, np.iinfo(np.int32).max, np.int32)
+    rank[:n] = rng.permutation(n)
+    roots = rng.integers(0, n, 70).astype(np.int32)
+    roots[-3:] = (V, V + 11, -2)
+    args = [torch.from_numpy(x).to(card) for x in (rank, roots)]
+    cand, fini = _launched("init_items", lambda: bk.init_items(
+        nbr, *args, w_words=ww), bk.LAUNCHES)
+    pc, pf = bk.init_items_plain(nbr, *args, w_words=ww)
+    assert torch.equal(cand, pc) and torch.equal(fini, pf)
+    assert cand.any() and fini.any() and not (cand & fini).any()
+
+
+def _direct_universe(nbr, rank_pad, chunk, ww):
+    adj, _ = kc.build_local_adj(nbr, chunk, w_words=ww)
+    cand, fini = bk.init_items(nbr, rank_pad, chunk, w_words=ww)
+    return adj, cand, fini, chunk != nbr.shape[0]
+
+
+def _check_direct(univ, depth=None):
+    got, ovf = _launched("bk_direct_stack", lambda: bk.bk_direct_stack(
+        *univ, depth=depth), bk.LAUNCHES)
+    want, want_ovf = bk.bk_direct_stack_plain(*univ, depth=depth)
+    assert bool(ovf) == bool(want_ovf)
+    if not want_ovf:
+        assert int(got) == int(want)
+    return int(want), bool(ovf)
+
+
+@pytest.mark.cuda
+def test_bk_direct_stack_on_card(card):
+    g = build_csr(generate_rmat_el(10, 16, seed=27491095), num_nodes=1024)
+    rank, _ = degeneracy.degeneracy_ordering_rank(g)
+    pg = PaddedGraph.from_csr(g, device=card, lane=32)
+    rank_pad = np.full(pg.v_pad + 1, np.iinfo(np.int32).max, np.int32)
+    rank_pad[:1024] = rank
+    rank_pad = torch.from_numpy(rank_pad).to(card)
+    roots = np.arange(1024, dtype=np.int32)
+    chunks = [(torch.from_numpy(c).to(card), ww) for c, ww in
+              kc.plan_tier_chunks(g.degrees, roots, pg.v_pad, root_chunk=128)]
+    counts = [_check_direct(_direct_universe(pg.nbr, rank_pad, c, ww))[0]
+              for c, ww in chunks]
+    assert sum(counts) == bk.bron_kerbosch(g, device="cpu", rank=rank)
+    chunk, ww = chunks[int(np.argmax(counts))]
+    for w in (2 * ww, 8):  # wider: the paths move to device memory at 8
+        univ = _direct_universe(pg.nbr, rank_pad, chunk, w)
+        assert _check_direct(univ)[0] == max(counts)
+    # paths too short: the kernel and the plain version report overflow
+    univ = _direct_universe(pg.nbr, rank_pad, chunk, ww)
+    assert _check_direct(univ, depth=2)[1]
+    stats = {}
+    bk.bk_direct_stack(*univ, stats=stats)
+    assert stats["items"] >= 1 and 1 <= stats["max_items"] <= stats["items"]
+    assert stats["warps"] >= 132
+    # random symmetric bits at W = 256, random disjoint cand and fini
+    rng = np.random.default_rng(5)
+    dense = np.triu(rng.random((4, 256, 256)) < 0.3, 1)
+    dense |= dense.transpose(0, 2, 1)
+    pack = lambda b: torch.from_numpy(np.packbits(  # noqa: E731
+        b, axis=-1, bitorder="little").view(np.int32).copy()).to(card)
+    side = rng.random((4, 256))
+    cand, fini = pack(side < 0.4), pack((side >= 0.4) & (side < 0.6))
+    live = torch.tensor([True, True, False, True], device=card)
+    assert _check_direct((pack(dense), cand, fini, live))[0] > 0
+
+
+@pytest.mark.cuda
+def test_bron_kerbosch_direct_on_card(card):
+    g = build_csr(generate_rmat_el(9, 16, seed=27491095), num_nodes=512)
+    want = bk.bron_kerbosch(g, device="cpu")
+    bk.reset_launches()
+    assert bk.bron_kerbosch(g, device=card, direct=True) == want
+    assert bk.LAUNCHES["bk_direct_stack"] > 0
+    assert bk.LAUNCHES["bk_stack_machine"] == 0  # no root above 1024
+    assert bk.bron_kerbosch(g, device=card, direct=True,
+                            hub_threshold=6) == want
+    assert bk.LAUNCHES["bk_stack_machine"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ww,N,cap,need", [
+    (1, 5000, 100000, 2), (1, 5000, 777, 2), (3, 2100, 50, 0),
+    (8, 300, 0, 3), (2, 4096, 9000, 1)])
+def test_expand_level_on_card(card, ww, N, cap, need):
+    # several tiles of 1,024 items; cap above, below and at 0
+    rng = np.random.default_rng(ww * N + cap)
+    C = 7
+    adj = _sparse_bits(rng, (C, 32 * ww, ww), 0.3).to(card)
+    S = _sparse_bits(rng, (N, ww), 0.2)
+    S[::5] = 0
+    S = S.to(card)
+    R = torch.from_numpy(rng.integers(0, C, N).astype(np.int32)).to(card)
+    got = _launched("expand_level", lambda: kc.expand_level(
+        S, R, adj, cap=cap, need=need), kc.LAUNCHES)
+    want = kc.expand_level_plain(S, R, adj, cap=cap, need=need)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(got[2]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [(1, 0), (5, 1), (1027, 0), (1027, 3),
+                                      (3_000_001, 0)])
+def test_total_popcount_on_card(card, n, offset):
+    # an offset of 1 or 3 words leaves the 16-byte loads unaligned
+    rng = np.random.default_rng(n + offset)
+    words = _sparse_bits(rng, (n + offset,), 0.5).to(card)[offset:]
+    got = _launched("total_popcount", lambda: kc.total_popcount(words),
+                    kc.LAUNCHES)
+    assert int(got) == int(kc.total_popcount_plain(words)) > 0
+
+
+@pytest.mark.cuda
+def test_launch_on_a_second_card(card):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    second = torch.device("cuda", 1)
+    rng = np.random.default_rng(1)
+    nbr = torch.from_numpy(_padded_rows(rng, 300, 96, 290, 96)).to(second)
+    roots = torch.from_numpy(rng.integers(0, 290, 70).astype(np.int32))
+    adj, s0 = kc.build_local_adj(nbr, roots.to(second), w_words=2)
+    assert adj.device == second
+    want = kc.build_local_adj_plain(nbr.cpu(), roots, w_words=2)
+    assert torch.equal(adj.cpu(), want[0]) and torch.equal(s0.cpu(), want[1])
+    assert int(kc.total_popcount(adj)) == int(kc.total_popcount_plain(want[0]))
+    with pytest.raises(ValueError, match="devices"):
+        kc.build_local_adj(nbr, roots.to(card), w_words=2)
+    # and back on the first card, in the same libraries
+    adj0, s00 = kc.build_local_adj(nbr.to(card), roots.to(card), w_words=2)
+    assert torch.equal(adj0.cpu(), want[0]) and torch.equal(s00.cpu(), want[1])
+    assert int(kc.total_popcount(adj0)) == int(kc.total_popcount(adj))
+
+
+@pytest.mark.cuda
+def test_sharded_functions_on_card(card):
+    from gms_tpu_torch.parallel import multi, sharding
+    mesh = sharding.make_mesh()
+    assert (mesh.size, mesh.device.type) == (1, "cuda")
+    g = build_csr(generate_rmat_el(9, 16, seed=27491095), num_nodes=512)
+    for k in (3, 5):
+        kc.reset_launches()
+        stats = {}
+        assert multi.sharded_kclique_count(g, k, mesh, stats=stats) == \
+            kc.kclique_count(g, k, device="cpu")
+        runs = stats["chunks"] + stats["doublings"]
+        assert kc.LAUNCHES["expand_level"] == (k - 2) * runs
+        assert kc.LAUNCHES["total_popcount"] == runs
+    assert sharding.sharded_triangle_count(g, mesh, chunk=64) == \
+        tc.triangle_count(g, device="cpu")
+    assert multi.sharded_bron_kerbosch_count(g, [card, card]) == \
+        bk.bron_kerbosch(g, device="cpu")
+    pg = PaddedGraph.from_csr(g, device=card)
+    deg1 = torch.cat([pg.deg, pg.deg.new_zeros(1)])
+    pairs = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 512, (1000, 2)).astype(np.int32)).to(card)
+    got = multi.sharded_pair_scores(mesh, metric="jaccard")(pg.nbr, deg1,
+                                                           pairs)
+    assert torch.equal(got, vs.pair_scores(pg.nbr, deg1, pairs,
+                                           metric="jaccard"))

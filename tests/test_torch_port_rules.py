@@ -51,13 +51,17 @@ def test_port_imports_neither_jax_nor_gms_tpu():
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "gms_tpu" or m.startswith("gms_tpu."))
-        print(len(names), bad)
+        par = sorted(m for m in names if m.startswith(
+            "gms_tpu_torch.parallel."))
+        print(len(names), par, bad)
     """)
     out = _run(["-c", code])
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.strip().split(" ", 1)
+    n, rest = out.stdout.strip().split(" ", 1)
     assert int(n) >= 20  # every module of the port was imported
-    assert bad == "[]"
+    assert rest == ("['gms_tpu_torch.parallel.multi', "
+                    "'gms_tpu_torch.parallel.sharding', "
+                    "'gms_tpu_torch.parallel.world'] []")
 
 
 def _triangle():
@@ -192,6 +196,31 @@ def test_vf2_and_compressed_default_device_is_the_card():
     from gms_tpu_torch import algorithms
     assert gms_tpu_torch.subgraph_isomorphism is si.subgraph_isomorphism
     assert algorithms.subgraph_isomorphism is si.subgraph_isomorphism
+
+
+def _world_size(mesh):
+    return mesh.size
+
+
+def test_parallel_default_device_is_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the default runs there")
+    from gms_tpu_torch.parallel import multi, sharding, world
+    g = _triangle()
+    for call in (sharding.make_mesh,
+                 lambda: world.spawn_world(_world_size, 1),
+                 lambda: sharding.sharded_triangle_count(g, sharding.make_mesh()),
+                 lambda: multi.sharded_kclique_count(g, 3),
+                 lambda: multi.sharded_kclique_count(g, 2),
+                 lambda: multi.sharded_bron_kerbosch_count(g),
+                 lambda: multi.device_parallel_map(lambda j, d: j, [1])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    mesh = sharding.make_mesh(devices="cpu")
+    assert sharding.sharded_triangle_count(g, mesh) == 1
+    assert multi.sharded_kclique_count(g, 3, mesh) == 1
+    assert multi.sharded_bron_kerbosch_count(g, ["cpu"]) == 1
+    assert multi.device_parallel_map(lambda j, d: j + 1, [1], ["cpu"]) == [2]
 
 
 def test_cli_parses_device():
