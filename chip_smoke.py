@@ -19,7 +19,9 @@ centrality) on RMAT 18 and on RMAT 14's compressed forms, the direct=True
 Bron–Kerbosch variant on RMAT 14 and 12, and the multi-device layer
 (parallel/: the sharded k-clique count, triangle count, pair scores and BK
 fan-out over torch.distributed, NCCL at world size 1 and gloo at world size
-2 on the one card) — and holds every hand-written CUDA kernel of those
+2 on the one card; the ring-streamed vertex-sharded triangle, k-clique and
+BK plans and the tuned sharded triangle plan on the same graphs; the dry
+run of parallel/dryrun.py) — and holds every hand-written CUDA kernel of those
 paths against its plain PyTorch version on the card. Phases, each printing a line and each failing the run (non-zero exit) if it fails:
 
   1. device and build: card name, power limit, nvcc build of csrc/*.cu;
@@ -327,7 +329,36 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      and sharded_kclique_count on RMAT 12, k = 5, twice; both ranks' counts
      must equal phase 54's world-size-1 counts; the warm times beside
      world size 1's, and how many collectives gloo took through the host
-     (Mesh.staged).
+     (Mesh.staged);
+ 56. the sharded plans' main path at world size 1 over NCCL, with every
+     launch counter set to 0 just before it: VertexShardedTrianglePlan and
+     ShardedTrianglePlan on phase 2's RMAT 18 (82,647,223),
+     VertexShardedKCliquePlan on KCLIQUE_RUNS (root chunks of 1,024 at RMAT
+     16, RING_CHUNK elsewhere) and at k = 3 on RMAT 12 (the host triangle
+     oracle; it puts K38 on the path), VertexShardedBKPlan on RMAT 12
+     (725,641); each built, run, and run again timed warm beside its
+     single-device call (TrianglePlan in gather mode, kclique_count,
+     bron_kerbosch); K39, K40, K1, K2, K5, K6, K7, K9 and K38 must have
+     launched;
+ 57. K40 count_dag_edges_cross against its plain version, exactly, on the
+     RMAT 18 vertex-sharded run's rotation, and K39 member_pack on every
+     (chunk, hop, pack) of the RMAT 12 BK and RMAT 13 k=6 runs, with
+     CUDA-event times and byte bounds (each distinct row read to its first
+     SENTINEL, the selected slots' locs, the outputs); the kernels line's
+     launches are those runs' launches, and must equal the calls compared;
+     then, for correctness only, K40 on RMAT 18 split over two owners (the
+     two buckets whose rows come from the other owner's shard, a table of
+     its own) and the ring path's finish kernels on the first ring-built
+     chunk of each plan (K38 at k = 3, K5 at RMAT 16 k = 5, K6 at RMAT 13
+     k = 6, K7 and K9 with M at RMAT 12), each against its plain version,
+     exactly;
+ 58. world size 2 on the one card over gloo: every plan of phase 56 in two
+     spawned ranks, twice; both ranks' counts must equal the goldens; the
+     warm times beside world size 1's and the single-device calls, and the
+     collectives and ring hops gloo took through the host (Mesh.staged);
+ 59. the port's dryrun_multichip(2) (parallel/dryrun.py), two gloo ranks on
+     this card: every sharded path on RMAT 7 against the host oracles, and
+     the vertex-sharded tables shrinking against a mesh of one.
 
 The line before the last is a JSON object describing every kernel; the last
 is {"ok": true, "device": {...}}. Imports nothing of jax or gms_tpu.
@@ -459,6 +490,10 @@ KERNELS = {
                      "gms_tpu/algorithms/k_clique.py:161"),
     "total_popcount": ("gms_tpu_torch/csrc/popcount_sum.cu",
                        "gms_tpu/algorithms/k_clique.py:209"),
+    "member_pack": ("gms_tpu_torch/csrc/ring_member.cu",
+                    "gms_tpu/parallel/sharding.py:379"),
+    "count_dag_edges_cross": ("gms_tpu_torch/csrc/tier_intersect.cu",
+                              "gms_tpu/parallel/sharding.py:206"),
 }
 BK_GOLDEN = 165_402_717      # maximal cliques, RMAT-14 deg 16 (BENCH_r05)
 BK_SCALE, BK_SMALL, BK_SAMPLE = 14, 12, 1000
@@ -547,6 +582,10 @@ BK_DIRECT_HUB = 64
 # this, else on the job's roots cut to it (direct_cut)
 BK_DIRECT_PLAIN_WORDS = 1 << 30
 MULTI_TC_SCALE, MULTI_KC_SCALE, MULTI_K = 16, 12, 5
+# phases 56-59: the ring-streamed and tuned sharded plans. Root chunks of
+# the k-clique and BK plans (gms_tpu's default of 64 would take 456 chunks,
+# each N hops, at RMAT 16); the k = 3 ring run that puts K38 on the path
+RING_CHUNK, RING_CHUNK16, RING_K3_SCALE = 512, 1024, 12
 
 
 def check(cond: bool, what: str) -> None:
@@ -3968,6 +4007,375 @@ def multi_phases(timing, report, g18, g14, g12, lp_pairs):
           f"8-byte counts through the host (staged explicitly)")
 
 
+def all_launches() -> dict:
+    """Every launch counter of the sharded plans' kernels, by wrapper."""
+    from gms_tpu_torch.algorithms import bron_kerbosch as bk
+    from gms_tpu_torch.algorithms import k_clique as kc
+    from gms_tpu_torch.algorithms import triangle_count as tc
+    return {**tc.LAUNCHES, **kc.LAUNCHES, **bk.LAUNCHES}
+
+
+def reset_all_launches() -> None:
+    from gms_tpu_torch.algorithms import bron_kerbosch as bk
+    from gms_tpu_torch.algorithms import k_clique as kc
+    from gms_tpu_torch.algorithms import triangle_count as tc
+    for mod in (tc, kc, bk):
+        mod.reset_launches()
+
+
+# the kernels the sharded plans launch (phase 56)
+RING_PATH = ("member_pack", "count_dag_edges_cross", "count_dag_edges",
+             "count_hub_groups", "total_popcount", "kclique_dense_count",
+             "kc_stack_count", "symmetrize_bits", "bk_stack_machine")
+
+
+def ring_graphs():
+    """Phases 56 and 58's graphs: RMAT 18 and the k-clique graphs of
+    KCLIQUE_RUNS with their exact degeneracy ranks, and the k = 3 run on
+    RMAT 12 (its golden the host triangle oracle); [(key, scale, k,
+    golden, graph, rank)] with RMAT 18 as (..., None, None)."""
+    from gms_tpu_torch.algorithms import triangle_count as tc
+    from gms_tpu_torch.io.builder import build_csr
+    from gms_tpu_torch.io.generators import generate_rmat_el
+    from gms_tpu_torch.preprocessing import degeneracy
+
+    def rmat(scale):
+        return build_csr(generate_rmat_el(scale, DEGREE, seed=SEED),
+                         num_nodes=1 << scale)
+
+    out = [("rmat18", SCALE, None, GOLDEN, rmat(SCALE), None)]
+    kgraphs = {}
+    for scale, k, golden in KCLIQUE_RUNS + ((RING_K3_SCALE, 3, None),):
+        if scale not in kgraphs:
+            g = rmat(scale)
+            kgraphs[scale] = (g, degeneracy.degeneracy_ordering_rank(g)[0])
+        g, rank = kgraphs[scale]
+        if golden is None:
+            golden = tc.triangle_count_oracle(g)
+        out.append((f"kc{scale}_{k}", scale, k, golden, g, rank))
+    g, rank = kgraphs[BK_SMALL]
+    out.append((f"bk{BK_SMALL}", BK_SMALL, None, BK_DIRECT_SMALL_GOLDEN, g,
+                rank))
+    return out
+
+
+def ring_jobs(graphs):
+    """[(key, golden, plan constructor of a mesh)] of phases 56 and 58."""
+    from gms_tpu_torch.parallel import sharding as sh
+    jobs = []
+    for key, scale, k, golden, g, rank in graphs:
+        if key == "rmat18":
+            jobs.append(("tc_vertex", golden,
+                         lambda m, g=g: sh.VertexShardedTrianglePlan(g, m)))
+            jobs.append(("tc_tuned", golden,
+                         lambda m, g=g: sh.ShardedTrianglePlan(g, m)))
+        elif k is not None:
+            chunk = RING_CHUNK16 if scale == 16 else RING_CHUNK
+            jobs.append((key, golden, lambda m, g=g, k=k, r=rank, c=chunk:
+                         sh.VertexShardedKCliquePlan(g, m, k=k, rank=r,
+                                                     root_chunk=c)))
+        else:
+            jobs.append((key, golden, lambda m, g=g, r=rank:
+                         sh.VertexShardedBKPlan(g, m, rank=r,
+                                                root_chunk=RING_CHUNK)))
+    return jobs
+
+
+def run_ring_jobs(mesh, jobs, keep=()):
+    """Build each plan on `mesh` and run it twice, the second timed warm:
+    {key: {count, warm count, build_s, first_s, warm_s, launches (what the
+    first run launched)}}, and the plans named in `keep`."""
+    out, kept = {}, {}
+    for key, golden, make in jobs:
+        t0 = time.perf_counter()
+        plan = make(mesh)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        before = all_launches()
+        t0 = time.perf_counter()
+        got = plan.run()
+        first_s = time.perf_counter() - t0
+        after = all_launches()
+        t0 = time.perf_counter()
+        warm = plan.run()
+        warm_s = time.perf_counter() - t0
+        out[key] = {"count": got, "warm": warm, "golden": golden,
+                    "build_s": build_s, "first_s": first_s,
+                    "warm_s": warm_s,
+                    "launches": {n: after[n] - before[n] for n in after
+                                 if after[n] != before[n]}}
+        if key in keep:
+            kept[key] = plan
+        del plan
+    return out, kept
+
+
+def ring_rank_counts(mesh):
+    """Phase 58's run on one rank of a spawned world: every plan of phase
+    56 on its graph, each twice (the second timed warm)."""
+    out, _ = run_ring_jobs(mesh, ring_jobs(ring_graphs()))
+    return {"rank": mesh.rank, "size": mesh.size, "device": str(mesh.device),
+            "jobs": out, "staged": dict(mesh.staged)}
+
+
+def row_words(table, rows) -> int:
+    """Data words of the distinct `rows` of a padded table: each read up to
+    and including its first SENTINEL, or whole when full."""
+    from gms_tpu_torch.graphs.tiles import SENTINEL
+    rows = torch.unique(rows.long())
+    lens = (table[rows] != SENTINEL).sum(1)
+    return int((lens + 1).clamp(max=table.shape[1]).sum())
+
+
+def pack_calls(plan, label):
+    """K39's (chunk, hop, pack) calls of a world-size-1 plan, each against
+    its plain version on zeroed outputs (OR-ing again leaves them as they
+    are, so the timed reps compute the same words). A call's bytes: each
+    distinct visiting row a selected slot names and each q row with a
+    selected slot, to its first SENTINEL; locs of the selected slots only;
+    sel whole; the selected output words read and written."""
+    from gms_tpu_torch.algorithms import k_clique as kc
+    from gms_tpu_torch.graphs.tiles import SENTINEL
+    calls = []
+    vis = plan._own
+    for ci, rc in enumerate(plan._chunks()):
+        _live, q, valid, owner, locs, adj = plan._universe(rc)
+        packs = [("adj", owner, locs, valid, adj.shape[1])]
+        if hasattr(plan, "_lown"):
+            _, wl = plan._root_rows(rc, plan._lown)
+            w_owner, w_locs = plan._lookup(wl)
+            packs.append(("M", w_owner, w_locs, wl != int(SENTINEL),
+                          wl.shape[1]))
+        for what, own, lc, v, L in packs:
+            sel = (v & (own == 0)).contiguous()
+            outs = [torch.zeros((q.shape[0], L, plan.w_words),
+                                dtype=torch.int32, device=q.device)
+                    for _ in range(2)]
+            n_sel = int(sel.sum())
+            nbytes = (row_words(vis, lc[sel])
+                      + row_words(q, sel.any(1).nonzero().reshape(-1))
+                      + n_sel + 2 * n_sel * plan.w_words) * 4 + sel.numel()
+            calls.append((
+                f"{label} chunk {ci} {what}: C={q.shape[0]} L={L} "
+                f"selected {n_sel}",
+                lambda q=q, lc=lc, sel=sel, o=outs[0]: kc.member_pack(
+                    q, vis, lc, sel, o),
+                lambda q=q, lc=lc, sel=sel, o=outs[1]:
+                    kc.member_pack_plain(q, vis, lc, sel, o),
+                nbytes))
+    return calls
+
+
+def ring_exact_checks(g18, plans) -> None:
+    """Phase 57's checks beyond the world-size-1 workload, exact, untimed:
+    K40 on RMAT 18 hash-owner split over two owners, with owner d's own
+    shard and owner 1-d's as two tables (the kernel over all four buckets
+    sums to the golden; the two cross buckets against plain), and each
+    finish kernel of the ring path on the first ring-built chunk of its
+    plan against its plain version."""
+    from gms_tpu_torch.algorithms import bron_kerbosch as bk
+    from gms_tpu_torch.algorithms import k_clique as kc
+    from gms_tpu_torch.algorithms import triangle_count as tc
+    from gms_tpu_torch.parallel import sharding
+    from gms_tpu_torch.preprocessing import orient
+
+    t0 = time.perf_counter()
+    dag = orient.orient(g18, orient.degree_rank(g18))
+    nbr = sharding._host_nbr(dag)
+    table, owner, loc, _ = sharding._hash_owner_layout(nbr, 2)
+    eb, vb, _ = sharding._edge_buckets(dag.edge_array(), owner, loc, 2, 1024,
+                                       nbr.shape[1])
+    table, eb, vb = (torch.from_numpy(x).cuda() for x in (table, eb, vb))
+    del dag, nbr
+    total = 0
+    for d in range(2):
+        for t in range(2):
+            own, vis = table[d], table[(d + t) % 2]
+            got = tc.count_dag_edges_cross(own, vis, eb[d, t], vb[d, t])
+            total += int(got)
+            if t:
+                want = tc.count_dag_edges_cross_plain(own, vis, eb[d, t],
+                                                      vb[d, t])
+                err = max_abs_err(got, want)
+                print(f"[57] count_dag_edges_cross, RMAT {SCALE} over two "
+                      f"owners, bucket ({d}, 1): {int(vb[d, t].sum())} edges "
+                      f"of owner {d}'s rows against owner {1 - d}'s, kernel "
+                      f"{int(got)}, plain {int(want)}")
+                check(err == 0, f"K40 two-table bucket ({d}, 1) disagrees "
+                      f"with plain by {err}")
+    print(f"[57] count_dag_edges_cross over the four buckets {total}, golden "
+          f"{GOLDEN}; {time.perf_counter() - t0:.2f} s")
+    check(total == GOLDEN, f"K40 over two owners: {total} != {GOLDEN}")
+    del table, eb, vb
+
+    def first(key):
+        plan = plans[key]
+        return plan._built(plan._chunks()[0])
+
+    t0 = time.perf_counter()
+    _, _, a3 = first(f"kc{RING_K3_SCALE}_3")
+    _, _, a5 = first("kc16_5")
+    _, v6, a6 = first("kc13_6")
+    s6 = kc.pack_bits(v6)
+    live, vbk, abk, M, wvalid = first(f"bk{BK_SMALL}")
+    sym, sbk = bk.symmetrize_bits(abk), kc.pack_bits(vbk)
+    finish = [
+        ("total_popcount", f"RMAT {RING_K3_SCALE} k=3", a3,
+         lambda: kc.total_popcount(a3), lambda: kc.total_popcount_plain(a3)),
+        ("kclique_dense_count", "RMAT 16 k=5", a5,
+         lambda: kc.kclique_dense_count(a5, k=5),
+         lambda: kc.kclique_dense_count_plain(a5, k=5)),
+        ("kc_stack_count", "RMAT 13 k=6", a6,
+         lambda: kc.kc_stack_count(a6, s6, k=6),
+         lambda: kc.kc_stack_count_plain(a6, s6, k=6)),
+        ("symmetrize_bits", f"BK RMAT {BK_SMALL}", abk,
+         lambda: bk.symmetrize_bits(abk),
+         lambda: bk.symmetrize_bits_plain(abk)),
+        ("bk_stack_machine", f"BK RMAT {BK_SMALL}, M {tuple(M.shape)}", sym,
+         lambda: bk.bk_stack_machine(sym, sbk, live, M, wvalid),
+         lambda: bk.bk_stack_machine_plain(sym, sbk, live, M, wvalid)),
+    ]
+    for name, label, adj, kernel, plain in finish:
+        got, want = kernel(), plain()
+        err = max_abs_err(got, want)
+        value = f"{int(got)}" if got.dim() == 0 else f"{tuple(got.shape)}"
+        print(f"[57] {name} on the first ring-built chunk, {label}, adj "
+              f"{tuple(adj.shape)}: kernel {value}, max_abs_err {err}")
+        check(err == 0, f"{name} on a ring-built chunk ({label}) disagrees "
+              f"with plain by {err}")
+    print(f"[57] finish kernels on ring-built chunks "
+          f"{time.perf_counter() - t0:.2f} s")
+
+
+def ring_phases(timing, report) -> None:
+    """Phases 56-59: the ring-streamed and tuned sharded plans (see the
+    module docstring)."""
+    import torch.distributed as dist
+    from gms_tpu_torch.algorithms import bron_kerbosch as bk
+    from gms_tpu_torch.algorithms import k_clique as kc
+    from gms_tpu_torch.algorithms import triangle_count as tc
+    from gms_tpu_torch.parallel import dryrun, sharding, world
+
+    # [56] world size 1 over NCCL, the main path of the sharded plans
+    t_phase = time.perf_counter()
+    graphs = ring_graphs()
+    print(f"[56] graphs and degeneracy ranks on the host "
+          f"{time.perf_counter() - t_phase:.2f} s")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    world.init_local("nccl")
+    mesh = sharding.make_mesh()
+    check(mesh.size == 1 and dist.get_backend() == "nccl",
+          f"world of one over NCCL: size {mesh.size}")
+    jobs = ring_jobs(graphs)
+    reset_all_launches()
+    one, plans = run_ring_jobs(
+        mesh, jobs, keep=("tc_vertex", "kc16_5", "kc13_6",
+                          f"kc{RING_K3_SCALE}_3", f"bk{BK_SMALL}"))
+    # the launches of each plan's first run (the warm runs repeat them)
+    main = {n: sum(r["launches"].get(n, 0) for r in one.values())
+            for n in RING_PATH}
+    by_key = {key: (g, rank, k) for key, _, k, _, g, rank in graphs}
+    single = {}
+    for key, r in one.items():
+        if key.startswith("tc"):
+            if "tc" not in single:
+                p = tc.TrianglePlan(by_key["rmat18"][0], device="cuda",
+                                    materialize=False)
+                single["tc"] = (p.run(), warm(p.run)[1])
+                del p
+            ref = single["tc"]
+        elif key.startswith("kc"):
+            g, rank, k = by_key[key]
+            ref = warm(lambda: kc.kclique_count(g, k, device="cuda",
+                                                rank=rank))
+        else:
+            g, rank, _ = by_key[key]
+            ref = warm(lambda: bk.bron_kerbosch(g, device="cuda", rank=rank))
+        r["single"], r["single_s"] = ref
+        print(f"[56] {key}: {r['count']} (warm {r['warm']}), golden "
+              f"{r['golden']}; plan built in {r['build_s']:.3f} s, first run "
+              f"{r['first_s']:.4f} s, warm {r['warm_s']:.4f} s; single-device"
+              f" call {ref[0]} warm {ref[1]:.4f} s; launches {r['launches']}")
+        check(r["count"] == r["warm"] == r["golden"] == ref[0],
+              f"world size 1 {key}: {r['count']}, {r['warm']}, single "
+              f"{ref[0]} != golden {r['golden']}")
+    print(f"[56] launches of the sharded plans' first runs: {main}")
+    check(all(v > 0 for v in main.values()),
+          f"a kernel of the sharded plans never launched: {main}")
+
+    # [57] K40 and K39 against their plain versions, exactly, on the
+    # world-size-1 runs whose launches the kernels line counts
+    tv = plans["tc_vertex"]
+    own, eb, vb = tv._own, tv._eb[0], tv._vb[0]
+    used = eb[vb > 0]
+    k40 = [(f"RMAT {SCALE} rotation 0: E={eb.shape[0]} D={own.shape[1]}",
+            lambda: tc.count_dag_edges_cross(own, own, eb, vb),
+            lambda: tc.count_dag_edges_cross_plain(
+                own, own, eb, vb, chunk=tv._chunk, method=tv._method),
+            (row_words(own, used.reshape(-1)) + eb.numel() + vb.numel()) * 4
+            + 8)]
+    # the plain merge at D_pad 512 is a [1,024, 512, 512] compare a step
+    err, k_ms, p_ms, bound_ms, by = compare(timing, k40, plain_reps=1)
+    n40 = one["tc_vertex"]["launches"].get("count_dag_edges_cross", 0)
+    print(f"[57] count_dag_edges_cross: {len(k40)} launch(es), the tc_vertex "
+          f"run's {n40}; max_abs_err {err}, kernel {k_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({by}), plain {p_ms:.4f} ms")
+    check(err == 0, f"count_dag_edges_cross disagrees with plain by {err}")
+    check(n40 == len(k40), f"K40 launches {n40} != its {len(k40)} calls")
+    report.append(kernel_entry("count_dag_edges_cross", n40, err, k_ms, p_ms,
+                               bound_ms, by))
+    del own, eb, vb, used, k40, tv
+    k39 = (pack_calls(plans[f"bk{BK_SMALL}"], f"BK RMAT {BK_SMALL}")
+           + pack_calls(plans["kc13_6"], "RMAT 13 k=6"))
+    n39 = sum(one[key]["launches"].get("member_pack", 0)
+              for key in (f"bk{BK_SMALL}", "kc13_6"))
+    err, k_ms, p_ms, bound_ms, by = compare(timing, k39)
+    print(f"[57] member_pack: {len(k39)} calls, the two runs' {n39} "
+          f"launches; max_abs_err {err}, kernel {k_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({by}), plain {p_ms:.4f} ms")
+    check(err == 0, f"member_pack disagrees with plain by {err}")
+    check(n39 == len(k39), f"K39 launches {n39} != its {len(k39)} calls")
+    report.append(kernel_entry("member_pack", n39, err, k_ms, p_ms, bound_ms,
+                               by))
+    del k39
+    ring_exact_checks(by_key["rmat18"][0], plans)
+    del plans
+    dist.destroy_process_group()
+    print(f"[57] total of phases 56-57 {time.perf_counter() - t_phase:.1f} s")
+
+    # [58] world size 2 over gloo, both ranks on this card
+    t0 = time.perf_counter()
+    ranks = world.spawn_world(ring_rank_counts, 2, backend="gloo",
+                              devices="cuda:0")
+    spawn_s = time.perf_counter() - t0
+    for key in one:
+        got = [r["jobs"][key] for r in ranks]
+        print(f"[58] {key}: " + "; ".join(
+            f"rank {r['rank']} {j['count']} (warm {j['warm']}), warm "
+            f"{j['warm_s']:.4f} s" for r, j in zip(ranks, got))
+            + f"; world size 1 warm {one[key]['warm_s']:.4f} s, single-device"
+            f" {one[key]['single_s']:.4f} s")
+        check(all(j["count"] == j["warm"] == one[key]["golden"]
+                  for j in got),
+              f"world size 2 {key}: {[j['count'] for j in got]} != "
+              f"{one[key]['golden']}")
+    for r in ranks:
+        print(f"[58] rank {r['rank']}/{r['size']} on {r['device']} (gloo): "
+              f"staged through the host {r['staged']}")
+        check(r["staged"]["send_recv"] > 0 and r["staged"]["all_reduce"] > 0,
+              f"gloo took CUDA tensors without staging: {r['staged']}")
+    print(f"[58] two gloo ranks on one card agree with world size 1; spawn, "
+          f"host layouts and both runs {spawn_s:.2f} s")
+
+    # [59] the port's dry run, two ranks on this card
+    t0 = time.perf_counter()
+    dry = dryrun.dryrun_multichip(2)
+    print(f"[59] dryrun_multichip(2) on {torch.cuda.get_device_name(0)}: "
+          f"{dry[0]}; {time.perf_counter() - t0:.2f} s")
+    check(len(dry) == 2 and dry[0]["triangles"] == dry[1]["triangles"],
+          f"dryrun_multichip(2): {dry}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -4146,7 +4554,9 @@ def main() -> None:
     g12, rank12 = direct_phases(timing, report, g14)
     print(f"[52] total so far {time.perf_counter() - t_start:.1f} s")
     multi_phases(timing, report, g, g14, g12, lp_pairs)
-    print(f"[55] total {time.perf_counter() - t_start:.1f} s")
+    print(f"[55] total so far {time.perf_counter() - t_start:.1f} s")
+    ring_phases(timing, report)
+    print(f"[59] total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -20,20 +20,44 @@ Rules the whole package keeps:
 
 __version__ = "0.1.0"
 
+from gms_tpu_torch.graphs.csr import CSRGraph
+from gms_tpu_torch.graphs.tiles import PaddedGraph
 from gms_tpu_torch.graphs.bitmap import BitmapGraph
 
-__all__ = ["BitmapGraph", "vertex_similarity", "AUCPlan", "jones_plassmann",
-           "subgraph_isomorphism"]
+__all__ = [
+    "CSRGraph",
+    "PaddedGraph",
+    "BitmapGraph",
+    "read_graph",
+    "build_csr",
+    "triangle_count",
+    "kclique_count",
+    "bron_kerbosch",
+    "kclique_star_list",
+    "subgraph_isomorphism",
+    "jones_plassmann",
+    "vertex_similarity",
+    "AUCPlan",
+]
 
 # lazy top-level conveniences, as gms_tpu's
 _LAZY = {
+    "read_graph": ("gms_tpu_torch.io.readers", "read_graph"),
+    "build_csr": ("gms_tpu_torch.io.builder", "build_csr"),
+    "triangle_count": ("gms_tpu_torch.algorithms.triangle_count",
+                       "triangle_count"),
+    "kclique_count": ("gms_tpu_torch.algorithms.k_clique", "kclique_count"),
+    "bron_kerbosch": ("gms_tpu_torch.algorithms.bron_kerbosch",
+                      "bron_kerbosch"),
+    "kclique_star_list": ("gms_tpu_torch.algorithms.k_clique_star",
+                          "kclique_star_list"),
+    "subgraph_isomorphism": ("gms_tpu_torch.algorithms.subgraph_iso",
+                             "subgraph_isomorphism"),
+    "jones_plassmann": ("gms_tpu_torch.algorithms.coloring",
+                        "jones_plassmann"),
     "vertex_similarity": ("gms_tpu_torch.algorithms.similarity",
                           "vertex_similarity"),
     "AUCPlan": ("gms_tpu_torch.algorithms.link_prediction", "AUCPlan"),
-    "jones_plassmann": ("gms_tpu_torch.algorithms.coloring",
-                        "jones_plassmann"),
-    "subgraph_isomorphism": ("gms_tpu_torch.algorithms.subgraph_iso",
-                             "subgraph_isomorphism"),
 }
 
 

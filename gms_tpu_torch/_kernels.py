@@ -47,6 +47,8 @@ SIGNATURES = {
         "tier_intersect_gather": (_P, _L, _P, _P, _I, _I, _L, _P, _P),
         # nbr, d_pad, edges, valid, wa, wb, E, out, len(out), stream
         "tier_intersect_vertex": (_P, _L, _P, _P, _I, _I, _L, _P, _L, _P),
+        # nbr_a, da, nbr_b, db, edges, valid, wa, wb, E, out, stream
+        "tier_intersect_cross": (_P, _L, _P, _L, _P, _P, _I, _I, _L, _P, _P),
     },
     "hub_popcount": {
         # b, a, G, K, W, out, stream
@@ -232,6 +234,10 @@ SIGNATURES = {
     "popcount_sum": {
         # words, n, out, stream
         "total_popcount": (_P, _L, _P, _P),
+    },
+    "ring_member": {
+        # q, w_words, vis, Vs, d, locs, sel, C, L, out, stream
+        "member_pack": (_P, _I, _P, _L, _I, _P, _P, _L, _I, _P, _P),
     },
 }
 

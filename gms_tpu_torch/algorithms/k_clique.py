@@ -19,8 +19,9 @@ The path, as in gms_tpu:
      k >= 6: `kc_stack_count` walks the pruned search tree of each (root,
      first-level child) item depth-first.
 
-Three device programs of gms_tpu carry this path, and two more the sharded
-count (parallel/multi.py); each is a hand-written CUDA kernel here (csrc/),
+Three device programs of gms_tpu carry this path, two more the sharded
+count (parallel/multi.py) and one the vertex-sharded plans' ring
+(parallel/sharding.py); each is a hand-written CUDA kernel here (csrc/),
 wrapped by the function named:
 
     build_local_adj      csrc/local_adj.cu       (k_clique.py:82)
@@ -28,6 +29,8 @@ wrapped by the function named:
     kc_stack_count       csrc/kclique_stack.cu   (kc_fused_chunk, :343)
     expand_level         csrc/kc_expand.cu       (expand_level, :161)
     total_popcount       csrc/popcount_sum.cu    (total_popcount, :209)
+    member_pack          csrc/ring_member.cu     (the packs of the vertex-
+                         sharded plans, parallel/sharding.py:379-400, :579-603)
 
 `kclique_dense_chunk` and `kc_fused_chunk` keep gms_tpu's names: each builds
 the chunk's local adjacency and counts on it (two launches). Each wrapper
@@ -40,8 +43,9 @@ What gms_tpu's k >= 6 program does only for its platform is not ported: the
 resumable `state` and `iter_budget` (a dispatch watchdog), the bounded push
 window with its band sort and overflow retry (the depth-first kernel needs at
 most k-3 bitsets per warp, so nothing overflows), and the rem==4 matrix-unit
-branch. `kc_stack_machine` and `kclique_count_chunk` (whose only caller is
-gms_tpu's vertex-sharded plan) are not ported yet.
+branch. `kc_stack_machine` and `kclique_count_chunk` (k_clique.py:258,
+:219), the counts of gms_tpu's vertex-sharded plan on a prebuilt universe,
+return (total, False, True, None) over K6, or K5 for k <= 4.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ from gms_tpu_torch.algorithms.triangle_count import (
 from gms_tpu_torch.device import resolve
 from gms_tpu_torch.graphs.csr import CSRGraph
 from gms_tpu_torch.graphs.tiles import PaddedGraph, SENTINEL
+from gms_tpu_torch.harness import checks
 from gms_tpu_torch.preprocessing import degeneracy, orient
 
 DEFAULT_ROOT_CHUNK = 1024
@@ -64,7 +69,7 @@ _SENT = int(SENTINEL)
 # Kernel launches per wrapper, counted only where the CUDA kernel launches.
 LAUNCHES = dict.fromkeys(
     ("build_local_adj", "kclique_dense_count", "kc_stack_count",
-     "expand_level", "total_popcount"), 0)
+     "expand_level", "total_popcount", "member_pack"), 0)
 
 # elements per step of the plain versions' broadcast tensors
 _PLAIN_BUDGET = 1 << 24
@@ -176,6 +181,72 @@ def build_local_adj(nbr, roots, *, w_words: int):
                     nbr.shape[1], roots, C, w_words, adj, s0)
     LAUNCHES[name] += 1
     return adj, s0
+
+
+def member_pack_plain(q, vis, locs, sel, out):
+    """Plain version of member_pack: gms_tpu's broadcast compare over the
+    selected slots, trimmed to the last non-SENTINEL slot of the rows and of
+    q, in steps of at most _PLAIN_BUDGET compares. It needs no sorted
+    rows."""
+    c, i = sel.nonzero(as_tuple=True)
+    if c.numel() == 0:
+        return out
+    Vs = vis.shape[0]
+    W = q.shape[1]
+    rows = locs[c, i].long().clamp(0, Vs - 1)
+    dt = max(1, int(_extent(vis != _SENT)[rows].max()))
+    qvalid = q != _SENT
+    nq = max(1, int(_extent(qvalid).max()))
+    step = max(1, _PLAIN_BUDGET // (nq * dt))
+    for p0 in range(0, c.numel(), step):
+        cc, ii = c[p0:p0 + step], i[p0:p0 + step]
+        r = vis[rows[p0:p0 + step], :dt]                       # [p, dt]
+        m = (r[:, None, :] == q[cc, :nq, None]).any(2) & qvalid[cc, :nq]
+        m = torch.cat([m, m.new_zeros((m.shape[0], W - nq))], 1)
+        out[cc, ii] |= pack_bits(m)
+    return out
+
+
+def member_pack(q, vis, locs, sel, out):
+    """OR one ring rotation's membership bits into out — out, updated in
+    place (build_local_adj's kernel with an indirection, a mask and an OR).
+
+    q:    int32[C, W] each root's row (W = 32*WW), strictly ascending with a
+          SENTINEL tail (pad roots all SENTINEL)
+    vis:  int32[Vs, D] the visiting table shard, rows in the same layout
+    locs: int32[C, L] a row of vis for each slot (clipped to [0, Vs-1])
+    sel:  bool[C, L] the slots this rotation fills
+    out:  int32[C, L, WW] bitsets
+    For each selected (c, i): out[c, i] |= {j : q[c, j] != SENTINEL and
+    q[c, j] in vis[locs[c, i]]}; the rest of out is left as it is. The two
+    packs of gms_tpu's vertex-sharded plans (parallel/sharding.py:379-400,
+    :579-603): adj with locs the root row's own slots, BK's cover bitsets M
+    with locs its lower neighbours. Rows must be sorted as stated (checked
+    under GMS_TPU_PARANOID=1): the kernel binary-searches q and would miss
+    members of an unsorted one, which the plain version would not.
+    """
+    name = "member_pack"
+    _check(name, "q", q, 2)
+    _check(name, "vis", vis, 2)
+    _check(name, "locs", locs, 2)
+    _check(name, "sel", sel, 2, dtype=torch.bool)
+    _check(name, "out", out, 3)
+    C, W = q.shape
+    if W % 32 or out.shape != (C, locs.shape[1], W // 32) \
+            or sel.shape != locs.shape or locs.shape[0] != C:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, locs "
+                         f"{tuple(locs.shape)}, sel {tuple(sel.shape)} and "
+                         f"out {tuple(out.shape)} do not match")
+    if checks.paranoid():
+        checks.validate_sorted_rows(q, name=f"{name} q")
+        checks.validate_sorted_rows(vis, name=f"{name} vis")
+    if not _on_cuda(name, q, vis, locs, sel, out):
+        return member_pack_plain(q, vis, locs, sel, out)
+    _kernels.launch("ring_member", "member_pack", q, W // 32, vis,
+                    vis.shape[0], vis.shape[1], locs, sel, C, locs.shape[1],
+                    out)
+    LAUNCHES[name] += 1
+    return out
 
 
 def _check_adj(name, adj):
@@ -333,6 +404,49 @@ def kc_fused_chunk(nbr, chunk, *, w_words: int, k: int):
     in one pass with no resumable state and no overflow."""
     adj, s0 = build_local_adj(nbr, chunk, w_words=w_words)
     return kc_stack_count(adj, s0, k=k)
+
+
+def kc_stack_machine(adj, S0, state=None, *, k: int,
+                     w_words: int | None = None, cap: int | None = None,
+                     batch: int | None = None, iter_budget: int = 1 << 30,
+                     resume: bool = False):
+    """k-cliques (k >= 3) rooted at a chunk, from its PREBUILT local DAG
+    universe adj int32[C, W, WW] and candidate sets S0 int32[C, WW] (pad
+    roots have S0 = 0 and contribute nothing): gms_tpu's kc_stack_machine
+    (k_clique.py:258), the count of its vertex-sharded plan's k >= 6 branch
+    on ring-built universes. Returns (total int64 0-d tensor, overflow
+    False, done True, state None): the port's search cannot overflow and
+    leaves nothing to resume.
+
+    k >= 5 runs K6 (kc_stack_count). k in {3, 4}, which K6 refuses, runs K5
+    (kclique_dense_count), which counts adj's bits without reading S0: the
+    two agree whenever adj's rows and bits lie inside S0, as build_local_adj
+    and the ring-built universes give them. `state`, `cap`, `batch`,
+    `iter_budget` and `resume` served gms_tpu's bounded stack and its
+    platform's dispatch watchdog; they are accepted and have no effect.
+    `w_words`, when given, must be adj's.
+    """
+    if w_words is not None and w_words != adj.shape[2]:
+        raise ValueError(f"kc_stack_machine: w_words {w_words} but adj "
+                         f"{tuple(adj.shape)}")
+    if k < 3:
+        raise ValueError(f"kc_stack_machine: k must be >= 3, got {k}")
+    if k >= 5:
+        total = kc_stack_count(adj, S0, k=k)
+    else:
+        total = kclique_dense_count(adj, k=k)
+    return total, False, True, None
+
+
+def kclique_count_chunk(nbr, chunk, state=None, *, w_words: int, k: int,
+                        cap: int | None = None, batch: int | None = None,
+                        iter_budget: int = 1 << 30, resume: bool = False):
+    """k-cliques rooted at `chunk`: gms_tpu's kclique_count_chunk
+    (k_clique.py:219), build_local_adj (K4) then kc_stack_machine; returns
+    kc_stack_machine's (total, False, True, None). `state`, `cap`, `batch`,
+    `iter_budget` and `resume` have no effect (see kc_stack_machine)."""
+    adj, s0 = build_local_adj(nbr, chunk, w_words=w_words)
+    return kc_stack_machine(adj, s0, k=k)
 
 
 # ---------------------------------------------------------------------------

@@ -15,11 +15,13 @@ Per-vertex counts (`triangle_count_per_vertex`) run the same 2-D tiers with
 no hub path, each triangle counted at its three corners; the dense-bitmap
 count (`triangle_count_dense`) ANDs V-wide DAG bitmap rows per edge.
 
-Seven device programs of gms_tpu carry these paths; each is a hand-written
-CUDA kernel here (csrc/), wrapped by the function of the same name:
+Seven device programs of gms_tpu carry these paths, and the rotation body of
+its VertexShardedTrianglePlan (parallel/sharding.py:206-216) an eighth; each
+is a hand-written CUDA kernel here (csrc/), wrapped by the function named:
 
     count_tier_mat              csrc/tier_intersect.cu  (stream mode)
     count_dag_edges             csrc/tier_intersect.cu  (gather mode)
+    count_dag_edges_cross       csrc/tier_intersect.cu  (two-table gather)
     count_dag_edges_per_vertex  csrc/tier_intersect.cu  (per-vertex mode)
     count_hub_groups_mat        csrc/hub_popcount.cu    (stream mode)
     count_hub_groups            csrc/hub_popcount.cu    (gather mode)
@@ -70,7 +72,7 @@ _SENT = int(SENTINEL)
 LAUNCHES = dict.fromkeys((
     "count_tier_mat", "count_dag_edges", "count_hub_groups_mat",
     "count_hub_groups", "build_hub_rows", "count_dag_edges_per_vertex",
-    "count_hub_edges"), 0)
+    "count_hub_edges", "count_dag_edges_cross"), 0)
 
 
 def reset_launches() -> None:
@@ -283,15 +285,9 @@ def count_dag_edges_plain(nbr, edges, valid, *, chunk: int = DEFAULT_CHUNK,
                           width_b: int | None = None):
     """Plain version of count_dag_edges: gather `chunk` edges' rows, then
     sets.ops.intersect_count by `method`."""
-    wa, wb = _widths(nbr, width_a, width_b)
-    total = _zero(nbr.device)
-    for j in range(0, edges.shape[0], chunk):
-        e = edges[j:j + chunk]
-        a = nbr[e[:, 0], :wa]
-        b = nbr[e[:, 1], :wb]
-        cnt = ops.intersect_count(a, b, method=method)
-        total += (cnt * valid[j:j + chunk]).sum(dtype=torch.int64)
-    return total
+    return count_dag_edges_cross_plain(nbr, nbr, edges, valid, chunk=chunk,
+                                       method=method, width_a=width_a,
+                                       width_b=width_b)
 
 
 def count_dag_edges(nbr, edges, valid, *, chunk: int = DEFAULT_CHUNK,
@@ -322,6 +318,65 @@ def count_dag_edges(nbr, edges, valid, *, chunk: int = DEFAULT_CHUNK,
     out = _zero(nbr.device)
     _kernels.launch("tier_intersect", "tier_intersect_gather", nbr,
                     nbr.shape[1], edges, valid, wa, wb, edges.shape[0], out)
+    LAUNCHES[name] += 1
+    return out
+
+
+def count_dag_edges_cross_plain(nbr_a, nbr_b, edges, valid, *,
+                                chunk: int = DEFAULT_CHUNK,
+                                method: str = "compare",
+                                width_a: int | None = None,
+                                width_b: int | None = None):
+    """Plain version of count_dag_edges_cross: gather `chunk` edges' rows,
+    u's from nbr_a and v's from nbr_b, then sets.ops.intersect_count by
+    `method`."""
+    wa = min(width_a or nbr_a.shape[1], nbr_a.shape[1])
+    wb = min(width_b or nbr_b.shape[1], nbr_b.shape[1])
+    total = _zero(nbr_a.device)
+    for j in range(0, edges.shape[0], chunk):
+        e = edges[j:j + chunk]
+        a = nbr_a[e[:, 0], :wa]
+        b = nbr_b[e[:, 1], :wb]
+        cnt = ops.intersect_count(a, b, method=method)
+        total += (cnt * valid[j:j + chunk]).sum(dtype=torch.int64)
+    return total
+
+
+def count_dag_edges_cross(nbr_a, nbr_b, edges, valid, *,
+                          chunk: int = DEFAULT_CHUNK, method: str = "compare",
+                          width_a: int | None = None,
+                          width_b: int | None = None):
+    """Σ over edges e of valid[e] * |nbr_a[u] ∩ nbr_b[v]| — int64 0-d
+    tensor, (u, v) = edges[e]: K1's gather entry over two row tables.
+
+    nbr_a: int32[Va, Da], nbr_b: int32[Vb, Db] padded rows, strictly
+    ascending with a SENTINEL tail (checked under GMS_TPU_PARANOID=1; the
+    kernel merges rows and miscounts any other row, which the plain version
+    would not); edges: int32[E, 2] row indices into nbr_a and nbr_b, valid:
+    int32[E] (0 for padding edges). width_a/width_b slice the rows (default
+    their full width). The rotation body of gms_tpu's
+    VertexShardedTrianglePlan (parallel/sharding.py:206-216), with the
+    owned shard as nbr_a and the visiting shard as nbr_b, so no rows are
+    copied into one table. `chunk` and `method` only shape the plain
+    version.
+    """
+    name = "count_dag_edges_cross"
+    _check(name, "nbr_a", nbr_a, 2)
+    _check(name, "nbr_b", nbr_b, 2)
+    _check_edges(name, edges, valid)
+    if checks.paranoid():
+        checks.validate_sorted_rows(nbr_a, name=f"{name} nbr_a")
+        checks.validate_sorted_rows(nbr_b, name=f"{name} nbr_b")
+    if not _on_cuda(name, nbr_a, nbr_b, edges, valid):
+        return count_dag_edges_cross_plain(
+            nbr_a, nbr_b, edges, valid, chunk=chunk, method=method,
+            width_a=width_a, width_b=width_b)
+    wa = min(width_a or nbr_a.shape[1], nbr_a.shape[1])
+    wb = min(width_b or nbr_b.shape[1], nbr_b.shape[1])
+    out = _zero(nbr_a.device)
+    _kernels.launch("tier_intersect", "tier_intersect_cross", nbr_a,
+                    nbr_a.shape[1], nbr_b, nbr_b.shape[1], edges, valid, wa,
+                    wb, edges.shape[0], out)
     LAUNCHES[name] += 1
     return out
 
@@ -566,6 +621,32 @@ def build_hub_rows(nbr, hub_id, wide_ids, *, hub_words: int):
 # the plan
 # ---------------------------------------------------------------------------
 
+def timed_trials(fn, device, trials: int):
+    """(count, seconds a trial) of `trials` calls of fn, each returning an
+    int64 0-d tensor, after one untimed call, launched back to back and
+    timed as one span: CUDA events on the card, the host clock on the CPU.
+    The counts are read back once and must agree."""
+    fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        counts = [fn() for _ in range(trials)]
+        end.record()
+        end.synchronize()
+        dt = start.elapsed_time(end) / 1e3 / trials
+    else:
+        t0 = time.perf_counter()
+        counts = [fn() for _ in range(trials)]
+        dt = (time.perf_counter() - t0) / trials
+    vals = torch.stack(counts).tolist()
+    if any(v != vals[0] for v in vals):
+        raise RuntimeError(f"nondeterministic counts: {vals}")
+    return int(vals[0]), dt
+
+
+
 class TrianglePlan:
     """Prepared (oriented + padded + tiered + device-resident) TC problem.
 
@@ -704,19 +785,25 @@ class TrianglePlan:
             outs += [count_hub_groups_mat(b, a, chunk=gc)
                      for gc, b, a in self.hub_mat]
         else:
-            outs = [count_dag_edges(self.padded.nbr, edges, valid, chunk=c,
-                                    method=self.method, width_a=wa,
-                                    width_b=wb)
-                    for wa, wb, c, edges, valid in self.tiers]
-            outs += [count_hub_groups(self.hub_rows, b_ids, nbrs, chunk=gc,
-                                      width=w, k=k)
-                     for w, k, gc, b_ids, nbrs in self.hub or []]
+            outs = self.run_async()
         if not outs:
             return _zero(self.device)
         return torch.stack(outs).sum()
 
     def run(self) -> int:
         return int(self._count())
+
+    def run_async(self) -> list:
+        """Launch every tier's K1 and every hub group's K2 gather entry;
+        returns their int64 0-d tensors unsummed, nothing read back.
+        gms_tpu's run_async (triangle_count.py:571)."""
+        out = [count_dag_edges(self.padded.nbr, edges, valid, chunk=c,
+                               method=self.method, width_a=wa, width_b=wb)
+               for wa, wb, c, edges, valid in self.tiers]
+        out += [count_hub_groups(self.hub_rows, b_ids, nbrs, chunk=gc,
+                                 width=w, k=k)
+                for w, k, gc, b_ids, nbrs in self.hub or []]
+        return out
 
     def run_steady(self, trials: int = 8):
         """Steady-state timing: (count, seconds_per_trial).
@@ -725,24 +812,7 @@ class TrianglePlan:
         timed as one span: CUDA events on the card, the host clock on the
         CPU. Counts are read back once and must agree across trials.
         """
-        self._count()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            counts = [self._count() for _ in range(trials)]
-            end.record()
-            end.synchronize()
-            dt = start.elapsed_time(end) / 1e3 / trials
-        else:
-            t0 = time.perf_counter()
-            counts = [self._count() for _ in range(trials)]
-            dt = (time.perf_counter() - t0) / trials
-        vals = torch.stack(counts).tolist()
-        if any(v != vals[0] for v in vals):
-            raise RuntimeError(f"nondeterministic counts: {vals}")
-        return int(vals[0]), dt
+        return timed_trials(self._count, self.device, trials)
 
     def traffic_bytes(self) -> int:
         """Modeled operand traffic of one trial (for roofline reporting)."""

@@ -56,15 +56,10 @@ __global__ void cover_kernel(const int* __restrict__ nbr, long long v_pad,
   __syncthreads();
 
   for (int i = warp; i < in_w; i += kWarps) {
-    for (int w = lane; w < ww; w += 32) bits[w] = 0u;
-    __syncwarp();
     const int u = i < cnt ? cols[clip_index(start + i, n_cols)] : GMS_SENTINEL;
-    if (u != GMS_SENTINEL)
-      for_each_slot_in_row(nbr + clip_index(u, v_pad) * d, d, q, W, lane,
-                           [&](int j) {
-                             atomicOr(bits + (j >> 5), 1u << (j & 31));
-                           });
-    __syncwarp();
+    warp_slot_bits(
+        u != GMS_SENTINEL ? nbr + clip_index(u, v_pad) * d : nullptr, d, q, W,
+        lane, bits, ww);
     unsigned* out = m + (b * in_w + i) * ww;
     for (int w = lane; w < ww; w += 32) out[w] = bits[w];
     if (lane == 0) wvalid[b * in_w + i] = u != GMS_SENTINEL;

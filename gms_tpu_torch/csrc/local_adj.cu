@@ -57,15 +57,10 @@ __global__ void local_adj_kernel(const int* __restrict__ nbr, long long v_pad,
   }
 
   for (int i = warp; i < W; i += kWarps) {
-    for (int w = lane; w < ww; w += 32) bits[w] = 0u;
-    __syncwarp();
     const int u = r_nbr[i];
-    if (u != GMS_SENTINEL)
-      for_each_slot_in_row(nbr + clip_index(u, v_pad) * d, d, r_nbr, W, lane,
-                           [&](int j) {
-                             atomicOr(bits + (j >> 5), 1u << (j & 31));
-                           });
-    __syncwarp();
+    warp_slot_bits(
+        u != GMS_SENTINEL ? nbr + clip_index(u, v_pad) * d : nullptr, d,
+        r_nbr, W, lane, bits, ww);
     unsigned* out = adj + (b * W + i) * ww;
     for (int w = lane; w < ww; w += 32) out[w] = bits[w];
     __syncwarp();

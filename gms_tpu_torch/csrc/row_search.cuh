@@ -1,6 +1,7 @@
 // Membership of a padded row's elements among a root's slots, by binary
 // search: the inner loop shared by build_local_adj (local_adj.cu),
-// hub_cover_bits (bk_cover.cu) and build_local_univ (star_univ.cu).
+// hub_cover_bits (bk_cover.cu), build_local_univ (star_univ.cu) and
+// member_pack (ring_member.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -35,4 +36,19 @@ __device__ __forceinline__ void for_each_slot_in_row(const int* row, int d,
     }
     if (__any_sync(0xffffffffu, x == GMS_SENTINEL)) break;
   }
+}
+
+// For one warp: bits[0, ww) = the bitset of the slots of q (W = 32*ww of
+// them) whose value lies in `row`; all zero when row is null. bits is the
+// warp's own buffer in shared memory, complete for every lane on return.
+__device__ __forceinline__ void warp_slot_bits(const int* row, int d,
+                                               const int* q, int W, int lane,
+                                               unsigned* bits, int ww) {
+  for (int w = lane; w < ww; w += 32) bits[w] = 0u;
+  __syncwarp();
+  if (row != nullptr)
+    for_each_slot_in_row(row, d, q, W, lane, [&](int j) {
+      atomicOr(bits + (j >> 5), 1u << (j & 31));
+    });
+  __syncwarp();
 }

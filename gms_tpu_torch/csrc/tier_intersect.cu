@@ -1,6 +1,6 @@
 // K1 intersect_count: Σ over edges e of |A_e ∩ B_e| for the narrow degree
-// tiers of the triangle-count plan, and K14, the same tiers counted per
-// vertex.
+// tiers of the triangle-count plan; K14, the same tiers counted per vertex;
+// and K40, K1's gather mode over two row tables.
 //
 // Replaces three device programs of gms_tpu/algorithms/triangle_count.py:
 //   * count_tier_mat (:383)  — stream mode: operand rows pre-gathered and
@@ -8,6 +8,11 @@
 //   * count_dag_edges (:99)  — gather mode: rows nbr[u, :wa] and nbr[v, :wb]
 //     of the padded adjacency (row stride D_pad), with valid[e] weighting
 //     each edge (0 for padding edges, which point at vertex 0);
+//   * the rotation body of gms_tpu/parallel/sharding.py:206-216
+//     (VertexShardedTrianglePlan) — K40, the gather mode over two tables
+//     (tier_intersect_cross): u's row from the owned table shard, v's from
+//     the visiting one, each with its own row stride, so the ring never
+//     copies a shard into one buffer;
 //   * count_dag_edges_per_vertex (:129) — per-vertex mode (K14): the gather
 //     mode's merge, where each match x (a witness) adds 1 to out[x] and the
 //     edge's count c adds c * valid[e] to out[u] and out[v], for edges with
@@ -88,7 +93,10 @@ __global__ void stream_kernel(const int* __restrict__ a,
   block_sum_add(cnt, out);
 }
 
-__global__ void gather_kernel(const int* __restrict__ nbr, long long d_pad,
+// Gather mode over two row tables: u's row from nbr_a, v's from nbr_b (the
+// same table for K1's gather entry).
+__global__ void gather_kernel(const int* __restrict__ nbr_a, long long d_a,
+                              const int* __restrict__ nbr_b, long long d_b,
                               const int* __restrict__ edges,
                               const int* __restrict__ valid, int wa, int wb,
                               long long E, unsigned long long* out) {
@@ -98,7 +106,7 @@ __global__ void gather_kernel(const int* __restrict__ nbr, long long d_pad,
     const int v = valid[e];
     if (v != 0) {
       const long long u = edges[2 * e], w = edges[2 * e + 1];
-      cnt = (long long)merge_count(nbr + u * d_pad, 1, wa, nbr + w * d_pad, 1,
+      cnt = (long long)merge_count(nbr_a + u * d_a, 1, wa, nbr_b + w * d_b, 1,
                                    wb) * v;
     }
   }
@@ -140,17 +148,26 @@ extern "C" int tier_intersect_stream(const void* a, const void* b, int wa,
   return (int)cudaGetLastError();
 }
 
+extern "C" int tier_intersect_cross(const void* nbr_a, long long d_a,
+                                    const void* nbr_b, long long d_b,
+                                    const void* edges, const void* valid,
+                                    int wa, int wb, long long E, void* out,
+                                    void* stream) {
+  if (E > 0) {
+    const long long blocks = (E + kThreads - 1) / kThreads;
+    gather_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int*)nbr_a, d_a, (const int*)nbr_b, d_b, (const int*)edges,
+        (const int*)valid, wa, wb, E, (unsigned long long*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
 extern "C" int tier_intersect_gather(const void* nbr, long long d_pad,
                                      const void* edges, const void* valid,
                                      int wa, int wb, long long E, void* out,
                                      void* stream) {
-  if (E > 0) {
-    const long long blocks = (E + kThreads - 1) / kThreads;
-    gather_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int*)nbr, d_pad, (const int*)edges, (const int*)valid, wa, wb,
-        E, (unsigned long long*)out);
-  }
-  return (int)cudaGetLastError();
+  return tier_intersect_cross(nbr, d_pad, nbr, d_pad, edges, valid, wa, wb, E,
+                              out, stream);
 }
 
 extern "C" int tier_intersect_vertex(const void* nbr, long long d_pad,

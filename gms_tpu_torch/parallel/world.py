@@ -40,8 +40,9 @@ def init_local(backend: str, rank: int = 0, size: int = 1,
     return store
 
 
-def _rank_main(rank, size, port, backend, devices, fn, args, results):
+def _rank_main(rank, size, port, backend, devices, inbox, results):
     try:
+        fn, args = inbox.get(timeout=TIMEOUT)
         init_local(backend, rank, size, port)
         try:
             results.put((rank, fn(make_mesh(devices=devices), *args), None))
@@ -65,12 +66,18 @@ def spawn_world(fn, size: int, *args, backend: str = "gloo",
         resolve("cuda")  # without a card, raise before any rank starts
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
+    # fn and args go through a queue, whose feeder thread does not block:
+    # as Process arguments they would fill the pipe of each rank in turn
+    # while it imports, and the ranks would start one after another
+    inbox = ctx.Queue()
     store = local_store()  # held open until every rank has joined and left
     procs = [ctx.Process(target=_rank_main,
-                         args=(r, size, store.port, backend, devices, fn,
-                               args, results)) for r in range(size)]
+                         args=(r, size, store.port, backend, devices, inbox,
+                               results)) for r in range(size)]
     for p in procs:
         p.start()
+    for _ in procs:
+        inbox.put((fn, args))
     out, errors = [None] * size, []
     try:
         waited, pending = 0, size

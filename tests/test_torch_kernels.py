@@ -1586,3 +1586,87 @@ def test_sharded_functions_on_card(card):
                                                            pairs)
     assert torch.equal(got, vs.pair_scores(pg.nbr, deg1, pairs,
                                            metric="jaccard"))
+
+
+def _rows_over(rng, V, D, universe, max_len):
+    """int32[V, D]: every row a strictly ascending subset of [0, universe)
+    of at most max_len elements with a SENTINEL tail."""
+    nbr = np.full((V, D), SENTINEL, dtype=np.int32)
+    for v in range(V):
+        k = int(rng.integers(0, min(max_len, D) + 1))
+        nbr[v, :k] = np.sort(rng.choice(universe, size=k, replace=False))
+    return nbr
+
+
+def test_ring_wrappers_reject_bad_inputs():
+    bools = torch.zeros((2, 32), dtype=torch.bool)
+    with pytest.raises(TypeError, match="sel"):
+        kc.member_pack(_i32(2, 32), _i32(5, 8), _i32(2, 32), _i32(2, 32),
+                       _i32(2, 32, 1))
+    with pytest.raises(ValueError, match="do not match"):
+        kc.member_pack(_i32(2, 32), _i32(5, 8), _i32(2, 32), bools,
+                       _i32(2, 31, 1))
+    with pytest.raises(ValueError, match="do not match"):
+        kc.member_pack(_i32(2, 48), _i32(5, 8), _i32(2, 32), bools,
+                       _i32(2, 32, 1))
+    with pytest.raises(ValueError, match="do not match"):
+        tc.count_dag_edges_cross(_i32(8, 4), _i32(6, 4), _i32(5, 2), _i32(4))
+    with pytest.raises(TypeError):
+        tc.count_dag_edges_cross(_i32(8, 4), _i32(6, 4).long(), _i32(5, 2),
+                                 _i32(5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ww,D,L", [(1, 96, 32), (3, 64, 70), (8, 160, 256)])
+def test_member_pack_on_card(card, ww, D, L):
+    # q rows from one table, the visiting rows from another over the same
+    # ids; about half the slots selected, out pre-filled so the OR shows
+    rng = np.random.default_rng(ww * D + L)
+    C, W, Vs = 37, 32 * ww, 300
+    q = _rows_over(rng, C, W, 500, W)
+    q[-3:] = SENTINEL                                   # pad roots
+    vis = _rows_over(rng, Vs, D, 500, D)
+    locs = rng.integers(-5, Vs + 5, (C, L)).astype(np.int32)
+    sel = rng.random((C, L)) < 0.5
+    out = _sparse_bits(rng, (C, L, ww), 0.05)
+    args = [torch.from_numpy(a).to(card) for a in (q, vis, locs, sel)]
+    want = kc.member_pack_plain(*args, out.to(card).clone())
+    got = _launched("member_pack", lambda: kc.member_pack(
+        *args, out.to(card).clone()), kc.LAUNCHES)
+    assert torch.equal(got, want)
+    assert not torch.equal(want.cpu(), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("da,db,wa,wb", [(96, 64, None, None),
+                                         (128, 128, 40, 128),
+                                         (32, 256, 32, 7)])
+def test_count_dag_edges_cross_on_card(card, da, db, wa, wb):
+    rng = np.random.default_rng(da + db)
+    a = _rows_over(rng, 400, da, 900, da)
+    b = _rows_over(rng, 300, db, 900, db)
+    E = 5000
+    edges = np.stack([rng.integers(0, 400, E), rng.integers(0, 300, E)],
+                     1).astype(np.int32)
+    valid = (rng.random(E) < 0.9).astype(np.int32)
+    args = [torch.from_numpy(x).to(card) for x in (a, b, edges, valid)]
+    got = _launched("count_dag_edges_cross", lambda: tc.count_dag_edges_cross(
+        *args, width_a=wa, width_b=wb), tc.LAUNCHES)
+    want = tc.count_dag_edges_cross_plain(*args, width_a=wa, width_b=wb)
+    assert int(got) == int(want) > 0
+
+
+@pytest.mark.cuda
+def test_ring_plans_on_card(card):
+    # world size 1 on the card against the plain versions on the CPU
+    from gms_tpu_torch.parallel import sharding
+    gpu, cpu = sharding.make_mesh(), sharding.make_mesh(devices="cpu")
+    g = build_csr(generate_rmat_el(9, 16, seed=27491095), num_nodes=512)
+    for make in (
+            lambda m: sharding.VertexShardedTrianglePlan(g, m, chunk=64),
+            lambda m: sharding.ShardedTrianglePlan(g, m, hub_threshold=8),
+            lambda m: sharding.VertexShardedKCliquePlan(g, m, k=3),
+            lambda m: sharding.VertexShardedKCliquePlan(g, m, k=5),
+            lambda m: sharding.VertexShardedKCliquePlan(g, m, k=7),
+            lambda m: sharding.VertexShardedBKPlan(g, m)):
+        assert make(gpu).run() == make(cpu).run() > 0

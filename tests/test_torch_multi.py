@@ -86,7 +86,8 @@ def _rank_answers(mesh, cases):
     """A spawned rank's run (world.spawn_world pickles it by name)."""
     torch.set_num_threads(1)
     got = _answers(mesh, cases, ["cpu", "cpu"])
-    assert mesh.staged == {"all_reduce": 0, "all_gather": 0}  # CPU tensors
+    assert mesh.staged == {"all_reduce": 0, "all_gather": 0,
+                           "send_recv": 0}  # CPU tensors
     return mesh.rank, mesh.size, got
 
 

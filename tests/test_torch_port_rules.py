@@ -59,9 +59,25 @@ def test_port_imports_neither_jax_nor_gms_tpu():
     assert out.returncode == 0, out.stderr
     n, rest = out.stdout.strip().split(" ", 1)
     assert int(n) >= 20  # every module of the port was imported
-    assert rest == ("['gms_tpu_torch.parallel.multi', "
+    assert rest == ("['gms_tpu_torch.parallel.dryrun', "
+                    "'gms_tpu_torch.parallel.multi', "
                     "'gms_tpu_torch.parallel.sharding', "
                     "'gms_tpu_torch.parallel.world'] []")
+
+
+def test_top_level_names_equal_gms_tpu():
+    import gms_tpu
+
+    import gms_tpu_torch
+
+    assert gms_tpu_torch.__all__ == gms_tpu.__all__
+    for name in gms_tpu.__all__:
+        ours, theirs = getattr(gms_tpu_torch, name), getattr(gms_tpu, name)
+        assert ours.__name__ == theirs.__name__
+        assert ours.__module__.replace("gms_tpu_torch", "gms_tpu") == \
+            theirs.__module__
+    with pytest.raises(AttributeError, match="no attribute"):
+        gms_tpu_torch.sharded_triangle_count
 
 
 def _triangle():
@@ -221,6 +237,34 @@ def test_parallel_default_device_is_the_card():
     assert multi.sharded_kclique_count(g, 3, mesh) == 1
     assert multi.sharded_bron_kerbosch_count(g, ["cpu"]) == 1
     assert multi.device_parallel_map(lambda j, d: j + 1, [1], ["cpu"]) == [2]
+
+
+def test_sharded_plans_default_device_is_the_card():
+    from gms_tpu_torch.parallel import dryrun, sharding
+    plans = (sharding.VertexShardedTrianglePlan, sharding.ShardedTrianglePlan,
+             sharding.VertexShardedKCliquePlan, sharding.VertexShardedBKPlan)
+    g = _triangle()
+    # a rank outside a subgroup mesh gets None, which nothing takes
+    for make in plans:
+        with pytest.raises(ValueError, match="outside the mesh"):
+            make(g, None)
+    with pytest.raises(ValueError, match="outside the mesh"):
+        sharding.sharded_triangle_count(g, None)
+    # make_mesh(n_devices) in a world of one
+    assert sharding.make_mesh(1, devices="cpu").size == 1
+    with pytest.raises(ValueError, match="2 devices in a world of 1"):
+        sharding.make_mesh(2, devices="cpu")
+    mesh = sharding.make_mesh(1, devices="cpu")
+    assert [make(g, mesh).run() for make in plans[:2]] == [1, 1]
+    assert sharding.VertexShardedKCliquePlan(g, mesh, k=3).run() == 1
+    assert sharding.VertexShardedBKPlan(g, mesh).run() == 1
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the default runs there")
+    for call in (lambda: sharding.make_mesh(1),
+                 lambda: dryrun.dryrun_multichip(2),
+                 lambda: sharding.VertexShardedBKPlan(g, sharding.make_mesh())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_cli_parses_device():
