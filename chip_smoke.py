@@ -46,6 +46,11 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      CUDA-event times: build_local_adj and kclique_dense_count on every
      chunk of RMAT 16 k=5, kc_stack_count on every chunk of RMAT 13 k=6 and
      RMAT 12 k=8 and on the W=256 chunk of K_132 at k=6;
+     kclique_dense_count's library figure: gms_tpu's own dense program
+     (k_clique.py:578-607) as float32 torch.bmm of each chunk's unpacked
+     0/1 adjacency, TF32 off, at k=4 and k=5 (its counts equal K5's; the
+     bmm calls alone timed, the median of BMM_REPS after an untimed one,
+     beside K5's k=4 time);
  11. small graphs against the host oracle: RMAT 10 at k=3..7, K_7 at
      k=1..8, and K_132 at k=6 against C(132, 6);
  12. Bron–Kerbosch main path, with every BK launch counter and K4's set to
@@ -203,8 +208,13 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      index word and only the neighbour words whose condition holds, up to
      the entry that decides the row: bucket_bytes); color_components'
      library time is one scatter_reduce_ (amin) over the friend edge list
-     a step, on the same two states. Each kernels-line entry takes its
-     launches from the run whose states it times;
+     a step, on the same two states, each step also timed batched
+     (BATCH_STEPS back-to-back calls between one event pair after one
+     flush, K25 and the library) and by torch.profiler's device time over
+     as many calls, with its row schedule's build time and the Timing
+     floor (a 4-byte fill timed as a kernel is). Each
+     kernels-line entry takes its launches from the run whose states it
+     times;
  42. VF2 main path, bench.py's vf2 round on RMAT 14 (average degree 16,
      seed 27491095): subgraph_isomorphism(g, p, induced=True, limit=1) for
      k4, p4 and c5 in hybrid mode (host_budget=200,000) and device mode
@@ -283,7 +293,11 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      others. pr_pull and the BC steps are held at rtol 1e-5 and 1e-4 (both
      sides sum each row in float64 and round it once, but the two float64
      sums, and total's float32 atomics, may still round apart); the rest
-     exactly.
+     exactly. pr_pull runs on the row schedule pagerank builds (its build
+     time printed), gives the same bits on repeated runs at RMAT 18, and
+     is timed batched beside torch.sparse.mm's pull (BATCH_STEPS
+     back-to-back iterations), by torch.profiler's device time over as
+     many, and beside the Timing floor.
 
  51. direct Bron–Kerbosch main path on phase 12's RMAT 14, with every BK
      launch counter and K4's set to 0 just before it:
@@ -388,6 +402,11 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 POPC_PER_CLOCK_PER_SM = 16
 BITWISE_PER_CLOCK_PER_SM = 64
 KERNEL_REPS, PLAIN_REPS, STEADY_TRIALS = 10, 3, 20
+# back-to-back calls of a batched figure (one event pair, one flush)
+BATCH_STEPS = 100
+# floats of a float32 torch.bmm operand slice in row 10b's library figure,
+# and the timed calls of each slice (their median; one untimed call first)
+BMM_BUDGET, BMM_REPS = 1 << 28, 3
 # k-clique graphs of bench.py: (RMAT scale, k, golden count of BENCH_r05)
 KCLIQUE_RUNS = ((16, 5, 4_600_426_489), (13, 6, 681_595_966),
                 (12, 8, 2_339_107_240))
@@ -638,6 +657,73 @@ class Timing:
         return statistics.median(times)
 
 
+def floor_ms(timing) -> float:
+    """The Timing protocol's floor: a 4-byte fill timed as a kernel is."""
+    word = torch.zeros(1, dtype=torch.int32, device="cuda")
+    word.fill_(1)
+    return timing.ms(lambda: word.fill_(1), KERNEL_REPS)
+
+
+def batched_ms(timing, fn, steps: int = BATCH_STEPS) -> float:
+    """ms a call over `steps` back-to-back calls of fn between one event
+    pair, after one flush (a warm-up call first): what a loop of such calls
+    costs a step, launch overhead included."""
+    fn()
+    timing.flush.zero_()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / steps
+
+
+def device_us(fn, calls: int = BATCH_STEPS) -> tuple:
+    """(device µs a call, {kernel: µs a call}) of `calls` back-to-back
+    calls of fn (a warm-up call first), from torch.profiler's trace: the
+    device's own events only (a host op's device time is its kernels'),
+    names cut to 48 characters and summed; (None, {}) where the trace holds
+    no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        if t > 0:
+            per[e.key[:48]] = per.get(e.key[:48], 0.0) + t / calls
+    per = {k: round(t, 3) for k, t in per.items()}
+    return (round(sum(per.values()), 3) if per else None), per
+
+
+def schedule_build(indptr, reps: int = 5):
+    """(the row schedule of indptr, the median host ms of `reps` builds,
+    each synchronised)."""
+    from gms_tpu_torch.graphs.row_schedule import build_row_schedule
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sched = build_row_schedule(indptr)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sched, statistics.median(times)
+
+
 def max_abs_err(got, want) -> int:
     if isinstance(got, tuple):
         return max(max_abs_err(g, w) for g, w in zip(got, want))
@@ -740,6 +826,63 @@ def local_adj_bytes(pg, chunk, ww) -> int:
     return (words + c + c * 32 * ww * ww + c * ww) * 4
 
 
+def bmm_count(kc, adj, k: int):
+    """(count, ms) of gms_tpu's dense program (k_clique.py:578-607) on one
+    chunk in torch: Σ A⊙(A@A) (k=4) or Σ M⊙(M@A) (k=5), M[b, (i, j), l] =
+    A_ij A_il A_jl, with A the chunk's local DAG adjacency unpacked to
+    float32 0/1 and the products float32 torch.bmm, TF32 off: exact, every
+    product entry at most W < 2^24, the masked sums in float64. ms: CUDA
+    events around the bmm calls alone (the unpack, M and the masked sums
+    untimed), over slices of at most BMM_BUDGET floats, each slice's the
+    median of BMM_REPS calls after an untimed one (the process's first bmm
+    sets up cuBLAS)."""
+    C, W, _ = adj.shape
+    A = kc.unpack_bits(adj).float()
+    group = max(1, BMM_BUDGET // (W ** (k - 2)))
+    total, ms = 0, 0.0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for c0 in range(0, C, group):
+        Ag = A[c0:c0 + group]
+        L = Ag if k == 4 else (Ag[:, :, :, None] * Ag[:, :, None, :]
+                               * Ag[:, None, :, :]).reshape(-1, W * W, W)
+        Q = torch.bmm(L, Ag)
+        times = []
+        for _ in range(BMM_REPS):
+            start.record()
+            Q = torch.bmm(L, Ag)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        ms += statistics.median(times)
+        total += int((L * Q).sum(dtype=torch.float64))
+        del L, Q
+    return total, ms
+
+
+def dense_library(timing, kc, adjs, k4) -> float:
+    """Row 10b's library figure: torch.bmm of every chunk K5 is held on, at
+    k = 4 (beside K5's k = 4 time, taken here) and k = 5, each count equal
+    to K5's; returns the k = 5 ms, the work K5's kernels-line time covers."""
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    lib = {4: 0.0, 5: 0.0}
+    k4_ms = 0.0
+    for (a, _), n4 in zip(adjs, k4):
+        n5 = int(kc.kclique_dense_count(a, k=5))
+        for k, want in ((4, n4), (5, n5)):
+            got, ms = bmm_count(kc, a, k)
+            check(got == want, f"torch.bmm's k={k} count {got} != K5's {want}")
+            lib[k] += ms
+        k4_ms += timing.ms(lambda a=a: kc.kclique_dense_count(a, k=4),
+                           KERNEL_REPS)
+    print(f"[10] kclique_dense_count's library figure, float32 torch.bmm "
+          f"(TF32 off) on its {len(adjs)} chunks, median of {BMM_REPS} "
+          f"after a warm-up, counts equal to K5's: k=4 "
+          f"{lib[4]:.4f} ms (K5 at k=4 {k4_ms:.4f} ms), k=5 {lib[5]:.4f} ms "
+          f"| {card_line()}")
+    return lib[5]
+
+
 def kclique_phases(timing, report) -> None:
     """Phases 8-11: the k-clique path (see the module docstring)."""
     from gms_tpu_torch.algorithms import k_clique as kc
@@ -835,7 +978,6 @@ def kclique_phases(timing, report) -> None:
             for (a, _), n4 in zip(adjs, k4)],
     }
     print(f"    RMAT {head} per chunk: k=3 counts {k3}, k=4 counts {k4}")
-    del adjs
     stack_calls = []
     k_132 = np.stack(np.nonzero(np.triu(np.ones((132, 132), bool), 1)), 1)
     g132 = build_csr(k_132.astype(np.int64))
@@ -863,8 +1005,11 @@ def kclique_phases(timing, report) -> None:
               f"kernel {k_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), "
               f"plain {p_ms:.4f} ms")
         check(err == 0, f"{name} disagrees with its plain version by {err}")
+        lib_ms = (dense_library(timing, kc, adjs, k4)
+                  if name == "kclique_dense_count" else None)
         report.append(kernel_entry(name, launches[name], err, k_ms, p_ms,
-                                   bound_ms, by))
+                                   bound_ms, by, library_ms=lib_ms))
+    del adjs
     err, k_ms, p_ms, bound_ms, by = compare(timing, stack_calls[n_main:],
                                             ops_rate=rate, plain_reps=1)
     print(f"[10] kc_stack_count K_132 W=256 chunk: max_abs_err {err}, kernel "
@@ -2200,10 +2345,12 @@ class RoundStates:
     """Records a coloring run's round-start states: inside the `with` block
     the coloring module's round function `fn` (the entry points call it only
     while a vertex is uncolored) is wrapped to copy its inputs before each
-    call. Keeps the first and the last."""
+    call. Keeps the first and the last. The positional inputs at `keep`,
+    which the round only reads, are kept as the call's own tensors (a row
+    schedule is taken only with the indptr it was built from)."""
 
-    def __init__(self, gc, fn: str):
-        self.gc, self.fn = gc, fn
+    def __init__(self, gc, fn: str, keep=()):
+        self.gc, self.fn, self.keep = gc, fn, keep
         self.first = self.last = None
         self.rounds = 0
 
@@ -2211,8 +2358,9 @@ class RoundStates:
         inner = self.inner = getattr(self.gc, self.fn)
 
         def record(*state, **kw):
-            snap = tuple(x.clone() if isinstance(x, torch.Tensor) else x
-                         for x in state) + (kw,)
+            snap = tuple(x.clone() if isinstance(x, torch.Tensor)
+                         and i not in self.keep else x
+                         for i, x in enumerate(state)) + (kw,)
             if self.first is None:
                 self.first = snap
             self.last = snap
@@ -2438,12 +2586,16 @@ def one_shot_calls(gc, label, state):
 
 
 def component_calls(gc, label, state):
-    indptr, indices, comp = state[:3]
+    """K25 on a recorded step: its call's row schedule (the recorded
+    keyword) given, as the main path gives it. Bytes: indptr and indices
+    once, comp read once (every friend's label is a word of it), nxt and
+    the changed word written."""
+    indptr, indices, comp, kw = state
     n, nnz = comp.numel(), indices.numel()
     return [(f"color_components {label}, n {n}, {nnz} friend entries",
-             lambda: gc.component_step(indptr, indices, comp),
+             lambda: gc.component_step(indptr, indices, comp, **kw),
              lambda: gc.component_step_plain(indptr, indices, comp),
-             8 * (n + 1) + 8 * nnz + 8 * n + 4, None)]
+             8 * (n + 1) + 4 * nnz + 8 * n + 4, None)]
 
 
 def coloring_phases(timing, report) -> None:
@@ -2537,7 +2689,7 @@ def coloring_phases(timing, report) -> None:
     gc.reset_launches()
     vs.reset_launches()
     t0 = time.perf_counter()
-    with RoundStates(gc, "component_step") as ds_states, \
+    with RoundStates(gc, "component_step", keep=(0,)) as ds_states, \
             RoundStates(vs, "pair_scores") as ds_pairs:
         c = gc.dense_sparse(g14, seed=0, friend_number=COLOR_DS_FRIENDS,
                             device="cuda")
@@ -2652,7 +2804,7 @@ def coloring_phases(timing, report) -> None:
             # one scatter_reduce_ (amin) over the friend edge list computes
             # the same step; on the same two states as the kernel
             lib_ms = 0.0
-            for _, (indptr, indices, comp, _) in ds_states.both():
+            for lab, (indptr, indices, comp, kw) in ds_states.both():
                 rows = torch.repeat_interleave(
                     torch.arange(comp.numel(), device="cuda"),
                     indptr[1:] - indptr[:-1])
@@ -2661,12 +2813,27 @@ def coloring_phases(timing, report) -> None:
                     return comp.clone().scatter_reduce_(0, rows, comp[idx],
                                                         reduce="amin")
 
-                check(torch.equal(lib(), gc.component_step(
-                    indptr, indices, comp)[0]),
-                    "scatter_reduce_ differs from K25")
+                def k25(indptr=indptr, indices=indices, comp=comp, kw=kw):
+                    return gc.component_step(indptr, indices, comp, **kw)
+
+                check(torch.equal(lib(), k25()[0]),
+                      "scatter_reduce_ differs from K25")
                 lib_ms += timing.ms(lib, KERNEL_REPS)
+                sched, build = schedule_build(indptr)
+                k_us, k_per = device_us(k25)
+                l_us, l_per = device_us(lib)
+                print(f"    {lab}: batched ({BATCH_STEPS} back-to-back steps "
+                      f"after one flush) K25 {batched_ms(timing, k25):.4f} "
+                      f"ms a step, scatter_reduce_ "
+                      f"{batched_ms(timing, lib):.4f} ms a step; device µs "
+                      f"a step (torch.profiler, {BATCH_STEPS} steps) K25 "
+                      f"{k_us} {k_per}, scatter_reduce_ {l_us} {l_per}; its "
+                      f"row schedule ({sched.n_narrow} narrow rows, "
+                      f"{sched.n_seg} segments, {sched.n_wide} wide rows) "
+                      f"built in {build:.4f} ms (host clock, synchronised)")
             print(f"    library scatter_reduce_ (amin) on both steps "
-                  f"{lib_ms:.4f} ms")
+                  f"{lib_ms:.4f} ms; the Timing floor (a 4-byte fill) "
+                  f"{floor_ms(timing):.4f} ms | {card_line()}")
         print(f"[41] {name}: {len(calls)} launches held, max_abs_err {err}, "
               f"kernel {k_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), plain "
               f"{p_ms:.4f} ms; launches of its run {launches[name]}")
@@ -3480,10 +3647,13 @@ def gapbs_phases(timing, report, g, g14, forms) -> None:
     base = float(np.float32(1.0 - 0.85) / np.float32(n))
     damp = float(np.float32(0.85))
     prn = torch.from_numpy(pr).cuda()
+    # the row schedule that pagerank builds once a call, built as it does
+    sched18, build18 = schedule_build(indptr)
     for lab, p in (("iteration 1", pr0), ("iteration 21", prn)):
         calls["pr_pull"].append((
             f"pr_pull RMAT {SCALE} {lab}",
-            lambda s: (gb.pr_pull(indptr, indices, deg18, s, base, damp),),
+            lambda s: (gb.pr_pull(indptr, indices, deg18, s, base, damp,
+                                  schedule=sched18),),
             lambda s: (gb.pr_pull_plain(indptr, indices, deg18, s, base,
                                         damp),),
             lambda p=p: p, 8 * (n + 1) + 4 * e + 8 * nbrs + 4 * n,
@@ -3538,6 +3708,32 @@ def gapbs_phases(timing, report, g, g14, forms) -> None:
             check(rel <= rtol, f"{name} off its plain version by {rel}")
         report.append(kernel_entry(name, launches[name], err, k_ms, p_ms,
                                    bound_ms, "bytes", library_ms=lib_ms))
+
+    # K32 gives the same bits on every run; the floor of the timing, and
+    # batched figures (BATCH_STEPS back-to-back iterations from iteration
+    # 21's state) of K32 and of torch.sparse.mm's pull
+    def k32():
+        return gb.pr_pull(indptr, indices, deg18, prn, base, damp,
+                          schedule=sched18)
+
+    def spmm():
+        return base + damp * torch.sparse.mm(
+            adj, (prn / deg18.clamp(min=1).float())[:, None])[:, 0]
+
+    same = all(torch.equal(k32(), k32()) for _ in range(2))
+    k_us, k_per = device_us(k32)
+    l_us, l_per = device_us(spmm)
+    print(f"[50] pr_pull on RMAT {SCALE}: the same bits on two runs, twice: "
+          f"{same}; row schedule ({sched18.n_narrow} narrow rows, "
+          f"{sched18.n_seg} segments, {sched18.n_wide} wide rows) built in "
+          f"{build18:.4f} ms (host clock, synchronised); batched "
+          f"({BATCH_STEPS} back-to-back) K32 {batched_ms(timing, k32):.4f} "
+          f"ms an iteration, torch.sparse.mm {batched_ms(timing, spmm):.4f} "
+          f"ms; device µs an iteration (torch.profiler, {BATCH_STEPS} "
+          f"iterations) K32 {k_us} {k_per}, torch.sparse.mm {l_us} {l_per}; "
+          f"the Timing floor (a 4-byte fill) {floor_ms(timing):.4f} ms "
+          f"| {card}")
+    check(same, "pr_pull gives other bits on another run")
     # K34: the forward and the backward pass of phase 48's batch
     rows = torch.arange(len(src), device="cuda")
     sl = torch.from_numpy(src).long().cuda()

@@ -167,8 +167,10 @@ SIGNATURES = {
         "one_shot_resolve": (_P, _P, _L, _I, _P, _P, _P, _P, _P),
     },
     "color_components": {
-        # indptr, indices, n, comp, nxt, changed, stream
-        "component_step": (_P, _P, _L, _P, _P, _P, _P),
+        # indptr, indices, n, comp, nxt, the row schedule (rows, starts,
+        # n_narrow, n_seg, n_wide, segment), changed, stream
+        "component_step": (_P, _P, _L, _P, _P, _P, _P, _L, _L, _L, _I, _P,
+                           _P),
     },
     "vf2_feasible": {
         # M, P, cand, N, Dc, nbr, v_pad, d_pad, deg1, len(deg1), bmp (or
@@ -198,8 +200,11 @@ SIGNATURES = {
         "bfs_kbit_pull": (_P, _I, _P, _L, _I, _P, _I, _P, _P),
     },
     "gapbs_pr": {
-        # indptr, indices, n, deg, pr, base, damp, out, stream
-        "pr_pull": (_P, _P, _L, _P, _P, _F, _F, _P, _P),
+        # indptr, indices, n, deg, pr, base, damp, the row schedule (rows,
+        # starts, n_narrow, n_seg, n_wide, segment), partial, contrib, out,
+        # stream
+        "pr_pull": (_P, _P, _L, _P, _P, _F, _F, _P, _P, _L, _L, _L, _I, _P,
+                    _P, _P, _P),
     },
     "gapbs_min": {
         # indptr, indices, n, cur, nxt, changed, stream
@@ -327,6 +332,13 @@ def launch_device(fn: str, args) -> torch.device:
     return dev
 
 
+def current_stream(index: int) -> int:
+    """The raw cudaStream_t of card `index`'s current stream. Building a
+    torch.cuda.Stream for it costs about as much host time as a small
+    kernel's launch."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def launch(name: str, fn: str, *args) -> None:
     """Call C entry `fn` of library `name` on the device of its tensor
     arguments, on that device's current CUDA stream.
@@ -337,19 +349,27 @@ def launch(name: str, fn: str, *args) -> None:
     another. Raises if the tensors lie on
     several devices, or if the launch reported a CUDA error.
     """
-    dev = launch_device(fn, args)
+    # one pass over the arguments: a launch's host time is most of a small
+    # kernel's, so the device check reads indices (get_device) and leaves
+    # naming a fault to launch_device
+    c_args, found = [], set()
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            found.add(a.get_device())
+            c_args.append(a.data_ptr())
+        else:
+            c_args.append(a)
+    index = (found.pop() if len(found) == 1 and min(found) >= 0
+             else launch_device(fn, args).index)
     lib = _load(name)
-    c_args = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
-              else a for a in args]
     set_to = _SET.__dict__
-    if set_to.get(name) != dev.index:
-        err = lib.gms_set_device(dev.index)
+    if set_to.get(name) != index:
+        err = lib.gms_set_device(index)
         if err:
-            raise RuntimeError(f"{fn}: cudaSetDevice({dev.index}) failed, "
+            raise RuntimeError(f"{fn}: cudaSetDevice({index}) failed, "
                                f"CUDA error {err}")
-        set_to[name] = dev.index
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    err = getattr(lib, fn)(*c_args, stream)
+        set_to[name] = index
+    err = getattr(lib, fn)(*c_args, current_stream(index))
     if err:
         raise RuntimeError(f"{fn}: CUDA error {err}")
 

@@ -27,7 +27,8 @@ raises for CUDA tensors, and adds one to LAUNCHES[name] per launch:
     picks; the one-shot's two raw 64-bit words a vertex, reduced to a pick
     in the kernel once the free palette is counted);
   * `component_step` (K25, csrc/color_components.cu): one Jacobi min-label
-    step on the friend graph of `dense_sparse`.
+    step on the friend graph of `dense_sparse`, over the degree-balanced
+    row schedule of graphs/row_schedule.py (built once a call).
 The round functions (`jp_round`, `spec_round`, `johansson_round`,
 `one_shot_round`, `component_labels`) walk the buckets through the wrappers;
 their `*_plain` twins walk them through the plain versions, on any device.
@@ -41,6 +42,7 @@ so it runs at sizes gms_tpu cannot.
 
 from __future__ import annotations
 
+import functools
 import itertools
 
 import numpy as np
@@ -49,6 +51,9 @@ import torch
 from gms_tpu_torch import _kernels, prng
 from gms_tpu_torch.device import resolve
 from gms_tpu_torch.graphs.csr import CSRGraph, _csr_from_sorted_pairs
+from gms_tpu_torch.graphs.row_schedule import (RowSchedule,
+                                               build_row_schedule,
+                                               check_schedule)
 from gms_tpu_torch.graphs.tiles import SENTINEL, round_up
 from gms_tpu_torch.harness import checks
 
@@ -515,23 +520,30 @@ def component_step_plain(indptr, indices, comp):
     return nxt, (nxt != comp).any().to(torch.int32).reshape(1)
 
 
-def component_step(indptr, indices, comp):
+def component_step(indptr, indices, comp, *,
+                   schedule: RowSchedule | None = None):
     """One step nxt[v] = min(comp[v], min over friends of comp) on the friend
     CSR (indptr int64[n + 1], indices int32); returns (nxt, changed
-    int32[1])."""
+    int32[1]). `schedule` is the row schedule built from this indptr
+    tensor (built here when None): a caller that steps builds it once."""
     name = "component_step"
     _kernels.check_tensor(name, "indptr", indptr, 1, torch.int64)
     _kernels.check_tensor(name, "indices", indices, 1)
     _kernels.check_tensor(name, "comp", comp, 1)
-    if indptr.shape[0] != comp.shape[0] + 1:
+    n = comp.shape[0]
+    if indptr.shape[0] != n + 1:
         raise ValueError(f"{name}: indptr has {indptr.shape[0]} entries for "
-                         f"{comp.shape[0]} vertices")
+                         f"{n} vertices")
+    if schedule is not None:
+        check_schedule(name, schedule, indptr)
     if not _kernels.on_cuda(name, indptr, indices, comp):
         return component_step_plain(indptr, indices, comp)
+    if schedule is None:
+        schedule = build_row_schedule(indptr)
     nxt = torch.empty_like(comp)
-    changed = torch.zeros(1, dtype=torch.int32, device=comp.device)
+    changed = torch.empty(1, dtype=torch.int32, device=comp.device)
     _kernels.launch("color_components", "component_step", indptr, indices,
-                    comp.shape[0], comp, nxt, changed)
+                    n, comp, nxt, *schedule.launch_args(), changed)
     LAUNCHES["color_components"] += 1
     return nxt, changed
 
@@ -551,8 +563,10 @@ def _component_labels(indptr, indices, limit: int, step_fn):
 def component_labels(indptr, indices, limit: int):
     """Component labels of the friend CSR by synchronous min-label steps
     (gms_tpu _component_labels, coloring.py:486): until no label moves or
-    `limit` steps, whichever comes first."""
-    return _component_labels(indptr, indices, limit, component_step)
+    `limit` steps, whichever comes first. One row schedule serves every
+    step."""
+    return _component_labels(indptr, indices, limit, functools.partial(
+        component_step, schedule=build_row_schedule(indptr)))
 
 
 def component_labels_plain(indptr, indices, limit: int):

@@ -35,11 +35,14 @@ minima by index_add_ and scatter_reduce_), for CUDA tensors it launches the
 kernel (raising if the launch fails) and adds one to LAUNCHES[name].
 PageRank's and BC's row sums accumulate in float64 and round once to
 float32, in the kernels and in the plain versions alike, so the two agree
-whatever order each sums in. The host oracles are gms_tpu's, copied.
+whatever order each sums in. pr_pull runs on the degree-balanced row
+schedule of graphs/row_schedule.py, which `_pagerank` builds once a call.
+The host oracles are gms_tpu's, copied.
 """
 
 from __future__ import annotations
 
+import functools
 from collections import deque
 
 import numpy as np
@@ -48,6 +51,9 @@ import torch
 from gms_tpu_torch import _kernels
 from gms_tpu_torch.device import resolve
 from gms_tpu_torch.graphs.csr import CSRGraph
+from gms_tpu_torch.graphs.row_schedule import (RowSchedule,
+                                               build_row_schedule,
+                                               check_schedule)
 from gms_tpu_torch.graphs.tiles import PaddedGraph, SENTINEL, round_up
 
 _SENT = int(SENTINEL)
@@ -295,20 +301,31 @@ def pr_pull_plain(indptr, indices, deg, pr, base: float, damp: float):
     return torch.tensor(base, **f32) + torch.tensor(damp, **f32) * s.float()
 
 
-def pr_pull(indptr, indices, deg, pr, base: float, damp: float):
+def pr_pull(indptr, indices, deg, pr, base: float, damp: float, *,
+            schedule: RowSchedule | None = None):
     """float32[n]: base + damp * sum over row v of pr[w] / max(deg[w], 1)
-    (base and damp already float32 values)."""
+    (base and damp already float32 values). `schedule` is the row
+    schedule built from this indptr tensor (built here when None): a
+    caller that iterates builds it once."""
     name = "pr_pull"
     _kernels.check_tensor(name, "deg", deg, 1)
     _kernels.check_tensor(name, "pr", pr, 1, torch.float32)
     n = _check_csr(name, indptr, indices, pr.shape[0])
     if deg.shape[0] != n:
         raise ValueError(f"{name}: {deg.shape[0]} degrees for {n} rows")
+    if schedule is not None:
+        check_schedule(name, schedule, indptr)
     if not _kernels.on_cuda(name, indptr, indices, deg, pr):
         return pr_pull_plain(indptr, indices, deg, pr, base, damp)
+    if schedule is None:
+        schedule = build_row_schedule(indptr)
     out = torch.empty_like(pr)
+    contrib = torch.empty_like(pr)
+    partial = (torch.empty(schedule.n_seg, dtype=torch.float64,
+                           device=pr.device) if schedule.n_wide else None)
     _kernels.launch("gapbs_pr", "pr_pull", indptr, indices, n, deg, pr,
-                    base, damp, out)
+                    base, damp, *schedule.launch_args(), partial, contrib,
+                    out)
     LAUNCHES[name] += 1
     return out
 
@@ -541,7 +558,10 @@ def bfs_kbit(kg, source: int, *, device="cuda") -> np.ndarray:
 
 def _pagerank(indptr, indices, deg, n: int, iters: int, damp: float,
               step=None):
-    step = step or pr_pull
+    if step is None:
+        # one row schedule for every iteration of the call
+        step = functools.partial(pr_pull,
+                                 schedule=build_row_schedule(indptr))
     # gms_tpu (x64 on): the weak float64 (1 - damp) rounds once to float32
     # against float32 n; damp * sum multiplies by float32(damp)
     nf = np.float32(n)

@@ -56,7 +56,7 @@ def threefry2x32(k1, k2, x1, x2):
     return x1, x2
 
 
-def key(seed: int, device="cpu") -> torch.Tensor:
+def key(seed: int, device="cuda") -> torch.Tensor:
     """jax.random.key(seed)'s raw words: int64[2] (seed >> 32, seed & M32)
     of the seed as a 64-bit integer."""
     s = int(seed) & ((1 << 64) - 1)

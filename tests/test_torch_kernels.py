@@ -260,8 +260,7 @@ def test_launch_sets_a_library_device_only_when_it_changes(monkeypatch):
     monkeypatch.setattr(_kernels, "_load", libs.__getitem__)
     monkeypatch.setattr(_kernels, "launch_device",
                         lambda fn, args: torch.device("cuda", next(devs)))
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda dev: type("S", (), {"cuda_stream": 0}))
+    monkeypatch.setattr(_kernels, "current_stream", lambda dev: 0)
     monkeypatch.setattr(_kernels, "_SET", type(_kernels._SET)())
     for name, tag in (("a", 1), ("a", 2), ("a", 3), ("b", 4), ("b", 5),
                       ("a", 6)):
@@ -1097,6 +1096,41 @@ def test_component_step_on_card(card, limit):
                        gc.component_labels_plain(indptr, indices, limit))
 
 
+def _star_csr(card, leaves=20_000, scale=9):
+    """A star of `leaves` leaves (one row of 40 schedule segments) beside
+    an RMAT graph and empty rows, on the card: (g, indptr, indices)."""
+    rmat = generate_rmat_el(scale, 8, seed=5) + leaves + 1
+    star = np.stack([np.zeros(leaves, np.int64),
+                     np.arange(1, leaves + 1, dtype=np.int64)], axis=1)
+    g = build_csr(np.concatenate([star, rmat]),
+                  num_nodes=leaves + 1 + (1 << scale) + 5)
+    return (g, torch.from_numpy(g.indptr).to(card),
+            torch.from_numpy(g.indices).to(card))
+
+
+@pytest.mark.cuda
+def test_component_step_on_a_wide_row_on_card(card):
+    from gms_tpu_torch.graphs.row_schedule import build_row_schedule
+
+    g, indptr, indices = _star_csr(card)
+    sched = build_row_schedule(indptr)
+    assert sched.n_wide >= 1
+    rng = np.random.default_rng(4)
+    for _ in range(2):
+        comp = torch.from_numpy(rng.permutation(g.num_nodes).astype(
+            np.int32)).to(card)
+        nxt, changed = _launched("color_components", lambda: gc.component_step(
+            indptr, indices, comp, schedule=sched), gc.LAUNCHES)
+        want = comp.clone().scatter_reduce_(
+            0, torch.repeat_interleave(torch.arange(g.num_nodes, device=card),
+                                       indptr.diff()),
+            comp[indices.long()], "amin")
+        assert torch.equal(nxt, want)
+        assert int(changed) == int((want != comp).any())
+    step, _ = gc.component_step(indptr, indices, nxt)
+    assert torch.equal(step, gc.component_step_plain(indptr, indices, nxt)[0])
+
+
 @pytest.mark.cuda
 def test_coloring_entry_points_on_card(card):
     g = _coloring_graph(4)
@@ -1325,6 +1359,33 @@ def test_bfs_kbit_pull_on_card(card, k):
         assert torch.equal(got, want) and int(c) == int(wc)
     assert np.array_equal(gapbs.bfs_kbit(kg, 0, device=card),
                           gapbs.bfs_oracle(g, 0).astype(np.int32))
+
+
+@pytest.mark.cuda
+def test_pr_pull_on_a_wide_row_on_card(card):
+    from gms_tpu_torch.algorithms import gapbs
+    from gms_tpu_torch.graphs.row_schedule import build_row_schedule
+
+    g, indptr, indices = _star_csr(card)
+    n = g.num_nodes
+    sched = build_row_schedule(indptr)
+    assert sched.n_wide >= 1
+    rng = np.random.default_rng(6)
+    deg = torch.from_numpy(g.degrees.astype(np.int32)).to(card)
+    pr = torch.from_numpy(rng.random(n).astype(np.float32)).to(card)
+    got = _launched("pr_pull", lambda: gapbs.pr_pull(
+        indptr, indices, deg, pr, 1e-4, 0.85, schedule=sched),
+        gapbs.LAUNCHES)
+    torch.testing.assert_close(got, gapbs.pr_pull_plain(
+        indptr, indices, deg, pr, 1e-4, 0.85), rtol=1e-5, atol=0)
+    # the same bits on every run, the schedule built here or given
+    assert torch.equal(got, gapbs.pr_pull(indptr, indices, deg, pr, 1e-4,
+                                          0.85, schedule=sched))
+    assert torch.equal(got, gapbs.pr_pull(indptr, indices, deg, pr, 1e-4,
+                                          0.85))
+    np.testing.assert_allclose(gapbs.pagerank(g, iters=5, device=card),
+                               gapbs.pagerank(g, iters=5, device="cpu"),
+                               rtol=1e-5, atol=0)
 
 
 @pytest.mark.cuda

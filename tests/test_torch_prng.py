@@ -30,10 +30,10 @@ def test_x64_is_on():
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_key_fold_in_split(seed):
-    pk = prng.key(seed)
+    pk = prng.key(seed, device="cpu")
     assert np.array_equal(_key_words(jax.random.key(seed)), pk.numpy())
     assert np.array_equal(np.asarray(jax.random.PRNGKey(seed)),
-                          prng.PRNGKey(seed).numpy())
+                          prng.PRNGKey(seed, device="cpu").numpy())
     for data in (0, 1, 17, 127, 1 << 20, (1 << 31) + 5, (1 << 32) - 1):
         want = _key_words(jax.random.fold_in(jax.random.key(seed), data))
         assert np.array_equal(want, prng.fold_in(pk, data).numpy()), data
@@ -46,7 +46,7 @@ def test_key_fold_in_split(seed):
 @pytest.mark.parametrize("shape", [(1,), (7,), (5, 7), (2, 3, 4), (1000,)])
 def test_random_bits(seed, shape):
     k = jax.random.fold_in(jax.random.key(seed), 3)
-    pk = prng.fold_in(prng.key(seed), 3)
+    pk = prng.fold_in(prng.key(seed, device="cpu"), 3)
     want32 = np.asarray(jax.random.bits(k, shape, jnp.uint32))
     assert np.array_equal(want32.astype(np.int64),
                           prng.random_bits(pk, 32, shape).numpy())
@@ -63,7 +63,7 @@ def test_randint_per_element_maxval(seed, high, dtype):
     rng = np.random.default_rng(abs(seed) % 1000 + high)
     mx = rng.integers(-3, high + 1, 1000).astype(dtype)
     k = jax.random.fold_in(jax.random.key(seed), 11)
-    pk = prng.fold_in(prng.key(seed), 11)
+    pk = prng.fold_in(prng.key(seed, device="cpu"), 11)
     want = np.asarray(jax.random.randint(k, (1000,), 0, jnp.asarray(mx),
                                          dtype=getattr(jnp, dtype)))
     got = prng.randint(pk, (1000,), 0, torch.from_numpy(mx),
@@ -74,7 +74,7 @@ def test_randint_per_element_maxval(seed, high, dtype):
 
 @pytest.mark.parametrize("seed", SEEDS[:4])
 def test_randint_scalar_bounds_and_shapes(seed):
-    k, pk = jax.random.key(seed), prng.key(seed)
+    k, pk = jax.random.key(seed), prng.key(seed, device="cpu")
     for shape, lo, hi in (((128,), 0, 77), ((4, 8), 5, 9), ((3,), 4, 4),
                           ((6,), 9, 2), ((50,), -10, 10)):
         for dtype in ("int32", "int64"):
@@ -90,7 +90,7 @@ def test_randint_scalar_bounds_and_shapes(seed):
 
 
 def test_randint_from_bits_is_randint():
-    pk = prng.key(9)
+    pk = prng.key(9, device="cpu")
     draws = prng.randint_bits(pk, (500,), 64)
     mx = torch.arange(500) % 37
     assert torch.equal(prng.randint_from_bits(draws, 0, mx, 64),
@@ -98,7 +98,7 @@ def test_randint_from_bits_is_randint():
 
 
 def test_rejects_what_it_does_not_cover():
-    pk = prng.key(0)
+    pk = prng.key(0, device="cpu")
     with pytest.raises(ValueError, match="2\\^31"):
         prng.randint(pk, (4,), 0, 1 << 31, torch.int64)
     with pytest.raises(TypeError):
