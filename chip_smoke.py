@@ -157,22 +157,33 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      link_prediction_similarity(train, 100, metric="jaccard") on phase 30's
      train graph must return the 100 pairs of isolated vertices that
      gms_tpu's keyed rule picks (keyed_isolated_topq), all of score 1.0; its
-     time and tile_topq's launches (one a u-block);
+     time and tile_topq's launches (one a u-block); then one warm call
+     under torch.profiler: K21's device time summed over its launches, the
+     window's host time, device busy time and idle share; then six warm
+     calls, each row's range in a chunk from the strip table and by binary
+     search alternated (STRIP_TABLE_BYTES 0), K21's device time and the
+     host clock of each;
  34. top-q counting against the plain version on the card (float32 matmuls,
-     TF32 off): CN and AA at RMAT 14 (CN's pairs and scores exactly, AA's
-     scores within rtol 1e-5), the seven metrics at RMAT 12 with block 512,
-     and all_pairs_scores on RMAT 12's first 512 rows (its counter set to 0
-     just before: one tile_all_pairs a metric);
+     TF32 off; AA and RA summed in ascending neighbour order on both sides):
+     CN and AA at RMAT 14, the seven metrics at RMAT 12 with block 512, pairs
+     and score bits equal (AA and RA also held to pair_scores_plain within
+     rtol 1e-5), and all_pairs_scores on RMAT 12's first 512 rows (its
+     counter set to 0 just before: one tile_all_pairs a metric);
  35. each new kernel against its plain version, with CUDA-event times, L2
      flushed, and bounds: pair_scores and pair_scores_hub on phase 30's
      pairs (Jaccard; bytes: the pairs, their deg entries, each distinct row
      to its first SENTINEL, K19's distinct bitmap words probed, the output),
-     auc_count on phase 30's scores, tile_topq on RMAT 16's first u-block
-     and on every u-block of RMAT 14 (CN), tile_all_pairs on phase 34's
-     block; tile_topq and tile_all_pairs are bound by their AND+popcounts
-     (one a word of each pair they must score: u < v < n for tile_topq,
-     all for tile_all_pairs), and their library time is the float32
-     torch.matmul of the same common counts;
+     auc_count on phase 30's scores, tile_topq on every u-block of phase
+     33's call (its error 0: pairs and score bits) and of the whole RMAT 14
+     CN, AA and q = 10,000 (Jaccard) calls, tile_all_pairs on phase 34's
+     block; tile_topq's bound is the function's own (bytes of the CSR,
+     indptr and indices, and the degrees read once and the q candidates; or
+     the pair finishes, every pair with u < v < n, and the wedges, at the
+     32-bit rate), beside it row 14b's bound of record, the id-space bitmap
+     layout's (bytes of the strips' rows, or the AND+popcounts of the word
+     pairs both non-zero); tile_all_pairs is bound by its AND+popcounts,
+     and the library time of both is the float32 torch.matmul of the same
+     common counts;
  37. coloring main path on RMAT 16 (bench.py's coloring graph), with every
      coloring launch counter set to 0 just before it:
      jones_plassmann(g, speculative=True, priority="degree") must give 104
@@ -327,12 +338,20 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      set to 0 just before it: 4,600,426,489 (KCLIQUE_RUNS); its chunks and
      cap doublings; timed warm beside kclique_count on the same graph;
      build_local_adj, expand_level and total_popcount must have launched;
+     one warm call under torch.profiler: K37's device time (its expand and
+     clear kernels), K4's and K38's, summed over their launches, and the
+     device's idle share over the window;
      K37 expand_level against its plain version, exactly (the four
      outputs), on every level of the first chunk's first run (a level there
-     has cap below n_children) and of its last run (the caps that fit), K38
-     total_popcount on the last level; bounds: K37 the larger of bytes (S
-     and R, each adj row the set bits need, the rows written) and its
-     AND+popcounts (WW a set bit) at 16 a clock per SM, K38 bytes;
+     has cap below n_children) and of its last run (the caps that fit),
+     with the live count the main path hands each level and without it
+     (level 1's grid at least one block an SM), K38 total_popcount on the
+     last level; bounds: K37 the larger of bytes (the live rows of S and R,
+     each adj row the set bits need, every row of S_out and R_out written)
+     and its AND+popcounts (WW a set bit) at 16 a clock per SM, K38 bytes;
+     K37's zero fill apart: its kernels' device time on the held levels at
+     their caps and at cap = the survivors (no zero row), and the bytes of
+     survivors' and zero rows over a warm call's levels;
  54. the same group: sharded_triangle_count on phase 2's RMAT 18 gives
      82,647,223; sharded_pair_scores (Jaccard) equals pair_scores bit for
      bit on phase 30's RMAT 16 pairs; sharded_bron_kerbosch_count(g,
@@ -407,6 +426,9 @@ BATCH_STEPS = 100
 # floats of a float32 torch.bmm operand slice in row 10b's library figure,
 # and the timed calls of each slice (their median; one untimed call first)
 BMM_BUDGET, BMM_REPS = 1 << 28, 3
+# the bare names of K21's and K37's kernels in a profiler window
+K21_KERNELS = ("topq_kernel",)
+K37_KERNELS = ("expand_kernel", "clear_kernel")
 # k-clique graphs of bench.py: (RMAT scale, k, golden count of BENCH_r05)
 KCLIQUE_RUNS = ((16, 5, 4_600_426_489), (13, 6, 681_595_966),
                 (12, 8, 2_339_107_240))
@@ -537,6 +559,7 @@ LP_SCALE, LP_SAMPLES, LP_TRIALS = 16, 100_000, 8
 LP_GOLDEN = ((81927, 6611), (81932, 6586), (81913, 6637), (81920, 6646),
              (81925, 6636), (81908, 6614), (81949, 6561), (81846, 6660))
 LP_Q, LP_BLOCK = 100, 2048   # bench.py's top-q ranking call
+LP_BIG_Q = 10_000            # a top-q above one CTA's shared memory
 LP_PAIRS, LP_ORACLE = 100_000, 1000
 LP_COUNT_SCALE, LP_SMALL_SCALE, LP_SMALL_BLOCK = 14, 12, 512
 LP_BENCH_METRICS = ("jaccard", "overlap", "adamic_adar", "resource",
@@ -707,6 +730,65 @@ def device_us(fn, calls: int = BATCH_STEPS) -> tuple:
             per[e.key[:48]] = per.get(e.key[:48], 0.0) + t / calls
     per = {k: round(t, 3) for k, t in per.items()}
     return (round(sum(per.values()), 3) if per else None), per
+
+
+def bare_kernel(key: str) -> str:
+    """A device event's bare function name: namespaces, template arguments
+    and parameters cut ('void (anonymous namespace)::f<true>(int)' -> 'f');
+    memsets and copies keep their own names."""
+    if key.startswith(("Memset", "Memcpy")):
+        return key
+    name = key.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return name.split("<", 1)[0].split("(", 1)[0].split("::")[-1].strip()
+
+
+def profile_window(fn):
+    """One call of fn under torch.profiler (CPU and CUDA activities), ended
+    by a synchronize: (its result, host s, {bare kernel: [device µs,
+    launches]}, device µs summed over every device event). The device's
+    idle share over the window is 1 - busy / host time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    per = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        if t > 0:
+            acc = per.setdefault(bare_kernel(e.key), [0.0, 0])
+            acc[0] += t
+            acc[1] += e.count
+    return out, host_s, per, sum(t for t, _ in per.values())
+
+
+def window_lines(tag: str, host_s, per, busy, groups) -> dict:
+    """Prints a profiler window: each group's device ms and launches
+    (groups: {label: bare kernel names}), the device's busy ms and idle
+    share, and the eight costliest device events. Returns {label: (ms,
+    launches)}."""
+    sums = {}
+    for label, names in groups.items():
+        ms = sum(per[k][0] for k in names if k in per) / 1e3
+        n = sum(per[k][1] for k in names if k in per)
+        sums[label] = (ms, n)
+        print(f"    {tag} {label}: device {ms:.4f} ms over {n} launches "
+              f"({', '.join(names)})")
+    print(f"    {tag} window: host {host_s:.4f} s, device busy "
+          f"{busy / 1e3:.4f} ms, idle share {1 - busy / 1e6 / host_s:.4f}")
+    top = sorted(per.items(), key=lambda kv: -kv[1][0])[:8]
+    print(f"    {tag} costliest: " + "; ".join(
+        f"{k[:40]} {t / 1e3:.4f} ms x{n}" for k, (t, n) in top))
+    return sums
 
 
 def schedule_build(indptr, reps: int = 5):
@@ -1954,6 +2036,17 @@ def probed_words(nbr, deg, pairs, hub_idx, vw, n_words) -> int:
     return int(seen.sum())
 
 
+def host_bitmap(g, n_pad: int) -> np.ndarray:
+    """uint32[n_pad, n_pad/32] id-space bitmap rows, as gms_tpu builds them
+    (the layout row 14b's bound of record counts)."""
+    n = g.num_nodes
+    bm = np.zeros((n_pad, n_pad // 32), np.uint32)
+    u = np.repeat(np.arange(n, dtype=np.int64), g.degrees.astype(np.int64))
+    v = g.indices.astype(np.int64)
+    np.bitwise_or.at(bm, (u, v >> 5), np.uint32(1) << (v & 31).astype(np.uint32))
+    return bm
+
+
 def nonzero_word_pairs(u_words, v_words, upper: bool) -> int:
     """AND+popcounts a tile call's function needs: over the (u, v) pairs it
     scores, the word columns where both rows' words are non-zero (a zero
@@ -1969,36 +2062,87 @@ def nonzero_word_pairs(u_words, v_words, upper: bool) -> int:
     return int((zu * after).sum())
 
 
-def topq_calls(lp, bm, deg_p, n: int, metric: str, label: str):
+def wedges_above(indptr, indices, u0: int, u1: int) -> int:
+    """Wedges u - x - v with u in [u0, u1) and v > u: the shared-memory
+    additions K21 needs for that u-block (CSR rows sorted)."""
+    n = indptr.shape[0] - 1
+    a, b = min(u0, n), min(u1, n)
+    deg = indptr[a + 1:b + 1] - indptr[a:b]
+    u = torch.repeat_interleave(torch.arange(a, b, device=indices.device), deg)
+    x = indices[int(indptr[a]):int(indptr[b])].long()
+    rows = torch.repeat_interleave(torch.arange(n, device=indices.device),
+                                   indptr[1:] - indptr[:-1])
+    keys = rows * n + indices.long()  # ascending: rows sorted, x ascending
+    past = torch.searchsorted(keys, x * n + u, right=True)
+    return int((indptr[x + 1] - past).sum())
+
+
+def topq_calls(lp, g, q: int, metric: str, label: str):
     """compare() calls of tile_topq on every u-block of
-    link_prediction_similarity(block=LP_BLOCK, q=LP_Q) over the whole-graph
-    bitmap `bm`: the u-block's rows against the strips from its diagonal.
-    Bytes: those strips' rows (the u-block's among them), their degrees and
-    the q candidates; operations: nonzero_word_pairs."""
-    calls = []
+    link_prediction_similarity(block=LP_BLOCK) at q: the u-block's rows
+    against the vertices from its diagonal, on the CSRs and the strip table
+    as the call builds them. A call's bound is the function's own: bytes of
+    the CSR (indptr and indices; g is undirected, so it is its own
+    transpose) and the degrees read once and the q candidates written, or
+    operations, the pair finishes (every pair with u < v < n) and the wedges
+    u - x - v with v > u, at the 32-bit rate. Also returns each call's bound
+    of record (row 14b): the id-space bitmap rows of those strips, their
+    degrees and the q candidates, or nonzero_word_pairs."""
+    from gms_tpu_torch.algorithms import similarity as vs
+
+    n = g.num_nodes
+    n_pad = -(-n // LP_BLOCK) * LP_BLOCK
+    bm = torch.from_numpy(host_bitmap(g, n_pad).view(np.int32)).cuda()
+    deg_np = np.zeros(n_pad, np.int32)
+    deg_np[:n] = g.degrees
+    deg_p = torch.from_numpy(deg_np).cuda()
+    csr, tcsr = lp.topq_csr(g, "cuda")
+    check(tcsr is csr, "an undirected graph's transpose is its own CSR")
+    indptr, indices = csr
+    strips = lp.strip_table(indptr, indices, n)
+    wcol = (vs.column_weights(deg_p, metric, n_pad)
+            if metric in vs.WEIGHTED else None)
+    nbytes = indptr.numel() * 8 + indices.numel() * 4 + n_pad * 4 + q * 12
+    calls, record = [], []
     for start in range(0, n, LP_BLOCK):
         u, v = bm[start:start + LP_BLOCK], bm[start:]
         nu = u.shape[0]
         pairs = nu * (n - start) - nu * (nu + 1) // 2
-        kw = dict(u_base=start, v_base=start, n=n, block=LP_BLOCK, q=LP_Q,
-                  metric=metric)
+        kw = dict(u_base=start, nu=LP_BLOCK, v_base=start, nv=n_pad - start,
+                  n=n, block=LP_BLOCK, q=q, metric=metric, wcol=wcol,
+                  strips=strips)
         calls.append((
             f"{label} u-block {start // LP_BLOCK} ({pairs} pairs; the dense "
-            f"design does {pairs * bm.shape[1]} AND+popcounts)",
-            lambda u=u, v=v, kw=kw: lp.tile_topq(u, v, deg_p, **kw),
-            lambda u=u, v=v, kw=kw: lp.tile_topq_plain(u, v, deg_p, **kw),
-            (v.numel() + (n - start)) * 4 + LP_Q * 12,
-            nonzero_word_pairs(u, v, upper=True)))
-    return calls
+            f"design did {pairs * bm.shape[1]} AND+popcounts)",
+            lambda kw=kw: lp.tile_topq(indptr, indices, indptr, indices,
+                                       deg_p, **kw),
+            lambda kw=kw: lp.tile_topq_plain(indptr, indices, indptr,
+                                             indices, deg_p, **kw),
+            nbytes, pairs + wedges_above(indptr, indices, start,
+                                         start + LP_BLOCK)))
+        record.append(((v.numel() + (n - start)) * 4 + q * 12,
+                       nonzero_word_pairs(u, v, upper=True)))
+    return calls, record, bm
+
+
+def record_bound(record) -> tuple:
+    """(ms, bound_by) of row 14b's bound of record summed over calls: the
+    bitmap's bytes at 3.35 TB/s against its AND+popcounts at the popcount
+    rate, the larger a call."""
+    rate = sm_rate(POPC_PER_CLOCK_PER_SM)
+    bt = [b / HBM_BYTES_PER_S * 1e3 for b, _ in record]
+    ot = [o / rate * 1e3 for _, o in record]
+    return (sum(max(b, o) for b, o in zip(bt, ot)),
+            "operations" if sum(ot) > sum(bt) else "bytes")
 
 
 def weighted_topq_fault(g, edges, scores, plain_scores, metric):
-    """AA and RA sum float32 weights in another order in the kernel than in
-    the plain version, so their top-q may pick other pairs among near-ties.
-    Holds each pair the kernels returned to what it must be: u < v < n, not
-    an edge, scoring as pair_scores_plain on that pair within rtol 1e-5, and
-    the q-th score not below plain's q-th by more than that. Returns the
-    first fault, or None."""
+    """AA and RA against pair_scores_plain, which sums the same float32
+    weights in another order than the top-q: holds each pair the kernels
+    returned to what it must be: u < v < n, not an edge, scoring as
+    pair_scores_plain on that pair within rtol 1e-5, and the q-th score not
+    below plain's q-th by more than that. Returns the first fault, or
+    None."""
     from gms_tpu_torch.algorithms import similarity as vs
     from gms_tpu_torch.graphs.tiles import PaddedGraph
 
@@ -2146,14 +2290,37 @@ def lp_phases(timing, report) -> None:
     got = [tuple(int(x) for x in e) for e in edges]
     us = sorted({u for u, _ in got})
     print(f"[33] link_prediction_similarity RMAT {LP_SCALE} train, q {LP_Q}, "
-          f"Jaccard: {rank_s:.4f} s (host clock, bitmap build and copy "
-          f"included); launches {rank_launches}; {len(got)} pairs, u in {us},"
+          f"Jaccard: {rank_s:.4f} s (host clock, the CSR's copy and strip "
+          f"table included); launches {rank_launches}; {len(got)} pairs, u in {us},"
           f" first {got[:1]}, last {got[-1:]}; = keyed rule "
           f"{got == want}; scores all 1.0 {bool((scores == 1.0).all())}")
     check(got == want, "top-q pairs differ from the keyed rule")
     check(bool((scores == 1.0).all()), "top-q scores are not all 1.0")
     check(rank_launches["tile_topq"] == -(-train.num_nodes // LP_BLOCK),
           f"K21 launches {rank_launches}")
+    (e2, _), host_s, per, busy = profile_window(
+        lambda: lp.link_prediction_similarity(train, LP_Q, metric="jaccard",
+                                              device="cuda"))
+    check([tuple(int(x) for x in e) for e in e2] == want,
+          "the profiled top-q call differs")
+    window_lines("[33] warm call under torch.profiler:", host_s, per, busy,
+                 {"K21": K21_KERNELS})
+    # the strip table against the binary search on the same warm call,
+    # alternated: K21's device time under the profiler, the host clock
+    keep, ab = lp.STRIP_TABLE_BYTES, {"table": [], "search": []}
+    for label in ("table", "search", "search", "table", "table", "search"):
+        lp.STRIP_TABLE_BYTES = keep if label == "table" else 0
+        (e3, _), h, p3, _ = profile_window(
+            lambda: lp.link_prediction_similarity(
+                train, LP_Q, metric="jaccard", device="cuda"))
+        check([tuple(int(x) for x in e) for e in e3] == want,
+              f"the top-q call with the {label} differs")
+        ab[label].append((sum(p3[k][0] for k in K21_KERNELS) / 1e3, h))
+    lp.STRIP_TABLE_BYTES = keep
+    for label, runs in ab.items():
+        print(f"    [33] row ranges by the {label}: K21 device ms "
+              f"{[round(d, 4) for d, _ in runs]}, host s "
+              f"{[round(h, 4) for _, h in runs]}")
 
     # [34] top-q counting against the plain version on the card
     check(not torch.backends.cuda.matmul.allow_tf32,
@@ -2177,9 +2344,8 @@ def lp_phases(timing, report) -> None:
               f"{k_s:.4f} s, plain {p_s:.4f} s; pairs and scores equal "
               f"{same}; each pair checked (AA, RA) {fault or 'ok'}; best "
               f"{s_k[:3]}")
-        check(same if metric == "common_neighbors" else fault is None,
-              f"RMAT {LP_COUNT_SCALE} top-q {metric} differs from plain: "
-              f"{fault}")
+        check(same and fault is None, f"RMAT {LP_COUNT_SCALE} top-q {metric}"
+              f" differs from plain: {fault}")
     g12 = build_csr(generate_rmat_el(LP_SMALL_SCALE, DEGREE, seed=SEED),
                     num_nodes=1 << LP_SMALL_SCALE)
     for metric in vs.METRICS:
@@ -2187,17 +2353,17 @@ def lp_phases(timing, report) -> None:
             g12, LP_Q, metric=metric, block=LP_SMALL_BLOCK, device="cuda")
         e_p, s_p = lp._link_prediction_similarity_plain(
             g12, LP_Q, metric=metric, block=LP_SMALL_BLOCK, device="cuda")
-        if metric in vs.WEIGHTED:
+        same = np.array_equal(e_k, e_p) and np.array_equal(s_k, s_p)
+        fault = None if same else "pairs or scores differ"
+        if fault is None and metric in vs.WEIGHTED:
             fault = weighted_topq_fault(g12, e_k, s_k, s_p, metric)
-        else:
-            same = np.array_equal(e_k, e_p) and np.array_equal(s_k, s_p)
-            fault = None if same else "pairs or scores differ"
         check(fault is None, f"RMAT {LP_SMALL_SCALE} top-q {metric} differs "
               f"from plain: {fault}")
     print(f"[34] RMAT {LP_SMALL_SCALE} block {LP_SMALL_BLOCK}: the seven "
-          f"metrics' top-{LP_Q} equal the plain version's (AA, RA: each pair "
-          f"a non-edge u < v < n scoring as pair_scores_plain within rtol "
-          f"1e-5, the q-th score not below plain's)")
+          f"metrics' top-{LP_Q} equal the plain version's, pairs and score "
+          f"bits (AA, RA also: each pair a non-edge u < v < n scoring as "
+          f"pair_scores_plain within rtol 1e-5, the q-th score not below "
+          f"plain's)")
     n12 = g12.num_nodes
     adj = torch.zeros((n12, n12), dtype=torch.float32, device="cuda")
     e12 = torch.from_numpy(g12.edge_array()).cuda().long()
@@ -2273,43 +2439,51 @@ def lp_phases(timing, report) -> None:
     del plan, pgt, deg1t, bm, hub_idx, pn, ph, sc
 
     # K21 tile_topq on every u-block of phase 33's call (bench.py's ranking
-    # call at RMAT-16), then of the whole RMAT-14 CN call
+    # call at RMAT-16), then of the whole RMAT-14 CN and AA calls and of an
+    # RMAT-14 call at q = 10,000
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
-    bm16 = torch.from_numpy(lp._host_bitmap(train, train.num_nodes)
-                            .view(np.int32)).cuda()
-    deg16 = torch.from_numpy(train.degrees).cuda()
-    t16 = topq_calls(lp, bm16, deg16, train.num_nodes, "jaccard",
-                     f"tile_topq RMAT {LP_SCALE} Jaccard")
-    err, k_ms, p_ms, bound_ms, by = compare(timing, t16, ops_rate=rate,
+    t16, record, bm16 = topq_calls(lp, train, LP_Q, "jaccard",
+                                   f"tile_topq RMAT {LP_SCALE} Jaccard")
+    bit_rate = sm_rate(BITWISE_PER_CLOCK_PER_SM)
+    err, k_ms, p_ms, bound_ms, by = compare(timing, t16, ops_rate=bit_rate,
                                             err_fn=topq_err)
     check(err == 0, f"tile_topq disagrees with its plain version by {err}")
     # the library call: torch.matmul of each u-block's common counts
     dense16 = vs.unpack_rows(bm16)
+    del bm16
     lib_ms = 0.0
     for start in range(0, train.num_nodes, LP_BLOCK):
         u, v = dense16[start:start + LP_BLOCK], dense16[start:]
         lib_ms += timing.ms(lambda u=u, v=v: torch.matmul(u, v.T), PLAIN_REPS)
+    del dense16, u, v
+    rec_ms, rec_by = record_bound(record)
     print(f"[35] tile_topq, phase 33's RMAT {LP_SCALE} call ({len(t16)} "
           f"launches): max_abs_err {err}, kernel {k_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({by}), plain {p_ms:.4f} ms, torch.matmul of "
-          f"its common counts (float32, TF32 off) {lib_ms:.4f} ms")
+          f"{bound_ms:.4f} ms ({by}: the CSR and degrees read, the pair "
+          f"finishes and wedges), plain {p_ms:.4f} ms, torch.matmul of its "
+          f"common counts (float32, TF32 off) {lib_ms:.4f} ms")
+    print(f"    row 14b's bound of record, the bitmap layout's: {rec_ms:.4f} "
+          f"ms ({rec_by}: {sum(b for b, _ in record)} bytes, "
+          f"{sum(o for _, o in record)} AND+popcounts)")
     check(len(t16) == rank_launches["tile_topq"],
           f"{len(t16)} u-blocks timed, {rank_launches} on the main path")
     report.append(kernel_entry("tile_topq", rank_launches["tile_topq"], err,
                                k_ms, p_ms, bound_ms, by, library_ms=lib_ms))
-    del bm16, deg16, dense16, u, v
-    bm14 = torch.from_numpy(lp._host_bitmap(g14, g14.num_nodes)
-                            .view(np.int32)).cuda()
-    deg14 = torch.from_numpy(g14.degrees).cuda()
-    t14 = topq_calls(lp, bm14, deg14, g14.num_nodes, "common_neighbors",
-                     f"tile_topq RMAT {LP_COUNT_SCALE} CN")
-    err, k_ms, p_ms, bound_ms, by = compare(timing, t14, ops_rate=rate,
-                                            err_fn=topq_err)
-    print(f"[35] tile_topq, the whole RMAT {LP_COUNT_SCALE} CN call "
-          f"({len(t14)} launches): max_abs_err {err}, kernel {k_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({by}), plain {p_ms:.4f} ms")
-    check(err == 0, f"tile_topq RMAT {LP_COUNT_SCALE} disagrees by {err}")
-    del bm14
+    for metric, q in (("common_neighbors", LP_Q), ("adamic_adar", LP_Q),
+                      ("jaccard", LP_BIG_Q)):
+        calls, record, _ = topq_calls(
+            lp, g14, q, metric, f"tile_topq RMAT {LP_COUNT_SCALE} {metric} "
+            f"q={q}")
+        err, k_ms, p_ms, bound_ms, by = compare(
+            timing, calls, ops_rate=bit_rate, err_fn=topq_err)
+        rec_ms, rec_by = record_bound(record)
+        print(f"[35] tile_topq, the whole RMAT {LP_COUNT_SCALE} {metric} call"
+              f" at q {q} ({len(calls)} launches): max_abs_err {err}, kernel "
+              f"{k_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), the bitmap's "
+              f"bound of record {rec_ms:.4f} ms ({rec_by}), plain "
+              f"{p_ms:.4f} ms")
+        check(err == 0, f"tile_topq RMAT {LP_COUNT_SCALE} {metric} q={q} "
+                        f"disagrees by {err}")
 
     # tile_all_pairs on phase 34's block, Jaccard
     ub, va = vs.pack_rows(blk), vs.pack_rows(adj)
@@ -4002,22 +4176,24 @@ def direct_phases(timing, report, g):
     return small, srank
 
 
-def expand_bytes_ops(S, R, adj, cap, n_children):
-    """K37's bytes (S and R read, each adj row the set bits need, the rows
-    written) and AND+popcounts (WW a set bit of S), counted in batches of
-    items."""
+def expand_bytes_ops(S, R, adj, cap, live=None):
+    """K37's bytes (the rows of S and R below the live count read, all N
+    without one; each adj row the set bits need; every row of S_out and
+    R_out written, the zero rows included) and AND+popcounts (WW a set bit
+    of S), counted in batches of items."""
     from gms_tpu_torch.algorithms import k_clique as kc
     C, W, WW = adj.shape
+    rows = S.shape[0] if live is None else min(S.shape[0], live)
     used = torch.zeros(C * W, dtype=torch.bool, device=S.device)
     bits = 0
     step = max(1, (1 << 24) // W)
-    for n0 in range(0, S.shape[0], step):
-        item, i = kc.unpack_bits(S[n0:n0 + step]).nonzero(as_tuple=True)
+    for n0 in range(0, rows, step):
+        item, i = kc.unpack_bits(S[n0:min(n0 + step, rows)]).nonzero(
+            as_tuple=True)
         used[R[n0 + item].long().clamp(0, C - 1) * W + i] = True
         bits += item.numel()
-    kept = min(cap, n_children)
-    return ((S.numel() + R.numel() + int(used.sum()) * WW
-             + kept * (WW + 1)) * 4 + 16, bits * WW)
+    return ((rows * (WW + 1) + int(used.sum()) * WW + cap * (WW + 1)) * 4
+            + 16, bits * WW)
 
 
 def world_rank_counts(mesh):
@@ -4088,6 +4264,14 @@ def multi_phases(timing, report, g18, g14, g12, lp_pairs):
           f"(warm); launches {main}")
     check(got == warm == single == golden,
           f"sharded k-clique {got}, {warm}, kclique_count {single}")
+    kc.reset_launches()
+    again, host_s, per, busy = profile_window(
+        lambda: multi.sharded_kclique_count(g, k, mesh, rank=rank))
+    check(again == golden, f"the profiled sharded call gave {again}")
+    window_lines("[53] warm sharded call under torch.profiler:", host_s, per,
+                 busy, {"K37": K37_KERNELS, "K4": ("local_adj_kernel",),
+                        "K38": ("popcount_kernel",)})
+    print(f"    its launches {dict(kc.LAUNCHES)}")
     check(all(v > 0 for v in main.values()),
           f"a kernel of the sharded k-clique path never launched: {main}")
     # K37 and K38 on the first chunk's levels, at the first caps and at the
@@ -4100,12 +4284,15 @@ def multi_phases(timing, report, g18, g14, g12, lp_pairs):
         roots.astype(np.int32)).cuda(), w_words=WW)
 
     def levels(caps):
+        """The levels of one run as the main path runs them, each with its
+        inputs and the live count it was handed (None on the first)."""
         S = S0
         R = torch.arange(S0.shape[0], dtype=torch.int32, device="cuda")
-        out = []
+        out, n = [], None
         for need, cap in zip(range(k - 2, 0, -1), caps):
-            inputs = (S, R)
-            S, R, n, _ = kc.expand_level(S, R, adj, cap=cap, need=need)
+            inputs = (S, R, n)
+            S, R, n, _ = kc.expand_level(S, R, adj, cap=cap, need=need,
+                                         n_live=n)
             out.append((inputs, cap, need, int(n)))
         return out, S
 
@@ -4119,25 +4306,76 @@ def multi_phases(timing, report, g18, g14, g12, lp_pairs):
     check(any(n > cap for _, cap, _, n in first),
           "no level of the first chunk's first run has cap < n_children")
     rate = sm_rate(POPC_PER_CLOCK_PER_SM)
-    k37 = []
-    for run, lv in (("first", first), ("last", last)):
-        for l, ((S, R), cap, need, n) in enumerate(lv):
-            nbytes, ops = expand_bytes_ops(S, R, adj, cap, n)
-            k37.append((
-                f"{run} run, level {l + 1}: N={S.shape[0]} cap={cap} "
-                f"need={need} n_children={n}",
-                lambda S=S, R=R, c=cap, d=need: kc.expand_level(
-                    S, R, adj, cap=c, need=d),
-                lambda S=S, R=R, c=cap, d=need: kc.expand_level_plain(
-                    S, R, adj, cap=c, need=d), nbytes, ops))
-    err, k_ms, p_ms, bound_ms, by = compare(timing, k37, ops_rate=rate)
-    print(f"[53] expand_level: {len(k37)} levels of the first chunk (W={W}, "
-          f"{len(roots)} roots; caps {caps[0]} after the doublings), "
-          f"max_abs_err {err}, kernel {k_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({by}), plain {p_ms:.4f} ms")
-    check(err == 0, f"expand_level disagrees with its plain version by {err}")
-    report.append(kernel_entry("expand_level", main["expand_level"], err,
-                               k_ms, p_ms, bound_ms, by))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid1 = min(S0.numel(), 8 * sms)
+    print(f"    K37's level 1: {S0.shape[0]} roots x {WW} words, a grid of "
+          f"{grid1} blocks on {sms} SMs")
+    check(grid1 >= sms, f"level 1 launches {grid1} blocks on {sms} SMs")
+    held = {}
+    for mode in ("without", "with"):
+        k37 = []
+        for run, lv in (("first", first), ("last", last)):
+            for l, ((S, R, live), cap, need, n) in enumerate(lv):
+                live = live if mode == "with" else None
+                nbytes, ops = expand_bytes_ops(
+                    S, R, adj, cap, None if live is None else int(live))
+                k37.append((
+                    f"{run} run, level {l + 1}: N={S.shape[0]} live="
+                    f"{'N' if live is None else int(live)} cap={cap} "
+                    f"need={need} n_children={n}",
+                    lambda S=S, R=R, c=cap, d=need, v=live: kc.expand_level(
+                        S, R, adj, cap=c, need=d, n_live=v),
+                    lambda S=S, R=R, c=cap, d=need: kc.expand_level_plain(
+                        S, R, adj, cap=c, need=d), nbytes, ops))
+        held[mode] = compare(timing, k37, ops_rate=rate)
+        err, k_ms, p_ms, bound_ms, by = held[mode]
+        print(f"[53] expand_level {mode} the live count: {len(k37)} levels "
+              f"of the first chunk (W={W}, {len(roots)} roots; caps "
+              f"{caps[0]} after the doublings), max_abs_err {err}, kernel "
+              f"{k_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), plain "
+              f"{p_ms:.4f} ms")
+        check(err == 0, f"expand_level ({mode} the live count) disagrees "
+                        f"with its plain version by {err}")
+    report.append(kernel_entry("expand_level", main["expand_level"],
+                               *held["with"]))
+    # the zero fill apart: the held levels, live count passed, under the
+    # profiler at their caps and at cap = min(cap, the survivors), which
+    # leaves no zero row; alternated
+    def held_levels(trim):
+        for (S, R, live), cap, need, n in first + last:
+            kc.expand_level(S, R, adj, cap=min(cap, n) if trim else cap,
+                            need=need, n_live=live)
+
+    split = {False: [], True: []}
+    for trim in (False, True, True, False):
+        _, _, pk, _ = profile_window(lambda: held_levels(trim))
+        split[trim].append([round(pk[x][0] / 1e3, 4) if x in pk else 0.0
+                            for x in K37_KERNELS])
+    for trim, runs in split.items():
+        print(f"    [53] the held levels at "
+              f"{'cap = the survivors' if trim else 'their caps'}: device ms "
+              f"{K37_KERNELS} {runs}")
+    # the whole call's zero rows: each level's cap and survivors recorded
+    seen, real = [], multi.expand_level
+
+    def recording(S, R, adj, *, cap, need, n_live=None):
+        out = real(S, R, adj, cap=cap, need=need, n_live=n_live)
+        seen.append((cap, S.shape[1], out[2]))
+        return out
+
+    multi.expand_level = recording
+    try:
+        check(multi.sharded_kclique_count(g, k, mesh, rank=rank) == golden,
+              "the recorded sharded call")
+    finally:
+        multi.expand_level = real
+    kept = [(cap, ww, min(int(n), cap)) for cap, ww, n in seen]
+    zero_b = sum((cap - m) * (ww + 1) * 4 for cap, ww, m in kept)
+    live_b = sum(m * (ww + 1) * 4 for _, ww, m in kept)
+    print(f"    [53] the warm sharded call's {len(kept)} levels write "
+          f"{live_b} bytes of survivors' rows ({live_b / HBM_BYTES_PER_S * 1e3:.4f}"
+          f" ms at 3.35 TB/s) and {zero_b} of zero rows "
+          f"({zero_b / HBM_BYTES_PER_S * 1e3:.4f} ms)")
     k38 = [(f"last level S {tuple(S_last.shape)}",
             lambda: kc.total_popcount(S_last),
             lambda: kc.total_popcount_plain(S_last), S_last.numel() * 4 + 8)]
@@ -4595,7 +4833,6 @@ def main() -> None:
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    ptxas {name}: {line.strip()}")
-
     # [2] headline graph (host)
     t0 = time.perf_counter()
     g = build_csr(generate_rmat_el(SCALE, DEGREE, seed=SEED),

@@ -21,6 +21,7 @@ the card its tensors lie on, on that card's current stream.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -138,11 +139,12 @@ SIGNATURES = {
     "tile_scores": {
         # U, Bu, V, Vn, W, deg_u, deg_v, wcol (or null), metric, out, stream
         "tile_all_pairs": (_P, _L, _P, _L, _L, _P, _P, _P, _I, _P, _P),
-        # U, nu, V, nv, W, deg_p, n, u_base, v_base, block, wcol (or null),
-        # metric, q, tiles_per_strip, n_vtiles, group, ctas_v, out_s, out_u,
-        # out_v, out_n, stream
-        "tile_topq": (_P, _I, _P, _L, _L, _P, _L, _L, _L, _L, _P, _I, _I, _I,
-                      _L, _L, _I, _P, _P, _P, _P, _P),
+        # indptr, indices, their transpose's, strips (or null), its columns,
+        # deg_p, wcol (or null), n, u_base, nu, v_base, nv, block, metric, q,
+        # units, u-tiles, first chunk, CTAs, work counter, scratch, out_s,
+        # out_u, out_v, out_n, stream
+        "tile_topq": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     },
     "color_jp": {
         # ids, nbrt, Vt, Dt, colors, prio, cw, dec, stream
@@ -231,9 +233,9 @@ SIGNATURES = {
                             _L, _P, _P),
     },
     "kc_expand": {
-        # S, R, N, adj, C, w_words, need, cap, counts, tile sums, n_tiles,
-        # S_out, R_out, n_children and child popcounts, stream
-        "expand_level": (_P, _P, _L, _P, _L, _I, _I, _L, _P, _P, _L, _P, _P,
+        # S, R, N, n_live (or null), adj, C, w_words, need, cap, grid,
+        # tile status, S_out, R_out, n_children and child popcounts, stream
+        "expand_level": (_P, _P, _L, _P, _P, _L, _I, _I, _L, _I, _P, _P, _P,
                          _P, _P),
     },
     "popcount_sum": {
@@ -330,6 +332,13 @@ def launch_device(fn: str, args) -> torch.device:
     if dev.type != "cuda":
         raise ValueError(f"{fn}: tensor arguments on {dev}, not a CUDA device")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index` (a persistent or
+    card-filling grid's size)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def current_stream(index: int) -> int:

@@ -453,19 +453,30 @@ def kclique_count_chunk(nbr, chunk, state=None, *, w_words: int, k: int,
 # K37: one breadth-wise expansion; K38: the popcount sum
 # ---------------------------------------------------------------------------
 
-def expand_level_plain(S, root_idx, adj, *, cap: int, need: int):
-    """Plain version of expand_level: the set bits of S in (item, i) order,
-    their children ANDed and counted in batches, the first `cap` survivors
-    written in that order."""
+def _live_rows(S, n_live) -> int:
+    """min(N, n_live) on the host (the plain version's sync), N without
+    n_live."""
+    if n_live is None:
+        return S.shape[0]
+    return max(0, min(S.shape[0], int(n_live)))
+
+
+def expand_level_plain(S, root_idx, adj, *, cap: int, need: int,
+                       n_live=None):
+    """Plain version of expand_level: the set bits of the live rows of S in
+    (item, i) order, their children ANDed and counted in batches, the first
+    `cap` survivors written in that order."""
     N, WW = S.shape
     C = adj.shape[0]
     dev = S.device
+    live = _live_rows(S, n_live)
     S_out = torch.zeros((cap, WW), dtype=torch.int32, device=dev)
     R_out = torch.zeros(cap, dtype=torch.int32, device=dev)
     n_children, pcs = _zero(dev), _zero(dev)
     ib = max(1, _PLAIN_BUDGET // (32 * WW))
-    for n0 in range(0, N, ib):
-        item, i = unpack_bits(S[n0:n0 + ib]).nonzero(as_tuple=True)
+    for n0 in range(0, live, ib):
+        item, i = unpack_bits(S[n0:min(n0 + ib, live)]).nonzero(
+            as_tuple=True)
         item = item + n0
         r = root_idx[item]
         child = S[item] & adj[r.long().clamp(0, C - 1), i]
@@ -480,7 +491,7 @@ def expand_level_plain(S, root_idx, adj, *, cap: int, need: int):
     return S_out, R_out, n_children, pcs
 
 
-def expand_level(S, root_idx, adj, *, cap: int, need: int):
+def expand_level(S, root_idx, adj, *, cap: int, need: int, n_live=None):
     """One breadth-wise expansion of all items: gms_tpu's expand_level
     (k_clique.py:161), bit for bit.
 
@@ -489,12 +500,17 @@ def expand_level(S, root_idx, adj, *, cap: int, need: int):
     adj:      int32[C, W, WW], W = 32*WW
     cap:      output rows; the survivors beyond it are counted, not written
     need:     a child survives iff its popcount is at least `need`
+    n_live:   optional int64 0-d tensor: only the rows below min(N, n_live)
+              are expanded (the caller passes the previous level's
+              n_children, past which its rows are zero); the kernel reads
+              it on the device, so no host sync
     Returns (S_out int32[cap, WW], R_out int32[cap], n_children, pcs): the
     first `cap` surviving children S[n] & adj[root_idx[n], i] in (item, i)
     order with their items' root_idx, unfilled rows zero with R 0;
     n_children (int64 0-d) every survivor, also beyond cap; pcs (int64
     0-d) the sum of their popcounts. The kernel forms no [N, W, WW] tensor:
-    a count pass, a scan, a write pass.
+    one pass over tiles of the live words of S, each tile's offset found by
+    decoupled look-back, then the rows past the survivors zeroed.
     """
     name = "expand_level"
     _check(name, "S", S, 2)
@@ -506,21 +522,33 @@ def expand_level(S, root_idx, adj, *, cap: int, need: int):
                          " do not match")
     if cap < 0:
         raise ValueError(f"{name}: cap must be >= 0, got {cap}")
-    if not _on_cuda(name, S, root_idx, adj):
-        return expand_level_plain(S, root_idx, adj, cap=cap, need=need)
+    extra = []
+    if n_live is not None:
+        if n_live.dtype != torch.int64 or n_live.numel() != 1:
+            raise TypeError(f"{name}: n_live must be one int64, got "
+                            f"{n_live.dtype} {tuple(n_live.shape)}")
+        extra.append(n_live)
+    if not _on_cuda(name, S, root_idx, adj, *extra):
+        return expand_level_plain(S, root_idx, adj, cap=cap, need=need,
+                                  n_live=n_live)
     N, WW = S.shape
     dev = S.device
-    S_out = torch.zeros((cap, WW), dtype=torch.int32, device=dev)
-    R_out = torch.zeros(cap, dtype=torch.int32, device=dev)
     stats = torch.zeros(2, dtype=torch.int64, device=dev)
-    if N and adj.shape[0]:
-        n_tiles = -(-N // 1024)
-        _kernels.launch("kc_expand", "expand_level", S, root_idx, N, adj,
-                        adj.shape[0], WW, need, cap,
-                        torch.empty(N, dtype=torch.int32, device=dev),
-                        torch.empty(n_tiles, dtype=torch.int64, device=dev),
-                        n_tiles, S_out, R_out, stats)
-        LAUNCHES[name] += 1
+    if not (N and adj.shape[0]):
+        return (torch.zeros((cap, WW), dtype=torch.int32, device=dev),
+                torch.zeros(cap, dtype=torch.int32, device=dev), stats[0],
+                stats[1])
+    S_out = torch.empty((cap, WW), dtype=torch.int32, device=dev)
+    R_out = torch.empty(cap, dtype=torch.int32, device=dev)
+    grid = max(1, min(N * WW, 8 * _kernels.sm_count(dev.index)))
+    # the tile counter, then a status word for each tile of <= 256 words
+    status = torch.zeros(1 + max(grid, -(-N * WW // 256)), dtype=torch.int64,
+                         device=dev)
+    _kernels.launch("kc_expand", "expand_level", S, root_idx, N,
+                    None if n_live is None else n_live.reshape(1), adj,
+                    adj.shape[0], WW, need, cap, grid, status, S_out, R_out,
+                    stats)
+    LAUNCHES[name] += 1
     return S_out, R_out, stats[0], stats[1]
 
 

@@ -18,7 +18,8 @@ for pairs whose larger-degree end is a hub, similarity.pair_scores_hub (K19),
 both writing into one score array in pair order. `auc_count` (K20,
 csrc/auc_count.cu) compares them and chains the next trial's shift on the
 device. `tile_topq` (K21, csrc/tile_scores.cu) scores a u-block against the
-v-strips and keeps each CTA's best q by gms_tpu's key. For CPU tensors each
+v-strips from the CSR and its transpose, a wedge at a time, and keeps each
+CTA's best q by gms_tpu's key. For CPU tensors each
 wrapper runs its plain version; for CUDA tensors it launches its kernel or
 raises, and adds one to LAUNCHES[name].
 
@@ -37,7 +38,6 @@ import torch
 
 from gms_tpu_torch import _kernels
 from gms_tpu_torch.algorithms import similarity as sim
-from gms_tpu_torch.algorithms import triangle_count as tc
 from gms_tpu_torch.device import resolve
 from gms_tpu_torch.graphs.csr import CSRGraph, _csr_from_sorted_pairs
 from gms_tpu_torch.graphs.tiles import PaddedGraph, round_up
@@ -46,14 +46,16 @@ from gms_tpu_torch.graphs.tiles import PaddedGraph, round_up
 LAUNCHES = {"auc_count": 0, "tile_topq": 0}
 
 HUB_THRESHOLD = 512          # rows with deg > this get id-space bitmaps
-# link_prediction_similarity uses the whole-graph [n_pad, n_pad/32] bitmap
-# when it takes at most this many bytes, else per-block rows built on the
-# device from the padded rows (gms_tpu's threshold, link_prediction.py:598)
-PACKED_BYTES = 1 << 31
-# CTAs a tile_topq launch aims for: several on each of an H100's 132 SMs
-_TOPQ_CTAS = 132 * 8
-_TILE = 64                   # tile_topq's pairs per CTA side
-_MAX_Q = _TILE * _TILE       # tile_topq's largest q
+# K21's chunk of v and the strip table's column width (csrc/tile_scores.cu's
+# kCW), and its u-rows a unit (kTU)
+STRIP = 1024
+_TU = 32
+# link_prediction_similarity builds the strip table when it takes at most
+# this many bytes, else the kernel finds each row's range by binary search
+# (about a fifth slower on an H100 at RMAT-16: PERF.md row 14b)
+STRIP_TABLE_BYTES = 1 << 31
+# elements of a plain version's wedge batch (ascending_sums)
+_PLAIN_BUDGET = 1 << 24
 
 
 def reset_launches() -> None:
@@ -450,15 +452,57 @@ class AUCPlan:
 # K21 tile_topq and the top-q ranking
 # ---------------------------------------------------------------------------
 
-def _topq_grid(nu: int, nv: int, block: int):
-    """(tiles a strip, v-tiles, v-tiles a CTA, u-tiles, CTAs along v) of a
-    tile_topq launch over nu rows and nv vertices from a strip start."""
-    tps = -(-block // _TILE)
-    n_vtiles = -(-nv // block) * tps
-    ut = -(-nu // _TILE)
-    ctas_v = max(1, min(n_vtiles, -(-_TOPQ_CTAS // ut)))
-    group = -(-n_vtiles // ctas_v)
-    return tps, n_vtiles, group, ut, -(-n_vtiles // group)
+def topq_csr(g: CSRGraph, dev):
+    """K21's two CSRs of g on `dev`: (indptr int64, indices int32) with each
+    row sorted and no entry twice, and the transpose of that (row x: the v
+    with x in N(v)) — the same tensors when g is undirected, whose CSR is
+    symmetric. The common neighbours of (u, v) are then the wedges u - x - v
+    with x in row u and v in row x of the transpose, gms_tpu's |N(u) ∩ N(v)|
+    over out-neighbours also on a directed graph or one built with
+    dedup=False."""
+    n = g.num_nodes
+    indptr = torch.from_numpy(np.ascontiguousarray(g.indptr, np.int64)).to(dev)
+    rows = torch.repeat_interleave(torch.arange(n, device=dev),
+                                   indptr[1:] - indptr[:-1])
+    key = torch.unique(rows * n + torch.from_numpy(
+        np.ascontiguousarray(g.indices, np.int64)).to(dev))
+
+    def from_keys(k):
+        ptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+        ptr[1:] = torch.cumsum(torch.bincount(k // n, minlength=n), 0)
+        return ptr, (k % n).to(torch.int32)
+
+    csr = from_keys(key)
+    if not g.directed():
+        return csr, csr
+    return csr, from_keys(torch.sort((key % n) * n + key // n).values)
+
+
+def strip_table(indptr, indices, n: int):
+    """int64[n, ceil(n / STRIP) + 1]: entry [x, c] is the first position of
+    row x in `indices` whose neighbour is at least c * STRIP, the last column
+    indptr[x + 1] — K21's strip ranges of the transpose's rows (rows sorted
+    ascending), built with torch ops on the rows' device."""
+    dev = indices.device
+    cols = -(-n // STRIP)
+    deg = indptr[1:n + 1] - indptr[:n]
+    rows = torch.repeat_interleave(torch.arange(n, device=dev), deg)
+    key = rows * cols + indices.long() // STRIP
+    per = torch.bincount(key, minlength=n * cols).view(n, cols)
+    table = torch.empty((n, cols + 1), dtype=torch.int64, device=dev)
+    table[:, 0] = indptr[:n]
+    table[:, 1:] = indptr[:n, None] + torch.cumsum(per, 1)
+    return table
+
+
+def _topq_units(nu: int, v_base: int, nv: int):
+    """(units, u-tiles, first chunk) of a tile_topq launch: 32 u-rows ×
+    STRIP-vertex chunks, the chunks those that [v_base, v_base + nv)
+    touches."""
+    n_ut = -(-nu // _TU)
+    c0 = v_base // STRIP
+    c1 = -(-(v_base + nv) // STRIP)
+    return n_ut * max(0, c1 - c0), n_ut, c0
 
 
 def _merge_candidates(s, u, v, q: int, block: int, n_pad: int):
@@ -472,43 +516,133 @@ def _merge_candidates(s, u, v, q: int, block: int, n_pad: int):
     return s[order], u[order], v[order]
 
 
-def _check_topq(name, u_words, v_words, deg_p, v_base, block, q, metric,
-                wcol):
-    _kernels.check_tensor(name, "u_words", u_words, 2)
-    _kernels.check_tensor(name, "v_words", v_words, 2)
+def _check_topq(name, indptr, indices, tptr, tidx, deg_p, *, u_base, nu,
+                v_base, nv, n, block, q, metric, wcol, strips):
+    _kernels.check_tensor(name, "indptr", indptr, 1, torch.int64)
+    _kernels.check_tensor(name, "indices", indices, 1)
+    _kernels.check_tensor(name, "tptr", tptr, 1, torch.int64)
+    _kernels.check_tensor(name, "tidx", tidx, 1)
     _kernels.check_tensor(name, "deg_p", deg_p, 1)
-    n_pad = deg_p.shape[0]
-    if v_words.shape[1] != u_words.shape[1] or 32 * u_words.shape[1] < n_pad:
-        raise ValueError(f"{name}: rows of {u_words.shape[1]} and "
-                         f"{v_words.shape[1]} words for {n_pad} vertices")
+    if indptr.shape[0] != n + 1 or tptr.shape[0] != n + 1:
+        raise ValueError(f"{name}: indptr and tptr have {indptr.shape[0]} "
+                         f"and {tptr.shape[0]} entries for {n} rows")
+    if (min(u_base, nu, v_base, nv) < 0 or max(u_base + nu, v_base + nv, n)
+            > deg_p.shape[0]):
+        raise ValueError(f"{name}: rows [{u_base}, {u_base + nu}) and "
+                         f"[{v_base}, {v_base + nv}) of {n} for "
+                         f"{deg_p.shape[0]} degrees")
     if block < 1 or v_base % block or q < 1:
         raise ValueError(f"{name}: block {block}, v_base {v_base}, q {q}")
+    extra = [tptr, tidx]
+    if strips is not None:
+        _kernels.check_tensor(name, "strips", strips, 2, torch.int64)
+        if tuple(strips.shape) != (n, -(-n // STRIP) + 1):
+            raise ValueError(f"{name}: strips {tuple(strips.shape)} for {n} "
+                             f"rows")
+        extra.append(strips)
     if metric in sim.WEIGHTED:
         _kernels.check_tensor(name, "wcol", wcol, 1, torch.float32)
-        if wcol.shape[0] != 32 * u_words.shape[1]:
+        if wcol.shape[0] < n:
             raise ValueError(f"{name}: wcol has {wcol.shape[0]} entries")
-        return [wcol]
-    return []
+        extra.append(wcol)
+    return extra
 
 
-def tile_topq_plain(u_words, v_words, deg_p, *, u_base: int, v_base: int,
-                    n: int, block: int, q: int, metric: str, wcol=None):
-    """Plain version of tile_topq: gms_tpu's strip loop — unpacked rows,
-    float32 matmuls, the masks, and a running top-q whose ties keep the
-    earlier strip, then (u, v)."""
-    Ud = sim.unpack_rows(u_words)
-    nu = u_words.shape[0]
-    u_ids = torch.arange(u_base, u_base + nu, device=u_words.device)
+def _dense_rows(indptr, indices, start: int, stop: int, width: int):
+    """float32 0/1 [stop - start, width]: CSR rows [start, stop), the rows
+    past the CSR's end empty."""
+    n = indptr.shape[0] - 1
+    a, b = min(start, n), min(stop, n)
+    dev = indices.device
+    out = torch.zeros((stop - start, width), dtype=torch.float32, device=dev)
+    deg = indptr[a + 1:b + 1] - indptr[a:b]
+    rows = torch.repeat_interleave(torch.arange(b - a, device=dev), deg)
+    out[rows, indices[int(indptr[a]):int(indptr[b])].long()] = 1.0
+    return out
+
+
+def ascending_sums(indptr, indices, tptr, tidx, wcol, u0: int, u1: int,
+                   v0: int, v1: int):
+    """float32[u1 - u0, v1 - v0]: Σ wcol[x] over the common neighbours x of
+    (u, v), added in ascending x one float32 addition at a time from 0 — the
+    order of K21's AA/RA sums. The wedges u - x - v (x in row u of the CSR,
+    v in row x of its transpose tptr, tidx; see topq_csr) come in (u, x)
+    order, a stable sort by (u, v) keeps x ascending within a pair, and
+    round r adds every pair's r-th weight."""
+    dev = indices.device
+    n = indptr.shape[0] - 1
+    nv = v1 - v0
+    out = torch.zeros((u1 - u0) * nv, dtype=torch.float32, device=dev)
+    a, b = min(u0, n), min(u1, n)
+    lo = int(indptr[a])
+    item_u = torch.repeat_interleave(torch.arange(a, b, device=dev),
+                                     indptr[a + 1:b + 1] - indptr[a:b])
+    item_x = indices[lo:int(indptr[b])].long()
+    fan = tptr[item_x + 1] - tptr[item_x]
+    ends = torch.cumsum(fan, 0)
+    keys, xs = [], []
+    i0 = 0
+    while i0 < item_x.numel():  # items whose wedges fit the budget
+        base = int(ends[i0 - 1]) if i0 else 0
+        i1 = max(i0 + 1, int(torch.searchsorted(ends, base + _PLAIN_BUDGET,
+                                                right=True)))
+        f = fan[i0:i1]
+        item = torch.repeat_interleave(torch.arange(i1 - i0, device=dev), f)
+        first = torch.cumsum(f, 0) - f
+        pos = (tptr[item_x[i0:i1]][item]
+               + torch.arange(item.numel(), device=dev) - first[item])
+        v = tidx[pos].long()
+        keep = (v >= v0) & (v < v1)
+        item = item[keep]
+        keys.append((item_u[i0:i1][item] - u0) * nv + v[keep] - v0)
+        xs.append(item_x[i0:i1][item])
+        i0 = i1
+    if not keys:
+        return out.view(u1 - u0, nv)
+    key, x = torch.cat(keys), torch.cat(xs)
+    order = torch.argsort(key, stable=True)
+    key, x = key[order], x[order]
+    idx = torch.arange(key.numel(), device=dev)
+    start = torch.ones_like(key, dtype=torch.bool)
+    start[1:] = key[1:] != key[:-1]
+    rank = idx - torch.cummax(torch.where(start, idx, 0), 0).values
+    by_rank = torch.argsort(rank, stable=True)
+    bounds = torch.cumsum(torch.bincount(rank), 0).tolist()
+    r0 = 0
+    for r1 in bounds:  # each round's pairs are distinct
+        sel = by_rank[r0:r1]
+        k = key[sel]
+        out[k] = out[k] + wcol[x[sel]]
+        r0 = r1
+    return out.view(u1 - u0, nv)
+
+
+def tile_topq_plain(indptr, indices, tptr, tidx, deg_p, *, u_base: int,
+                    nu: int, v_base: int, nv: int, n: int, block: int,
+                    q: int, metric: str, wcol=None, strips=None):
+    """Plain version of tile_topq: gms_tpu's strip loop — dense rows from
+    the CSR, float32 matmul counts (AA/RA: ascending_sums, the kernel's
+    order), the masks, and a running top-q whose ties keep the earlier
+    strip, then (u, v). `strips` only speeds the kernel: unused here."""
+    dev = indices.device
+    width = deg_p.shape[0]
+    Ud = _dense_rows(indptr, indices, u_base, u_base + nu, width)
+    u_ids = torch.arange(u_base, u_base + nu, device=dev)
     du = deg_p[u_base:u_base + nu]
-    dev = u_words.device
+    sums = (ascending_sums(indptr, indices, tptr, tidx, wcol, u_base,
+                           u_base + nu, v_base, v_base + nv)
+            if metric in sim.WEIGHTED else None)
     best = (torch.zeros(0, device=dev), torch.zeros(0, dtype=torch.int32,
             device=dev), torch.zeros(0, dtype=torch.int32, device=dev))
-    for sb in range(0, v_words.shape[0], block):
-        Vd = sim.unpack_rows(v_words[sb:sb + block])
-        v0, nv = v_base + sb, Vd.shape[0]
-        v_ids = torch.arange(v0, v0 + nv, device=dev)
-        score = sim.dense_scores(metric, Ud, Vd, du, deg_p[v0:v0 + nv], wcol)
-        edge = Ud[:, v0:v0 + nv] > 0
+    for sb in range(0, nv, block):
+        v0, vn = v_base + sb, min(block, nv - sb)
+        v_ids = torch.arange(v0, v0 + vn, device=dev)
+        if sums is not None:
+            score = sums[:, sb:sb + vn]
+        else:
+            Vd = _dense_rows(indptr, indices, v0, v0 + vn, width)
+            score = sim.dense_scores(metric, Ud, Vd, du, deg_p[v0:v0 + vn])
+        edge = Ud[:, v0:v0 + vn] > 0
         valid = ((v_ids[None, :] > u_ids[:, None]) & (v_ids < n)[None, :]
                  & (u_ids < n)[:, None] & ~edge & ~torch.isnan(score))
         flat = torch.where(valid, score, -torch.inf).reshape(-1)
@@ -519,65 +653,65 @@ def tile_topq_plain(u_words, v_words, deg_p, *, u_base: int, v_base: int,
         sel = torch.nonzero((flat >= torch.topk(flat, k).values[-1]) & live
                             ).reshape(-1)
         s = torch.cat([best[0], flat[sel]])
-        u = torch.cat([best[1], u_ids[sel // nv].to(torch.int32)])
-        v = torch.cat([best[2], v_ids[sel % nv].to(torch.int32)])
+        u = torch.cat([best[1], u_ids[sel // vn].to(torch.int32)])
+        v = torch.cat([best[2], v_ids[sel % vn].to(torch.int32)])
         order = torch.argsort(-s, stable=True)[:q]
         best = (s[order], u[order], v[order])
     return best
 
 
-def tile_topq(u_words, v_words, deg_p, *, u_base: int, v_base: int, n: int,
-              block: int, q: int, metric: str, wcol=None):
-    """The best q non-edges (u, v), u in the block of rows u_words
-    (int32[nu, W] bitmap rows of u_base ...), v in v_words (rows of v_base
-    ..., a strip start), v > u, both < n, by the key (-score, ⌊v/block⌋, u,
-    v): (scores float32[q'], u int32[q'], v int32[q']) in that order, q' <= q
-    (gms_tpu link_prediction.py:471's one u-block over those strips).
-    deg_p: int32[n_pad]; wcol: float32[32W] column weights for AA/RA. On
-    CUDA, q <= 4096."""
+def tile_topq(indptr, indices, tptr, tidx, deg_p, *, u_base: int, nu: int,
+              v_base: int, nv: int, n: int, block: int, q: int, metric: str,
+              wcol=None, strips=None):
+    """The best q non-edges (u, v), u in [u_base, u_base + nu), v in
+    [v_base, v_base + nv) (v_base a strip start), v > u, both < n, by the
+    key (-score, ⌊v/block⌋, u, v): (scores float32[q'], u int32[q'], v
+    int32[q']) in that order, q' <= q (gms_tpu link_prediction.py:471's
+    one u-block over those strips).
+
+    indptr int64[n + 1], indices int32: the graph's CSR, each row sorted
+    ascending with no entry twice; tptr, tidx: its transpose, the same
+    (topq_csr builds both; a row with an entry twice would count a wedge
+    twice); deg_p int32 with an entry for every row named; wcol float32 (at
+    least n) the column weights for AA/RA; strips the strip_table of the
+    transpose, or None (the kernel then finds each row's range by binary
+    search)."""
     name = "tile_topq"
     mid = sim._metric_id(name, metric)
-    extra = _check_topq(name, u_words, v_words, deg_p, v_base, block, q,
-                        metric, wcol)
-    if not _kernels.on_cuda(name, u_words, v_words, deg_p, *extra):
-        return tile_topq_plain(u_words, v_words, deg_p, u_base=u_base,
-                               v_base=v_base, n=n, block=block, q=q,
-                               metric=metric, wcol=wcol)
-    if q > _MAX_Q:
-        raise ValueError(f"{name}: q {q} > {_MAX_Q}, the kernel's limit")
-    nu, W = u_words.shape
-    nv = v_words.shape[0]
-    tps, n_vtiles, group, ut, ctas_v = _topq_grid(nu, nv, block)
-    dev = u_words.device
-    ctas = ut * ctas_v
+    kw = dict(u_base=u_base, nu=nu, v_base=v_base, nv=nv, n=n, block=block,
+              q=q, metric=metric, wcol=wcol, strips=strips)
+    extra = _check_topq(name, indptr, indices, tptr, tidx, deg_p, **kw)
+    if not _kernels.on_cuda(name, indptr, indices, deg_p, *extra):
+        return tile_topq_plain(indptr, indices, tptr, tidx, deg_p, **kw)
+    dev = indices.device
+    n_units, n_ut, c0 = _topq_units(nu, v_base, nv)
+    ctas = max(1, min(n_units, _kernels.sm_count(dev.index)))
     out_s = torch.empty(ctas * q, dtype=torch.float32, device=dev)
     out_u = torch.empty(ctas * q, dtype=torch.int32, device=dev)
     out_v = torch.empty(ctas * q, dtype=torch.int32, device=dev)
     out_n = torch.zeros(ctas, dtype=torch.int32, device=dev)
-    if nu and nv:
-        _kernels.launch("tile_scores", "tile_topq", u_words, nu, v_words, nv,
-                        W, deg_p, n, u_base, v_base, block,
-                        wcol if metric in sim.WEIGHTED else None, mid, q, tps,
-                        n_vtiles, group, ctas_v, out_s, out_u, out_v, out_n)
+    if n_units and n:
+        work = torch.zeros(1, dtype=torch.int32, device=dev)
+        scratch = torch.empty(ctas * 2 * q * 3, dtype=torch.int32,
+                              device=dev)
+        _kernels.launch(
+            "tile_scores", "tile_topq", indptr, indices, tptr, tidx, strips,
+            0 if strips is None else strips.shape[1], deg_p,
+            wcol if metric in sim.WEIGHTED else None, n, u_base, nu, v_base,
+            nv, block, mid, q, n_units, n_ut, c0, ctas, work, scratch, out_s,
+            out_u, out_v, out_n)
         LAUNCHES[name] += 1
-    keep = (torch.arange(q, device=dev)[None, :] < out_n[:, None]).reshape(-1)
-    return _merge_candidates(out_s[keep], out_u[keep], out_v[keep], q, block,
-                             deg_p.shape[0])
+    # the CTAs' unused slots sort last; one read-back trims them
+    live = (torch.arange(q, device=dev)[None, :] < out_n[:, None]).reshape(-1)
+    s, u, v = _merge_candidates(
+        torch.where(live, out_s, -torch.inf), torch.where(live, out_u, 0),
+        torch.where(live, out_v, 0), q, block, deg_p.shape[0])
+    m = min(q, int(out_n.sum()))
+    return s[:m], u[:m], v[:m]
 
 
-def _host_bitmap(g: CSRGraph, n_pad: int) -> np.ndarray:
-    """uint32[n_pad, n_pad/32] id-space bitmap rows, as gms_tpu builds them."""
-    n = g.num_nodes
-    bm = np.zeros((n_pad, n_pad // 32), np.uint32)
-    u = np.repeat(np.arange(n, dtype=np.int64), g.degrees.astype(np.int64))
-    v = g.indices.astype(np.int64)
-    np.bitwise_or.at(bm, (u, v >> 5), np.uint32(1) << (v & 31).astype(np.uint32))
-    return bm
-
-
-def _link_prediction(g, q_best, metric, block, device, topq, build_rows):
-    """link_prediction_similarity with the tile scorer `topq` and the
-    per-block row builder `build_rows` given."""
+def _link_prediction(g, q_best, metric, block, device, topq):
+    """link_prediction_similarity with the tile scorer `topq` given."""
     dev = resolve(device)
     sim._metric_id("link_prediction_similarity", metric)
     n = g.num_nodes
@@ -585,43 +719,18 @@ def _link_prediction(g, q_best, metric, block, device, topq, build_rows):
         return np.zeros((0, 2), np.int32), np.zeros(0, np.float32)
     block = min(block, round_up(n, 128))
     n_pad = round_up(n, block)
-    W = n_pad // 32
     deg_np = np.zeros(n_pad, np.int32)
     deg_np[:n] = g.degrees
     deg_p = torch.from_numpy(deg_np).to(dev)
-    wcol = (sim.column_weights(deg_p, metric, 32 * W)
+    wcol = (sim.column_weights(deg_p, metric, n_pad)
             if metric in sim.WEIGHTED else None)
-
-    def best(u_rows, v_rows, u_base, v_base):
-        return topq(u_rows, v_rows, deg_p, u_base=u_base, v_base=v_base, n=n,
-                    block=block, q=q_best, metric=metric, wcol=wcol)
-
-    cands = []
-    if n_pad * W * 4 <= PACKED_BYTES:
-        bm = torch.from_numpy(_host_bitmap(g, n_pad).view(np.int32)).to(dev)
-        for start in range(0, n, block):
-            # v-strips below the u-block can never satisfy v > u
-            cands.append(best(bm[start:start + block], bm[start:], start,
-                              start))
-    else:
-        # bitmap rows of each u-block and v-strip built on the device from
-        # the padded rows (K3): the neighbour ids map to themselves, the
-        # SENTINEL clip slot past the row's bits
-        pg = PaddedGraph.from_csr(g, device=dev)
-        hub_id = torch.arange(pg.v_pad + 1, dtype=torch.int32, device=dev)
-        hub_id[pg.v_pad] = n_pad
-
-        def rows(base):
-            ids = torch.arange(base, base + block, dtype=torch.int32,
-                               device=dev)
-            return build_rows(pg.nbr, hub_id, ids, hub_words=W)
-
-        for start in range(0, n, block):
-            u_rows = rows(start)
-            parts = [best(u_rows, rows(vb), start, vb)
-                     for vb in range(start, n_pad, block)]
-            cands.append(_merge_candidates(
-                *(torch.cat(x) for x in zip(*parts)), q_best, block, n_pad))
+    (indptr, indices), (tptr, tidx) = topq_csr(g, dev)
+    strips = (strip_table(tptr, tidx, n)
+              if n * (-(-n // STRIP) + 1) * 8 <= STRIP_TABLE_BYTES else None)
+    cands = [topq(indptr, indices, tptr, tidx, deg_p, u_base=start,
+                  nu=block, v_base=start, nv=n_pad - start, n=n, block=block,
+                  q=q_best, metric=metric, wcol=wcol, strips=strips)
+             for start in range(0, n, block)]
     scores = np.concatenate([c[0].cpu().numpy() for c in cands])
     u = np.concatenate([c[1].cpu().numpy() for c in cands])
     v = np.concatenate([c[2].cpu().numpy() for c in cands])
@@ -642,11 +751,12 @@ def link_prediction_similarity(
     strip-by-strip selection, which keeps the incumbent on a tie, so with
     ties at the q-th score the result is not the lexicographic top-q. q' <=
     q_best drops never-scored and NaN slots like the reference's resize
-    (:84-92). Rows come from the whole-graph bitmap when it takes at most
-    PACKED_BYTES, else from per-block rows built on the device.
+    (:84-92). Common neighbours are out-neighbours, each counted once, as in
+    gms_tpu, also on a directed graph (topq_csr). K21 reads the CSR and its
+    transpose; each row's range in a chunk of v comes from the strip table
+    when it takes at most STRIP_TABLE_BYTES, else from a binary search.
     """
-    return _link_prediction(g, q_best, metric, block, device, tile_topq,
-                            tc.build_hub_rows)
+    return _link_prediction(g, q_best, metric, block, device, tile_topq)
 
 
 def _link_prediction_similarity_plain(
@@ -654,7 +764,6 @@ def _link_prediction_similarity_plain(
     device="cuda",
 ) -> tuple[np.ndarray, np.ndarray]:
     """link_prediction_similarity through the plain versions alone
-    (tile_topq_plain, build_hub_rows_plain), on `device`: the reference the
-    kernels are held to."""
+    (tile_topq_plain), on `device`: the reference the kernel is held to."""
     return _link_prediction(g, q_best, metric, block, device,
-                            tile_topq_plain, tc.build_hub_rows_plain)
+                            tile_topq_plain)

@@ -5,9 +5,10 @@ Three patterns, as gms_tpu's:
 
   * `sharded_kclique_count` — root chunks split over the mesh's ranks: each
     rank builds its roots' local adjacency (K4), expands them k-2 levels
-    breadth-wise with fixed capacities (K37, expand_level) and sums the last
-    level's popcounts (K38); the counts and the children dropped past the
-    capacities are all-reduced. Every rank sees the same overflow, so all
+    breadth-wise with fixed capacities (K37, expand_level; each level after
+    the first walks only the previous level's survivors, their count handed
+    over on the device) and sums the last level's popcounts (K38); the
+    counts and the children dropped past the capacities are all-reduced. Every rank sees the same overflow, so all
     re-run the chunk with doubled capacities together (count-then-emit,
     distributed: an overflow is a re-run, never a wrong answer); the
     capacities start again for each chunk.
@@ -52,8 +53,10 @@ def _sharded_kclique_step(mesh: Mesh, nbr, roots, *, k: int, w_words: int,
     R = torch.arange(roots.shape[0], dtype=torch.int32, device=roots.device)
     overflow = torch.zeros((), dtype=torch.int64, device=roots.device)
     remaining = k - 1
+    n = None  # a level's rows past min(cap, n_children) are zero
     for cap in caps:
-        S, R, n, _pcs = expand_level(S, R, adj, cap=cap, need=remaining - 1)
+        S, R, n, _pcs = expand_level(S, R, adj, cap=cap, need=remaining - 1,
+                                     n_live=n)
         overflow = overflow + (n - cap).clamp(min=0)
         remaining -= 1
     return psum(torch.stack([total_popcount(S), overflow]), mesh)

@@ -117,12 +117,16 @@ def test_similarity_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError, match="32\\*W"):
         vs.tile_all_pairs(_i32(4, 2), _i32(5, 2), _i32(4), _i32(5),
                           metric="resource", wcol=torch.zeros(63))
+    indptr = torch.zeros(5, dtype=torch.int64)
     with pytest.raises(ValueError, match="v_base"):
-        lp.tile_topq(_i32(4, 4), _i32(4, 4), _i32(128), u_base=0, v_base=3,
-                     n=100, block=64, q=5, metric="jaccard")
-    with pytest.raises(ValueError, match="words"):
-        lp.tile_topq(_i32(4, 2), _i32(4, 2), _i32(128), u_base=0, v_base=0,
-                     n=100, block=64, q=5, metric="jaccard")
+        lp.tile_topq(indptr, _i32(0), indptr, _i32(0), _i32(128), u_base=0,
+                     nu=64, v_base=3, nv=64, n=4, block=64, q=5,
+                     metric="jaccard")
+    with pytest.raises(ValueError, match="strips"):
+        lp.tile_topq(indptr, _i32(0), indptr, _i32(0), _i32(128), u_base=0,
+                     nu=64, v_base=0, nv=64, n=4, block=64, q=5,
+                     metric="jaccard",
+                     strips=torch.zeros((4, 3), dtype=torch.int64))
     with pytest.raises(ValueError, match="2T"):
         lp.auc_count(torch.zeros(5), _i32(1), _i32(2))
     with pytest.raises(TypeError):
@@ -956,21 +960,49 @@ def test_link_prediction_similarity_on_card(card, metric, block, q,
     assert lp.LAUNCHES["tile_topq"] == -(-2048 // min(block, 2048))
     want_e, want_s = lp._link_prediction_similarity_plain(
         g, q, metric=metric, block=block, device=card)
+    # AA and RA too: the kernel sums in the plain version's ascending order
+    assert np.array_equal(got_e, want_e)
+    assert np.array_equal(got_s.view(np.int32), want_s.view(np.int32))
     if metric in vs.WEIGHTED:
+        # the CPU's log differs from the card's in the last bit of a weight
         _assert_weighted_topq(g, got_e, got_s, want_s, metric, card)
     else:
-        assert np.array_equal(got_e, want_e)
-        assert np.array_equal(got_s, want_s)
         cpu_e, cpu_s = lp.link_prediction_similarity(
             g, q, metric=metric, block=block, device="cpu")
         assert np.array_equal(got_e, cpu_e) and np.array_equal(got_s, cpu_s)
-    # the per-block rows of the unpacked layout, built by K3
-    monkeypatch.setattr(lp, "PACKED_BYTES", 0)
+    # no strip table: each row's range by binary search
+    monkeypatch.setattr(lp, "STRIP_TABLE_BYTES", 0)
     up_e, up_s = lp.link_prediction_similarity(g, q, metric=metric,
                                                block=block, device=card)
     assert np.array_equal(up_e, got_e) and np.array_equal(up_s, got_s)
-    with pytest.raises(ValueError, match="4096"):
-        lp.link_prediction_similarity(g, 5000, metric=metric, device=card)
+    # a q above what one CTA's shared memory would hold
+    big_e, big_s = lp.link_prediction_similarity(g, 5000, metric=metric,
+                                                 device=card)
+    want_e, want_s = lp._link_prediction_similarity_plain(
+        g, 5000, metric=metric, device=card)
+    assert np.array_equal(big_e, want_e) and np.array_equal(big_s, want_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("build", [{"symmetrize": False}, {"dedup": False}])
+@pytest.mark.parametrize("metric", ["jaccard", "adamic_adar"])
+def test_topq_directed_and_repeated_rows_on_card(card, build, metric):
+    """K21 on a directed graph (the transpose walked for v) and on rows
+    with an entry twice (counted once): pairs and score bits equal to the
+    plain version's on the card, and for Jaccard to the CPU's."""
+    g = build_csr(generate_rmat_el(11, 16, seed=5), num_nodes=2048, **build)
+    lp.reset_launches()
+    got_e, got_s = lp.link_prediction_similarity(g, 300, metric=metric,
+                                                 block=256, device=card)
+    assert lp.LAUNCHES["tile_topq"] == 8
+    want_e, want_s = lp._link_prediction_similarity_plain(
+        g, 300, metric=metric, block=256, device=card)
+    assert np.array_equal(got_e, want_e)
+    assert np.array_equal(got_s.view(np.int32), want_s.view(np.int32))
+    if metric == "jaccard":
+        cpu_e, cpu_s = lp.link_prediction_similarity(
+            g, 300, metric=metric, block=256, device="cpu")
+        assert np.array_equal(got_e, cpu_e) and np.array_equal(got_s, cpu_s)
 
 
 @pytest.mark.cuda
@@ -1570,9 +1602,10 @@ def test_bron_kerbosch_direct_on_card(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("ww,N,cap,need", [
     (1, 5000, 100000, 2), (1, 5000, 777, 2), (3, 2100, 50, 0),
-    (8, 300, 0, 3), (2, 4096, 9000, 1)])
+    (8, 300, 0, 3), (2, 4096, 9000, 1), (1, 400000, 3000000, 1)])
 def test_expand_level_on_card(card, ww, N, cap, need):
-    # several tiles of 1,024 items; cap above, below and at 0
+    # from a few words a tile to 256 (the last case); cap above, below and
+    # at 0
     rng = np.random.default_rng(ww * N + cap)
     C = 7
     adj = _sparse_bits(rng, (C, 32 * ww, ww), 0.3).to(card)
@@ -1586,6 +1619,15 @@ def test_expand_level_on_card(card, ww, N, cap, need):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert int(got[2]) > 0
+    # only the rows below a live count (the rows past it left non-zero,
+    # which the kernel must not read)
+    live = torch.tensor(N // 3, dtype=torch.int64, device=card)
+    got = _launched("expand_level", lambda: kc.expand_level(
+        S, R, adj, cap=cap, need=need, n_live=live), kc.LAUNCHES)
+    want = kc.expand_level_plain(S[:N // 3], R[:N // 3], adj, cap=cap,
+                                 need=need)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -271,11 +271,11 @@ def rmat11_topq():
                                              block=128)
 
 
-@pytest.mark.parametrize("packed", [True, False])
-def test_topq_tie_rule_equals_gms_tpu(rmat11_topq, packed, monkeypatch):
+@pytest.mark.parametrize("table", [True, False])
+def test_topq_tie_rule_equals_gms_tpu(rmat11_topq, table, monkeypatch):
     g, (want_e, want_s) = rmat11_topq
-    if not packed:  # the per-block rows built from the padded rows
-        monkeypatch.setattr(lp, "PACKED_BYTES", 0)
+    if not table:  # each row's range by binary search
+        monkeypatch.setattr(lp, "STRIP_TABLE_BYTES", 0)
     got_e, got_s = lp.link_prediction_similarity(g, 30, metric="jaccard",
                                                  block=128, device="cpu")
     assert np.array_equal(got_e, want_e) and np.array_equal(got_s, want_s)
@@ -286,12 +286,13 @@ def test_topq_tie_rule_equals_gms_tpu(rmat11_topq, packed, monkeypatch):
 
 
 def test_tile_topq_grid_and_merge():
-    """K21's launch grid covers every v-tile, and the u-block merge sorts by
-    (-score, strip, u, v) and keeps q."""
-    for nu, nv, block in ((2048, 65536, 2048), (128, 256, 128), (100, 300, 100)):
-        tps, n_vtiles, group, ut, ctas_v = lp._topq_grid(nu, nv, block)
-        assert group * ctas_v >= n_vtiles > group * (ctas_v - 1)
-        assert ut == -(-nu // 64) and tps == -(-block // 64)
+    """K21's units cover every (32 u-rows, 1,024-vertex chunk) of a launch,
+    and the u-block merge sorts by (-score, strip, u, v) and keeps q."""
+    for nu, v_base, nv, want in ((2048, 0, 65536, (64 * 64, 64, 0)),
+                                 (128, 128, 256, (4, 4, 0)),
+                                 (100, 1000, 300, (8, 4, 0)),
+                                 (96, 2048, 96, (3, 3, 2))):
+        assert lp._topq_units(nu, v_base, nv) == want
     s = torch.tensor([1.0, 2.0, 1.0, 1.0, 2.0])
     u = torch.tensor([3, 5, 1, 2, 0], dtype=torch.int32)
     v = torch.tensor([300, 9, 10, 11, 200], dtype=torch.int32)
@@ -299,3 +300,134 @@ def test_tile_topq_grid_and_merge():
     assert ms.tolist() == [2.0, 2.0, 1.0, 1.0]
     assert list(zip(mu.tolist(), mv.tolist())) == [(5, 9), (0, 200), (1, 10),
                                                    (2, 11)]
+
+
+# ---------------------------------------------------------------------------
+# K21's layout and arithmetic, and q above what a CTA's shared memory holds
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def rmat9_big_q():
+    """RMAT-9, gms_tpu's top-5,000 under Jaccard and AA (block 128)."""
+    el = generate_rmat_el(9, 16, seed=3)
+    g, jg = build_csr(el, num_nodes=512), jbuild_csr(el, num_nodes=512)
+    return g, {m: jlp.link_prediction_similarity(jg, 5000, metric=m,
+                                                 block=128)
+               for m in ("jaccard", "adamic_adar")}
+
+
+@pytest.mark.parametrize("table", [True, False])
+@pytest.mark.parametrize("metric", ["jaccard", "adamic_adar"])
+def test_topq_q_above_4096_equals_gms_tpu(rmat9_big_q, metric, table,
+                                          monkeypatch):
+    g, want = rmat9_big_q
+    want_e, want_s = want[metric]
+    assert len(want_e) == 5000
+    if not table:
+        monkeypatch.setattr(lp, "STRIP_TABLE_BYTES", 0)
+    got_e, got_s = lp.link_prediction_similarity(g, 5000, metric=metric,
+                                                 block=128, device="cpu")
+    assert np.array_equal(got_e, want_e)
+    if metric in vs.WEIGHTED:
+        np.testing.assert_allclose(got_s, want_s, rtol=1e-5)
+    else:
+        assert np.array_equal(got_s.view(np.int32), want_s.view(np.int32))
+
+
+@pytest.fixture(scope="module")
+def rmat9_directed():
+    """RMAT-9 built directed (symmetrize=False) and with repeated entries
+    (dedup=False), gms_tpu's top-5,000 of each under Jaccard and AA."""
+    el = generate_rmat_el(9, 16, seed=3)
+    out = {}
+    for kind, kw in (("directed", {"symmetrize": False}),
+                     ("repeated", {"dedup": False})):
+        g = build_csr(el, num_nodes=512, **kw)
+        jg = jbuild_csr(el, num_nodes=512, **kw)
+        out[kind] = g, {m: jlp.link_prediction_similarity(
+            jg, 5000, metric=m, block=128) for m in ("jaccard", "adamic_adar")}
+    return out
+
+
+@pytest.mark.parametrize("kind", ["directed", "repeated"])
+@pytest.mark.parametrize("metric", ["jaccard", "adamic_adar"])
+def test_topq_directed_and_repeated_rows_equal_gms_tpu(rmat9_directed, kind,
+                                                       metric):
+    """Common neighbours are out-neighbours counted once, as gms_tpu's row
+    product: on a directed graph the wedges u - x - v walk the transpose for
+    v, and a repeated entry counts once (topq_csr)."""
+    g, want = rmat9_directed[kind]
+    assert g.directed() == (kind == "directed")
+    want_e, want_s = want[metric]
+    got_e, got_s = lp.link_prediction_similarity(g, 5000, metric=metric,
+                                                 block=128, device="cpu")
+    n = g.num_nodes
+    if metric == "jaccard":
+        assert np.array_equal(got_e, want_e)
+        assert np.array_equal(got_s.view(np.int32), want_s.view(np.int32))
+        # the wedges K21 walks count |N(u) ∩ N(v)|, each x once
+        (ip, ix), (tp, tx) = lp.topq_csr(g, "cpu")
+        c = lp.ascending_sums(ip, ix, tp, tx, torch.ones(n), 0, n, 0,
+                              n).numpy()
+        A = np.zeros((n, n), np.float32)
+        A[np.repeat(np.arange(n), g.degrees), g.indices] = 1.0
+        assert np.array_equal(c, A @ A.T)
+        return
+    # AA: gms_tpu's float32 product and the ascending sums may differ in a
+    # score's last bit, which reorders pairs of all but equal score: the
+    # same pairs, each pair's score within rtol 1e-5
+    got_k = got_e[:, 0].astype(np.int64) * n + got_e[:, 1]
+    want_k = want_e[:, 0].astype(np.int64) * n + want_e[:, 1]
+    assert np.array_equal(np.sort(got_k), np.sort(want_k))
+    np.testing.assert_allclose(got_s[np.argsort(got_k)],
+                               want_s[np.argsort(want_k)], rtol=1e-5)
+    assert (got_s[:-1] >= got_s[1:]).all()  # +inf first (a deg-1 x)
+
+
+def test_strip_table_equals_numpy_from_bitmap():
+    """strip_table built by its torch ops on the CPU: entry [x, c] is
+    indptr[x] plus the set bits of row x's id-space bitmap below c·1024."""
+    n = 3000
+    g = build_csr(generate_rmat_el(12, 8, seed=5)[:20000] % n, num_nodes=n)
+    indptr = torch.from_numpy(g.indptr.astype(np.int64))
+    table = lp.strip_table(indptr, torch.from_numpy(g.indices), n).numpy()
+    cols = -(-n // lp.STRIP)
+    assert table.shape == (n, cols + 1)
+    words = lp.STRIP // 32
+    bm = np.zeros((n, cols * words), np.uint32)
+    u = np.repeat(np.arange(n), g.degrees)
+    v = g.indices.astype(np.int64)
+    np.bitwise_or.at(bm, (u, v >> 5), np.uint32(1) << (v & 31).astype(
+        np.uint32))
+    bits = np.unpackbits(bm.view(np.uint8), axis=1, bitorder="little")
+    per = bits.reshape(n, cols, lp.STRIP).sum(axis=2)
+    want = g.indptr[:n, None] + np.concatenate(
+        [np.zeros((n, 1), np.int64), np.cumsum(per, axis=1)], axis=1)
+    assert np.array_equal(table, want)
+    assert np.array_equal(table[:, -1], g.indptr[1:])
+
+
+@pytest.mark.parametrize("metric", ["adamic_adar", "resource"])
+def test_ascending_sums_replay_float32(metric):
+    """K21's AA/RA order: a numpy float32 replay adding each pair's common
+    neighbours' weights in ascending id, one rounding an addition, gives
+    ascending_sums' bits (deg-1 neighbours' +inf included)."""
+    g = build_csr(generate_rmat_el(9, 16, seed=7), num_nodes=512)
+    n = g.num_nodes
+    deg = torch.from_numpy(g.degrees.astype(np.int32))
+    w = vs.column_weights(deg, metric, n)
+    indptr = torch.from_numpy(g.indptr.astype(np.int64))
+    indices = torch.from_numpy(g.indices)
+    got = lp.ascending_sums(indptr, indices, indptr, indices, w, 64, 192,
+                            100, 400).numpy()
+    wn = w.numpy()
+    nbrs = [g.out_neigh(x) for x in range(n)]
+    want = np.zeros((128, 300), np.float32)
+    for i, u in enumerate(range(64, 192)):
+        for j, v in enumerate(range(100, 400)):
+            s = np.float32(0.0)
+            for x in np.intersect1d(nbrs[u], nbrs[v]):
+                s = np.float32(s + wn[x])
+            want[i, j] = s
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    assert np.isinf(want).any() == (metric == "adamic_adar")

@@ -238,3 +238,81 @@ def test_gloo_world_equals_gms_tpu(cases, want, size):
     assert [(r, s) for r, s, _ in ranks] == [(r, size) for r in range(size)]
     for _, _, got in ranks:
         _assert_answers(got, want)
+
+
+@pytest.mark.parametrize("scale", [8, 9])
+def test_expand_level_live_count_equals_gms_tpu(scale):
+    """K37's live count on the levels of a k=5 expansion of RMAT-8 and
+    RMAT-9 roots: with and without n_live, each level equals gms_tpu's
+    expand_level (S_out, R_out, n_children, pcs), at a cap up to four times
+    the survivors (the next level's rows mostly zero, as after cap
+    doublings; gms_tpu's takes at most N·W) and at a cap below them."""
+    import jax.numpy as jnp
+    from gms_tpu.algorithms import k_clique as jkc
+    from gms_tpu_torch.preprocessing import degeneracy, orient
+
+    g = build_csr(generate_rmat_el(scale, 16, seed=27491095),
+                  num_nodes=1 << scale)
+    rank, _ = degeneracy.degeneracy_ordering_rank(g)
+    dag = orient.orient(g, rank)
+    pg = PaddedGraph.from_csr(dag, device="cpu", lane=32)
+    ww = pg.d_pad // 32
+    roots = np.nonzero(np.asarray(dag.degrees) >= 4)[0][:64]
+    adj, S = kc.build_local_adj(
+        pg.nbr, torch.from_numpy(roots.astype(np.int32)), w_words=ww)
+    R = torch.arange(len(roots), dtype=torch.int32)
+    jadj = jnp.asarray(adj.numpy().view(np.uint32))
+    n = None
+    for need in (3, 2, 1):
+        total = int(kc.expand_level(S, R, adj, cap=0, need=need,
+                                    n_live=n)[2])
+        assert total > 3
+        big = min(4 * total, S.shape[0] * 32 * ww)
+        for cap in (big, total // 3):
+            jS, jR, jn, jp = jkc.expand_level(
+                jnp.asarray(S.numpy().view(np.uint32)), jnp.asarray(R.numpy()),
+                jadj, cap=cap, need=need)
+            for live in (None, n):
+                got = kc.expand_level(S, R, adj, cap=cap, need=need,
+                                      n_live=live)
+                assert np.array_equal(got[0].numpy().view(np.uint32),
+                                      np.asarray(jS))
+                assert np.array_equal(got[1].numpy(), np.asarray(jR))
+                assert (int(got[2]), int(got[3])) == (int(jn), int(jp))
+        live_rows = (S != 0).any(1).nonzero().reshape(-1)
+        assert n is None or int(live_rows.max()) < int(n) < S.shape[0] // 2
+        S, R, n, _ = kc.expand_level(S, R, adj, cap=big, need=need,
+                                     n_live=n)
+
+
+@pytest.mark.parametrize("k", [4, 5, 6])
+def test_sharded_kclique_doublings_equal_gms_tpu(mesh, cases, k,
+                                                 monkeypatch):
+    """sharded_kclique_count at world size 1, the levels handed their live
+    counts, against gms_tpu's on a one-device mesh and the oracle, with as
+    many runs: each chunk once plus its cap doublings."""
+    from gms_tpu.algorithms import k_clique as jkc
+    from gms_tpu.io.builder import build_csr as jbuild_csr
+    from gms_tpu.parallel import multi as jmulti
+    from gms_tpu.parallel import sharding as jsharding
+
+    el, n = cases["rmat8"]
+    runs = []
+    step = jmulti._sharded_kclique_step
+
+    def counted(*args, **kw):
+        runs.append(kw["caps"])
+        return step(*args, **kw)
+
+    monkeypatch.setattr(jmulti, "_sharded_kclique_step", counted)
+    jg = jbuild_csr(el, num_nodes=n)
+    want = jmulti.sharded_kclique_count(jg, k, jsharding.make_mesh(1),
+                                        root_chunk_per_shard=8)
+    assert want == jkc.kclique_count_oracle(jg, k)
+    stats = {}
+    got = multi.sharded_kclique_count(_port(el, n), k, mesh,
+                                      root_chunk_per_shard=8, stats=stats)
+    assert got == want
+    first = sum(c == runs[0] for c in runs)  # each chunk's first run
+    assert (stats["chunks"], stats["doublings"]) == (first, len(runs) - first)
+    assert (stats["doublings"] > 0) == (k > 4)
