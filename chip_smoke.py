@@ -60,6 +60,9 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      165,402,717; the host plan timed apart, the tiers and launches; K4,
      symmetrize_bits, hub_cover_bits and bk_stack_machine must have
      launched, and their entries in the kernels line carry these counts;
+     then one warm call under torch.profiler: each BK kernel's device time
+     and launches over the whole call (K9 = bk_stack_*), the host time and
+     the device's idle share;
  13. RMAT 14 again under the ADG ordering (eps 0.1): the same count;
  14. enumerate mode, with the counters set to 0 again just before its run:
      sink= at RMAT 12 (the rows sum to the count mode's count, every BK
@@ -73,12 +76,20 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      bk_stack_machine (count, and emit as sorted rows) on the jobs with
      IN >= 2048 and on the W=128 job with the most cliques up to
      BK_PLAIN_CLIQUES (the plain search would take minutes on the largest);
+     every job's bk_stack_machine(stats=) run: the items its warps took and
+     the warps' cycle split (walking, pivot, children, leaf filter,
+     waiting or donating), printed for the W=128 IN=1024 job and summed;
  16. each BK kernel against its plain version, exactly, with CUDA-event
      times, on every job of RMAT 12, whose enumerate run of phase 14 is
      part of the path. bk_stack_machine's kernels-line times are summed
      over every job of phases 15 and 16 it was held against plain on; its
-     bound is the larger of bytes over 3.35 TB/s and its operations, the
-     popcounts at 16 and the bitwise operations at 64 a clock per SM;
+     bound is the larger of the bytes it reads and writes (bk_stack_bytes:
+     the live roots' S0, wvalid, the adj rows of their S0 slots and their
+     valid cover rows) over 3.35 TB/s and its operations, the
+     popcounts at 16 and the bitwise operations at 64 a clock per SM,
+     counted as the function needs them (own_ops: the pivot on cand's
+     nonzero words, 2 * WW words a child, the running cover), the plain
+     tree's whole count beside it;
  17. k-clique-star main path, with the star launch counters set to 0 just
      before it: kclique_star_list(g, 4, device="cuda", rank=rank,
      mode="count") on RMAT 12 (average degree 16, seed 27491095, the graph
@@ -195,7 +206,9 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
  38. the other deterministic variants at RMAT 16, the counters set to 0
      before each: speculative random, strict JP-LF (its jp_round states
      recorded), strict random and dense_sparse(g, seed=0), each against its
-     digest; color_jp must have launched;
+     digest; color_jp must have launched; one warm strict JP-LF call
+     under torch.profiler: K22's device time over the whole call, its
+     launches and the idle share;
  39. dense_sparse on RMAT 14 with friend_number 32 (its friend components
      fire): 265 colors, digest dc688ce0f6f78322 (its component_step
      states recorded); color_components and K18 (pair_scores) must have
@@ -317,10 +330,12 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      1024 take the fused path (their share of the count printed), and
      init_items, bk_direct_stack and K4 must have launched; the fused
      default call timed beside it; hub_threshold=64 gives BK_GOLDEN too;
-     RMAT 12 gives 725,641 (tests/test_soak.py's reference count);
+     RMAT 12 gives 725,641 (tests/test_soak.py's reference count); one
+     warm direct call under torch.profiler, as phase 12's;
  52. the main path's RMAT 14 direct jobs: K36 bk_direct_stack timed on
-     each whole, with the items its warps took (the root items and the
-     queued nodes) and the most one warp took; K35 init_items against its
+     each whole, with its stats= run: the items its warps took (the root
+     items and the queued nodes), the most one warp took and the warps'
+     cycle split, as phase 15's; K35 init_items against its
      plain version on each, exactly, its kernels-line times and bound
      (bytes: the roots, their rows' first min(W, deg + 1) slots, the ranks
      read, the two bitsets written) summed over them; K36 against its plain
@@ -331,8 +346,9 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      to the job's count (direct_cut); its kernels-line times and bound
      summed over those compared runs, the bound the larger of bytes (the
      adj rows of each live root's slots below its degree, the live roots'
-     bitsets) and its tree's popcounts at 16 and bitwise operations at 64 a
-     clock per SM;
+     bitsets) and its popcounts at 16 and bitwise operations at 64 a clock
+     per SM, as the function needs them (own_ops), the plain tree's whole
+     count beside it;
  53. sharded_kclique_count at world size 1 over NCCL (its store on
      127.0.0.1) on RMAT 16, k = 5, with the k-clique counters
      set to 0 just before it: 4,600,426,489 (KCLIQUE_RUNS); its chunks and
@@ -732,63 +748,23 @@ def device_us(fn, calls: int = BATCH_STEPS) -> tuple:
     return (round(sum(per.values()), 3) if per else None), per
 
 
-def bare_kernel(key: str) -> str:
-    """A device event's bare function name: namespaces, template arguments
-    and parameters cut ('void (anonymous namespace)::f<true>(int)' -> 'f');
-    memsets and copies keep their own names."""
-    if key.startswith(("Memset", "Memcpy")):
-        return key
-    name = key.removeprefix("void ").replace("(anonymous namespace)::", "")
-    return name.split("<", 1)[0].split("(", 1)[0].split("::")[-1].strip()
+def walk_split(stats) -> str:
+    """A K9 or K36 stats= run's items and its per-warp cycle split."""
+    cyc = stats["cycles"]
+    tot = sum(cyc.values())
+    parts = ", ".join(f"{k} {v / max(tot, 1):.4f}" for k, v in cyc.items())
+    return (f"items {stats['items']} over {stats['warps']} warps, at most "
+            f"{stats['max_items']} a warp; {tot} warp cycles: {parts}")
 
 
-def profile_window(fn):
-    """One call of fn under torch.profiler (CPU and CUDA activities), ended
-    by a synchronize: (its result, host s, {bare kernel: [device µs,
-    launches]}, device µs summed over every device event). The device's
-    idle share over the window is 1 - busy / host time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        host_s = time.perf_counter() - t0
-    per = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CPU:
-            continue
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = e.self_cuda_time_total
-        if t > 0:
-            acc = per.setdefault(bare_kernel(e.key), [0.0, 0])
-            acc[0] += t
-            acc[1] += e.count
-    return out, host_s, per, sum(t for t, _ in per.values())
-
-
-def window_lines(tag: str, host_s, per, busy, groups) -> dict:
-    """Prints a profiler window: each group's device ms and launches
-    (groups: {label: bare kernel names}), the device's busy ms and idle
-    share, and the eight costliest device events. Returns {label: (ms,
-    launches)}."""
-    sums = {}
-    for label, names in groups.items():
-        ms = sum(per[k][0] for k in names if k in per) / 1e3
-        n = sum(per[k][1] for k in names if k in per)
-        sums[label] = (ms, n)
-        print(f"    {tag} {label}: device {ms:.4f} ms over {n} launches "
-              f"({', '.join(names)})")
-    print(f"    {tag} window: host {host_s:.4f} s, device busy "
-          f"{busy / 1e3:.4f} ms, idle share {1 - busy / 1e6 / host_s:.4f}")
-    top = sorted(per.items(), key=lambda kv: -kv[1][0])[:8]
-    print(f"    {tag} costliest: " + "; ".join(
-        f"{k[:40]} {t / 1e3:.4f} ms x{n}" for k, (t, n) in top))
-    return sums
+def add_split(acc, stats) -> None:
+    """Sums a stats= run's items and cycles into acc."""
+    acc["items"] = acc.get("items", 0) + stats["items"]
+    for k in ("max_items", "warps"):
+        acc[k] = max(acc.get(k, 0), stats[k])
+    cyc = acc.setdefault("cycles", {})
+    for k, v in stats["cycles"].items():
+        cyc[k] = cyc.get(k, 0) + v
 
 
 def schedule_build(indptr, reps: int = 5):
@@ -1172,15 +1148,33 @@ def rows_err(got, want) -> int:
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
+def own_ops(stats, rates) -> tuple:
+    """(popcounts, bitwise operations, ms) a search needs at least, from its
+    plain version's stats: where the plain version counts them (K9, K36),
+    the pivot's words by the cheaper of two ways a node (each member of
+    cand | fini on cand's nonzero words, or each member of cand's row added
+    to every score), each child's 2 * WW words and K9's running cover; else (K12) the plain tree's own counts. The ms is
+    the larger of the popcounts over rates[0] and the bitwise operations
+    (the pivot's ANDs included) over rates[1]."""
+    if "popc_need" in stats:
+        popc = stats["popc_need"]
+        bit = popc + stats["child_ops"] + stats.get("cover_ops", 0)
+    else:
+        popc, bit = stats["popc_ops"], stats["bit_ops"]
+    return popc, bit, max(popc / rates[0], bit / rates[1]) * 1e3
+
+
 def search_compare(timing, label, kernel, plain, nbytes, rates):
     """Holds a search kernel (K9, K12) against one plain run on a job: its
     count and its emitted rows as sorted sets; prints a line. kernel(emit)
     returns the count, or (count, rows) with emit; plain(emit, stats) the
     same, and with stats it counts the tree's word operations by type,
     whose bound is the larger of the popcounts over `rates[0]` and the
-    bitwise operations over `rates[1]` (different units). Returns
-    (max_abs_err, kernel ms, emit ms, plain ms, bytes bound ms, operations
-    bound ms, popcounts, bitwise operations)."""
+    bitwise operations over `rates[1]` (different units; own_ops; the plain
+    tree's whole count, |cand | fini| * WW popcounts a node and the leaf
+    test's |R| + 1 rows, is printed beside it). Returns (max_abs_err,
+    kernel ms, emit ms, plain ms, bytes bound ms, operations bound ms,
+    popcounts, bitwise operations, the plain tree's operations ms)."""
     stats = {}
     want, want_out = plain(True, stats)
     got = kernel(False)
@@ -1191,26 +1185,30 @@ def search_compare(timing, label, kernel, plain, nbytes, rates):
     et = timing.ms(lambda: kernel(True), KERNEL_REPS)
     pt = timing.ms(lambda: plain(False, None), 1)
     bt = nbytes / HBM_BYTES_PER_S * 1e3
-    ot = max(stats["popc_ops"] / rates[0], stats["bit_ops"] / rates[1]) * 1e3
+    popc, bit, ot = own_ops(stats, rates)
+    tree = max(stats["popc_ops"] / rates[0],
+               stats["bit_ops"] / rates[1]) * 1e3
     print(f"    {label}: count {want.tolist()}, max_abs_err {diff}, kernel "
           f"{kt:.4f} ms (emit {et:.4f} ms), bound {max(bt, ot):.4f} ms "
-          f"({nbytes} bytes -> {bt:.4f} ms; {stats['popc_ops']} popcounts, "
-          f"{stats['bit_ops']} bitwise ops -> {ot:.4f} ms), plain "
-          f"{pt:.4f} ms")
-    return diff, kt, et, pt, bt, ot, stats["popc_ops"], stats["bit_ops"]
+          f"({nbytes} bytes -> {bt:.4f} ms; {popc} popcounts, {bit} bitwise "
+          f"ops -> {ot:.4f} ms; the plain tree's {stats['popc_ops']} and "
+          f"{stats['bit_ops']} -> {tree:.4f} ms), plain {pt:.4f} ms")
+    return diff, kt, et, pt, bt, ot, popc, bit, tree
 
 
 def search_summary(results):
     """search_compare's results summed over jobs: (max_abs_err, kernel ms,
-    emit ms, plain ms, popcounts, bitwise operations, bound ms, bound_by);
-    each job's bound is the larger of its byte and operation times."""
+    emit ms, plain ms, popcounts, bitwise operations, bound ms, bound_by,
+    the plain tree's bound ms); each job's bound is the larger of its byte
+    and operation times."""
     err = max(r[0] for r in results)
     k_ms, e_ms, p_ms, popc, bit = (sum(r[i] for r in results)
                                    for i in (1, 2, 3, 6, 7))
     bound = sum(max(r[4], r[5]) for r in results)
+    tree = sum(max(r[4], r[8]) for r in results)
     by = ("operations" if sum(r[5] for r in results) >
           sum(r[4] for r in results) else "bytes")
-    return err, k_ms, e_ms, p_ms, popc, bit, bound, by
+    return err, k_ms, e_ms, p_ms, popc, bit, bound, by, tree
 
 
 def bk_compare(timing, label, univ, rates):
@@ -1221,7 +1219,23 @@ def bk_compare(timing, label, univ, rates):
         timing, label, lambda emit: bk.bk_stack_machine(*univ, emit=emit),
         lambda emit, stats: bk.bk_stack_machine_plain(*univ, emit=emit,
                                                       stats=stats),
-        sum(t.numel() * t.element_size() for t in univ) + 8, rates)
+        bk_stack_bytes(*univ), rates)
+
+
+def bk_stack_bytes(adj, s0, live0, m, wvalid) -> int:
+    """K9's bytes in count mode: live0, the live roots' S0 and wvalid, the
+    adj rows of each slot in their S0 (every node's cand and fini lie in
+    S0: padded slots and dead roots' rows stay unread), the M rows that
+    wvalid marks for them (the cover; the padding past each root's
+    in-degree stays unread), and the int64 total written."""
+    from gms_tpu_torch.algorithms.triangle_count import popcount32
+    ww = s0.shape[1]
+    live = live0.bool()
+    n_live = int(live.sum())
+    slots = int(popcount32(s0[live]).sum())
+    covers = int(wvalid[live].sum())
+    return (live0.numel() + 8 + n_live * wvalid.shape[1]
+            + 4 * ww * (n_live + slots + covers))
 
 
 def bk_jobs(plan):
@@ -1252,6 +1266,8 @@ def bk_calls(bk, plan, label, chunk, ww, in_w, cover, calls):
 
 def bk_phases(timing, report) -> None:
     """Phases 12-16: the Bron-Kerbosch path (see the module docstring)."""
+    from gms_tpu_torch.bench.profiling import (BK_GROUPS, profile_window,
+                                               window_lines)
     from gms_tpu_torch.algorithms import bron_kerbosch as bk
     from gms_tpu_torch.algorithms import k_clique as kc
     from gms_tpu_torch.io.builder import build_csr
@@ -1298,6 +1314,11 @@ def bk_phases(timing, report) -> None:
                   "bk_stack_machine")
     check(all(main[n] > 0 for n in count_path),
           f"a kernel of the BK count path never launched: {main}")
+    again, host_s, per, busy = profile_window(
+        lambda: bk.bron_kerbosch(g, device="cuda", rank=rank))
+    check(again == BK_GOLDEN, f"the profiled fused call gave {again}")
+    window_lines("[12] warm fused call under torch.profiler:", host_s, per,
+                 busy, BK_GROUPS)
     del plan
 
     # [13] the ADG ordering gives the same count
@@ -1370,22 +1391,32 @@ def bk_phases(timing, report) -> None:
     k4_ms = k9_ms = 0.0
     k4_bytes = k9_bytes = total = 0
     jobs = []
+    whole = {}
     for label, chunk, ww, in_w, cover in bk_jobs(plan):
         univ, adj = bk_calls(bk, plan, label, chunk, ww, in_w, cover, calls)
         n = int(bk.bk_stack_machine(*univ))
         total += n
+        st = {}
+        check(int(bk.bk_stack_machine(*univ, stats=st)) == n,
+              f"{label}: the stats= run's count differs")
+        add_split(whole, st)
+        if ww == 4 and in_w == 1024:
+            print(f"    W=128 IN=1024 job ({label}), stats=: "
+                  f"{walk_split(st)}")
         k4_ms += timing.ms(lambda c=chunk, w=ww: (
             kc.build_local_adj(nbr, c, w_words=w)), 3)
         t9 = timing.ms(lambda u=univ: bk.bk_stack_machine(*u), 3)
         k9_ms += t9
         k4_bytes += local_adj_bytes(plan.padded, chunk, ww)
-        k9_bytes += sum(t.numel() * t.element_size() for t in univ) + 8
+        k9_bytes += bk_stack_bytes(*univ)
         jobs.append((f"RMAT {BK_SCALE} {label}", ww, in_w, n, univ))
         if t9 > 10:
             print(f"    W={32 * ww} IN={in_w} real roots "
                   f"{int((chunk != nbr.shape[0]).sum())}: {n} cliques, "
                   f"bk_stack_machine {t9:.4f} ms")
     check(total == BK_GOLDEN, f"RMAT {BK_SCALE} job by job: {total}")
+    print(f"[15] bk_stack_machine over the {len(jobs)} jobs, stats=: "
+          f"{walk_split(whole)}")
     entries = {}
     for name, kcalls in calls.items():
         entries[name] = compare(timing, kcalls, plain_reps=1)
@@ -1444,13 +1475,13 @@ def bk_phases(timing, report) -> None:
         report.append(kernel_entry(name, main[name], max(err, main_err),
                                    *rest))
     # K9: summed over every job it was held against its plain version on
-    err, k_ms, e_ms, p_ms, popc, bit, bound, by = search_summary(stack)
+    err, k_ms, e_ms, p_ms, popc, bit, bound, by, tree = search_summary(stack)
     print(f"[16] bk_stack_machine: {len(stack)} jobs held against the plain "
           f"version ({len(stack) - len(plan.jobs)} of RMAT {BK_SCALE}, "
           f"every job of RMAT {BK_SMALL}), max_abs_err {err} (count and "
           f"emitted rows), kernel {k_ms:.4f} ms (emit {e_ms:.4f} ms), bound "
-          f"{bound:.4f} ms ({by}; {popc} popcounts, {bit} bitwise ops), "
-          f"plain {p_ms:.4f} ms")
+          f"{bound:.4f} ms ({by}; {popc} popcounts, {bit} bitwise ops; the "
+          f"plain tree's count {tree:.4f} ms), plain {p_ms:.4f} ms")
     check(err == 0, f"bk_stack_machine disagrees with its plain version by "
                     f"{err}")
     report.append(kernel_entry("bk_stack_machine", main["bk_stack_machine"],
@@ -1681,7 +1712,7 @@ def star_phases(timing, report) -> None:
         report.append(kernel_entry(name, launches[name], err, k_ms, p_ms,
                                    bound_ms, by))
         del calls[:]
-    err, k_ms, e_ms, p_ms, popc, bit, bound, by = search_summary(stack)
+    err, k_ms, e_ms, p_ms, popc, bit, bound, by, _ = search_summary(stack)
     print(f"[22] star_stack: {len(stack)} of {len(jobs)} jobs held against the "
           f"plain version (count and emitted rows), max_abs_err {err}, "
           f"kernel {k_ms:.4f} ms (emit {e_ms:.4f} ms), bound {bound:.4f} ms "
@@ -2169,6 +2200,7 @@ def weighted_topq_fault(g, edges, scores, plain_scores, metric):
 def lp_phases(timing, report) -> None:
     """Phases 30-35: link prediction and vertex similarity (see the module
     docstring)."""
+    from gms_tpu_torch.bench.profiling import profile_window, window_lines
     from gms_tpu_torch.algorithms import link_prediction as lp
     from gms_tpu_torch.algorithms import similarity as vs
     from gms_tpu_torch.graphs.tiles import PaddedGraph
@@ -2774,6 +2806,7 @@ def component_calls(gc, label, state):
 
 def coloring_phases(timing, report) -> None:
     """Phases 37-41: graph coloring (see the module docstring)."""
+    from gms_tpu_torch.bench.profiling import profile_window, window_lines
     from gms_tpu_torch.algorithms import coloring as gc
     from gms_tpu_torch.algorithms import similarity as vs
     from gms_tpu_torch.io.builder import build_csr
@@ -2846,6 +2879,12 @@ def coloring_phases(timing, report) -> None:
               f"{gc.ROUNDS['jones_plassmann']} rounds, {dt:.4f} s; launches "
               f"{run_launches[key]}")
     check(run_launches["strict-lf"]["color_jp"] > 0, "K22 never launched")
+    kw, _, want_d = COLOR_GOLDEN["strict-lf"]
+    c, host_s, per, busy = profile_window(
+        lambda: gc.jones_plassmann(g, device="cuda", **kw))
+    check(color_digest(c) == want_d, "the profiled strict JP-LF call's colors")
+    window_lines("[38] warm strict JP-LF call under torch.profiler:", host_s,
+                 per, busy, {"K22": ("jp_decide", "jp_commit")})
     gc.reset_launches()
     vs.reset_launches()
     t0 = time.perf_counter()
@@ -4042,18 +4081,22 @@ def direct_compare(timing, label, univ, depth, rates, nbytes):
                    KERNEL_REPS)
     pt = timing.ms(lambda: bk.bk_direct_stack_plain(*univ, depth=depth), 1)
     bt = nbytes / HBM_BYTES_PER_S * 1e3
-    popc, bit = stats["popc_ops"], stats["bit_ops"]
-    ot = max(popc / rates[0], bit / rates[1]) * 1e3
+    popc, bit, ot = own_ops(stats, rates)
+    tree = max(stats["popc_ops"] / rates[0],
+               stats["bit_ops"] / rates[1]) * 1e3
     print(f"    {label}: count {int(want[0])}, max_abs_err {diff}, kernel "
           f"{kt:.4f} ms, bound {max(bt, ot):.4f} ms ({nbytes} bytes -> "
           f"{bt:.4f} ms; {popc} popcounts, {bit} bitwise ops -> {ot:.4f} "
-          f"ms), plain {pt:.4f} ms")
-    return diff, kt, 0.0, pt, bt, ot, popc, bit
+          f"ms; the plain tree's {stats['popc_ops']} and {stats['bit_ops']} "
+          f"-> {tree:.4f} ms), plain {pt:.4f} ms")
+    return diff, kt, 0.0, pt, bt, ot, popc, bit, tree
 
 
 def direct_phases(timing, report, g):
     """Phases 51-52: the direct=True Bron-Kerbosch variant (see the module
     docstring); g is RMAT 14. Returns RMAT 12 and its rank."""
+    from gms_tpu_torch.bench.profiling import (BK_GROUPS, profile_window,
+                                               window_lines)
     from gms_tpu_torch.algorithms import bron_kerbosch as bk
     from gms_tpu_torch.algorithms import k_clique as kc
     from gms_tpu_torch.io.builder import build_csr
@@ -4094,6 +4137,11 @@ def direct_phases(timing, report, g):
           f"a kernel of the direct path never launched: {main}")
     check((main["bk_stack_machine"] > 0) == bool(len(hubs)),
           f"the hub roots' fused path: {main}")
+    again, host_s, per, busy = profile_window(
+        lambda: bk.bron_kerbosch(g, device="cuda", rank=rank, direct=True))
+    check(again == BK_GOLDEN, f"the profiled direct call gave {again}")
+    window_lines("[51] warm direct call under torch.profiler:", host_s, per,
+                 busy, BK_GROUPS)
     hubs64 = np.nonzero(g.degrees > BK_DIRECT_HUB)[0].astype(np.int32)
     bk.reset_launches()
     t0 = time.perf_counter()
@@ -4146,9 +4194,8 @@ def direct_phases(timing, report, g):
         k36_main += ms
         path_kb = 8 * depth * (2 * ww + 1) * 4 / 1024
         print(f"    {label} real roots {int(univ[3].sum())}: {n} cliques, "
-              f"overflow {bool(ovf)}, {ms:.4f} ms; items {stats['items']} "
-              f"over {stats['warps']} warps, at most {stats['max_items']} a "
-              f"warp; paths {path_kb:.1f} KB a block")
+              f"overflow {bool(ovf)}, {ms:.4f} ms; paths {path_kb:.1f} KB a "
+              f"block; stats=: {walk_split(stats)}")
         check(not ovf, f"K36 overflowed at W={W}")
         if n * W * ww > BK_DIRECT_PLAIN_WORDS:
             live, note = direct_cut(univ, depth, n)
@@ -4163,12 +4210,12 @@ def direct_phases(timing, report, g):
     check(err == 0, f"init_items disagrees with its plain version by {err}")
     report.append(kernel_entry("init_items", main["init_items"], err, k_ms,
                                p_ms, bound_ms, by))
-    err, k_ms, _, p_ms, popc, bit, bound, by = search_summary(results)
+    err, k_ms, _, p_ms, popc, bit, bound, by, tree = search_summary(results)
     print(f"[52] bk_direct_stack: {len(results)} RMAT {BK_SCALE} jobs (the "
           f"wide ones cut), max_abs_err {err} (count and overflow), kernel "
           f"{k_ms:.4f} ms, bound {bound:.4f} ms ({by}; {popc} popcounts, "
-          f"{bit} bitwise ops), plain {p_ms:.4f} ms; the whole jobs "
-          f"{k36_main:.4f} ms (median of 3)")
+          f"{bit} bitwise ops; the plain tree's count {tree:.4f} ms), plain "
+          f"{p_ms:.4f} ms; the whole jobs {k36_main:.4f} ms (median of 3)")
     check(err == 0, f"bk_direct_stack disagrees with its plain version by "
                     f"{err}")
     report.append(kernel_entry("bk_direct_stack", main["bk_direct_stack"],
@@ -4222,6 +4269,7 @@ def world_rank_counts(mesh):
 
 def multi_phases(timing, report, g18, g14, g12, lp_pairs):
     """Phases 53-55: the multi-device layer (see the module docstring)."""
+    from gms_tpu_torch.bench.profiling import profile_window, window_lines
     import torch.distributed as dist
     from gms_tpu_torch.algorithms import k_clique as kc
     from gms_tpu_torch.algorithms import similarity as vs

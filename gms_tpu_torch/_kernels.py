@@ -86,9 +86,9 @@ SIGNATURES = {
     "bk_stack": {
         # adj, s0, live0, C, w_words, M, wvalid, in_width, root offsets,
         # root ext, transposed cover, control words, queue, ready flags,
-        # queue capacity, out rows, out capacity, total, stream
+        # queue capacity, out rows, out capacity, stats, total, stream
         "bk_stack": (_P, _P, _P, _L, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-                     _L, _P, _L, _P, _P),
+                     _L, _P, _L, _I, _P, _P),
     },
     "bk_decode": {
         # nbr, v_pad, d_pad, chunk, C, out, L, w_words, gid, members, stream
@@ -227,10 +227,10 @@ SIGNATURES = {
     },
     "bk_direct": {
         # adj, cand0, fini0, live0, C, w_words, depth, root offsets, root
-        # ext, control words, queue, ready flags, queue capacity, total,
-        # stream
+        # ext, control words, queue, ready flags, queue capacity, stats,
+        # total, stream
         "bk_direct_stack": (_P, _P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P,
-                            _L, _P, _P),
+                            _L, _I, _P, _P),
     },
     "kc_expand": {
         # S, R, N, n_live (or null), adj, C, w_words, need, cap, grid,

@@ -33,6 +33,11 @@ hand-written CUDA kernel here (csrc/):
     bk_direct_stack        csrc/bk_direct.cu      (the search of
                                                    bk_count_chunk, :131)
 
+bk_stack_machine and bk_direct_stack walk their trees with one core,
+csrc/bk_walk.cuh: the root's rows in the warp's registers up to W = 128,
+K9's leaf filter as a running cover on the path, the wider pivot by
+bit-sliced counters.
+
 The direct=True variant, as gms_tpu's (:1115-1140): roots of degree above
 hub_threshold (at most 1024) take the fused path; the others are cut into
 degree tiers of the undirected graph padded at lane 32, and per chunk
@@ -87,13 +92,16 @@ LAUNCHES = dict.fromkeys(("symmetrize_bits", "hub_cover_bits",
 # elements per step of the plain versions' broadcast tensors
 _PLAIN_BUDGET = 1 << 24
 
-# K9's queue of donated nodes (csrc/bk_stack.cu) holds at most _QUEUE_NODES
-# nodes and _QUEUE_BYTES bytes; the kernel chooses its own grid and where
-# its search paths lie
+# The queue of donated nodes of K9 and K36 (csrc/bk_walk.cuh) holds at most
+# _QUEUE_NODES nodes and _QUEUE_BYTES bytes; the kernels choose their own
+# grid and where their search paths lie
 _QUEUE_NODES = 1 << 20
 _QUEUE_BYTES = 1 << 28
 
 _INT32_MAX = int(np.iinfo(np.int32).max)
+
+# The parts of a walk's per-warp cycle split (csrc/bk_walk.cuh's WalkPart)
+WALK_PARTS = ("walk", "pivot", "child", "leaf", "wait")
 
 
 def reset_launches() -> None:
@@ -338,19 +346,45 @@ def _check_stack_inputs(name, adj, S0, live0, M, wvalid):
             raise ValueError(f"{name}: {what} must be contiguous")
 
 
+def _pivot_need(member, cand):
+    """The pivot scores' words a batch of nodes needs, the cheaper of two
+    ways a node: each member of cand ∪ fini scored on cand's nonzero words,
+    or each member of cand's row added to every score."""
+    WW = cand.shape[1]
+    return torch.minimum(member.sum(1) * (cand != 0).sum(1),
+                         popcount32(cand).sum(1) * WW).sum()
+
+
+def _covered(R, root, M, wvalid):
+    """bool[B]: whether some valid lower neighbour w of root covers R (R ⊆
+    M[root, w]), in steps of at most _PLAIN_BUDGET words."""
+    step = max(1, _PLAIN_BUDGET // (M.shape[1] * M.shape[2]))
+    out = torch.zeros(R.shape[0], dtype=torch.bool, device=R.device)
+    for p in range(0, R.shape[0], step):
+        rp = root[p:p + step]
+        out[p:p + step] = (((R[p:p + step, None, :] & ~M[rp]) == 0).all(2)
+                           & wvalid[rp]).any(1)
+    return out
+
+
 def bk_stack_machine_plain(adj, S0, live0, M, wvalid, *, emit: bool = False,
                            stats: dict | None = None):
     """Plain version of bk_stack_machine: the same tree, expanded
     breadth-wise in batches of nodes (cand, fini, R, root) kept in a LIFO
     so memory stays bounded; leaves are filtered in batches.
 
-    With `stats`, adds the kernel's word operations without its early
-    exit, by type: stats["popc_ops"], the popcounts of the pivot scores
-    (|cand ∪ fini|·WW per expanded node), and stats["bit_ops"], the 32-bit
-    bitwise operations — the pivot scores' ANDs, 2·WW per child (cand' and
-    fini', one three-input AND/OR each) and, per leaf tested, (|R| + 1)
-    words of the transposed cover over the root's valid rows, (|R| + 1)·
-    ⌈indeg / 32⌉.
+    With `stats`, adds the tree's word operations by type:
+    stats["popc_ops"], the popcounts of the pivot scores (|cand ∪ fini|·WW
+    per expanded node), and stats["bit_ops"], the 32-bit bitwise operations
+    — the pivot scores' ANDs, 2·WW per child (cand' and fini', one
+    three-input AND/OR each) and, per leaf tested, (|R| + 1) words of the
+    transposed cover over the root's valid rows, (|R| + 1)·⌈indeg / 32⌉;
+    and what the function needs at least: stats["popc_need"], the pivot
+    scores' words by the cheaper of two ways a node (|cand ∪ fini| · cand's
+    nonzero words, or |cand| · WW, each member's row added to every score),
+    stats["child_ops"], the 2·WW words of each child, and
+    stats["cover_ops"], a running cover's ⌈indeg / 32⌉ words for each child
+    formed (searched or leaf) whose parent's cover is not empty.
     """
     C, W, WW = adj.shape
     IN = M.shape[1]
@@ -358,6 +392,7 @@ def bk_stack_machine_plain(adj, S0, live0, M, wvalid, *, emit: bool = False,
     below = _below_words(W, WW, dev)
     onehot = pack_bits(torch.eye(W, dtype=torch.bool, device=dev))
     total, popc, bit = _zero(dev), _zero(dev), _zero(dev)
+    popc_need, cover, kids = _zero(dev), _zero(dev), 0
     in_words = (wvalid.sum(1) + 31) // 32
     rows = []
 
@@ -394,6 +429,11 @@ def bk_stack_machine_plain(adj, S0, live0, M, wvalid, *, emit: bool = False,
         popc += member.sum() * WW
         ext = cand & ~A[torch.arange(A.shape[0], device=dev), pivot]
         item, i = unpack_bits(ext).nonzero(as_tuple=True)
+        if stats is not None:
+            popc_need += _pivot_need(member, cand)
+            kids += 2 * WW * item.shape[0]
+            live = _covered(R, root, M, wvalid)
+            cover += (live[item] * in_words[root[item]]).sum()
         extb = ext[item] & below[i]
         ai = A[item, i]
         cC = (cand[item] & ~extb) & ai
@@ -408,35 +448,65 @@ def bk_stack_machine_plain(adj, S0, live0, M, wvalid, *, emit: bool = False,
             push = ~c_empty
             stack.append((cC[push], cF[push], cR[push], root[item[push]]))
     if stats is not None:
-        stats["popc_ops"] = stats.get("popc_ops", 0) + int(popc)
-        stats["bit_ops"] = stats.get("bit_ops", 0) + int(bit)
+        for key, n in (("popc_ops", popc), ("bit_ops", bit),
+                       ("popc_need", popc_need), ("child_ops", kids),
+                       ("cover_ops", cover)):
+            stats[key] = stats.get(key, 0) + int(n)
     if not emit:
         return total
     out = torch.cat(rows) if rows else adj.new_zeros((0, WW + 1))
     return total, out
 
 
-def _launch_stack(adj, S0, live0, M, wvalid, total, out=None):
+def _no_cpu_stats(name: str, stats: dict | None) -> None:
+    """A walk's `stats` are its kernel's counters, which a CPU tensor does
+    not reach."""
+    if stats is not None:
+        raise ValueError(f"{name}: stats= reads the kernel's counters, and "
+                         f"the inputs lie on the CPU; {name}_plain(stats=) "
+                         f"counts the tree's operations")
+
+
+def _walk_stats(ctl, stats: dict) -> None:
+    """Reads back a walk's counters from its control words (the fourth
+    line): the items its warps took (root items and queued nodes), the most
+    one warp took, the warps, the per-warp cycles by part (WALK_PARTS),
+    summed over warps, the children formed (steps), the pivots taken
+    (nodes) and the children formed on a path level in device memory
+    (deep_steps)."""
+    n = len(WALK_PARTS)
+    vals = ctl[49:55 + n].tolist()
+    stats.update(items=vals[0], max_items=vals[1], warps=vals[2],
+                 cycles=dict(zip(WALK_PARTS, vals[3:3 + n])),
+                 steps=vals[3 + n], nodes=vals[4 + n],
+                 deep_steps=vals[5 + n])
+
+
+def _launch_stack(adj, S0, live0, M, wvalid, total, out=None, stats=None):
     """One launch of K9 (csrc/bk_stack.cu): a count pass, or with `out` an
-    emit pass writing out.shape[0] rows."""
+    emit pass writing out.shape[0] rows; with `stats`, the counting
+    instantiation, read back by _walk_stats."""
     C, W, WW = adj.shape
     dev = adj.device
-    stride = 3 * WW + 1
+    stride = 3 * WW + 2  # a queued node: cand | fini | R | root | level
     cap = max(1024, min(_QUEUE_NODES, _QUEUE_BYTES // (stride * 4)))
+    ctl = torch.zeros(64, dtype=torch.int64, device=dev)  # 4 lines
     _kernels.launch(
         "bk_stack", "bk_stack", adj, S0, live0, C, WW, M, wvalid, M.shape[1],
         torch.empty(C + 2, dtype=torch.int64, device=dev),
         torch.empty(C * WW, dtype=torch.int32, device=dev),
         torch.empty(C * (W + 1) * -(-M.shape[1] // 32), dtype=torch.int32,
                     device=dev),
-        torch.zeros(64, dtype=torch.int64, device=dev),  # 4 lines
-        torch.empty(cap * stride, dtype=torch.int32, device=dev),
+        ctl, torch.empty(cap * stride, dtype=torch.int32, device=dev),
         torch.zeros(cap, dtype=torch.int32, device=dev), cap, out,
-        0 if out is None else out.shape[0], total)
+        0 if out is None else out.shape[0], int(stats is not None), total)
     LAUNCHES["bk_stack_machine"] += 1
+    if stats is not None:
+        _walk_stats(ctl, stats)
 
 
-def bk_stack_machine(adj, S0, live0, M, wvalid, *, emit: bool = False):
+def bk_stack_machine(adj, S0, live0, M, wvalid, *, emit: bool = False,
+                     stats: dict | None = None):
     """The globally maximal cliques rooted at a chunk, from its prebuilt
     local universe: adj int32[C, W, WW] symmetrized induced adjacency, S0
     int32[C, WW] initial candidates, live0 bool[C] real roots, M int32[C,
@@ -448,13 +518,23 @@ def bk_stack_machine(adj, S0, live0, M, wvalid, *, emit: bool = False):
     int32[count, WW+1]), each row (R bits | root-local index) as gms_tpu's
     OUT rows (the order of rows may differ); the kernel counts first, reads
     the count back and sizes `out` exactly, so it cannot overflow.
+
+    With `stats` the count pass reads back stats["items"] (the items its
+    warps took: the root items and the queued nodes), stats["max_items"]
+    (the most one warp took), stats["warps"], stats["cycles"], the warps'
+    cycles by part of the walk (WALK_PARTS), summed, stats["steps"], the
+    children formed, stats["nodes"], the pivots taken, and
+    stats["deep_steps"], the children formed on a path level in device
+    memory. These are the kernel's counters: on the CPU `stats` raises
+    (bk_stack_machine_plain's `stats` counts the tree's operations).
     """
     name = "bk_stack_machine"
     _check_stack_inputs(name, adj, S0, live0, M, wvalid)
     if not _on_cuda(name, adj, S0, live0, M, wvalid):
+        _no_cpu_stats(name, stats)
         return bk_stack_machine_plain(adj, S0, live0, M, wvalid, emit=emit)
     total = _zero(adj.device)
-    _launch_stack(adj, S0, live0, M, wvalid, total)
+    _launch_stack(adj, S0, live0, M, wvalid, total, stats=stats)
     if not emit:
         return total
     out = torch.empty((int(total), adj.shape[2] + 1), dtype=torch.int32,
@@ -549,15 +629,18 @@ def bk_direct_stack_plain(adj, cand0, fini0, live0, *,
 
     With `stats`, adds the tree's word operations by type, as
     bk_stack_machine_plain: stats["popc_ops"], |cand ∪ fini|·WW per expanded
-    node (the pivot's popcounts), and stats["bit_ops"], the pivot's ANDs
-    and 2·WW per child.
+    node (the pivot's popcounts), stats["bit_ops"], the pivot's ANDs and
+    2·WW per child, and what the function needs at least:
+    stats["popc_need"], the pivot scores' words by the cheaper of two ways
+    a node (|cand ∪ fini| · cand's nonzero words, or |cand| · WW), and
+    stats["child_ops"], the 2·WW words of each child.
     """
     C, W, WW = adj.shape
     dev = adj.device
     below = _below_words(W, WW, dev)
     c_empty = (cand0 == 0).all(1)
     total = (live0 & c_empty & (fini0 == 0).all(1)).sum()
-    popc, bit = _zero(dev), _zero(dev)
+    popc, bit, popc_need, kids = _zero(dev), _zero(dev), _zero(dev), 0
     work = (live0 & ~c_empty).nonzero()[:, 0]
     stack = [(cand0[work], fini0[work], work, -1)]
     batch = max(1, _PLAIN_BUDGET // (W * WW))
@@ -578,6 +661,8 @@ def bk_direct_stack_plain(adj, cand0, fini0, live0, *,
         cC = (cand[item] & ~extb) & ai
         cF = (fini[item] | extb) & ai
         popc += member.sum() * WW
+        popc_need += _pivot_need(member, cand)
+        kids += 2 * WW * item.shape[0]
         bit += member.sum() * WW + 2 * WW * item.shape[0]
         ce = (cC == 0).all(1)
         total += (ce & (cF == 0).all(1)).sum()
@@ -586,8 +671,9 @@ def bk_direct_stack_plain(adj, cand0, fini0, live0, *,
             push = ~ce
             stack.append((cC[push], cF[push], root[item[push]], level + 1))
     if stats is not None:
-        stats["popc_ops"] = stats.get("popc_ops", 0) + int(popc)
-        stats["bit_ops"] = stats.get("bit_ops", 0) + int(bit)
+        for key, n in (("popc_ops", popc), ("bit_ops", bit),
+                       ("popc_need", popc_need), ("child_ops", kids)):
+            stats[key] = stats.get(key, 0) + int(n)
     return total, torch.tensor(overflow, device=dev)
 
 
@@ -604,8 +690,10 @@ def bk_direct_stack(adj, cand0, fini0, live0, *, depth: int | None = None,
     int64 0-d, overflow bool 0-d), no read-back; overflow means a path was
     too short and the count is short. With `stats` the kernel's run reads
     back stats["items"] (the items its warps took: the root items and the
-    queued nodes), stats["max_items"] (the most one warp took) and
-    stats["warps"].
+    queued nodes), stats["max_items"] (the most one warp took),
+    stats["warps"], stats["cycles"], stats["steps"], stats["nodes"] and
+    stats["deep_steps"], as bk_stack_machine's; on the CPU `stats` raises
+    (bk_direct_stack_plain's `stats` counts the tree's operations).
     """
     name = "bk_direct_stack"
     _check_direct_inputs(name, adj, cand0, fini0, live0)
@@ -614,10 +702,10 @@ def bk_direct_stack(adj, cand0, fini0, live0, *, depth: int | None = None,
     if depth < 1:
         raise ValueError(f"{name}: depth must be >= 1, got {depth}")
     if not _on_cuda(name, adj, cand0, fini0, live0):
-        return bk_direct_stack_plain(adj, cand0, fini0, live0, depth=depth,
-                                     stats=stats)
+        _no_cpu_stats(name, stats)
+        return bk_direct_stack_plain(adj, cand0, fini0, live0, depth=depth)
     dev = adj.device
-    stride = 2 * WW + 1
+    stride = 2 * WW + 2  # a queued node: cand | fini | root | level
     cap = max(1024, min(_QUEUE_NODES, _QUEUE_BYTES // (stride * 4)))
     total = _zero(dev)
     ctl = torch.zeros(64, dtype=torch.int64, device=dev)  # 4 lines
@@ -626,11 +714,11 @@ def bk_direct_stack(adj, cand0, fini0, live0, *, depth: int | None = None,
         depth, torch.empty(C + 2, dtype=torch.int64, device=dev),
         torch.empty(C * WW, dtype=torch.int32, device=dev), ctl,
         torch.empty(cap * stride, dtype=torch.int32, device=dev),
-        torch.zeros(cap, dtype=torch.int32, device=dev), cap, total)
+        torch.zeros(cap, dtype=torch.int32, device=dev), cap,
+        int(stats is not None), total)
     LAUNCHES[name] += 1
-    if stats is not None:  # the fourth line: overflow, items, most, warps
-        _, items, most, warps = ctl[48:52].tolist()
-        stats.update(items=items, max_items=most, warps=warps)
+    if stats is not None:
+        _walk_stats(ctl, stats)
     return total, ctl[48] != 0
 
 

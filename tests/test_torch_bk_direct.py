@@ -156,8 +156,12 @@ def test_direct_stack_counts_ops_and_overflow(rmat8):
     adj, cand, fini, live = max(univs, key=lambda u: int(
         bk.bk_direct_stack(*u)[0]))
     stats = {}
-    n, ovf = bk.bk_direct_stack(adj, cand, fini, live, stats=stats)
+    n, ovf = bk.bk_direct_stack(adj, cand, fini, live)
     assert int(n) > 0 and not ovf
+    assert int(bk.bk_direct_stack_plain(adj, cand, fini, live,
+                                        stats=stats)[0]) == int(n)
+    with pytest.raises(ValueError, match="kernel's counters"):
+        bk.bk_direct_stack(adj, cand, fini, live, stats={})
     assert stats["popc_ops"] > 0 and stats["bit_ops"] > stats["popc_ops"]
     n2, ovf2 = bk.bk_direct_stack(adj, cand, fini, live, depth=2)
     assert int(n2) == int(n) and bool(ovf2)

@@ -280,6 +280,103 @@ def test_bk_stack_machine_counts_ops():
     assert stats["bit_ops"] > stats["popc_ops"] > 0
 
 
+def test_walk_stats_reads_the_fourth_line():
+    # K9's and K36's control words: aux, items, most items, warps, then the
+    # cycles by part (csrc/bk_walk.cuh's Ctl)
+    ctl = torch.zeros(64, dtype=torch.int64)
+    ctl[48:52 + 3 + len(bk.WALK_PARTS)] = torch.arange(1, 13)
+    stats = {}
+    bk._walk_stats(ctl, stats)
+    assert stats == {"items": 2, "max_items": 3, "warps": 4,
+                     "cycles": dict(zip(bk.WALK_PARTS, range(5, 10))),
+                     "steps": 10, "nodes": 11, "deep_steps": 12}
+
+
+def test_stats_on_the_cpu_are_the_plain_counts():
+    g, jg = rmat(8)
+    rank = np.asarray(jdg.degeneracy_ordering_rank(jg)[0])
+    plan = port_plan(g, JaxPlan(jg, rank))
+    chunk, ww, IN = plan.jobs[-1]
+    adj, s0 = bk.build_local_adj(plan.padded.nbr, chunk, w_words=ww)
+    univ = (bk.symmetrize_bits(adj), s0, chunk != plan.padded.v_pad,
+            *bk.hub_cover_bits(plan.padded.nbr, plan.lo_indptr, plan.lo_cols,
+                               chunk, in_width=IN, w_words=ww))
+    # the wrapper's stats= are the kernel's counters: on the CPU it raises,
+    # and the plain version counts the tree
+    got = {}
+    with pytest.raises(ValueError, match="kernel's counters"):
+        bk.bk_stack_machine(*univ, stats={})
+    assert int(bk.bk_stack_machine(*univ)) == int(
+        bk.bk_stack_machine_plain(*univ, stats=got))
+    assert set(got) == {"popc_ops", "bit_ops", "popc_need", "child_ops",
+                        "cover_ops"}
+    # the function's own need is at most the plain tree's count
+    assert 0 < got["popc_need"] <= got["popc_ops"]
+    assert 0 <= got["cover_ops"] < got["bit_ops"]
+    assert 0 < got["child_ops"] < got["bit_ops"]
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_k9_bound_counts_only_what_it_reads():
+    # K9's bytes (chip_smoke.py's bk_stack_bytes) count the live roots'
+    # rows only: a dead root adds its live0 byte, invalid cover rows past a
+    # root's in-degree add only the wvalid bytes that mark them so
+    g, jg = rmat(8)
+    rank = np.asarray(jdg.degeneracy_ordering_rank(jg)[0])
+    plan = port_plan(g, JaxPlan(jg, rank))
+    chunk, ww, IN = plan.jobs[-1]
+    adj, s0 = bk.build_local_adj(plan.padded.nbr, chunk, w_words=ww)
+    univ = (bk.symmetrize_bits(adj), s0, chunk != plan.padded.v_pad,
+            *bk.hub_cover_bits(plan.padded.nbr, plan.lo_indptr, plan.lo_cols,
+                               chunk, in_width=IN, w_words=ww))
+    nbytes = _chip_smoke().bk_stack_bytes
+    n = nbytes(*univ)
+    assert 0 < n < sum(t.numel() * t.element_size() for t in univ) + 8
+    adj, s0, live, m, v = univ
+    live_n = int(live.sum())
+    dead = (torch.cat([adj, adj[:1]]), torch.cat([s0, s0[:1]]),
+            torch.cat([live, live.new_zeros(1)]), torch.cat([m, m[:1]]),
+            torch.cat([v, v[:1]]))
+    assert nbytes(*dead) == n + 1
+    pad = (adj, s0, live, torch.cat([m, m.new_full((m.shape[0], 32, ww),
+                                                   -1)], 1),
+           torch.cat([v, v.new_zeros((v.shape[0], 32))], 1))
+    assert nbytes(*pad) == n + 32 * live_n
+    # a slot added to a live root's S0 adds its adj row, WW words
+    b = int(live.nonzero()[0, 0])
+    bits = np.unpackbits(s0[b].numpy().view(np.uint8), bitorder="little")
+    j = int(np.flatnonzero(bits == 0)[0])
+    bits[j] = 1
+    more = s0.clone()
+    more[b] = torch.from_numpy(np.packbits(bits, bitorder="little").view(
+        np.int32).copy())
+    assert nbytes(adj, more, live, m, v) == n + 4 * ww
+
+
+def test_profiler_reader_names_kernels_bare():
+    from gms_tpu_torch.bench.profiling import BK_GROUPS, bare_kernel
+
+    assert bare_kernel("void (anonymous namespace)::bk_stack_kernel<4, "
+                       "false>(WalkArgs)") == "bk_stack_kernel"
+    assert bare_kernel("void at::native::(anonymous namespace)::"
+                       "fill_kernel(int)") == "fill_kernel"
+    assert bare_kernel("Memset (Device)") == "Memset (Device)"
+    assert bare_kernel("Memcpy HtoD (Pageable -> Device)").startswith(
+        "Memcpy")
+    assert BK_GROUPS["K9"][0] == "bk_stack_kernel"
+    assert BK_GROUPS["K36"][0] == "bk_direct_kernel"
+
+
 def test_wrappers_reject_bad_inputs():
     i32 = lambda *s: torch.zeros(s, dtype=torch.int32)  # noqa: E731
     b = lambda *s: torch.zeros(s, dtype=torch.bool)  # noqa: E731

@@ -543,6 +543,153 @@ def test_bk_stack_wide_cover_on_card(card, ww):
     assert 0 < _check_stack(univ) < int(uncovered)
 
 
+def _sym_bits(rng, C, W, p):
+    dense = np.triu(rng.random((C, W, W)) < p, 1)
+    return dense | dense.transpose(0, 2, 1)
+
+
+def _packed(card, bits):
+    return torch.from_numpy(np.packbits(
+        bits, axis=-1, bitorder="little").view(np.int32).copy()).to(card)
+
+
+# Universes that reach each placement of the walk (csrc/bk_walk.cuh): the
+# register walk at W = 32, 64, 96 (three words) and 128, the memory walk at
+# W = 256 to 1024. Their cliques have a
+# few vertices, so their paths stay in shared memory:
+# test_bk_walks_deep_paths_on_card plants cliques that reach the levels in
+# device memory.
+WALK_CASES = [(32, 0.5), (64, 0.35), (96, 0.3), (128, 0.25), (256, 0.1),
+              (512, 0.05), (1024, 0.025)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,p", WALK_CASES)
+def test_bk_stack_walks_on_card(card, W, p):
+    # root 0 dead; root 1 live with S0 = 0 and no valid cover row (the leaf
+    # R = 0 counts), root 2 live with S0 = 0 and a valid row (covered); the
+    # rest live, with a few valid rows that each cover 60 % of the slots,
+    # so running covers empty part-way down the paths and some leaves are
+    # covered. Count and emitted rows against plain.
+    rng = np.random.default_rng(W)
+    C, IN = 6, 64
+    s0 = rng.random((C, W)) < 0.6
+    s0[1:3] = False
+    m = rng.random((C, IN, W)) < 0.6
+    v = rng.random((C, IN)) < 0.1
+    v[1], v[2, 0] = False, True
+    live = torch.tensor([False] + [True] * (C - 1), device=card)
+    univ = (_packed(card, _sym_bits(rng, C, W, p)), _packed(card, s0), live,
+            _packed(card, m), torch.from_numpy(v).to(card))
+    n = _check_stack(univ)
+    uncovered = bk.bk_stack_machine_plain(*univ[:4], torch.zeros_like(univ[4]))
+    assert 1 < n < int(uncovered)
+    one = torch.zeros_like(live)
+    one[2] = True  # root 2 alone: its leaf R = 0 is covered
+    assert _check_stack((*univ[:2], one, *univ[3:])) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,p", [(2048, 0.008), (4096, 0.003)])
+def test_bk_stack_wide_walks_on_card(card, W, p):
+    # the memory walk at W = 2048 (the bit-sliced pivot's two words a lane)
+    # and 4096 (the pivot on cand's nonzero words)
+    rng = np.random.default_rng(W)
+    C, IN = 2, 32
+    s0 = rng.random((C, W)) < 0.5
+    m = rng.random((C, IN, W)) < 0.9
+    v = rng.random((C, IN)) < 0.2
+    univ = (_packed(card, _sym_bits(rng, C, W, p)), _packed(card, s0),
+            torch.ones(C, dtype=torch.bool, device=card), _packed(card, m),
+            torch.from_numpy(v).to(card))
+    assert _check_stack(univ) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,p", WALK_CASES + [(4096, 0.003)])
+def test_bk_direct_walks_on_card(card, W, p):
+    # root 0 dead, root 1 live with cand0 = fini0 = 0 (one clique), root 2
+    # live with only fini0 (no item), the rest random disjoint cand0, fini0;
+    # the count, and the overflow at depth 1 and 2, against plain
+    rng = np.random.default_rng(W + 1)
+    C = 6
+    side = rng.random((C, W))
+    cand, fini = side < 0.5, (side >= 0.5) & (side < 0.8)
+    cand[1:3], fini[1] = False, False
+    live = torch.tensor([False] + [True] * (C - 1), device=card)
+    univ = (_packed(card, _sym_bits(rng, C, W, p)), _packed(card, cand),
+            _packed(card, fini), live)
+    n, ovf = _check_direct(univ)
+    assert n > 1 and not ovf
+    assert _check_direct(univ, depth=1)[1]
+    _check_direct(univ, depth=2)
+    stats = {}
+    got, _ = bk.bk_direct_stack(*univ, stats=stats)
+    assert int(got) == n and stats["items"] >= 1
+    assert set(stats["cycles"]) == set(bk.WALK_PARTS)
+    assert all(c >= 0 for c in stats["cycles"].values())
+
+
+# (kernel, W, background edge share p, candidate share q, planted clique):
+# each clique is deeper than the levels a warp keeps in shared memory (K9:
+# 15 at W = 1024, 7 at 2048; K36: 21 at W = 1024, 4 at 4096), so its path
+# reaches the levels in device memory
+DEEP_CASES = [("stack", 1024, 0.025, 0.5, 24), ("stack", 2048, 0.008, 0.5, 24),
+              ("direct", 1024, 0.025, 0.5, 30),
+              ("direct", 4096, 0.003, 0.1, 24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,W,p,q,size", DEEP_CASES)
+def test_bk_walks_deep_paths_on_card(card, kind, W, p, q, size):
+    # one live root of three holds a planted clique on `size` random slots,
+    # all candidates; count (K9: and emitted rows) against plain, and the
+    # walk's stats= show children formed on levels in device memory
+    rng = np.random.default_rng(W + size)
+    C = 3
+    adj = _sym_bits(rng, C, W, p)
+    clique = np.sort(rng.choice(W, size=size, replace=False))
+    adj[1][np.ix_(clique, clique)] = True
+    adj[1][clique, clique] = False
+    side = rng.random((C, W))
+    cand = side < q
+    cand[1, clique] = True
+    live = torch.ones(C, dtype=torch.bool, device=card)
+    stats = {}
+    if kind == "stack":
+        IN = 32
+        m = rng.random((C, IN, W)) < 0.6
+        v = rng.random((C, IN)) < 0.1
+        univ = (_packed(card, adj), _packed(card, cand), live,
+                _packed(card, m), torch.from_numpy(v).to(card))
+        n = _check_stack(univ)
+        got = bk.bk_stack_machine(*univ, stats=stats)
+    else:
+        fini = (side >= q) & (side < q + 0.3)
+        fini[1, clique] = False
+        univ = (_packed(card, adj), _packed(card, cand), _packed(card, fini),
+                live)
+        n, ovf = _check_direct(univ)
+        assert not ovf
+        got, _ = bk.bk_direct_stack(*univ, stats=stats)
+    assert int(got) == n > 0
+    assert stats["deep_steps"] > 0
+
+
+@pytest.mark.cuda
+def test_bk_stack_stats_on_card(card):
+    g = build_csr(generate_rmat_el(10, 16, seed=27491095), num_nodes=1024)
+    rank, _ = degeneracy.degeneracy_ordering_rank(g)
+    plan = bk.BKPlan(g, rank, np.arange(1024, dtype=np.int32), device=card)
+    for job in plan.jobs:
+        univ = _bk_universe(plan, *job)
+        stats = {}
+        n = bk.bk_stack_machine(*univ, stats=stats)
+        assert int(n) == int(bk.bk_stack_machine_plain(*univ))
+        assert 1 <= stats["max_items"] <= stats["items"]
+        assert stats["warps"] >= 132 and sum(stats["cycles"].values()) > 0
+
+
 @pytest.mark.cuda
 def test_bron_kerbosch_on_card(card):
     for scale, ordering in ((9, "degeneracy"), (9, "degree"), (8, "id")):
