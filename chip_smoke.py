@@ -40,12 +40,15 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      before it: kclique_count(g, k, device="cuda") on the three k-clique
      graphs of bench.py (RMAT 16 k=5, RMAT 13 k=6, RMAT 12 k=8, average
      degree 16, seed 27491095), each against its golden count, after the
-     exact degeneracy peel; every k-clique kernel must have launched;
+     exact degeneracy peel; every k-clique kernel must have launched; the
+     RMAT 13 k=6 and RMAT 12 k=8 calls once more, warm, under
+     torch.profiler: K6's and K4's device time and the idle share;
   9. RMAT 16 k=5 again under the ADG ordering (eps 0.1): the same count;
  10. each k-clique kernel against its plain version, exactly, with
      CUDA-event times: build_local_adj and kclique_dense_count on every
      chunk of RMAT 16 k=5, kc_stack_count on every chunk of RMAT 13 k=6 and
-     RMAT 12 k=8 and on the W=256 chunk of K_132 at k=6;
+     RMAT 12 k=8 and on the W=256 chunk of K_132 at k=6 (the memory walk);
+     each main-path chunk's K6 time by CUDA events, warm, and its share;
      kclique_dense_count's library figure: gms_tpu's own dense program
      (k_clique.py:578-607) as float32 torch.bmm of each chunk's unpacked
      0/1 adjacency, TF32 off, at k=4 and k=5 (its counts equal K5's; the
@@ -288,7 +291,10 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
  48. betweenness_centrality(g, num_samples=64, seed=0) at RMAT 18, its
      counters set to 0 just before: max_depth 12, max_depth launches of each
      BC step a batch; its first and best warm time; the kernels against the
-     plain version over the same 64 sources, one batch (rtol 1e-4);
+     plain version over the same 64 sources, one batch (rtol 1e-4); one
+     warm call under torch.profiler: K34's device time (forward and
+     backward, main and finish launches) and the idle share; the call's
+     scores and the kernels' total the same bits on a second run;
  49. RMAT 14 and phase 45's compressed forms against gms_tpu's digests
      (GAPBS_GOLDEN_14): bfs over the CSR, KbitGraph, KbitGraphBucketed and
      HybridGraph, bfs_kbit (its counter set to 0 just before), connected
@@ -307,16 +313,19 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      PageRank's first and last iteration, cc_step and sssp_step (weighted)
      on their first and last step (indptr, indices, weights, the state and
      the output once); bc_forward and bc_backward as whole passes of
-     max_depth steps on phase 48's batch of 64 sources, state [64, n] (per
-     step the pairs' dist words, each row some pair scans read once with
-     its distinct indptr words, the per-pair state words of distinct
-     neighbours, the writes). Library time: scatter_reduce_ (amax) of the frontier over the
+     max_depth steps on phase 48's batch of 64 sources, one bit a source
+     (per step one bit a pair of the frontier, each row some pair scans
+     read once with its distinct indptr words, the per-pair state words of
+     distinct neighbours, the writes; the record's figure, a 4-byte dist
+     word a pair a step, printed beside it), and as a note the forward
+     steps' sums alone by torch.sparse.mm of the CSR by each step's masked
+     sigma [n, 64]. Library time: scatter_reduce_ (amax) of the frontier over the
      edge list for bfs_pull, torch.sparse.mm of the CSR matrix (with the
      division and axpy) for pr_pull, scatter_reduce_ (amin) over the edge
      list for cc_step and sssp_step; no single PyTorch call computes the
      others. pr_pull and the BC steps are held at rtol 1e-5 and 1e-4 (both
      sides sum each row in float64 and round it once, but the two float64
-     sums, and total's float32 atomics, may still round apart); the rest
+     sums may still round apart); the rest
      exactly. pr_pull runs on the row schedule pagerank builds (its build
      time printed), gives the same bits on repeated runs at RMAT 18, and
      is timed batched beside torch.sparse.mm's pull (BATCH_STEPS
@@ -416,6 +425,7 @@ is {"ok": true, "device": {...}}. Imports nothing of jax or gms_tpu.
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import json
 import math
@@ -442,9 +452,14 @@ BATCH_STEPS = 100
 # floats of a float32 torch.bmm operand slice in row 10b's library figure,
 # and the timed calls of each slice (their median; one untimed call first)
 BMM_BUDGET, BMM_REPS = 1 << 28, 3
-# the bare names of K21's and K37's kernels in a profiler window
+# the bare names of K21's, K37's, K34's and K6's kernels in a profiler
+# window (K6's walk: the register walk at W <= 128, else the memory walk)
 K21_KERNELS = ("topq_kernel",)
 K37_KERNELS = ("expand_kernel", "clear_kernel")
+K34_FORWARD = ("bc_forward_kernel", "bc_forward_finish")
+K34_BACKWARD = ("bc_backward_kernel", "bc_backward_finish")
+K6_KERNELS = ("stack_reg_kernel", "stack_kernel", "count_kernel",
+              "root_offsets_kernel")
 # k-clique graphs of bench.py: (RMAT scale, k, golden count of BENCH_r05)
 KCLIQUE_RUNS = ((16, 5, 4_600_426_489), (13, 6, 681_595_966),
                 (12, 8, 2_339_107_240))
@@ -703,6 +718,17 @@ def floor_ms(timing) -> float:
     return timing.ms(lambda: word.fill_(1), KERNEL_REPS)
 
 
+def event_ms(fn) -> float:
+    """One call of fn timed by CUDA events, nothing flushed."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
 def batched_ms(timing, fn, steps: int = BATCH_STEPS) -> float:
     """ms a call over `steps` back-to-back calls of fn between one event
     pair, after one flush (a warm-up call first): what a loop of such calls
@@ -944,6 +970,7 @@ def dense_library(timing, kc, adjs, k4) -> float:
 def kclique_phases(timing, report) -> None:
     """Phases 8-11: the k-clique path (see the module docstring)."""
     from gms_tpu_torch.algorithms import k_clique as kc
+    from gms_tpu_torch.bench.profiling import profile_window, window_lines
     from gms_tpu_torch.io.builder import build_csr
     from gms_tpu_torch.io.generators import generate_rmat_el
     from gms_tpu_torch.preprocessing import degeneracy
@@ -981,6 +1008,15 @@ def kclique_phases(timing, report) -> None:
     print(f"[8] k-clique main path launches: {launches}")
     check(all(n > 0 for n in launches.values()),
           f"a k-clique kernel of the path never launched: {launches}")
+    # K6 over the warm k >= 6 calls, under torch.profiler
+    for scale, k, golden in KCLIQUE_RUNS[1:]:
+        count, host_s, per, busy = profile_window(
+            lambda g=graphs[scale], k=k, r=ranks[scale]: kc.kclique_count(
+                g, k, device="cuda", rank=r))
+        check(count == golden, f"the profiled RMAT {scale} call gave {count}")
+        window_lines(f"[8] warm RMAT {scale} k={k} call under torch.profiler:",
+                     host_s, per, busy,
+                     {"K6": K6_KERNELS, "K4": ("local_adj_kernel",)})
     plans = {}
     for scale, k, golden in KCLIQUE_RUNS:
         t0 = time.perf_counter()
@@ -1056,6 +1092,17 @@ def kclique_phases(timing, report) -> None:
                 (adj.numel() + s0.numel()) * 4 + 8, stats["word_ops"]))
     n_main = sum(len(plans[s][2]) for s, _, _ in KCLIQUE_RUNS[1:])
     calls["kc_stack_count"] = stack_calls[:n_main]
+    # each main-path chunk's K6 time as the call meets it (CUDA events, one
+    # warm-up call, the median of KERNEL_REPS, L2 not flushed) and its share
+    chunk_ms = []
+    for label, kernel, *_ in stack_calls[:n_main]:
+        kernel()
+        chunk_ms.append((label, statistics.median(
+            event_ms(kernel) for _ in range(KERNEL_REPS))))
+    whole = sum(ms for _, ms in chunk_ms)
+    print("[10] kc_stack_count by main-path chunk (CUDA events): " + "; ".join(
+        f"{label} {ms:.4f} ms ({ms / whole:.3f})" for label, ms in chunk_ms)
+        + f"; {whole:.4f} ms in all")
     for name, kcalls in calls.items():
         err, k_ms, p_ms, bound_ms, by = compare(timing, kcalls, ops_rate=rate,
                                                 plain_reps=1)
@@ -3599,17 +3646,19 @@ def kbit_pull_bytes(kg, dist, it: int, reached: int) -> int:
 
 
 def bc_pass_bytes(indptr, indices, dist_final, sigma_final, max_depth,
-                  forward: bool) -> int:
+                  forward: bool) -> tuple:
     """K34's bound over a whole pass of max_depth steps on a batch, from the
-    pass's final state (a step's inputs are that state cut at its depth).
-    Per step: the dist word of every pair; each row that some pair scans
-    (forward: unreached; backward: at depth it), read once for the whole
-    batch, with its distinct indptr words; forward, the sigma word of each
-    distinct (source, neighbour at depth it) that an unreached pair reads,
-    and the new pairs' dist and sigma writes; backward, each pair at depth
-    it's own sigma and its delta write, the sigma and delta words of each
-    distinct (source, successor), and for it > 0 total's word of each
-    scanned row, read and written."""
+    pass's final state (a step's inputs are that state cut at its depth):
+    (bytes, the record's bytes). Per step: one bit a (source, vertex) pair
+    of the frontier, B n / 8 bytes (the record charged each pair's 4-byte
+    dist word, 4 B n, which no layout of one bit a pair can read under);
+    each row that some pair scans (forward: unreached; backward: at depth
+    it), read once for the whole batch, with its distinct indptr words;
+    forward, the sigma word of each distinct (source, neighbour at depth
+    it) that an unreached pair reads, and the new pairs' state and sigma
+    writes; backward, each pair at depth it's own sigma and its delta
+    write, the sigma and delta words of each distinct (source, successor),
+    and for it > 0 total's word of each scanned row, read and written."""
     B, n = dist_final.shape
     deg = indptr.diff()
     src = torch.repeat_interleave(torch.arange(n, device=indptr.device), deg)
@@ -3618,7 +3667,7 @@ def bc_pass_bytes(indptr, indices, dist_final, sigma_final, max_depth,
     for it in range(max_depth):
         scan = dist_final > it if forward else dist_final == it
         rows = scan.any(0)
-        total += 4 * B * n + 4 * int(deg[rows].sum()) + indptr_bytes(rows)
+        total += 4 * int(deg[rows].sum()) + indptr_bytes(rows)
         for b in range(B):
             d = dist_final[b]
             if forward:
@@ -3635,13 +3684,15 @@ def bc_pass_bytes(indptr, indices, dist_final, sigma_final, max_depth,
         else:
             total += 8 * int(scan.sum()) + (8 * int(rows.sum()) if it > 0
                                             else 0)
-    return total
+    return (total + max_depth * (B * n // 8),
+            total + max_depth * 4 * B * n)
 
 
 def gapbs_phases(timing, report, g, g14, forms) -> None:
     """Phases 47-50: the GAPBS kernels (see the module docstring). g is
     phase 2's RMAT 18, g14 RMAT 14, forms phase 45's compressed forms."""
     from gms_tpu_torch.algorithms import gapbs as gb
+    from gms_tpu_torch.bench.profiling import profile_window, window_lines
     from gms_tpu_torch.graphs import compressed as cp
 
     n, card = g.num_nodes, card_line()
@@ -3743,6 +3794,17 @@ def gapbs_phases(timing, report, g, g14, forms) -> None:
           == depth * -(-BC_SAMPLES // gb.BC_BATCH), "BC launches")
     check(bool(torch.allclose(kt, pt, rtol=1e-4, atol=1e-5)),
           "BC kernels differ from the plain version")
+    # K34 over one warm call, and BC's bits on a second run
+    again, host_s, per, busy = profile_window(
+        lambda: gb.betweenness_centrality(g, num_samples=BC_SAMPLES, seed=0,
+                                          device="cuda"))
+    same = bool(np.array_equal(again, bc)) and bool(torch.equal(
+        kt, gb._bc_total(indptr, indices, n, src, depth)))
+    window_lines("[48] warm BC call under torch.profiler:", host_s, per, busy,
+                 {"K34 forward": K34_FORWARD, "K34 backward": K34_BACKWARD})
+    print(f"[48] BC gives the same bits on a second run (the call's scores "
+          f"and the kernels' total): {same}")
+    check(same, "BC gives other bits on a second run")
 
     # [49] the compressed forms and the goldens at RMAT 14
     w14 = rmat_weights(g14)
@@ -3947,55 +4009,72 @@ def gapbs_phases(timing, report, g, g14, forms) -> None:
           f"the Timing floor (a 4-byte fill) {floor_ms(timing):.4f} ms "
           f"| {card}")
     check(same, "pr_pull gives other bits on another run")
-    # K34: the forward and the backward pass of phase 48's batch
-    rows = torch.arange(len(src), device="cuda")
-    sl = torch.from_numpy(src).long().cuda()
+    # K34: the forward and the backward pass of phase 48's batch, on the
+    # row schedule the call builds
+    fwd_k = functools.partial(gb.bc_forward, schedule=sched18)
+    bwd_k = functools.partial(gb.bc_backward, schedule=sched18)
+    B = len(src)
 
     def fwd_state():
-        dist = torch.full((len(src), n), inf, dtype=torch.int32,
-                          device="cuda")
-        sigma = torch.zeros((len(src), n), dtype=torch.float32,
-                            device="cuda")
-        dist[rows, sl] = 0
-        sigma[rows, sl] = 1.0
-        return dist, sigma
+        return gb.bc_state(n, src, depth, "cuda")[:3]
 
     def forward(step):
         def run(st):
             for it in range(depth):
-                step(indptr, indices, st[0], st[1], it)
+                step(indptr, indices, *st, it)
             return st
         return run
 
-    fin = forward(gb.bc_forward)(fwd_state())
+    fin = forward(fwd_k)(fwd_state())   # (lvl, seen, sigma)
 
     def bwd_state():
-        return (fin[0], fin[1], torch.zeros_like(fin[1]),
+        return (fin[0], fin[2], torch.zeros_like(fin[2]),
                 torch.zeros(n, dtype=torch.float32, device="cuda"))
 
     def backward(step):
         def run(st):
             for it in range(depth - 1, -1, -1):
-                step(indptr, indices, st[0], st[1], st[2], it, st[3])
+                step(indptr, indices, *st[:3], it, st[3])
             return st[2], st[3]
         return run
 
+    dist_fin = gb.bc_dist(fin[0], B)
+    sigma_fin = fin[2][:, :B].T.contiguous()
     for name, kernel, plain, make, fwd in (
-            ("bc_forward", forward(gb.bc_forward),
-             forward(gb.bc_forward_plain), fwd_state, True),
-            ("bc_backward", backward(gb.bc_backward),
-             backward(gb.bc_backward_plain), bwd_state, False)):
-        nbytes = bc_pass_bytes(indptr, indices, fin[0], fin[1], depth, fwd)
+            ("bc_forward", forward(fwd_k), forward(gb.bc_forward_plain),
+             fwd_state, True),
+            ("bc_backward", backward(bwd_k), backward(gb.bc_backward_plain),
+             bwd_state, False)):
+        nbytes, record = bc_pass_bytes(indptr, indices, dist_fin, sigma_fin,
+                                       depth, fwd)
         err, rel, k_ms, p_ms, bound_ms, _ = state_calls(timing, [(
-            f"{name} RMAT {SCALE}, {len(src)} sources, {depth} steps",
+            f"{name} RMAT {SCALE}, {B} sources, {depth} steps",
             kernel, plain, make, nbytes)])
         print(f"[50] {name}: {depth} launches held, max_abs_err {err}, max "
               f"rel err {rel:.3e}, kernel {k_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms (bytes), plain {p_ms:.4f} ms; launches of "
-              f"its run {launches[name]} | {card}")
+              f"{bound_ms:.4f} ms (bytes; one bit a pair a step; the "
+              f"record's 4-byte dist word a pair: {record} bytes -> "
+              f"{record / HBM_BYTES_PER_S * 1e3:.4f} ms), plain "
+              f"{p_ms:.4f} ms; launches of its run {launches[name]} | {card}")
         check(rel <= 1e-4, f"{name} off its plain version by {rel}")
         report.append(kernel_entry(name, launches[name], err, k_ms, p_ms,
                                    bound_ms, "bytes"))
+    # a yardstick, not a library figure (it does not compute the step):
+    # torch.sparse.mm of the CSR by each step's masked sigma [n, 64], the
+    # forward step's sum alone, over the pass
+    bits = torch.arange(gb.BC_BATCH, dtype=torch.int64, device="cuda")
+    masked = [torch.where(((fin[0][it][:, None] >> bits) & 1).bool(),
+                          fin[2], 0.0) for it in range(depth)]
+
+    def spmm_pass():
+        for m in masked:
+            torch.sparse.mm(adj, m)
+
+    spmm_pass()
+    print(f"[50] note: torch.sparse.mm of the CSR by the masked sigma "
+          f"[{n}, {gb.BC_BATCH}], the {depth} forward steps' sums alone, "
+          f"{timing.ms(spmm_pass, KERNEL_REPS):.4f} ms (L2 flushed) | {card}")
+    del masked
 
 
 def direct_plan(g, rank):

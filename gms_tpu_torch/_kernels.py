@@ -215,10 +215,14 @@ SIGNATURES = {
         "sssp_step": (_P, _P, _P, _L, _P, _P, _P, _P),
     },
     "gapbs_bc": {
-        # indptr, indices, n, B, dist, sigma, it, stream
-        "bc_forward": (_P, _P, _L, _L, _P, _P, _I, _P),
-        # indptr, indices, n, B, dist, sigma, delta, it, total, stream
-        "bc_backward": (_P, _P, _L, _L, _P, _P, _P, _I, _P, _P),
+        # indptr, indices, n, lvl, seen, sigma, it, rows, starts, n_narrow,
+        # n_seg, n_wide, segment, partial, stream
+        "bc_forward": (_P, _P, _L, _P, _P, _P, _I, _P, _P, _L, _L, _L, _I,
+                       _P, _P),
+        # indptr, indices, n, lvl, sigma, delta, it, total, rows, starts,
+        # n_narrow, n_seg, n_wide, segment, partial, stream
+        "bc_backward": (_P, _P, _L, _P, _P, _P, _I, _P, _P, _P, _L, _L, _L,
+                        _I, _P, _P),
     },
     "bk_init": {
         # nbr, v_pad, d_pad, rank_pad, len(rank_pad), roots, C, w_words,

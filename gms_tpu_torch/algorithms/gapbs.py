@@ -27,7 +27,9 @@ flag), and each step is a hand-written CUDA kernel (csrc/):
     cc_step, sssp_step        csrc/gapbs_min.cu       K33 (_cc :245,
                                                       _sssp :275)
     bc_forward, bc_backward   csrc/gapbs_bc.cu        K34 (_bc_one_source
-                                                      :337, _bc_batched :375)
+                                                      :337, _bc_batched :375;
+                                                      a batch of <= 64
+                                                      sources, one bit each)
 
 Each wrapper checks device, dtype, shape and contiguity; for CPU tensors it
 runs its `*_plain` PyTorch version (row ids from repeat_interleave, sums and
@@ -35,8 +37,11 @@ minima by index_add_ and scatter_reduce_), for CUDA tensors it launches the
 kernel (raising if the launch fails) and adds one to LAUNCHES[name].
 PageRank's and BC's row sums accumulate in float64 and round once to
 float32, in the kernels and in the plain versions alike, so the two agree
-whatever order each sums in. pr_pull runs on the degree-balanced row
-schedule of graphs/row_schedule.py, which `_pagerank` builds once a call.
+whatever order each sums in. pr_pull and the BC steps run on the
+degree-balanced row schedule of graphs/row_schedule.py, which `_pagerank`
+and `_bc_total` build once a call. BC keeps a batch as one 64-bit word a
+vertex a depth (bc_state), sigma and delta vertex-major [n, 64]; bc_dist
+gives gms_tpu's dist from it.
 The host oracles are gms_tpu's, copied.
 """
 
@@ -68,8 +73,10 @@ LAUNCHES = {"bfs_pull": 0, "frontier_ids": 0, "bfs_push": 0,
 # "pull"), the CC and SSSP rounds (gms_tpu's while_loop iterations)
 STEPS = {"bfs": [], "cc": 0, "sssp": 0}
 
-# sources a BC batch runs at once: [B, n] int32 + 2 float32 state, 200 MB
-# at RMAT-18 (gms_tpu sizes its vmapped batch to a [B, V, D] gather)
+# sources a BC batch runs at once, one bit each of a 64-bit word: lvl
+# [max_depth + 1, n] words (27 MB at RMAT-18, max_depth 12), sigma and delta
+# [n, 64] float32 (67 MB each; gms_tpu sizes its vmapped batch to a
+# [B, V, D] gather)
 BC_BATCH = 64
 # elements a plain version materialises at once
 _PLAIN_BUDGET = 1 << 24
@@ -392,81 +399,163 @@ def sssp_step(indptr, indices, weights, cur):
 # K34: Brandes' forward and backward steps over a batch of sources
 # ---------------------------------------------------------------------------
 
-def _bc_rows(indptr, indices, B: int):
-    """(source-row ids, neighbour ids) of the CSR slots, and how many slots
-    a plain step takes at once for B sources."""
-    return _row_ids(indptr), indices.long(), max(1, _PLAIN_BUDGET // max(B,
-                                                                          1))
+def _bit_shifts(dev):
+    return torch.arange(BC_BATCH, dtype=torch.int64, device=dev)
 
 
-def bc_forward_plain(indptr, indices, dist, sigma, it: int):
-    src, idx, step = _bc_rows(indptr, indices, dist.shape[0])
-    s = torch.zeros(sigma.shape, dtype=torch.float64, device=sigma.device)
+def _unpack64(words):
+    """bool[..., 64]: bit b of each int64 word (a uint64's bits)."""
+    return ((words.unsqueeze(-1) >> _bit_shifts(words.device)) & 1).bool()
+
+
+def _pack64(bits):
+    """int64[...]: the words of bool[..., 64] (the sum of distinct powers of
+    two is their OR, bit 63 included, in two's complement)."""
+    return (bits.long() << _bit_shifts(bits.device)).sum(-1)
+
+
+def bc_state(n: int, sources, max_depth: int, device):
+    """A batch's state (lvl, seen, sigma, delta) for B = len(sources) <= 64
+    sources, bit b for source b:
+      lvl   int64[max_depth + 1, n] (uint64 words): bit b of lvl[d][v] set
+            when source b reaches v at depth d; lvl[0] holds the sources;
+      seen  int64[n]: the pairs reached, and the bits b >= B of every
+            vertex, so that ~seen[v] is v's unreached pairs;
+      sigma float32[n, 64]: 1 at (source, b), else 0; delta float32[n, 64]
+            zeros.
+    A vertex may be several sources (a repeated source counts each time, as
+    in gms_tpu's vmap)."""
+    src = torch.as_tensor(np.asarray(sources), dtype=torch.int64)
+    B = src.numel()
+    if not 1 <= B <= BC_BATCH:
+        raise ValueError(f"bc_state: {B} sources, a batch holds 1 to "
+                         f"{BC_BATCH}")
+    if not (0 <= int(src.min()) and int(src.max()) < n):
+        raise ValueError(f"bc_state: a source outside [0, {n})")
+    src = src.to(device)
+    bits = torch.ones(B, dtype=torch.int64, device=device) << torch.arange(
+        B, dtype=torch.int64, device=device)
+    lvl = torch.zeros((max_depth + 1, n), dtype=torch.int64, device=device)
+    lvl[0].index_put_((src,), bits, accumulate=True)
+    unused = 0 if B == BC_BATCH else ~((1 << B) - 1)
+    seen = torch.full((n,), unused, dtype=torch.int64, device=device) | lvl[0]
+    sigma = torch.zeros((n, BC_BATCH), dtype=torch.float32, device=device)
+    sigma[src, torch.arange(B, device=device)] = 1.0
+    return lvl, seen, sigma, torch.zeros_like(sigma)
+
+
+def bc_dist(lvl, B: int):
+    """int32[B, n]: each pair's depth from lvl (gms_tpu's dist), INF where
+    the pair is unreached."""
+    dist = torch.full((B, lvl.shape[1]), INF, dtype=torch.int32,
+                      device=lvl.device)
+    for d in range(lvl.shape[0]):
+        dist[_unpack64(lvl[d])[:, :B].T] = d
+    return dist
+
+
+def _bc_chunks(indptr, indices):
+    """(row, neighbour) ids of the CSR slots, in slices a plain step takes
+    at once (each slice's terms are [slots, 64])."""
+    src, idx = _row_ids(indptr), indices.long()
+    step = max(1, _PLAIN_BUDGET // BC_BATCH)
     for e0 in range(0, idx.numel(), step):
-        w, v = idx[e0:e0 + step], src[e0:e0 + step]
-        s.index_add_(1, v, torch.where(dist[:, w] == it, sigma[:, w],
+        yield src[e0:e0 + step], idx[e0:e0 + step]
+
+
+def bc_forward_plain(indptr, indices, lvl, seen, sigma, it: int):
+    need = ~_unpack64(seen)
+    front = _unpack64(lvl[it])
+    s = torch.zeros(sigma.shape, dtype=torch.float64, device=sigma.device)
+    for v, w in _bc_chunks(indptr, indices):
+        s.index_add_(0, v, torch.where(front[w] & need[v], sigma[w],
                                        0.0).double())
-    new = (dist == INF) & (s > 0)
-    dist[new] = it + 1
+    new = need & (s > 0)
+    words = _pack64(new)
+    lvl[it + 1] |= words
+    seen |= words
     sigma[new] = s[new].float()
 
 
-def bc_backward_plain(indptr, indices, dist, sigma, delta, it: int, total):
-    src, idx, step = _bc_rows(indptr, indices, dist.shape[0])
+def bc_backward_plain(indptr, indices, lvl, sigma, delta, it: int, total):
+    at = _unpack64(lvl[it])
+    succ = _unpack64(lvl[it + 1])
     acc = torch.zeros(delta.shape, dtype=torch.float64, device=delta.device)
-    for e0 in range(0, idx.numel(), step):
-        w, v = idx[e0:e0 + step], src[e0:e0 + step]
-        nsig = sigma[:, w]
-        succ = (dist[:, w] == it + 1) & (nsig > 0)
-        term = (sigma[:, v] / nsig.clamp(min=1e-30)) * (1.0 + delta[:, w])
-        acc.index_add_(1, v, torch.where(succ, term, 0.0).double())
+    for v, w in _bc_chunks(indptr, indices):
+        nsig = sigma[w]
+        hit = succ[w] & at[v] & (nsig > 0)
+        term = (sigma[v] / nsig.clamp(min=1e-30)) * (1.0 + delta[w])
+        acc.index_add_(0, v, torch.where(hit, term, 0.0).double())
     acc = acc.float()
-    at = dist == it
     delta[at] = acc[at]
     if it > 0:
-        total += torch.where(at, acc, 0.0).sum(dim=0)
+        total += torch.where(at, acc, 0.0).double().sum(1).float()
 
 
-def _check_bc(name, indptr, indices, dist, *state):
-    _kernels.check_tensor(name, "dist", dist, 2)
-    for what, t in zip(("sigma", "delta"), state):
+def _check_bc(name, indptr, indices, lvl, it: int, *state):
+    _kernels.check_tensor(name, "lvl", lvl, 2, torch.int64)
+    n = _check_csr(name, indptr, indices, lvl.shape[1])
+    if not 0 <= it < lvl.shape[0] - 1:
+        raise ValueError(f"{name}: step {it} outside the {lvl.shape[0]} "
+                         f"levels")
+    for what, t in state:
         _kernels.check_tensor(name, what, t, 2, torch.float32)
-        if t.shape != dist.shape:
-            raise ValueError(f"{name}: {what} {tuple(t.shape)} against dist "
-                             f"{tuple(dist.shape)}")
-    return _check_csr(name, indptr, indices, dist.shape[1])
+        if t.shape != (n, BC_BATCH):
+            raise ValueError(f"{name}: {what} {tuple(t.shape)}, not "
+                             f"({n}, {BC_BATCH})")
+    return n
 
 
-def bc_forward(indptr, indices, dist, sigma, it: int):
-    """Forward step `it` for each source row b of dist int32[B, n] and
-    sigma float32[B, n], in place: an unreached vertex whose neighbours at
-    depth it carry sigma sum s > 0 takes depth it + 1 and sigma s."""
-    name = "bc_forward"
-    n = _check_bc(name, indptr, indices, dist, sigma)
-    if not _kernels.on_cuda(name, indptr, indices, dist, sigma):
-        return bc_forward_plain(indptr, indices, dist, sigma, it)
-    _kernels.launch("gapbs_bc", "bc_forward", indptr, indices, n,
-                    dist.shape[0], dist, sigma, it)
+def _bc_launch(name, schedule, indptr, *args):
+    """K34's C entry `name` on the row schedule (built when None), with
+    float64 partials for the wide rows' segments."""
+    if schedule is None:
+        schedule = build_row_schedule(indptr)
+    partial = (torch.empty((schedule.n_seg, BC_BATCH), dtype=torch.float64,
+                           device=indptr.device) if schedule.n_wide else None)
+    _kernels.launch("gapbs_bc", name, indptr, *args,
+                    *schedule.launch_args(), partial)
     LAUNCHES[name] += 1
 
 
-def bc_backward(indptr, indices, dist, sigma, delta, it: int, total):
-    """Backward step `it`, in place on delta float32[B, n]: a vertex at
-    depth it takes the sum over its successors w of sigma_v / max(sigma_w,
-    1e-30) * (1 + delta_w); for it > 0 that value is added to total
-    float32[n] (the source, at depth 0, is not)."""
+def bc_forward(indptr, indices, lvl, seen, sigma, it: int, *,
+               schedule: RowSchedule | None = None):
+    """Forward step `it` of a batch (bc_state), in place: each unreached
+    pair (b, v) whose neighbours at depth it carry sigma sum s > 0 takes
+    depth it + 1 (its bit in lvl[it + 1] and seen) and sigma s. `schedule`
+    is the row schedule of this indptr tensor (built here when None)."""
+    name = "bc_forward"
+    n = _check_bc(name, indptr, indices, lvl, it, ("sigma", sigma))
+    _kernels.check_tensor(name, "seen", seen, 1, torch.int64)
+    if seen.shape[0] != n:
+        raise ValueError(f"{name}: seen of {seen.shape[0]} for {n} rows")
+    if schedule is not None:
+        check_schedule(name, schedule, indptr)
+    if not _kernels.on_cuda(name, indptr, indices, lvl, seen, sigma):
+        return bc_forward_plain(indptr, indices, lvl, seen, sigma, it)
+    _bc_launch(name, schedule, indptr, indices, n, lvl, seen, sigma, it)
+
+
+def bc_backward(indptr, indices, lvl, sigma, delta, it: int, total, *,
+                schedule: RowSchedule | None = None):
+    """Backward step `it`, in place on delta: a pair (b, v) at depth it
+    takes the sum over v's successors w of sigma[v, b] / max(sigma[w, b],
+    1e-30) * (1 + delta[w, b]); for it > 0 the row's new deltas are added
+    to total float32[n] (the source, at depth 0, is not)."""
     name = "bc_backward"
-    n = _check_bc(name, indptr, indices, dist, sigma, delta)
+    n = _check_bc(name, indptr, indices, lvl, it, ("sigma", sigma),
+                  ("delta", delta))
     _kernels.check_tensor(name, "total", total, 1, torch.float32)
     if total.shape[0] != n:
         raise ValueError(f"{name}: total of {total.shape[0]} for {n} rows")
-    if not _kernels.on_cuda(name, indptr, indices, dist, sigma, delta,
+    if schedule is not None:
+        check_schedule(name, schedule, indptr)
+    if not _kernels.on_cuda(name, indptr, indices, lvl, sigma, delta,
                             total):
-        return bc_backward_plain(indptr, indices, dist, sigma, delta, it,
+        return bc_backward_plain(indptr, indices, lvl, sigma, delta, it,
                                  total)
-    _kernels.launch("gapbs_bc", "bc_backward", indptr, indices, n,
-                    dist.shape[0], dist, sigma, delta, it, total)
-    LAUNCHES[name] += 1
+    _bc_launch(name, schedule, indptr, indices, n, lvl, sigma, delta, it,
+               total)
 
 
 # ---------------------------------------------------------------------------
@@ -656,23 +745,21 @@ def _bc_total(indptr, indices, n: int, sources: np.ndarray, max_depth: int,
               forward=None, backward=None):
     """float32[n] on the device: the sum of the sources' Brandes deltas,
     BC_BATCH sources at a time, max_depth steps each way (gms_tpu's
-    _bc_batched; the batch size only changes the sum order)."""
-    forward, backward = forward or bc_forward, backward or bc_backward
-    dev = indptr.device
-    total = torch.zeros(n, dtype=torch.float32, device=dev)
+    _bc_batched; the batch size only changes the sum order). The kernels
+    share one row schedule, built here."""
+    if forward is None or backward is None:
+        sched = build_row_schedule(indptr)
+        forward = forward or functools.partial(bc_forward, schedule=sched)
+        backward = backward or functools.partial(bc_backward,
+                                                 schedule=sched)
+    total = torch.zeros(n, dtype=torch.float32, device=indptr.device)
     for b0 in range(0, len(sources), BC_BATCH):
-        sb = torch.from_numpy(sources[b0:b0 + BC_BATCH]).long().to(dev)
-        rows = torch.arange(sb.numel(), device=dev)
-        dist = torch.full((sb.numel(), n), INF, dtype=torch.int32,
-                          device=dev)
-        sigma = torch.zeros((sb.numel(), n), dtype=torch.float32, device=dev)
-        delta = torch.zeros_like(sigma)
-        dist[rows, sb] = 0
-        sigma[rows, sb] = 1.0
+        lvl, seen, sigma, delta = bc_state(n, sources[b0:b0 + BC_BATCH],
+                                           max_depth, indptr.device)
         for it in range(max_depth):
-            forward(indptr, indices, dist, sigma, it)
+            forward(indptr, indices, lvl, seen, sigma, it)
         for it in range(max_depth - 1, -1, -1):
-            backward(indptr, indices, dist, sigma, delta, it, total)
+            backward(indptr, indices, lvl, sigma, delta, it, total)
     return total
 
 

@@ -63,6 +63,7 @@
 
 #include "block_scan.cuh"
 #include "block_sum.cuh"
+#include "reg_rows.cuh"
 
 namespace {
 
@@ -383,80 +384,30 @@ __device__ __forceinline__ bool cover_of(RWord r_word, int ww,
 // the register walk, W = 32*WW <= 128
 // ---------------------------------------------------------------------------
 
+// todo = cand & ~adj_pivot (cand | fini != 0); every lane
 template <int WW>
-__device__ __forceinline__ int first_bit(const unsigned (&s)[WW]) {
+__device__ __forceinline__ void reg_pivot(const RegRows<WW>& rows,
+                                          const unsigned (&cand)[WW],
+                                          const unsigned (&fini)[WW],
+                                          unsigned (&todo)[WW], int lane) {
+  unsigned best = 0u;  // (score + 1) << 16 | ~u, u < 128
 #pragma unroll
-  for (int k = 0; k < WW; ++k)
-    if (s[k]) return 32 * k + __ffs(s[k]) - 1;
-  return -1;
-}
-
-template <int WW>
-__device__ __forceinline__ bool any_bit(const unsigned (&s)[WW]) {
-  unsigned o = 0u;
+  for (int k = 0; k < WW; ++k) {
+    if (((cand[k] | fini[k]) >> lane) & 1u) {
+      int s = 0;
 #pragma unroll
-  for (int k = 0; k < WW; ++k) o |= s[k];
-  return o != 0u;
-}
-
-template <int WW>
-__device__ __forceinline__ void clear_bit(unsigned (&s)[WW], int v) {
-#pragma unroll
-  for (int k = 0; k < WW; ++k)
-    if (k == (v >> 5)) s[k] &= ~(1u << (v & 31));
-}
-
-// A root's rows in registers: lane l holds rows l + 32k, k < WW.
-template <int WW>
-struct RegRows {
-  unsigned r[WW][WW];
-
-  __device__ __forceinline__ void load(const unsigned* __restrict__ A,
-                                       int lane) {
-#pragma unroll
-    for (int k = 0; k < WW; ++k)
-#pragma unroll
-      for (int x = 0; x < WW; ++x)
-        r[k][x] = __ldg(A + (32 * k + lane) * WW + x);
-  }
-
-  // row v, in every lane
-  __device__ __forceinline__ void row(int v, unsigned (&out)[WW]) const {
-    const int k = v >> 5, src = v & 31;
-#pragma unroll
-    for (int x = 0; x < WW; ++x) {
-      unsigned w = r[0][x];
-#pragma unroll
-      for (int j = 1; j < WW; ++j)
-        if (k == j) w = r[j][x];
-      out[x] = __shfl_sync(kFull, w, src);
+      for (int x = 0; x < WW; ++x) s += __popc(cand[x] & rows.r[k][x]);
+      const unsigned key =
+          ((unsigned)(s + 1) << 16) | (0xffffu - (unsigned)(32 * k + lane));
+      best = key > best ? key : best;
     }
   }
-
-  // todo = cand & ~adj_pivot (cand | fini != 0); every lane
-  __device__ __forceinline__ void pivot(const unsigned (&cand)[WW],
-                                        const unsigned (&fini)[WW],
-                                        unsigned (&todo)[WW],
-                                        int lane) const {
-    unsigned best = 0u;  // (score + 1) << 16 | ~u, u < 128
+  best = __reduce_max_sync(kFull, best);
+  unsigned rp[WW];
+  rows.row((int)(0xffffu - (best & 0xffffu)), rp);
 #pragma unroll
-    for (int k = 0; k < WW; ++k) {
-      if (((cand[k] | fini[k]) >> lane) & 1u) {
-        int s = 0;
-#pragma unroll
-        for (int x = 0; x < WW; ++x) s += __popc(cand[x] & r[k][x]);
-        const unsigned key =
-            ((unsigned)(s + 1) << 16) | (0xffffu - (unsigned)(32 * k + lane));
-        best = key > best ? key : best;
-      }
-    }
-    best = __reduce_max_sync(kFull, best);
-    unsigned rp[WW];
-    row((int)(0xffffu - (best & 0xffffu)), rp);
-#pragma unroll
-    for (int x = 0; x < WW; ++x) todo[x] = cand[x] & ~rp[x];
-  }
-};
+  for (int x = 0; x < WW; ++x) todo[x] = cand[x] & ~rp[x];
+}
 
 // A path level of the register walk: cand | fini | todo [| R | C live | C].
 // cand, fini and todo live in registers while the level is the walk's
@@ -674,7 +625,7 @@ struct RegWalk {
     unsigned todo[WW], cc[WW], cf[WW];
     const unsigned zero[WW] = {};
     cy.charge(kWalk, cand[0]);
-    rows.pivot(cand, fini, todo, lane);
+    reg_pivot(rows, cand, fini, todo, lane);
     cy.node();
     cy.charge(kPivot, todo[WW - 1]);
     int d = 0;
@@ -734,7 +685,7 @@ struct RegWalk {
           live = clive;
           ++d;
           cy.charge(kWalk, fini[0]);
-          rows.pivot(cand, fini, todo, lane);
+          reg_pivot(rows, cand, fini, todo, lane);
           cy.node();
           cy.charge(kPivot, todo[WW - 1]);
         }

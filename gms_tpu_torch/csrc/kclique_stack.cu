@@ -15,37 +15,59 @@
 //   (the rem==3 branch, :492-499, taken here at every W; gms_tpu's rem==4
 //   matrix-unit branch for W <= 128 counts the same cliques).
 //
-// Design. Items are the search tree's nodes two levels below the root:
-// (root b, i ∈ S0, j ∈ S1) with S1 = S0 & adj_i kept iff |S1| >= k-2, so a
-// hub root's subtree spreads over as many warps as it has DAG triangles:
-// with (root, i) items, a few deep subtrees, each walked by one warp, set
-// whole chunks' times. Three launches:
+// Items are the search tree's nodes two levels below the root: (root b,
+// i ∈ S0, j ∈ S1) with S1 = S0 & adj_i kept iff |S1| >= k-2, so a hub
+// root's subtree spreads over as many warps as it has DAG triangles. Three
+// launches:
 //   count_kernel, one block per root: n_i = |S1| for each kept i, scanned
 //     into per-root offsets; the root's total;
 //   root_offsets_kernel (block_scan.cuh), one block: the roots' totals
 //     scanned into item offsets;
-//   stack_kernel: persistent warps take item numbers from an atomic counter,
+//   the walk: persistent warps take item numbers from an atomic counter,
 //     find (b, i, j) by binary search in the offsets, and search below
-//     S2 = S1 & adj_j. A warp keeps its search path in shared memory: level
-//     d holds the bitset that needs k-2-d more vertices and a cursor. Lanes
-//     split the words of an AND and, at the inline count, the set bits of a
-//     word (lane l takes bit l).
-// adj rows are read from device memory through L1/L2 (a root's W x WW words
-// reach 128 KB at W=1024, more than a block can hold for several roots).
+//     S2 = S1 & adj_j.
+//
+// What held the walk back at W <= 128, where every main-path chunk lies
+// (RMAT-13 k=6: W = 32, 32, 32, 64, 128; RMAT-12 k=8: 32, 32, 64, 128): the
+// path and its cursors sat in shared memory with a __syncwarp a step; an
+// AND of ww <= 4 words gave one to four of the 32 lanes work; the set bits
+// were walked one at a time; the inline count gave lane l bit l of each
+// word and read each of its rows from device memory in a loop. The walk at
+// W <= 128 and 5 <= k <= 9 is now the register walk of reg_rows.cuh (ww
+// and k template arguments; K9's and K36's walk in bk_walk.cuh holds its
+// rows the same way):
+//   * lane l holds rows l, l+32, l+64, l+96 of the root's adj, ww words each
+//     (at most 16 registers), loaded once per root a warp takes;
+//   * the path's bitsets and their unwalked bits are warp-uniform registers,
+//     one template instance a search level; the next bit comes from __ffs,
+//     with no shared memory and no __syncwarp;
+//   * a child is S & row v, by ww __shfl_sync from lane v & 31;
+//   * the inline count is one lane-parallel step: each lane adds
+//     popc(c & A_j) over its own rows j ∈ c (the lanes' shares are summed
+//     once, at the end, by block_sum.cuh).
+// A level needing 3 taken lane-parallel as a whole (each lane walking the
+// children of its own rows, each A_j by ww * ww shuffles) measured slower on
+// an H100 on every main-path chunk of width 64 or more, and was dropped
+// (PERF.md, row 10c).
+// Wider universes (ww > 4, or k > 9) keep the memory walk: the path in
+// shared memory, lanes splitting the words of an AND and, at the inline
+// count, the set bits of a word (lane l takes bit l); rows come from device
+// memory through L1/L2 (a root's W x WW words reach 128 KB at W=1024, more
+// than a block can hold for several roots).
 //
 // Bound on an H100: operations. The AND+popcount word operations of the
 // pruned tree, |S|*WW per expanded item plus |cS|*WW per inline count (the
 // plain version counts them as it expands), at the popcount rate of compute
 // capability 9.0 (16 per clock per SM, CUDA C++ Programming Guide,
 // arithmetic instructions table) x 132 SMs x the SM clock, against adj's
-// bytes read once at 3.35 TB/s. The serial walk of a level's bits, the
-// lanes idle on sparse words and the deepest items' subtrees are what this
-// kernel spends beyond that.
+// bytes read once at 3.35 TB/s. The register walk spends a step's row
+// shuffles and its loop on top of those operations.
 
 #include <cuda_runtime.h>
 
 #include "block_scan.cuh"
 #include "block_sum.cuh"
+#include "reg_rows.cuh"
 
 namespace {
 
@@ -53,7 +75,10 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kScanThreads = 1024;
-constexpr int kBlocksPerSm = 8;
+constexpr int kBlocksPerSm = 8;  // the memory walk's grid
+// the register walk: the blocks an SM its registers must allow (ptxas: no
+// spills at 2; the grid takes what the occupancy of each instance allows)
+constexpr int kRegBlocksPerSm = 2;
 
 __device__ __forceinline__ int popc_words(const unsigned* s, int ww) {
   int p = 0;
@@ -185,6 +210,135 @@ __global__ void stack_kernel(const unsigned* __restrict__ adj,
   block_sum_add(cnt, out);
 }
 
+// ---------------------------------------------------------------------------
+// the register walk, W = 32*WW <= 128, 5 <= k <= 9
+// ---------------------------------------------------------------------------
+
+// This lane's share of Σ_{j∈c} popcount(c & A_j): its own rows j ∈ c.
+template <int WW>
+__device__ __forceinline__ int reg_edges(const RegRows<WW>& rows,
+                                         const unsigned (&c)[WW], int lane) {
+  int s = 0;
+#pragma unroll
+  for (int k = 0; k < WW; ++k) {
+    if ((c[k] >> lane) & 1u) {
+#pragma unroll
+      for (int x = 0; x < WW; ++x) s += __popc(c[x] & rows.r[k][x]);
+    }
+  }
+  return s;
+}
+
+// This lane's share of the cliques below S, which needs NEED >= 3 more
+// vertices: each v ∈ S in ascending order forms c = S & A_v; a c needing 2
+// is counted inline, one needing r >= 3 searched iff |c| >= r. Each level's
+// unwalked bits are registers of its template instance.
+template <int WW, int NEED>
+__device__ __forceinline__ long long reg_walk(const RegRows<WW>& rows,
+                                              const unsigned (&S)[WW],
+                                              int lane) {
+  long long share = 0;
+  unsigned rest[WW];
+#pragma unroll
+  for (int x = 0; x < WW; ++x) rest[x] = S[x];
+  for (int v = first_bit(rest); v >= 0; v = first_bit(rest)) {
+    clear_bit(rest, v);
+    unsigned c[WW];
+    rows.row(v, c);
+#pragma unroll
+    for (int x = 0; x < WW; ++x) c[x] &= S[x];
+    if constexpr (NEED == 3) {
+      share += reg_edges(rows, c, lane);
+    } else {
+      if (popc_bits(c) >= NEED - 1)
+        share += reg_walk<WW, NEED - 1>(rows, c, lane);
+    }
+  }
+  return share;
+}
+
+template <int WW, int K>
+__global__ void __launch_bounds__(kThreads, kRegBlocksPerSm)
+    stack_reg_kernel(const unsigned* __restrict__ adj,
+                     const unsigned* __restrict__ s0, long long c,
+                     const int* __restrict__ ioff,
+                     const long long* __restrict__ roff,
+                     unsigned long long* next, unsigned long long* out) {
+  constexpr int W = 32 * WW;
+  const int lane = threadIdx.x & 31;
+  const unsigned long long items = roff[c];
+  RegRows<WW> rows;
+  long long held = -1;
+  long long cnt = 0;
+  for (;;) {
+    unsigned long long t = 0;
+    if (lane == 0) t = atomicAdd(next, 1ull);
+    t = __shfl_sync(kFull, t, 0);
+    if (t >= items) break;
+    const long long b = item_root(roff, c, t);
+    const int local = (int)(t - roff[b]);
+    const int* io = ioff + b * W;
+    int il = 0, ih = W;  // i: the last i with io[i] <= local
+    while (ih - il > 1) {
+      const int mid = (il + ih) >> 1;
+      if (io[mid] <= local) il = mid; else ih = mid;
+    }
+    if (b != held) {
+      rows.load(adj + b * W * WW, lane);
+      held = b;
+    }
+    unsigned S[WW], r[WW];
+    rows.row(il, r);
+#pragma unroll
+    for (int x = 0; x < WW; ++x) S[x] = __ldg(s0 + b * WW + x) & r[x];
+    rows.row(reg_nth_bit(S, local - io[il]), r);
+#pragma unroll
+    for (int x = 0; x < WW; ++x) S[x] &= r[x];
+    if constexpr (K == 5) {  // S2 needs 2
+      cnt += reg_edges(rows, S, lane);
+    } else {
+      if (popc_bits(S) >= K - 3) cnt += reg_walk<WW, K - 3>(rows, S, lane);
+    }
+  }
+  block_sum_add(cnt, out);
+}
+
+struct RegLaunch {
+  const unsigned* adj;
+  const unsigned* s0;
+  long long c;
+  const int* ioff;
+  const long long* roff;
+  unsigned long long* next;
+  unsigned long long* out;
+  int sms;
+  cudaStream_t st;
+};
+
+template <int WW, int K>
+cudaError_t launch_reg(const RegLaunch& a) {
+  int per_sm = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, stack_reg_kernel<WW, K>, kThreads, 0);
+  if (e != cudaSuccess) return e;
+  long long blocks = (long long)a.sms * (per_sm > 0 ? per_sm : 1);
+  if (blocks > a.c * 32 * WW) blocks = a.c * 32 * WW;
+  stack_reg_kernel<WW, K><<<(unsigned)blocks, kThreads, 0, a.st>>>(
+      a.adj, a.s0, a.c, a.ioff, a.roff, a.next, a.out);
+  return cudaSuccess;
+}
+
+template <int WW>
+cudaError_t launch_reg_k(int k, const RegLaunch& a) {
+  switch (k) {
+    case 5: return launch_reg<WW, 5>(a);
+    case 6: return launch_reg<WW, 6>(a);
+    case 7: return launch_reg<WW, 7>(a);
+    case 8: return launch_reg<WW, 8>(a);
+    default: return launch_reg<WW, 9>(a);
+  }
+}
+
 }  // namespace
 
 // roff: int64[c + 2] (root offsets, then the item counter); ioff: int32[c*W].
@@ -199,6 +353,23 @@ extern "C" int kc_stack_count(const void* adj, const void* s0, long long c,
   count_kernel<<<(unsigned)c, kThreads, 0, st>>>(
       (const unsigned*)adj, (const unsigned*)s0, ww, k, (int*)ioff, offsets);
   root_offsets_kernel<<<1, kScanThreads, 0, st>>>(c, offsets, next);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (ww <= 4 && k <= 9) {
+    const RegLaunch a{(const unsigned*)adj, (const unsigned*)s0, c,
+                      (const int*)ioff, offsets, next,
+                      (unsigned long long*)out, sms, st};
+    cudaError_t e;
+    switch (ww) {
+      case 1: e = launch_reg_k<1>(k, a); break;
+      case 2: e = launch_reg_k<2>(k, a); break;
+      case 3: e = launch_reg_k<3>(k, a); break;
+      default: e = launch_reg_k<4>(k, a); break;
+    }
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+  }
   const int levels = k - 3;
   const size_t smem = (size_t)kWarps * levels * (ww + 1) * sizeof(unsigned);
   if (smem > 48 * 1024) {
@@ -206,9 +377,6 @@ extern "C" int kc_stack_count(const void* adj, const void* s0, long long c,
         stack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   long long blocks = (long long)sms * kBlocksPerSm;
   if (blocks > c * 32 * ww) blocks = c * 32 * ww;
   stack_kernel<<<(unsigned)blocks, kThreads, smem, st>>>(

@@ -24,8 +24,11 @@ once per call with torch ops on indptr's device (a few host syncs, for
 the list sizes) and serves every iteration or step of that call.
 
 Device side: csrc/row_schedule.cuh, which reads the two buffers below.
-Kernels on it: K32 pr_pull (csrc/gapbs_pr.cu) and K25 component_step
-(csrc/color_components.cu).
+Kernels on it: K32 pr_pull (csrc/gapbs_pr.cu), K25 component_step
+(csrc/color_components.cu) and K34 bc_forward / bc_backward
+(csrc/gapbs_bc.cu), which gives every narrow row a warp (its lanes are a
+batch's sources, not the row's entries) and a wide row's segments float64
+partials for each source.
 """
 
 from __future__ import annotations

@@ -483,15 +483,215 @@ def test_bc_steps_equal_gms_tpu_one_source(rmat10):
         np.testing.assert_allclose(total.numpy(), want, rtol=1e-4,
                                    atol=1e-5)
         # the forward state after every step: gms_tpu's dist and sigma
-        dist = torch.full((1, n), _INF, dtype=torch.int32)
-        sigma = torch.zeros((1, n), dtype=torch.float32)
-        dist[0, source], sigma[0, source] = 0, 1.0
-        for it in range(max_depth):
-            gapbs.bc_forward_plain(indptr, indices, dist, sigma, it)
+        lvl, seen, sigma, _ = gapbs.bc_state(n, [source], max_depth, "cpu")
         d = gapbs.bfs_oracle(g, source)
-        np.testing.assert_array_equal(
-            dist[0].numpy(), np.where((d < 0) | (d > max_depth), _INF, d))
-        assert float(sigma[0, source]) == 1.0
+        for it in range(max_depth):
+            gapbs.bc_forward_plain(indptr, indices, lvl, seen, sigma, it)
+            np.testing.assert_array_equal(
+                gapbs.bc_dist(lvl, 1)[0].numpy(),
+                np.where((d < 0) | (d > it + 1), _INF, d))
+        assert float(sigma[source, 0]) == 1.0
+        assert not sigma[:, 1:].any()
+
+
+# ---------------------------------------------------------------------------
+# K34's batch state: one bit a source, batches of up to BC_BATCH
+# ---------------------------------------------------------------------------
+
+def _bc_graph(kind):
+    """(g, jg, sources) of a BC case: RMAT-10 with isolated vertices (a
+    source among them has no neighbours); the disconnected graph whose
+    path is cut at max_depth; a star whose hub row is longer than SEGMENT
+    (three segments), its leaves joined in a ring and to an RMAT-7 block."""
+    if kind == "rmat":
+        n = 1024 + 6
+        el = generate_rmat_el(10, 16, seed=SEED)
+    elif kind == "disconnected":
+        path = np.stack([np.arange(39), np.arange(1, 40)], axis=1)
+        el, n = np.concatenate([random_graph(12, 0.5, 1), path + 12]), 52
+    else:
+        leaves = 1200
+        ring = np.stack([np.arange(1, leaves + 1),
+                         np.arange(2, leaves + 2) % leaves + 1], axis=1)
+        block = generate_rmat_el(7, 8, seed=3) + leaves + 1
+        join = np.stack([np.arange(1, leaves + 1, 7),
+                         leaves + 1 + np.arange(0, leaves, 7) % 128], axis=1)
+        el = np.concatenate([np.stack([np.zeros(leaves, np.int64),
+                                       np.arange(1, leaves + 1)], axis=1),
+                             ring, block, join])
+        n = leaves + 1 + 128
+    return _both(el.astype(np.int64), n)
+
+
+def _bc_sources(g, B):
+    """B sources (repeats where B > n), the first without neighbours where
+    the graph has such a vertex."""
+    rng = np.random.default_rng(B)
+    src = rng.permutation(np.resize(np.arange(g.num_nodes), max(B, 1)))[:B]
+    empty = np.nonzero(g.degrees == 0)[0]
+    if len(empty):
+        src[0] = empty[0]
+    return src.astype(np.int32)
+
+
+def _bc_checked(g, src, max_depth):
+    """_bc_total on the plain steps, every forward step's dist (bc_dist)
+    held to the BFS oracle cut at that step."""
+    n = g.num_nodes
+    indptr, indices = _csr(g)
+    hops = {int(s): gapbs.bfs_oracle(g, int(s)) for s in set(src.tolist())}
+    total = torch.zeros(n, dtype=torch.float32)
+    for b0 in range(0, len(src), gapbs.BC_BATCH):
+        sb = src[b0:b0 + gapbs.BC_BATCH]
+        d = np.stack([hops[int(s)] for s in sb])
+        lvl, seen, sigma, delta = gapbs.bc_state(n, sb, max_depth, "cpu")
+        for it in range(max_depth):
+            gapbs.bc_forward_plain(indptr, indices, lvl, seen, sigma, it)
+            np.testing.assert_array_equal(
+                gapbs.bc_dist(lvl, len(sb)).numpy(),
+                np.where((d < 0) | (d > it + 1), _INF, d))
+        for it in range(max_depth - 1, -1, -1):
+            gapbs.bc_backward_plain(indptr, indices, lvl, sigma, delta, it,
+                                    total)
+    return total.numpy()
+
+
+@pytest.mark.parametrize("B", [1, 63, 64, 65])
+def test_bc_batches_equal_gms_tpu(B):
+    """B sources (65: two batches, the second of one bit) on RMAT-10 with
+    a source without neighbours: each step's dist against the oracle, the
+    sum against gms_tpu's _bc_batched and the port's call."""
+    g, jg = _bc_graph("rmat")
+    src = _bc_sources(g, B)
+    want = jgapbs.betweenness_centrality(jg, sources=src, normalize=False)
+    got = _bc_checked(g, src, gapbs.bc_max_depth(g, **CPU))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(got, gapbs.betweenness_centrality(
+        g, sources=src, normalize=False, **CPU))
+
+
+@pytest.mark.parametrize("kind", ["disconnected", "star"])
+def test_bc_batches_cut_and_wide_rows_equal_gms_tpu(kind):
+    """65 sources on the graph cut at max_depth (every vertex a source, some
+    twice) and on the star with a hub row of three segments."""
+    g, jg = _bc_graph(kind)
+    src = _bc_sources(g, 65)
+    md = gapbs.bc_max_depth(g, **CPU)
+    if kind == "disconnected":
+        assert md < 39
+    else:
+        from gms_tpu_torch.graphs.row_schedule import SEGMENT
+        assert g.degrees.max() > 2 * SEGMENT
+    got = _bc_checked(g, src, md)
+    np.testing.assert_allclose(
+        got, jgapbs.betweenness_centrality(jg, sources=src,
+                                           normalize=False),
+        rtol=1e-4, atol=1e-5)
+
+
+def test_bc_state_rejects_bad_batches():
+    with pytest.raises(ValueError, match="sources"):
+        gapbs.bc_state(70, np.arange(65), 4, "cpu")
+    with pytest.raises(ValueError, match="sources"):
+        gapbs.bc_state(70, [], 4, "cpu")
+    with pytest.raises(ValueError, match="outside"):
+        gapbs.bc_state(70, [70], 4, "cpu")
+    lvl, seen, sigma, delta = gapbs.bc_state(70, [3, 3, 69], 4, "cpu")
+    assert int(lvl[0, 3]) == 3 and int(lvl[0, 69]) == 4
+    assert int(seen[0]) == ~7 and int(seen[3]) == ~4
+    indptr, indices = torch.zeros(71, dtype=torch.int64), torch.zeros(
+        0, dtype=torch.int32)
+    with pytest.raises(ValueError, match="step"):
+        gapbs.bc_forward(indptr, indices, lvl, seen, sigma, 4)
+    with pytest.raises(ValueError, match="sigma"):
+        gapbs.bc_forward(indptr, indices, lvl, seen, sigma[:, :32], 0)
+    total = torch.zeros(70)
+    with pytest.raises(ValueError, match="delta"):
+        gapbs.bc_backward(indptr, indices, lvl, sigma, delta[:69], 0, total)
+    with pytest.raises(TypeError, match="lvl"):
+        gapbs.bc_forward(indptr, indices, lvl.int(), seen, sigma, 0)
+
+
+def _replay_bc_sums(g, terms):
+    """K34's sums replayed on the CPU: for each (vertex, source), the terms
+    of its row's entries (terms(v, j) -> float64[64], 0 where the entry
+    adds nothing) added in row order within each span of the row schedule
+    (a narrow row whole, else a segment of SEGMENT entries), a wide row's
+    segment partials then added in segment order. float64[n, 64]."""
+    from gms_tpu_torch.graphs import row_schedule as rs
+
+    s = rs.build_row_schedule(torch.from_numpy(g.indptr))
+    out = np.zeros((g.num_nodes, gapbs.BC_BATCH))
+    spans = [(v, g.indptr[v], g.indptr[v + 1]) for v in s.narrow.tolist()]
+    spans += [(v, lo, min(lo + rs.SEGMENT, g.indptr[v + 1]))
+              for v, lo in zip(s.seg_row.tolist(), s.seg_start.tolist())]
+    part = {}
+    for v, lo, hi in spans:
+        acc = np.zeros(gapbs.BC_BATCH)
+        for j in range(lo, hi):
+            acc = acc + terms(v, j)
+        part.setdefault(v, []).append(acc)
+    for v, parts in part.items():
+        acc = np.zeros(gapbs.BC_BATCH)
+        for p in parts:  # one span: 0 + p == p
+            acc = acc + p
+        out[v] = acc
+    return out
+
+
+def _replay_tree(d):
+    """K34's row total: lane l's two deltas added, then a shuffle tree
+    (xor 16, 8, 4, 2, 1) in float64; lane 0's value, float64[n]."""
+    t = d[:, 0::2].astype(np.float64) + d[:, 1::2]
+    lanes = np.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        t = t + t[:, lanes ^ o]
+    return t[:, 0]
+
+
+def test_bc_sum_order_replay_gives_plain_bits():
+    """On the star (its hub row three segments): every step of K34's
+    forward and backward sums, replayed in the kernel's order, rounds to the
+    plain version's float32 bits, and so does the row total's tree."""
+    g, _ = _bc_graph("star")
+    n = g.num_nodes
+    indptr, indices = _csr(g)
+    src = _bc_sources(g, 64)
+    md = gapbs.bc_max_depth(g, **CPU)
+    lvl, seen, sigma, delta = gapbs.bc_state(n, src, md, "cpu")
+    col = g.indices.astype(np.int64)
+    for it in range(md):
+        need = ~gapbs._unpack64(seen).numpy()
+        front = gapbs._unpack64(lvl[it]).numpy()
+        sg = sigma.numpy().astype(np.float64)
+        s = _replay_bc_sums(g, lambda v, j: np.where(
+            need[v] & front[col[j]], sg[col[j]], 0.0))
+        gapbs.bc_forward_plain(indptr, indices, lvl, seen, sigma, it)
+        new = need & (s > 0)
+        np.testing.assert_array_equal(sigma.numpy()[new],
+                                      s[new].astype(np.float32))
+    total = torch.zeros(n, dtype=torch.float32)
+    want_total = np.zeros(n, dtype=np.float32)
+    for it in range(md - 1, -1, -1):
+        at = gapbs._unpack64(lvl[it]).numpy()
+        succ = gapbs._unpack64(lvl[it + 1]).numpy()
+        sg, dl = sigma.numpy(), delta.numpy().copy()
+
+        def term(v, j):
+            w = col[j]
+            hit = succ[w] & at[v] & (sg[w] > 0)
+            q = (sg[v] / np.maximum(sg[w], np.float32(1e-30))) * (
+                np.float32(1) + dl[w])
+            return np.where(hit, q.astype(np.float64), 0.0)
+
+        acc = _replay_bc_sums(g, term).astype(np.float32)
+        gapbs.bc_backward_plain(indptr, indices, lvl, sigma, delta, it, total)
+        np.testing.assert_array_equal(delta.numpy()[at], acc[at])
+        if it > 0:
+            rows = _replay_tree(np.where(at, acc, np.float32(0)))
+            want_total = want_total + rows.astype(np.float32)
+    assert total.numpy().any()
+    np.testing.assert_array_equal(total.numpy(), want_total)
 
 
 def test_disconnected_depth_cut_like_gms_tpu():

@@ -9,6 +9,7 @@ jax nor gms_tpu, so on a machine without jax it runs with
     python -m pytest --noconftest tests/test_torch_kernels.py -m cuda
 """
 
+import math
 import os
 
 import numpy as np
@@ -438,6 +439,61 @@ def test_stack_count_on_card(card, k):
     got = _launched("kc_stack_count", lambda: kc.kc_stack_count(adj, s0, k=k),
                     kc.LAUNCHES)
     assert int(got) == int(kc.kc_stack_count_plain(adj, s0, k=k))
+
+
+def _dag_chunk(card, rng, C, W, p, plant):
+    """A chunk of C roots over W slots on the card: adj the upper-triangular
+    bits of a random DAG (each i -> j, j > i, with probability p) and a
+    clique of `plant` slots planted in every root; S0 every slot."""
+    dense = np.triu(rng.random((C, W, W)) < p, 1)
+    for c in range(C):
+        s = np.sort(rng.choice(W, size=plant, replace=False))
+        dense[c][np.ix_(s, s)] |= np.triu(np.ones((plant, plant), bool), 1)
+    return _packed(card, dense), _packed(card, np.ones((C, W), bool))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [32, 64, 96, 128])
+@pytest.mark.parametrize("k", [5, 6, 7, 8, 9])
+def test_stack_count_register_walk_on_card(card, k, W):
+    """K6's register walk (W <= 128) against plain: RMAT-10's chunks built
+    at width W, a random DAG with a clique of k + 2 planted in each root,
+    and a chunk whose roots are all dead (|S0| < k - 1)."""
+    g = build_csr(generate_rmat_el(10, 16, seed=27491095), num_nodes=1024)
+    pg, chunks = kc.plan_chunks(g, k, device=card, root_chunk=128)
+    cases = [kc.build_local_adj(pg.nbr, chunk, w_words=W // 32)
+             for chunk, ww in chunks if ww <= W // 32]
+    rng = np.random.default_rng(k * W)
+    adj, s0 = _dag_chunk(card, rng, 24, W, 0.2, plant=k + 2)
+    dead = s0.clone()
+    dead[:, 1:] = 0
+    dead[:, 0] &= (1 << (k - 2)) - 1
+    cases += [(adj, s0), (adj, dead)]
+    for a, s in cases:
+        got = _launched("kc_stack_count", lambda: kc.kc_stack_count(
+            a, s, k=k), kc.LAUNCHES)
+        assert int(got) == int(kc.kc_stack_count_plain(a, s, k=k))
+    assert int(got) == 0
+    planted = int(kc.kc_stack_count(adj, s0, k=k))
+    assert planted >= 24 * math.comb(k + 2, k - 1)
+
+
+@pytest.mark.cuda
+def test_stack_count_memory_walk_on_k132_on_card(card):
+    """K6's memory walk (W = 256) on K_132's chunk, k = 6: C(132, 6)."""
+    k132 = np.stack(np.nonzero(np.triu(np.ones((132, 132), bool), 1)), 1)
+    g = build_csr(k132.astype(np.int64))
+    pg, chunks = kc.plan_chunks(g, 6, device=card)
+    assert any(ww == 8 for _, ww in chunks)
+    total = 0
+    for chunk, ww in chunks:
+        adj, s0 = kc.build_local_adj(pg.nbr, chunk, w_words=ww)
+        got = _launched("kc_stack_count", lambda: kc.kc_stack_count(
+            adj, s0, k=6), kc.LAUNCHES)
+        if ww == 8:
+            assert int(got) == int(kc.kc_stack_count_plain(adj, s0, k=6))
+        total += int(got)
+    assert total == math.comb(132, 6)
 
 
 @pytest.mark.cuda
@@ -1615,15 +1671,74 @@ def test_bc_steps_on_card(card):
                            gapbs.bc_forward_plain, gapbs.bc_backward_plain)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
     # the forward state exactly (sigma's sums are exact small integers here)
-    dist = torch.full((2, n), gapbs.INF, dtype=torch.int32, device=card)
-    sigma = torch.zeros((2, n), dtype=torch.float32, device=card)
-    dist[[0, 1], [0, 5]] = 0
-    sigma[[0, 1], [0, 5]] = 1.0
-    pd, ps = dist.clone(), sigma.clone()
+    lvl, seen, sigma, _ = gapbs.bc_state(n, [0, 5], depth, card)
+    pl, ps, pg = lvl.clone(), seen.clone(), sigma.clone()
     for it in range(depth):
-        gapbs.bc_forward(indptr, indices, dist, sigma, it)
-        gapbs.bc_forward_plain(indptr, indices, pd, ps, it)
-    assert torch.equal(dist, pd) and torch.equal(sigma, ps)
+        gapbs.bc_forward(indptr, indices, lvl, seen, sigma, it)
+        gapbs.bc_forward_plain(indptr, indices, pl, ps, pg, it)
+    assert torch.equal(lvl, pl) and torch.equal(seen, ps)
+    assert torch.equal(sigma, pg)
+    assert torch.equal(gapbs.bc_dist(lvl, 2)[1].cpu(), torch.from_numpy(
+        _bfs_state(g, card, 5, depth).cpu().numpy()))
+
+
+def _bc_against_plain(card, g, indptr, indices, src, depth):
+    """K34's steps against the plain ones from the same batch states: the
+    forward state (lvl, seen, sigma) equal after every step, delta and the
+    total within phase 48's tolerance. Returns the kernels' total."""
+    from gms_tpu_torch.algorithms import gapbs
+    from gms_tpu_torch.graphs.row_schedule import build_row_schedule
+
+    n = g.num_nodes
+    sched = build_row_schedule(indptr)
+    total = torch.zeros(n, dtype=torch.float32, device=card)
+    ptotal = torch.zeros_like(total)
+    for b0 in range(0, len(src), gapbs.BC_BATCH):
+        state = gapbs.bc_state(n, src[b0:b0 + gapbs.BC_BATCH], depth, card)
+        lvl, seen, sigma, delta = state
+        pl, ps, pg, pd = (t.clone() for t in state)
+        for it in range(depth):
+            _launched("bc_forward", lambda: gapbs.bc_forward(
+                indptr, indices, lvl, seen, sigma, it, schedule=sched),
+                gapbs.LAUNCHES)
+            gapbs.bc_forward_plain(indptr, indices, pl, ps, pg, it)
+            assert torch.equal(lvl, pl) and torch.equal(seen, ps)
+            assert torch.equal(sigma, pg)
+        for it in range(depth - 1, -1, -1):
+            _launched("bc_backward", lambda: gapbs.bc_backward(
+                indptr, indices, lvl, sigma, delta, it, total,
+                schedule=sched), gapbs.LAUNCHES)
+            gapbs.bc_backward_plain(indptr, indices, pl, pg, pd, it, ptotal)
+        torch.testing.assert_close(delta, pd, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(total, ptotal, rtol=1e-4, atol=1e-5)
+    return total
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["star", "rmat"])
+@pytest.mark.parametrize("B", [1, 64, 65])
+def test_bc_batches_on_card(card, kind, B):
+    """K34 on the star of 20,000 leaves (a hub row of 40 segments) and on
+    RMAT-10 with isolated vertices: B sources (65: a second batch of one),
+    one of them a hub or without neighbours; the forward state bit for bit,
+    and the same bits of the total on a second run."""
+    from gms_tpu_torch.algorithms import gapbs
+
+    if kind == "star":
+        g, indptr, indices = _star_csr(card)
+        first = 0
+    else:
+        g, indptr, indices = _gapbs_graph(card, scale=10)
+        first = g.num_nodes - 1
+    rng = np.random.default_rng(B)
+    src = rng.choice(g.num_nodes, size=B, replace=False).astype(np.int32)
+    # one source: a leaf of the star, vertex 0 of RMAT-10
+    src[0] = first if B > 1 else int(kind == "star")
+    depth = gapbs.bc_max_depth(g, device=card)
+    got = _bc_against_plain(card, g, indptr, indices, src, depth)
+    assert bool(got.any())
+    again = gapbs._bc_total(indptr, indices, g.num_nodes, src, depth)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
