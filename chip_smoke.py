@@ -48,6 +48,9 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      CUDA-event times: build_local_adj and kclique_dense_count on every
      chunk of RMAT 16 k=5, kc_stack_count on every chunk of RMAT 13 k=6 and
      RMAT 12 k=8 and on the W=256 chunk of K_132 at k=6 (the memory walk);
+     build_local_adj also on the first chunk of phase 53's sharded call, at
+     its one global W (not on the kernels line); build_local_adj's held
+     RMAT 16 chunks also by device time (torch.profiler, 10 warm passes);
      each main-path chunk's K6 time by CUDA events, warm, and its share;
      kclique_dense_count's library figure: gms_tpu's own dense program
      (k_clique.py:578-607) as float32 torch.bmm of each chunk's unpacked
@@ -207,11 +210,14 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      the median of 3 warm calls and of 3 host tier builds with their copy,
      the rounds and launches; color_spec must have launched;
  38. the other deterministic variants at RMAT 16, the counters set to 0
-     before each: speculative random, strict JP-LF (its jp_round states
-     recorded), strict random and dense_sparse(g, seed=0), each against its
-     digest; color_jp must have launched; one warm strict JP-LF call
-     under torch.profiler: K22's device time over the whole call, its
-     launches and the idle share;
+     before each: speculative random, strict JP-LF (its jp_run dispatch
+     states recorded), strict random and dense_sparse(g, seed=0), each
+     against its digest; jp_run must have launched once a strict JP-LF
+     dispatch; one warm strict JP-LF call under torch.profiler: K22's
+     device time over the whole call, its launches (one a dispatch) and
+     the idle share, beside its bound over the whole call (every round of
+     every dispatch, each round's buckets counted as phase 41 counts
+     them);
  39. dense_sparse on RMAT 14 with friend_number 32 (its friend components
      fire): 265 colors, digest dc688ce0f6f78322 (its component_step
      states recorded); color_components and K18 (pair_scores) must have
@@ -225,7 +231,11 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      and jax.random's draws, prng.py);
  41. each coloring kernel against its plain version, exactly, on the
      round-start states recorded in 37-40 — the first round and the last
-     with an uncolored vertex, every bucket: color_jp on strict JP-LF's,
+     with an uncolored vertex, every bucket: jp_run on strict JP-LF's
+     first and last dispatch (colors and rounds; bytes every round's
+     buckets), color_jp (jp_bucket, off the kernels line: no entry point
+     runs it) on the first and last round of strict JP-LF (the last
+     dispatch stepped to its last round by jp_run),
      color_spec (its three passes) on the main path's, color_johansson on
      Johansson's, color_one_shot (pick and resolve) on Barenboim's (and,
      off the kernels line, on Elkin's), color_components on phase 39's
@@ -362,10 +372,13 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      127.0.0.1) on RMAT 16, k = 5, with the k-clique counters
      set to 0 just before it: 4,600,426,489 (KCLIQUE_RUNS); its chunks and
      cap doublings; timed warm beside kclique_count on the same graph;
-     build_local_adj, expand_level and total_popcount must have launched;
+     build_local_adj, expand_level and total_popcount must have launched,
+     build_local_adj once a chunk (it builds a chunk's adjacency before
+     the chunk's doublings), in the first call and in the profiled one;
      one warm call under torch.profiler: K37's device time (its expand and
      clear kernels), K4's and K38's, summed over their launches, and the
-     device's idle share over the window;
+     device's idle share over the window; K4's device time beside its
+     bound over the call's chunks (local_adj_bytes at the global W);
      K37 expand_level against its plain version, exactly (the four
      outputs), on every level of the first chunk's first run (a level there
      has cap below n_children) and of its last run (the caps that fit),
@@ -520,8 +533,8 @@ KERNELS = {
                   "gms_tpu/algorithms/link_prediction.py:471"),
     "tile_all_pairs": ("gms_tpu_torch/csrc/tile_scores.cu",
                        "gms_tpu/algorithms/similarity.py:115"),
-    "color_jp": ("gms_tpu_torch/csrc/color_jp.cu",
-                 "gms_tpu/algorithms/coloring.py:106"),
+    "jp_run": ("gms_tpu_torch/csrc/color_jp.cu",
+               "gms_tpu/algorithms/coloring.py:272"),
     "color_spec": ("gms_tpu_torch/csrc/color_spec.cu",
                    "gms_tpu/algorithms/coloring.py:202"),
     "color_johansson": ("gms_tpu_torch/csrc/color_random.cu",
@@ -1057,11 +1070,13 @@ def kclique_phases(timing, report) -> None:
     k3 = [int(kc.kclique_dense_count(a, k=3)) for a, _ in adjs]
     k4 = [int(kc.kclique_dense_count(a, k=4)) for a, _ in adjs]
     calls = {
+        # nbr bound now: the loop over the K6 runs below rebinds pg
         "build_local_adj": [
             (f"RMAT {head} W={32 * ww} C={c.numel()}",
-             lambda c=c, ww=ww: kc.build_local_adj(pg.nbr, c, w_words=ww),
-             lambda c=c, ww=ww: kc.build_local_adj_plain(pg.nbr, c,
-                                                         w_words=ww),
+             lambda c=c, ww=ww, nbr=pg.nbr: kc.build_local_adj(
+                 nbr, c, w_words=ww),
+             lambda c=c, ww=ww, nbr=pg.nbr: kc.build_local_adj_plain(
+                 nbr, c, w_words=ww),
              local_adj_bytes(pg, c, ww))
             for c, ww in chunks],
         "kclique_dense_count": [
@@ -1115,6 +1130,35 @@ def kclique_phases(timing, report) -> None:
         report.append(kernel_entry(name, launches[name], err, k_ms, p_ms,
                                    bound_ms, by, library_ms=lib_ms))
     del adjs
+    # K4's held chunks by device time: each event pair above also spans the
+    # wrapper's host time wherever the host lags the L2 flush
+    k4_jobs = [c[1] for c in calls["build_local_adj"]]
+    _, _, per, _ = profile_window(lambda: [f() for _ in range(10)
+                                           for f in k4_jobs])
+    k4_us, k4_n = per.get("local_adj_kernel", (0.0, 0))
+    print(f"[10] build_local_adj on its {len(k4_jobs)} held chunks by device "
+          f"time (torch.profiler, 10 warm passes): {k4_us / 1e4:.4f} ms a "
+          f"pass, {k4_n} launches traced")
+    check(k4_us > 0, "torch.profiler traced no K4 time on the held chunks")
+    # K4 on the sharded count's first chunk (phase 53's call) at its one
+    # global W, which pads every chunk
+    from gms_tpu_torch.graphs.tiles import PaddedGraph
+    from gms_tpu_torch.preprocessing import orient
+    spg = PaddedGraph.from_csr(orient.orient(graphs[head], ranks[head]),
+                               device="cuda", lane=32)
+    sww = spg.d_pad // 32
+    sroots = torch.nonzero(spg.deg >= k_head - 1).reshape(-1)[:256].to(
+        torch.int32)
+    err, k_ms, p_ms, bound_ms, by = compare(timing, [(
+        f"RMAT {head} sharded chunk 1 W={32 * sww} C={sroots.numel()}",
+        lambda: kc.build_local_adj(spg.nbr, sroots, w_words=sww),
+        lambda: kc.build_local_adj_plain(spg.nbr, sroots, w_words=sww),
+        local_adj_bytes(spg, sroots, sww))], plain_reps=1)
+    print(f"[10] build_local_adj on the sharded call's first chunk: "
+          f"max_abs_err {err}, kernel {k_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({by}), plain {p_ms:.4f} ms | {card_line()}")
+    check(err == 0, f"build_local_adj disagrees on the sharded chunk by {err}")
+    del spg, sroots
     err, k_ms, p_ms, bound_ms, by = compare(timing, stack_calls[n_main:],
                                             ops_rate=rate, plain_reps=1)
     print(f"[10] kc_stack_count K_132 W=256 chunk: max_abs_err {err}, kernel "
@@ -2600,11 +2644,13 @@ class RoundStates:
     while a vertex is uncolored) is wrapped to copy its inputs before each
     call. Keeps the first and the last. The positional inputs at `keep`,
     which the round only reads, are kept as the call's own tensors (a row
-    schedule is taken only with the indptr it was built from)."""
+    schedule is taken only with the indptr it was built from). With
+    every=True, keeps every call's inputs in `every`."""
 
-    def __init__(self, gc, fn: str, keep=()):
+    def __init__(self, gc, fn: str, keep=(), every=False):
         self.gc, self.fn, self.keep = gc, fn, keep
         self.first = self.last = None
+        self.every = [] if every else None
         self.rounds = 0
 
     def __enter__(self):
@@ -2617,6 +2663,8 @@ class RoundStates:
             if self.first is None:
                 self.first = snap
             self.last = snap
+            if self.every is not None:
+                self.every.append(snap)
             self.rounds += 1
             return inner(*state, **kw)
 
@@ -2689,23 +2737,42 @@ def color_compare(timing, calls):
     return err, k_ms, p_ms, bound, "bytes"
 
 
-def jp_calls(gc, label, state):
-    """color_jp on each bucket of a strict JP round-start state. Bytes, for
-    an uncolored row: its priority; each entry's index word and color, and
-    an uncolored neighbour's priority, up to the first rival (an uncolored
+def jp_bucket_bytes(col, prio, ids, nbrt) -> int:
+    """The bytes of a strict JP bucket from round-start colors col: for an
+    uncolored row, its priority; each entry's index word and color, and an
+    uncolored neighbour's priority, up to the first rival (an uncolored
     neighbour of higher priority: the row loses); a write only for a row
     that wins (the colors are updated in place)."""
     from gms_tpu_torch.graphs.tiles import SENTINEL
+    idl = ids.long()
+    unc_n = nbr_take(col, nbrt) == -1
+    rival = unc_n & (nbr_take(prio, nbrt) > prio[idl][:, None])
+    live = (col[idl] == -1) & (idl < col.shape[0] - 1)
+    wins = live & ~(rival & (nbrt != SENTINEL)).any(1)
+    return bucket_bytes(ids, nbrt, col, 4, 8 + 4 * unc_n.long(), stop=rival,
+                        writes=4 * wins.long())
+
+
+def jp_dispatch_bytes(gc, col, prio, tiers, limit: int, n: int):
+    """(bytes, rounds) of a strict JP dispatch from col: each round's
+    buckets as jp_bucket_bytes counts them from the round-start colors,
+    summed over the rounds it runs (stepped a round at a time by jp_run)."""
+    col, nbytes, r = col.clone(), 0, 0
+    while r < limit and bool((col[:n] == -1).any()):
+        nbytes += sum(jp_bucket_bytes(col, prio, ids, nbrt)
+                      for ids, nbrt in tiers)
+        gc.jp_run(col, prio, tiers, limit=1, n=n)
+        r += 1
+    return nbytes, r
+
+
+def jp_calls(gc, label, state):
+    """color_jp on each bucket of a strict JP round-start state; bytes by
+    jp_bucket_bytes."""
     col, prio, tiers = state[:3]
     calls = []
     for ids, nbrt in tiers:
-        idl = ids.long()
-        unc_n = nbr_take(col, nbrt) == -1
-        rival = unc_n & (nbr_take(prio, nbrt) > prio[idl][:, None])
-        live = (col[idl] == -1) & (idl < col.shape[0] - 1)
-        wins = live & ~(rival & (nbrt != SENTINEL)).any(1)
-        nbytes = bucket_bytes(ids, nbrt, col, 4, 8 + 4 * unc_n.long(),
-                              stop=rival, writes=4 * wins.long())
+        nbytes = jp_bucket_bytes(col, prio, ids, nbrt)
         kbuf, pbuf = col.clone(), col.clone()
 
         def plain(ids=ids, nbrt=nbrt, pbuf=pbuf):
@@ -2718,6 +2785,27 @@ def jp_calls(gc, label, state):
                 kbuf, prio, ids, nbrt),
             plain, nbytes, lambda kbuf=kbuf: kbuf.copy_(col)))
     return calls
+
+
+def jp_run_calls(gc, label, state):
+    """jp_run on a strict JP dispatch-start state (colors, priorities,
+    tiers, its limit and n) against jp_run_plain, colors and rounds; bytes
+    by jp_dispatch_bytes over the rounds it runs."""
+    col, prio, tiers, kw = state
+    nbytes, rounds = jp_dispatch_bytes(gc, col, prio, tiers, **kw)
+    kbuf, pbuf = col.clone(), col.clone()
+
+    def kernel():
+        c, r = gc.jp_run(kbuf, prio, tiers, **kw)
+        return c, r.long()
+
+    def plain():
+        pbuf.copy_(col)
+        c, r = gc.jp_run_plain(pbuf, prio, tiers, **kw)
+        return c, torch.tensor([r], device=c.device)
+
+    return [(f"jp_run {label}, {rounds} rounds over {len(tiers)} buckets",
+             kernel, plain, nbytes, lambda: kbuf.copy_(col))]
 
 
 def spec_calls(gc, label, state):
@@ -2911,7 +2999,7 @@ def coloring_phases(timing, report) -> None:
 
     # [38] the other deterministic variants, counters from 0 before each
     run_launches = {}
-    strict_states = RoundStates(gc, "jp_round")
+    strict_states = RoundStates(gc, "jp_run", every=True)
     for key in ("spec-random", "strict-lf", "strict-random"):
         kw, want_n, want_d = COLOR_GOLDEN[key]
         gc.reset_launches()
@@ -2925,13 +3013,34 @@ def coloring_phases(timing, report) -> None:
         print(f"[38] JP {key}: {n_col} colors, digest {d}, "
               f"{gc.ROUNDS['jones_plassmann']} rounds, {dt:.4f} s; launches "
               f"{run_launches[key]}")
-    check(run_launches["strict-lf"]["color_jp"] > 0, "K22 never launched")
+    dispatches = strict_states.rounds
+    check(run_launches["strict-lf"]["jp_run"] == dispatches > 0,
+          f"K22 (jp_run) launched {run_launches['strict-lf']['jp_run']} "
+          f"times over {dispatches} strict JP-LF dispatches")
     kw, _, want_d = COLOR_GOLDEN["strict-lf"]
+    gc.reset_launches()
     c, host_s, per, busy = profile_window(
         lambda: gc.jones_plassmann(g, device="cuda", **kw))
     check(color_digest(c) == want_d, "the profiled strict JP-LF call's colors")
-    window_lines("[38] warm strict JP-LF call under torch.profiler:", host_s,
-                 per, busy, {"K22": ("jp_decide", "jp_commit")})
+    sums = window_lines("[38] warm strict JP-LF call under torch.profiler:",
+                        host_s, per, busy,
+                        {"K22": ("jp_run_kernel", "jp_decide", "jp_commit")})
+    check(gc.LAUNCHES["jp_run"] == dispatches,
+          f"the profiled call launched K22 {gc.LAUNCHES['jp_run']} times "
+          f"over {dispatches} dispatches")
+    # the whole call's bound: every dispatch's rounds, each round's buckets
+    # as phase 41 counts them
+    whole_b, whole_r = 0, 0
+    for col, prio, tiers, dkw in strict_states.every:
+        b, r = jp_dispatch_bytes(gc, col, prio, tiers, **dkw)
+        whole_b, whole_r = whole_b + b, whole_r + r
+    check(whole_r == gc.ROUNDS["jones_plassmann"],
+          f"the dispatches replayed {whole_r} rounds, the call ran "
+          f"{gc.ROUNDS['jones_plassmann']}")
+    print(f"    [38] its {dispatches} dispatches, {whole_r} rounds: bound "
+          f"{whole_b / HBM_BYTES_PER_S * 1e3:.4f} ms ({whole_b} bytes) "
+          f"against K22's {sums['K22'][0]:.4f} ms of device time | "
+          f"{card_line()}")
     gc.reset_launches()
     vs.reset_launches()
     t0 = time.perf_counter()
@@ -2941,7 +3050,7 @@ def coloring_phases(timing, report) -> None:
     print(f"[38] dense_sparse(g, seed=0): {n_col} colors, digest {d}, "
           f"{gc.ROUNDS['dense_sparse']} JP rounds, {dt:.4f} s; launches "
           f"{dict(gc.LAUNCHES)}, pair_scores {vs.LAUNCHES['pair_scores']}")
-    check(gc.LAUNCHES["color_jp"] > 0, "dense_sparse: K22 never launched")
+    check(gc.LAUNCHES["jp_run"] > 0, "dense_sparse: K22 never launched")
 
     # [39] dense_sparse with its friend components firing
     g14 = build_csr(generate_rmat_el(COLOR_DS_SCALE, DEGREE, seed=SEED),
@@ -3005,11 +3114,32 @@ def coloring_phases(timing, report) -> None:
     # [41] each kernel against its plain version on the recorded round-start
     # states (the round's own draws for K24): the first round and the last
     # with an uncolored vertex, every bucket. Each kernels-line entry takes
-    # its launches and its times from one run.
+    # its launches and its times from one run. K22: jp_run, which strict JP
+    # runs, on strict JP-LF's first and last dispatch; jp_bucket (one
+    # bucket, jp_run's decide and a commit pass), which no entry point runs
+    # now, held off the kernels line on the first round and the last
+    dfirst, dlast = strict_states.first, strict_states.last
+    last_col = dlast[0].clone()
+    _, r_last = gc.jp_run(last_col.clone(), *dlast[1:3], **dlast[3])
+    if int(r_last) > 1:
+        gc.jp_run(last_col, *dlast[1:3], limit=int(r_last) - 1,
+                  n=dlast[3]["n"])
+    strict_rounds = [(f"round 1 of {whole_r}", dfirst),
+                     (f"round {whole_r} of {whole_r}",
+                      (last_col,) + tuple(dlast[1:]))]
+    err, k_ms, p_ms, bound_ms, _ = color_compare(timing, [
+        c for lab, st in strict_rounds
+        for c in jp_calls(gc, f"JP-LF {lab}", st)])
+    print(f"[41] color_jp (jp_bucket, off the main path) on strict JP-LF's "
+          f"first and last round: max_abs_err {err}, kernel {k_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms (bytes), plain {p_ms:.4f} ms")
+    check(err == 0, f"color_jp disagrees with its plain version by {err}")
     groups = {
-        "color_jp": (run_launches["strict-lf"], [
-            c for lab, st in strict_states.both()
-            for c in jp_calls(gc, f"JP-LF {lab}", st)]),
+        "jp_run": (run_launches["strict-lf"], [
+            c for lab, st in ((f"dispatch 1 of {dispatches}", dfirst),
+                              (f"dispatch {dispatches} of {dispatches}",
+                               dlast))
+            for c in jp_run_calls(gc, f"JP-LF {lab}", st)]),
         "color_spec": (main_launches, [
             c for lab, st in spec_states.both()
             for c in spec_calls(gc, f"spec JP-LF {lab}", st)]),
@@ -4395,20 +4525,40 @@ def multi_phases(timing, report, g18, g14, g12, lp_pairs):
     again, host_s, per, busy = profile_window(
         lambda: multi.sharded_kclique_count(g, k, mesh, rank=rank))
     check(again == golden, f"the profiled sharded call gave {again}")
-    window_lines("[53] warm sharded call under torch.profiler:", host_s, per,
-                 busy, {"K37": K37_KERNELS, "K4": ("local_adj_kernel",),
-                        "K38": ("popcount_kernel",)})
+    sums = window_lines("[53] warm sharded call under torch.profiler:",
+                        host_s, per, busy,
+                        {"K37": K37_KERNELS, "K4": ("local_adj_kernel",),
+                         "K38": ("popcount_kernel",)})
     print(f"    its launches {dict(kc.LAUNCHES)}")
     check(all(v > 0 for v in main.values()),
           f"a kernel of the sharded k-clique path never launched: {main}")
+    # K4 builds each chunk's adjacency once, before the chunk's doublings
+    # (the counters; the profiler may miss a window's first launch)
+    check(main["build_local_adj"] == kc.LAUNCHES["build_local_adj"]
+          == stats["chunks"],
+          f"K4 launched {main['build_local_adj']} times (profiled call "
+          f"{kc.LAUNCHES['build_local_adj']}) over {stats['chunks']} chunks")
     # K37 and K38 on the first chunk's levels, at the first caps and at the
     # caps that fit
     dag = orient.orient(g, rank)
     pg = PaddedGraph.from_csr(dag, device="cuda", lane=32)
     W, WW = pg.d_pad, pg.d_pad // 32
-    roots = np.nonzero(np.asarray(dag.degrees) >= k - 1)[0][:256]
-    adj, S0 = kc.build_local_adj(pg.nbr, torch.from_numpy(
-        roots.astype(np.int32)).cuda(), w_words=WW)
+    # K4's bound over the whole call: each chunk at the global W, its rows
+    # read and every output word written once (local_adj_bytes)
+    every = np.nonzero(np.asarray(dag.degrees) >= k - 1)[0].astype(np.int32)
+    k4_bytes = 0
+    for at in range(0, len(every), 256):
+        c = every[at:at + 256]
+        c = np.concatenate([c, np.full(256 - len(c), pg.v_pad, np.int32)])
+        k4_bytes += local_adj_bytes(pg, torch.from_numpy(c).cuda(), WW)
+    print(f"[53] the warm call's K4: device {sums['K4'][0]:.4f} ms over "
+          f"{sums['K4'][1]} launches, one a chunk ({stats['chunks']} chunks "
+          f"at W={W}, {stats['doublings']} cap doublings); its bound over "
+          f"the call's chunks {k4_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+          f"({k4_bytes} bytes) | {card_line()}")
+    roots = every[:256]
+    adj, S0 = kc.build_local_adj(pg.nbr, torch.from_numpy(roots).cuda(),
+                                 w_words=WW)
 
     def levels(caps):
         """The levels of one run as the main path runs them, each with its

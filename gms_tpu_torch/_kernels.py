@@ -149,6 +149,9 @@ SIGNATURES = {
     "color_jp": {
         # ids, nbrt, Vt, Dt, colors, prio, cw, dec, stream
         "color_jp": (_P, _P, _L, _I, _P, _P, _I, _P, _P),
+        # bucket table, buckets, colors, len(colors), prio, n, limit,
+        # widest Dt, stamped words, ctl, stream
+        "color_jp_run": (_P, _I, _P, _L, _P, _L, _I, _I, _P, _P, _P),
     },
     "color_spec": {
         # ids, nbrt, Vt, Dt, colors, cw, pick0, stream

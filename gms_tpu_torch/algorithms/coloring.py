@@ -13,12 +13,16 @@ multiple of 8 with the dump id n) and their CSR rows nbrt int32[Vt, Dt]
 with a SENTINEL tail. State arrays (colors, priorities, draws) carry one
 dump slot at index n (colored 0, priority 0).
 
-Five hand-written CUDA kernels carry the device programs; each wrapper takes
-one bucket, runs its plain version for CPU tensors, launches the kernel or
-raises for CUDA tensors, and adds one to LAUNCHES[name] per launch:
-  * `jp_bucket` (K22, csrc/color_jp.cu): one strict JP round over a bucket,
-    decide then commit (every read of the bucket-start colors): two CUDA
-    launches, counted as one;
+Five hand-written CUDA kernels carry the device programs; each wrapper runs
+its plain version for CPU tensors, launches the kernel or raises for CUDA
+tensors, and adds one to LAUNCHES[name] per launch:
+  * `jp_run` (K22, csrc/color_jp.cu, LAUNCHES "jp_run"): a whole strict JP
+    dispatch, up to `limit` rounds over every bucket while a vertex is
+    uncolored (gms_tpu's _jp_run_tiered), in one cooperative launch; the
+    strict dispatches of `jones_plassmann` and `dense_sparse` run it;
+  * `jp_bucket` (K22, LAUNCHES "color_jp"): one strict JP round over a
+    bucket, decide then commit (every read of the bucket-start colors), the
+    same decide and commit as jp_run's: two CUDA launches, counted as one;
   * `spec_pick`, `spec_rank`, `spec_clash` (K23, csrc/color_spec.cu): the
     three passes of the speculative round, each into a fresh buffer;
   * `johansson_bucket` (K24, csrc/color_random.cu, LAUNCHES
@@ -29,9 +33,11 @@ raises for CUDA tensors, and adds one to LAUNCHES[name] per launch:
   * `component_step` (K25, csrc/color_components.cu): one Jacobi min-label
     step on the friend graph of `dense_sparse`, over the degree-balanced
     row schedule of graphs/row_schedule.py (built once a call).
-The round functions (`jp_round`, `spec_round`, `johansson_round`,
-`one_shot_round`, `component_labels`) walk the buckets through the wrappers;
-their `*_plain` twins walk them through the plain versions, on any device.
+The wrappers other than jp_run take one bucket; the round functions
+(`jp_round`, `spec_round`, `johansson_round`, `one_shot_round`,
+`component_labels`) walk the buckets through them; their `*_plain` twins
+walk them through the plain versions, on any device (`jp_run_plain`, the
+round loop of `jp_round_plain`).
 
 Johansson and Barenboim/Elkin draw gms_tpu's jax.random numbers from
 gms_tpu's keys (gms_tpu_torch/prng.py, threefry bit for bit), so their
@@ -62,8 +68,8 @@ UNCOLORED = -1
 SPEC_RANK_CAP = 31
 
 # Kernel launches, counted only where a CUDA kernel launches.
-LAUNCHES = {"color_jp": 0, "color_spec": 0, "color_johansson": 0,
-            "color_one_shot": 0, "color_components": 0}
+LAUNCHES = {"jp_run": 0, "color_jp": 0, "color_spec": 0,
+            "color_johansson": 0, "color_one_shot": 0, "color_components": 0}
 # rounds (JP, Johansson, Barenboim/Elkin) or steps (components) of the last
 # call of each entry point
 ROUNDS = {"jones_plassmann": 0, "johansson": 0, "barenboim_elkin": 0,
@@ -242,6 +248,50 @@ def jp_round(colors, priority, tiers):
 
 def jp_round_plain(colors, priority, tiers):
     return _jp_round(colors, priority, tiers, jp_bucket_plain)
+
+
+def jp_run_plain(colors, priority, tiers, *, limit: int, n: int):
+    """Plain version of jp_run: up to `limit` jp_round_plain rounds while a
+    vertex of [0, n) is uncolored, in place on colors; returns (colors, the
+    rounds run)."""
+    r = 0
+    while r < limit and _any_uncolored(colors, n):
+        for ids, nbrt in tiers:
+            jp_bucket_plain(colors, priority, ids, nbrt)
+        r += 1
+    return colors, r
+
+
+def jp_run(colors, priority, tiers, *, limit: int, n: int):
+    """One strict JP dispatch, gms_tpu's _jp_run_tiered (coloring.py:272):
+    up to `limit` rounds while a vertex of [0, n) is uncolored, each round
+    the buckets (ids, nbrt) in ascending width, each seeing the earlier
+    buckets' commits; in place on colors int32[n + 1]. Returns (colors,
+    rounds): for CUDA tensors one cooperative launch, the rounds an int32[1]
+    tensor on the card (read it back with the colors); for CPU tensors
+    jp_run_plain, the rounds an int. The buckets' rows are distinct
+    vertices, as _TierGraph builds them."""
+    name = "jp_run"
+    _kernels.check_tensor(name, "colors", colors, 1)
+    cuda = _kernels.on_cuda(name, colors, priority)
+    for ids, nbrt in tiers:
+        _check_bucket(name, ids, nbrt, colors, priority)
+    if not 0 <= n < colors.shape[0]:
+        raise ValueError(f"{name}: n = {n} for {colors.shape[0]} state slots")
+    if not cuda:
+        return jp_run_plain(colors, priority, tiers, limit=limit, n=n)
+    dev = colors.device
+    table = torch.tensor([[ids.data_ptr(), nbrt.data_ptr(), *nbrt.shape]
+                          for ids, nbrt in tiers] or [[0, 0, 0, 0]],
+                         dtype=torch.int64).to(dev)
+    words = torch.empty(colors.shape[0], dtype=torch.int64, device=dev)
+    ctl = torch.zeros(5 + 4 * len(tiers), dtype=torch.int64, device=dev)
+    _kernels.launch("color_jp", "color_jp_run", table, len(tiers), colors,
+                    colors.shape[0], priority, n, int(limit),
+                    max([nbrt.shape[1] for _, nbrt in tiers] + [1]), words,
+                    ctl)
+    LAUNCHES["jp_run"] += 1
+    return colors, ctl[1:2].to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -602,15 +652,20 @@ def _dispatches(dispatch, colors, n: int, left: int, limit: int | None,
     """gms_tpu's host loop over its dispatches: dispatch(d, colors, unc)
     runs dispatch d and returns (colors, rounds), unc being the bool[n]
     uncolored mask read back after the previous dispatch (None before the
-    first). Returns the colors as numpy once every vertex is colored; raises
-    once a dispatch leaves `left` or more uncolored, or after `limit`
-    dispatches."""
+    first); rounds is an int, or jp_run's int32[1] on the card, read back
+    with the colors. Returns the colors as numpy once every vertex is
+    colored; raises once a dispatch leaves `left` or more uncolored, or
+    after `limit` dispatches."""
     unc = None
     d = 0
     while limit is None or d < limit:
         colors, r = dispatch(d, colors, unc)
+        if isinstance(r, torch.Tensor):
+            both = torch.cat([colors[:n], r]).cpu().numpy()
+            out, r = both[:n], int(both[n])
+        else:
+            out = colors[:n].cpu().numpy()
         ROUNDS[counter] += r
-        out = colors[:n].cpu().numpy()
         unc = out == UNCOLORED
         now = int(unc.sum())
         if now == 0:
@@ -654,15 +709,16 @@ def jones_plassmann(g: CSRGraph, *, priority: str = "random", seed: int = 0,
     if n == 0:
         return np.zeros(0, np.int32)
     prio = torch.from_numpy(jp_priorities(g, priority, seed)).to(dev)
-    round_fn = spec_round if speculative else jp_round
     budget = max_rounds or n
 
     def dispatch(d, colors, unc):
         # after the first dispatch, the rows of the uncolored frontier only
         tiers = _TierGraph(g, ids=None if unc is None
                            else np.nonzero(unc)[0]).to(dev)
-        return _run(round_fn, colors, n, min(budget - 64 * d, 64), prio,
-                    tiers)
+        limit = min(budget - 64 * d, 64)
+        if speculative:
+            return _run(spec_round, colors, n, limit, prio, tiers)
+        return jp_run(colors, prio, tiers, limit=limit, n=n)
 
     return _dispatches(dispatch, _initial_colors(n, dev), n, n,
                        -(-budget // 64), "jones_plassmann", "jones_plassmann")
@@ -837,8 +893,8 @@ def dense_sparse(g: CSRGraph, *, eps: float = 0.2, seed: int = 0,
         del e, src, dst, cs, mono, lose
     # 5. strict JP to the end, over the whole graph's tiers
     tiers = _TierGraph(g).to(dev)
-    return _dispatches(lambda d, c, unc: _run(jp_round, c, n, 64, prio_t,
-                                              tiers),
+    return _dispatches(lambda d, c, unc: jp_run(c, prio_t, tiers, limit=64,
+                                                n=n),
                        cj, n, n + 1, None, "dense_sparse", "dense_sparse")
 
 

@@ -157,8 +157,9 @@ def build_local_adj(nbr, roots, *, w_words: int):
 
     nbr:   int32[V_pad, D] oriented padded adjacency, each row strictly
            ascending with a SENTINEL tail (the padded layout; the kernel
-           binary-searches the root's row and would miss members of an
-           unsorted one, which the plain version would not)
+           takes a root's live slots as a prefix of its row and stops a row
+           once it passes the root's last one, so it would miss members of
+           an unsorted row, which the plain version would not)
     roots: int32[C] root ids; they clip to [0, V_pad-1], so the pad id
            V_pad lands on the all-SENTINEL guard row and gives empty sets.
     Returns (adj int32[C, W, w_words], S0 int32[C, w_words]), W = 32*w_words:

@@ -1,7 +1,7 @@
 // Membership of a padded row's elements among a root's slots, by binary
-// search: the inner loop shared by build_local_adj (local_adj.cu),
-// hub_cover_bits (bk_cover.cu), build_local_univ (star_univ.cu) and
-// member_pack (ring_member.cu).
+// search: the inner loop shared by hub_cover_bits (bk_cover.cu),
+// build_local_univ (star_univ.cu) and member_pack (ring_member.cu).
+// build_local_adj (local_adj.cu) looks its slots up in a hash table.
 #pragma once
 
 #include <cuda_runtime.h>

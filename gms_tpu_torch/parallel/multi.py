@@ -4,7 +4,9 @@ the port of gms_tpu/parallel/multi.py.
 Three patterns, as gms_tpu's:
 
   * `sharded_kclique_count` — root chunks split over the mesh's ranks: each
-    rank builds its roots' local adjacency (K4), expands them k-2 levels
+    rank builds its roots' local adjacency (K4) once a chunk, before the
+    chunk's cap doublings (the adjacency does not depend on the caps;
+    gms_tpu rebuilds it inside its jitted step), then expands them k-2 levels
     breadth-wise with fixed capacities (K37, expand_level; each level after
     the first walks only the previous level's survivors, their count handed
     over on the device) and sums the last level's popcounts (K38); the
@@ -44,14 +46,13 @@ __all__ = [
 ]
 
 
-def _sharded_kclique_step(mesh: Mesh, nbr, roots, *, k: int, w_words: int,
-                          caps):
-    """This rank's roots int32[C] -> int64[2]: (count, children dropped
+def _sharded_kclique_step(mesh: Mesh, adj, S, *, k: int, caps):
+    """This rank's roots' local adjacency adj int32[C, W, WW] and S0
+    int32[C, WW] (build_local_adj) -> int64[2]: (count, children dropped
     past the capacities), each summed over the mesh. gms_tpu's
-    _sharded_kclique_step (:41)."""
-    adj, S = build_local_adj(nbr, roots, w_words=w_words)
-    R = torch.arange(roots.shape[0], dtype=torch.int32, device=roots.device)
-    overflow = torch.zeros((), dtype=torch.int64, device=roots.device)
+    _sharded_kclique_step (:41) after its build_local_adj."""
+    R = torch.arange(S.shape[0], dtype=torch.int32, device=S.device)
+    overflow = torch.zeros((), dtype=torch.int64, device=S.device)
     remaining = k - 1
     n = None  # a level's rows past min(cap, n_children) are zero
     for cap in caps:
@@ -98,9 +99,10 @@ def sharded_kclique_count(
         # the same bound and double on overflow
         caps = [max(256, root_chunk_per_shard * W)] * (k - 2)
         chunks += 1
+        adj, S0 = build_local_adj(pg.nbr, mine, w_words=WW)
         while True:
             cnt, overflow = _sharded_kclique_step(
-                mesh, pg.nbr, mine, k=k, w_words=WW, caps=caps).tolist()
+                mesh, adj, S0, k=k, caps=caps).tolist()
             if overflow == 0:
                 total += cnt
                 break

@@ -198,3 +198,86 @@ def test_component_labels_stop_at_gms_tpus_step():
                               torch.from_numpy(fg2.indices), 64)
     assert np.array_equal(got.numpy(), want)
     assert len(np.unique(want)) == 6   # two paths, four isolated
+
+
+def _jp_run_agrees(col, prio, tiers, jtiers, n, limits):
+    """jp_run_plain (and jp_run on the CPU) from state col against gms_tpu's
+    _jp_run_tiered at each limit: the same colors, and as many rounds as
+    gms_tpu runs — its colors at limit = rounds are these, at rounds - 1
+    still hold an uncolored vertex, and fewer rounds than the limit leave
+    none. Returns the rounds at each limit."""
+    jprio = jnp.asarray(prio.astype(np.uint32))
+
+    def gms(limit):
+        return np.asarray(jc._jp_run_tiered(jnp.asarray(col), jprio, jtiers,
+                                            limit=limit, n=n))
+
+    out = []
+    for limit in limits:
+        want = gms(limit)
+        got, rounds = gc.jp_run_plain(torch.from_numpy(col.copy()),
+                                      torch.from_numpy(prio), tiers,
+                                      limit=limit, n=n)
+        assert np.array_equal(got.numpy(), want)
+        again, r2 = gc.jp_run(torch.from_numpy(col.copy()),
+                              torch.from_numpy(prio), tiers, limit=limit, n=n)
+        assert np.array_equal(again.numpy(), want) and r2 == rounds
+        assert 0 < rounds <= limit
+        assert np.array_equal(gms(rounds), want)
+        assert (gms(rounds - 1)[:n] == -1).any()
+        if rounds < limit:
+            assert not (want[:n] == -1).any()
+        out.append(rounds)
+    return out
+
+
+def test_jp_run_equals_gms_tpu_dispatch():
+    g, jg = _rmat(10)
+    n = g.num_nodes
+    col, _, prio, _, tiers, jtiers = _state(g, jg, 0, jc._jp_round_tiered)
+    rounds = _jp_run_agrees(col, prio, tiers, jtiers, n, (1, 3, 64))
+    # the first two stop at their limit, the frontier empties mid-dispatch
+    assert rounds[:2] == [1, 3] and 3 < rounds[2] < 64
+    # a dispatch from a state with every vertex colored runs no round
+    done = gc.jp_run_plain(torch.from_numpy(col.copy()),
+                           torch.from_numpy(prio), tiers, limit=64, n=n)[0]
+    assert gc.jp_run_plain(done, torch.from_numpy(prio), tiers, limit=64,
+                           n=n)[1] == 0
+
+
+def test_jp_run_equals_gms_tpu_with_an_uncovered_vertex():
+    """Tiers that leave an uncolored vertex out of every bucket: it stays
+    uncolored, so both packages run every round up to the limit, the later
+    ones with no bucket left to color."""
+    g, jg = _rmat(10)
+    n = g.num_nodes
+    col, _, prio, _, tiers, jtiers = _state(g, jg, 0, jc._jp_round_tiered)
+    ids = np.asarray(jtiers[0][0]).copy()
+    assert ids[0] < n and col[ids[0]] == -1
+    ids[0] = n                                 # the dump slot, colored 0
+    jtiers = ((jnp.asarray(ids), jtiers[0][1]),) + tuple(jtiers[1:])
+    tiers = [(torch.from_numpy(ids), tiers[0][1])] + list(tiers[1:])
+    assert _jp_run_agrees(col, prio, tiers, jtiers, n, (1, 3, 64)) == [1, 3,
+                                                                       64]
+
+
+def test_jp_run_equals_gms_tpu_on_dense_sparse_last_stage(monkeypatch):
+    """The state dense_sparse hands its strict JP stage (friend colors, the
+    degree cap and the conflict reset applied), run by both packages."""
+    g, jg = _rmat(8)
+    n = g.num_nodes
+    seen = []
+    inner = gc.jp_run
+
+    def record(colors, priority, tiers, **kw):
+        seen.append((colors.clone(), priority.clone(), tiers, kw))
+        return inner(colors, priority, tiers, **kw)
+
+    monkeypatch.setattr(gc, "jp_run", record)
+    out = gc.dense_sparse(g, friend_number=8, device="cpu")
+    assert np.array_equal(out, jc.dense_sparse(jg, friend_number=8))
+    col, prio, tiers, kw = seen[0]
+    assert kw == {"limit": 64, "n": n}
+    assert (col[:n] >= 0).any() and (col[:n] == -1).any()
+    jtiers = jc._TierGraph(jg).tiers
+    _jp_run_agrees(col.numpy(), prio.numpy(), tiers, jtiers, n, (64,))

@@ -406,6 +406,67 @@ def test_local_adj_on_card(card, ww, D):
     assert adj.any()
 
 
+def _full_row_nbr(rng, W):
+    """Padded rows over [0, n), n = max(600, 2W), at D = W + 16 with a
+    SENTINEL tail; rows 0-3 hold exactly W entries (their live prefix
+    reaches the root's last slot), row 4 is all SENTINEL, the rest random
+    lengths up to 96."""
+    D, n = W + 16, max(600, 2 * W)
+    nbr = _padded_rows(rng, n + 8, D, n, min(D, 96))
+    for v in range(4):
+        nbr[v] = SENTINEL
+        nbr[v, :W] = np.sort(rng.choice(n, size=W, replace=False))
+    nbr[4] = SENTINEL
+    return nbr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ww", [1, 2, 4, 8, 16, 64])
+def test_local_adj_chunks_on_card(card, ww):
+    """K4 bit for bit against plain on an RMAT chunk of its own width, on
+    roots whose rows fill all W slots, on SENTINEL roots, and on the
+    sharded count's chunk at one global W."""
+    from gms_tpu_torch.preprocessing import orient
+
+    W = 32 * ww
+    rng = np.random.default_rng(ww)
+    g = build_csr(generate_rmat_el(11, 16, seed=ww), num_nodes=1 << 11)
+    rank, _ = degeneracy.degeneracy_ordering_rank(g)
+    pg = PaddedGraph.from_csr(orient.orient(g, rank), device=card, lane=32)
+    deg = pg.deg.cpu().numpy()
+    tier = np.nonzero(deg <= W)[0]
+    tier = tier[np.argsort(-deg[tier], kind="stable")][:200]   # the widest
+    shard = np.nonzero(deg >= 4)[0][:256]
+    cases = [(pg.nbr, np.concatenate([tier, [pg.v_pad, -1]]), ww),
+             (pg.nbr, np.concatenate([shard, np.full(256 - len(shard),
+                                                     pg.v_pad)]),
+              pg.d_pad // 32)]
+    full = torch.from_numpy(_full_row_nbr(rng, W)).to(card)
+    cases.append((full, np.array([0, 4, 1, full.shape[0], 2, -7, 3, 5, 6]),
+                  ww))
+    for nbr, roots, w in cases:
+        roots = torch.from_numpy(roots.astype(np.int32)).to(card)
+        adj, s0 = _launched("build_local_adj", lambda: kc.build_local_adj(
+            nbr, roots, w_words=w), kc.LAUNCHES)
+        padj, ps0 = kc.build_local_adj_plain(nbr, roots, w_words=w)
+        assert torch.equal(adj, padj) and torch.equal(s0, ps0)
+        assert adj.any()
+
+
+@pytest.mark.cuda
+def test_local_adj_beyond_the_hash_width_on_card(card):
+    """W = 8,320 (ww = 260): the binary-search variant, rows short."""
+    rng = np.random.default_rng(3)
+    nbr = torch.from_numpy(_padded_rows(rng, 300, 64, 290, 64)).to(card)
+    roots = torch.from_numpy(np.array([5, 300, 17, -1, 250],
+                                      np.int32)).to(card)
+    adj, s0 = _launched("build_local_adj", lambda: kc.build_local_adj(
+        nbr, roots, w_words=260), kc.LAUNCHES)
+    padj, ps0 = kc.build_local_adj_plain(nbr, roots, w_words=260)
+    assert torch.equal(adj, padj) and torch.equal(s0, ps0)
+    assert adj.any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [3, 4, 5])
 @pytest.mark.parametrize("C,ww,p", [(40, 1, 0.3), (9, 5, 0.1), (3, 32, 0.03),
@@ -1309,6 +1370,58 @@ def test_color_rounds_on_card(card):
                                                                 want[1])
     assert gc.LAUNCHES["color_johansson"] >= len(tiers)
     assert gc.LAUNCHES["color_one_shot"] >= 4 * len(tiers)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("limit", [1, 3, 64])
+@pytest.mark.parametrize("graph", ["rmat12", "wide"])
+def test_jp_run_on_card(card, graph, limit):
+    """K22's cooperative dispatch against jp_run_plain: colors and rounds,
+    from all-uncolored and from a speculative round-start state, on the
+    RMAT-12 tiers and on a graph whose widest bucket (2,048) takes a block
+    a row."""
+    g = (build_csr(generate_rmat_el(12, 16, seed=27491095),
+                   num_nodes=1 << 12) if graph == "rmat12"
+         else _coloring_graph(5))
+    n = g.num_nodes
+    prio, tiers, states = _states(g, card, rounds=2)
+    assert graph == "rmat12" or tiers[-1][1].shape[1] == 2048
+    for col in states[::2]:
+        got, rounds = _launched("jp_run", lambda: gc.jp_run(
+            col.clone(), prio, tiers, limit=limit, n=n), gc.LAUNCHES)
+        want, wrounds = gc.jp_run_plain(col.clone(), prio, tiers,
+                                        limit=limit, n=n)
+        assert torch.equal(got, want)
+        assert rounds.dtype == torch.int32 and int(rounds) == wrounds > 0
+        assert wrounds == limit or not (want[:n] == -1).any()
+    # every vertex colored: no round; no bucket: limit empty rounds
+    done = gc.jp_run(gc.jp_run_plain(states[0].clone(), prio, tiers,
+                                     limit=n, n=n)[0], prio, tiers,
+                     limit=limit, n=n)
+    assert int(done[1]) == 0
+    empty = gc.jp_run(states[0].clone(), prio, [], limit=limit, n=n)
+    assert int(empty[1]) == limit and torch.equal(empty[0], states[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("limit", [1, 3, 64])
+def test_jp_run_uncovered_vertex_on_card(card, limit):
+    """Tiers that leave an uncolored vertex out of every bucket: once the
+    buckets have no uncolored row, jp_run counts the rounds to the limit as
+    jp_run_plain runs them, and every block leaves the launch."""
+    g = build_csr(generate_rmat_el(12, 16, seed=27491095), num_nodes=1 << 12)
+    n = g.num_nodes
+    prio, tiers, states = _states(g, card, rounds=2)
+    ids = tiers[0][0].clone()
+    assert int(ids[0]) < n and int(states[0][ids[0].long()]) == -1
+    ids[0] = n                                 # the dump slot, colored 0
+    tiers = [(ids, tiers[0][1])] + list(tiers[1:])
+    got, rounds = _launched("jp_run", lambda: gc.jp_run(
+        states[0].clone(), prio, tiers, limit=limit, n=n), gc.LAUNCHES)
+    want, wrounds = gc.jp_run_plain(states[0].clone(), prio, tiers,
+                                    limit=limit, n=n)
+    assert torch.equal(got, want)
+    assert int(rounds) == wrounds == limit and (want[:n] == -1).any()
 
 
 @pytest.mark.cuda

@@ -290,7 +290,8 @@ def test_sharded_kclique_doublings_equal_gms_tpu(mesh, cases, k,
                                                  monkeypatch):
     """sharded_kclique_count at world size 1, the levels handed their live
     counts, against gms_tpu's on a one-device mesh and the oracle, with as
-    many runs: each chunk once plus its cap doublings."""
+    many runs: each chunk once plus its cap doublings; the port builds each
+    chunk's local adjacency once, before its doublings."""
     from gms_tpu.algorithms import k_clique as jkc
     from gms_tpu.io.builder import build_csr as jbuild_csr
     from gms_tpu.parallel import multi as jmulti
@@ -305,6 +306,10 @@ def test_sharded_kclique_doublings_equal_gms_tpu(mesh, cases, k,
         return step(*args, **kw)
 
     monkeypatch.setattr(jmulti, "_sharded_kclique_step", counted)
+    builds = []
+    build = multi.build_local_adj
+    monkeypatch.setattr(multi, "build_local_adj", lambda *a, **kw: (
+        builds.append(kw["w_words"]), build(*a, **kw))[1])
     jg = jbuild_csr(el, num_nodes=n)
     want = jmulti.sharded_kclique_count(jg, k, jsharding.make_mesh(1),
                                         root_chunk_per_shard=8)
@@ -316,3 +321,4 @@ def test_sharded_kclique_doublings_equal_gms_tpu(mesh, cases, k,
     first = sum(c == runs[0] for c in runs)  # each chunk's first run
     assert (stats["chunks"], stats["doublings"]) == (first, len(runs) - first)
     assert (stats["doublings"] > 0) == (k > 4)
+    assert len(builds) == stats["chunks"]
