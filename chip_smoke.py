@@ -40,9 +40,10 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      before it: kclique_count(g, k, device="cuda") on the three k-clique
      graphs of bench.py (RMAT 16 k=5, RMAT 13 k=6, RMAT 12 k=8, average
      degree 16, seed 27491095), each against its golden count, after the
-     exact degeneracy peel; every k-clique kernel must have launched; the
-     RMAT 13 k=6 and RMAT 12 k=8 calls once more, warm, under
-     torch.profiler: K6's and K4's device time and the idle share;
+     exact degeneracy peel; every k-clique kernel must have launched, K5
+     once a chunk of RMAT 16 k=5 (31 launches); the three calls once more,
+     warm, under torch.profiler: K5's (k=5), K6's (k >= 6) and K4's device
+     time and the idle share;
   9. RMAT 16 k=5 again under the ADG ordering (eps 0.1): the same count;
  10. each k-clique kernel against its plain version, exactly, with
      CUDA-event times: build_local_adj and kclique_dense_count on every
@@ -56,7 +57,11 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      (k_clique.py:578-607) as float32 torch.bmm of each chunk's unpacked
      0/1 adjacency, TF32 off, at k=4 and k=5 (its counts equal K5's; the
      bmm calls alone timed, the median of BMM_REPS after an untimed one,
-     beside K5's k=4 time);
+     beside K5's k=4 time); K5's bound: the AND+popcount words the sums
+     need (A_i's non-zero words a pair (i, j), X's a triple (i, j, m),
+     counted by the plain version), beside the earlier count of a whole row
+     each (i, j, m); its device time over phase 8's warm call beside the
+     held one;
  11. small graphs against the host oracle: RMAT 10 at k=3..7, K_7 at
      k=1..8, and K_132 at k=6 against C(132, 6);
  12. Bron–Kerbosch main path, with every BK launch counter and K4's set to
@@ -128,7 +133,8 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      RMAT 18, timed to its read-back, the host plan timed apart; the counts
      sum to 3 x 82,647,223, a seeded sample of 1,000 vertices and the 10 of
      highest degree equal a host recount, and count_dag_edges_per_vertex
-     launched once per tier;
+     launched once per tier (10 tiers); the call once more, warm, under
+     torch.profiler: K14's device time and the idle share;
  24. triangle_count_ordering_rank at RMAT 18: a permutation ordering the
      vertices by (per-vertex count, id);
  25. dense path, the counters set to 0 just before it: triangle_count_dense
@@ -152,7 +158,8 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      AND+popcount a word, bound it), bitmap_rows_count on phase 27's rows
      (the two views of one table are read once: their bytes count once),
      adg_round on every round state of the main path's "avg" eps 0.1 run
-     (times and bounds summed over its rounds);
+     (times and bounds summed over its rounds); K14's device time over
+     phase 23's warm call beside its held one;
  30. link-prediction main path on RMAT 16 (bench.py's lp_auc protocol: test
      split extract_random_test_edges(g, int(0.01 m), seed=1)), with the
      similarity and link-prediction counters set to 0 just before it:
@@ -473,6 +480,12 @@ K34_FORWARD = ("bc_forward_kernel", "bc_forward_finish")
 K34_BACKWARD = ("bc_backward_kernel", "bc_backward_finish")
 K6_KERNELS = ("stack_reg_kernel", "stack_kernel", "count_kernel",
               "root_offsets_kernel")
+# K5's (rows_kernel at W <= 256, rows_any_kernel wider, popcount_kernel at
+# k = 3) and K14's kernels, and their launches on the main path: one a chunk
+# of RMAT-16 k=5 (phase 8), one a tier of RMAT-18 (phase 23)
+K5_KERNELS = ("rows_kernel", "rows_any_kernel", "popcount_kernel")
+K14_KERNELS = ("vertex_kernel",)
+K5_MAIN_LAUNCHES, K14_MAIN_LAUNCHES = 31, 10
 # k-clique graphs of bench.py: (RMAT scale, k, golden count of BENCH_r05)
 KCLIQUE_RUNS = ((16, 5, 4_600_426_489), (13, 6, 681_595_966),
                 (12, 8, 2_339_107_240))
@@ -1021,6 +1034,19 @@ def kclique_phases(timing, report) -> None:
     print(f"[8] k-clique main path launches: {launches}")
     check(all(n > 0 for n in launches.values()),
           f"a k-clique kernel of the path never launched: {launches}")
+    check(launches["kclique_dense_count"] == K5_MAIN_LAUNCHES,
+          f"K5 launched {launches['kclique_dense_count']} times, not "
+          f"{K5_MAIN_LAUNCHES}")
+    # K5 over the warm k = 5 call, under torch.profiler
+    scale, k, golden = KCLIQUE_RUNS[0]
+    count, host_s, per, busy = profile_window(
+        lambda: kc.kclique_count(graphs[scale], k, device="cuda",
+                                 rank=ranks[scale]))
+    check(count == golden, f"the profiled RMAT {scale} call gave {count}")
+    k5_whole = window_lines(
+        f"[8] warm RMAT {scale} k={k} call under torch.profiler:", host_s,
+        per, busy, {"K5": K5_KERNELS, "K4": ("local_adj_kernel",)})["K5"]
+    check(k5_whole[0] > 0, "torch.profiler traced no K5 time")
     # K6 over the warm k >= 6 calls, under torch.profiler
     for scale, k, golden in KCLIQUE_RUNS[1:]:
         count, host_s, per, busy = profile_window(
@@ -1064,11 +1090,23 @@ def kclique_phases(timing, report) -> None:
           f"({POPC_PER_CLOCK_PER_SM}/clock/SM x "
           f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs x"
           f" {smi('clocks.max.sm')})")
-    # the dense run (k=5): its k=4 counts give K5's operations
+    # the dense run (k=5): its operations are the AND+popcount words the
+    # sums need (the plain version counts them); the earlier count, a whole
+    # row of WW words each (i, j, m), is printed beside them
     _, pg, chunks = plans[head]
     adjs = [kc.build_local_adj(pg.nbr, c, w_words=ww) for c, ww in chunks]
     k3 = [int(kc.kclique_dense_count(a, k=3)) for a, _ in adjs]
     k4 = [int(kc.kclique_dense_count(a, k=4)) for a, _ in adjs]
+    k5_ops = []
+    for a, _ in adjs:
+        stats = {}
+        kc.kclique_dense_count_plain(a, k=5, stats=stats)
+        k5_ops.append(stats["word_ops"])
+    rows_ops = sum(n4 * a.shape[2] for (a, _), n4 in zip(adjs, k4))
+    print(f"[10] kclique_dense_count's operations at k=5: {sum(k5_ops)} "
+          f"words the sums need (bound {sum(k5_ops) / rate * 1e3:.4f} ms); "
+          f"k=4 count x WW, a whole row each (i, j, m): {rows_ops} (bound "
+          f"{rows_ops / rate * 1e3:.4f} ms)")
     calls = {
         # nbr bound now: the loop over the K6 runs below rebinds pg
         "build_local_adj": [
@@ -1083,8 +1121,8 @@ def kclique_phases(timing, report) -> None:
             (f"RMAT {head} k=5 W={a.shape[1]} C={a.shape[0]}",
              lambda a=a: kc.kclique_dense_count(a, k=5),
              lambda a=a: kc.kclique_dense_count_plain(a, k=5),
-             a.numel() * 4 + 8, n4 * a.shape[2])
-            for (a, _), n4 in zip(adjs, k4)],
+             a.numel() * 4 + 8, ops)
+            for (a, _), ops in zip(adjs, k5_ops)],
     }
     print(f"    RMAT {head} per chunk: k=3 counts {k3}, k=4 counts {k4}")
     stack_calls = []
@@ -1121,9 +1159,12 @@ def kclique_phases(timing, report) -> None:
     for name, kcalls in calls.items():
         err, k_ms, p_ms, bound_ms, by = compare(timing, kcalls, ops_rate=rate,
                                                 plain_reps=1)
+        whole = (f"; over the warm call (phase 8) {k5_whole[0]:.4f} ms of "
+                 f"device time, {k5_whole[1]} launches traced"
+                 if name == "kclique_dense_count" else "")
         print(f"[10] {name}: {len(kcalls)} launches, max_abs_err {err}, "
               f"kernel {k_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), "
-              f"plain {p_ms:.4f} ms")
+              f"plain {p_ms:.4f} ms{whole}")
         check(err == 0, f"{name} disagrees with its plain version by {err}")
         lib_ms = (dense_library(timing, kc, adjs, k4)
                   if name == "kclique_dense_count" else None)
@@ -1850,6 +1891,7 @@ def vertex_phases(timing, report, g) -> None:
     """Phases 23-28: per-vertex and dense triangles, the device ADG and the
     bitmap counts (see the module docstring); g is phase 2's RMAT-18."""
     from gms_tpu_torch.algorithms import triangle_count as tc
+    from gms_tpu_torch.bench.profiling import profile_window, window_lines
     from gms_tpu_torch.graphs.bitmap import BitmapGraph
     from gms_tpu_torch.io.builder import build_csr
     from gms_tpu_torch.io.generators import generate_rmat_el
@@ -1874,8 +1916,16 @@ def vertex_phases(timing, report, g) -> None:
           + " · ".join(f"({wa},{wb}): {int(v.sum())}"
                        for wa, wb, _, _, v in parts))
     check(int(pv.sum()) == 3 * GOLDEN, f"per-vertex Σ {int(pv.sum())}")
-    check(pv_launches["count_dag_edges_per_vertex"] == len(parts),
+    check(pv_launches["count_dag_edges_per_vertex"] == len(parts)
+          == K14_MAIN_LAUNCHES,
           f"K14 launched {pv_launches} for {len(parts)} tiers")
+    pv_warm, host_s, per, busy = profile_window(
+        lambda: tc.triangle_count_per_vertex(g, device="cuda"))
+    check(np.array_equal(pv_warm, pv), "the profiled per-vertex call differs")
+    k14_whole = window_lines(
+        f"[23] warm RMAT {SCALE} per-vertex call under torch.profiler:",
+        host_s, per, busy, {"K14": K14_KERNELS})["K14"]
+    check(k14_whole[0] > 0, "torch.profiler traced no K14 time")
     top = np.argsort(-g.degrees, kind="stable")[:PV_TOP]
     rng = np.random.default_rng(SEED)
     sample = np.union1d(rng.choice(g.num_nodes, PV_SAMPLE, replace=False), top)
@@ -2030,9 +2080,12 @@ def vertex_phases(timing, report, g) -> None:
             ("bitmap_rows_count", k16, bm_launches)):
         err, k_ms, p_ms, bound_ms, by = compare(timing, calls, ops_rate=rate,
                                                 plain_reps=1)
+        whole = (f"; over the warm call (phase 23) {k14_whole[0]:.4f} ms of "
+                 f"device time, {k14_whole[1]} launches traced"
+                 if name == "count_dag_edges_per_vertex" else "")
         print(f"[28] {name}: {len(calls)} launches, max_abs_err {err}, kernel "
               f"{k_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), plain "
-              f"{p_ms:.4f} ms")
+              f"{p_ms:.4f} ms{whole}")
         check(err == 0, f"{name} disagrees with its plain version by {err}")
         report.append(kernel_entry(name, launches[name], err, k_ms, p_ms,
                                    bound_ms, by))

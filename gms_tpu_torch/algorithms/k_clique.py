@@ -260,13 +260,22 @@ def _check_adj(name, adj):
 # K5: dense count, k in {3, 4, 5}
 # ---------------------------------------------------------------------------
 
-def kclique_dense_count_plain(adj, *, k: int):
+def kclique_dense_count_plain(adj, *, k: int, stats: dict | None = None):
     """Plain version of kclique_dense_count: the bit formulas in torch ops,
-    over the set bits of root groups, in batches of (root, i, j) triples."""
+    over the set bits of root groups, in batches of (root, i, j) triples.
+
+    With `stats`, adds stats["word_ops"]: the AND+popcount word operations
+    the sums need, a word only where it can be non-zero: k=3 every word of
+    A; k=4 A_i's non-zero words a pair (i, j ∈ A_i); k=5 those, which form
+    X = A_i & A_j, and X's non-zero words a triple (i, j, m ∈ X).
+    """
     C, W, WW = adj.shape
     if k == 3:
+        if stats is not None:
+            stats["word_ops"] = stats.get("word_ops", 0) + adj.numel()
         return popcount32(adj).sum()
     total = _zero(adj.device)
+    ops = _zero(adj.device)
     pb = max(1, _PLAIN_BUDGET // (W * WW))
     cg = max(1, _PLAIN_BUDGET // (W * W))
     for c0 in range(0, C, cg):
@@ -274,12 +283,17 @@ def kclique_dense_count_plain(adj, *, k: int):
         b, i, j = unpack_bits(A).nonzero(as_tuple=True)        # j ∈ A_i
         for p0 in range(0, b.shape[0], pb):
             bb, ii, jj = b[p0:p0 + pb], i[p0:p0 + pb], j[p0:p0 + pb]
-            X = A[bb, ii] & A[bb, jj]                          # [p, WW]
+            Ai = A[bb, ii]
+            X = Ai & A[bb, jj]                                 # [p, WW]
+            ops += (Ai != 0).sum()
             if k == 4:
                 total += popcount32(X).sum()
                 continue
+            ops += (popcount32(X).sum(1) * (X != 0).sum(1)).sum()
             p, m = unpack_bits(X).nonzero(as_tuple=True)       # m ∈ A_i ∩ A_j
             total += popcount32(X[p] & A[bb[p], m]).sum()
+    if stats is not None:
+        stats["word_ops"] = stats.get("word_ops", 0) + int(ops)
     return total
 
 

@@ -1,0 +1,170 @@
+"""K5 (kclique_dense_count) and K14 (count_dag_edges_per_vertex) on the card,
+over whole warm calls; K23 and K24 over theirs.
+
+K5 over one warm RMAT-16 k=5 `kclique_count` call (chip_smoke.py's phase 8),
+its device time split by chunk width W. K14 over one warm RMAT-18
+`triangle_count_per_vertex` call (phase 23), split by tier (wa, wb), and the
+same tiers through K1's gather entry (`count_dag_edges`: one thread an edge
+merging the two rows, as the parent's K14 does, without the witness adds),
+so that the gap between the two is what the parent's witness atomics cost.
+K23 (`spec_*`) over a warm speculative JP-LF call and K24 over warm
+`johansson` and `barenboim_elkin` calls at RMAT-16 (phases 37 and 39), for
+the ranking of the next redesigns. Each call under torch.profiler (the
+kernel's device time and launches, each launch's device time in launch
+order, read by bench/profiling.py's profile_launches, the host time and
+the device's idle share) and, unprofiled, the best of 3.
+
+    python -m gms_tpu_torch.bench.dense_vertex --label this
+
+To compare two checkouts on one card, run the other's package with this
+script in turns: PYTHONPATH=<other checkout> python
+gms_tpu_torch/bench/dense_vertex.py --label other. The other checkout's
+bench/profiling.py must have profile_launches. Needs a card; prints the
+card's name and power limit, the ptxas report of the two libraries where
+this call built them, and one JSON object last.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+
+import numpy as np
+import torch
+
+from gms_tpu_torch.bench.adj_jp import best_s, window
+from gms_tpu_torch.bench.profiling import launch_split, profile_launches
+
+SEED, DEGREE = 27491095, 16
+KC_SCALE, KC_K, KC_GOLDEN = 16, 5, 4_600_426_489
+PV_SCALE, PV_SUM = 18, 3 * 82_647_223
+COLOR_SCALE = 16
+# the device functions of each kernel, this tree's and the parent's
+K5_KERNELS = ("rows_kernel", "rows_any_kernel", "popcount_kernel",
+              "dense_kernel")
+K14_KERNELS = ("vertex_kernel",)
+K1_GATHER = ("gather_kernel",)
+K23_KERNELS = ("spec_pick_kernel", "spec_rank_kernel", "spec_clash_kernel")
+K24_KERNELS = ("johansson_kernel", "one_shot_pick_kernel",
+               "one_shot_resolve_kernel")
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--label", default="")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("dense_vertex needs a CUDA device")
+
+    import gms_tpu_torch
+    from gms_tpu_torch import _kernels
+    from gms_tpu_torch.algorithms import coloring as gc
+    from gms_tpu_torch.algorithms import k_clique as kc
+    from gms_tpu_torch.algorithms import triangle_count as tc
+    from gms_tpu_torch.io.builder import build_csr
+    from gms_tpu_torch.io.generators import generate_rmat_el
+    from gms_tpu_torch.preprocessing import degeneracy
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(f"card: {card}; package {gms_tpu_torch.__file__}")
+    built = _kernels.build()
+    for name in ("kclique_dense", "tier_intersect"):
+        if name in built:
+            print(f"ptxas {name}:\n{built[name]}")
+    out = {"label": args.label, "card": card}
+
+    # K5 over the warm kclique_count call, by chunk width
+    g = build_csr(generate_rmat_el(KC_SCALE, DEGREE, seed=SEED),
+                  num_nodes=1 << KC_SCALE)
+    rank, _ = degeneracy.degeneracy_ordering_rank(g)
+
+    def single():
+        return kc.kclique_count(g, KC_K, device="cuda", rank=rank)
+
+    if single() != KC_GOLDEN:
+        raise SystemExit("kclique_count: not the golden count")
+    n, host_s, per, busy, seq = profile_launches(single)
+    if n != KC_GOLDEN:
+        raise SystemExit(f"profiled kclique_count: {n}")
+    tag = f"warm kclique_count RMAT {KC_SCALE} k={KC_K}:"
+    run = window(tag, host_s, per, busy, {"K5": K5_KERNELS})
+    _, chunks = kc.plan_chunks(g, KC_K, device="cuda", rank=rank)
+    run["by_w"] = launch_split(f"{tag} K5", seq, K5_KERNELS,
+                        [f"W={32 * ww}" for _, ww in chunks])
+    run["best_s"] = best_s(single)
+    print(f"    unprofiled best of 3 {run['best_s']:.4f} s")
+    out["kclique_count"] = run
+    del g, chunks
+
+    # K14 over the warm per-vertex call, by tier; K1's gather on its tiers
+    g = build_csr(generate_rmat_el(PV_SCALE, DEGREE, seed=SEED),
+                  num_nodes=1 << PV_SCALE)
+
+    def per_vertex():
+        return tc.triangle_count_per_vertex(g, device="cuda")
+
+    if int(per_vertex().sum()) != PV_SUM:
+        raise SystemExit("triangle_count_per_vertex: not the golden sum")
+    pv, host_s, per, busy, seq = profile_launches(per_vertex)
+    if int(pv.sum()) != PV_SUM:
+        raise SystemExit(f"profiled per-vertex call: Σ {int(pv.sum())}")
+    tag = f"warm triangle_count_per_vertex RMAT {PV_SCALE}:"
+    run = window(tag, host_s, per, busy, {"K14": K14_KERNELS})
+    pg, parts = tc.plan_per_vertex(g, device="cuda")
+    tiers = [f"({wa},{wb})" for wa, wb, *_ in parts]
+    run["by_tier"] = launch_split(f"{tag} K14", seq, K14_KERNELS, tiers)
+    run["best_s"] = best_s(per_vertex)
+    print(f"    unprofiled best of 3 {run['best_s']:.4f} s")
+    out["per_vertex"] = run
+
+    def gather():
+        return [tc.count_dag_edges(pg.nbr, e, v, chunk=c, width_a=wa,
+                                   width_b=wb)
+                for wa, wb, c, e, v in parts]
+
+    want = sum(int(x) for x in gather())
+    if 3 * want != PV_SUM:
+        raise SystemExit(f"K1's gather on the per-vertex tiers: {want}")
+    # two passes in the window, the second split by tier
+    _, host_s, per, busy, seq = profile_launches(lambda: (gather(), gather()))
+    tag = f"K1 gather, two passes over the {len(parts)} per-vertex tiers:"
+    run = window(tag, host_s, per, busy, {"K1 gather": K1_GATHER})
+    run["by_tier"] = launch_split(f"{tag} K1, the second pass", seq,
+                                  K1_GATHER, tiers)
+    out["k1_gather"] = run
+    del g, pg, parts
+
+    # K23 and K24 over their warm coloring calls
+    g = build_csr(generate_rmat_el(COLOR_SCALE, DEGREE, seed=SEED),
+                  num_nodes=1 << COLOR_SCALE)
+    calls = {
+        "speculative JP-LF": (lambda: gc.jones_plassmann(
+            g, speculative=True, priority="degree", device="cuda"),
+            {"K23": K23_KERNELS}),
+        "johansson": (lambda: gc.johansson(g, device="cuda"),
+                      {"K24": K24_KERNELS}),
+        "barenboim": (lambda: gc.barenboim_elkin(g, variant="barenboim",
+                                                 device="cuda"),
+                      {"K24": K24_KERNELS}),
+    }
+    out["coloring"] = {}
+    for label, (fn, groups) in calls.items():
+        first = fn()
+        if not gc.verify_coloring(g, np.asarray(first)):
+            raise SystemExit(f"{label}: not a proper coloring")
+        _, host_s, per, busy, _ = profile_launches(fn)
+        run = window(f"warm {label} RMAT {COLOR_SCALE}:", host_s, per, busy,
+                     groups)
+        run["best_s"] = best_s(fn)
+        print(f"    unprofiled best of 3 {run['best_s']:.4f} s")
+        out["coloring"][label] = run
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,7 @@
 """One reader of torch.profiler windows, shared by chip_smoke.py and the
-bench scripts: a call's device time by bare kernel name, its launches and
-the device's idle share over the call. Needs a card."""
+bench scripts: a call's device time by bare kernel name, its launches, the
+device's idle share over the call and, where a script splits a kernel's
+time by its launches, their order. Needs a card."""
 
 from __future__ import annotations
 
@@ -55,6 +56,51 @@ def profile_window(fn):
             acc[0] += t
             acc[1] += e.count
     return out, host_s, per, sum(t for t, _ in per.values())
+
+
+def profile_launches(fn):
+    """profile_window that also keeps the launch order: (fn's result, host
+    s, {bare kernel: [device µs, launches]}, device µs of every device
+    event, [(bare kernel, device µs)] in the order they ran)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    runs = sorted((e.time_range.start, bare_kernel(e.name),
+                   e.time_range.elapsed_us()) for e in prof.events()
+                  if e.device_type != DeviceType.CPU)
+    per = {}
+    for _, name, us in runs:
+        acc = per.setdefault(name, [0.0, 0])
+        acc[0] += us
+        acc[1] += 1
+    busy = sum(us for _, _, us in runs)
+    return out, host_s, per, busy, [(n, us) for _, n, us in runs]
+
+
+def launch_split(tag: str, seq, names, keys) -> dict | None:
+    """The last len(keys) launches of `names` in `seq` (profile_launches'
+    order), one for each of `keys`: prints and returns {key: {"ms",
+    "launches"}}, device ms summed by key; None where fewer were traced
+    (torch.profiler may drop a window's first launch)."""
+    us = [t for n, t in seq if n in names][-len(keys):]
+    if len(us) != len(keys):
+        print(f"    {tag}: {len(us)} launches traced for {len(keys)}: "
+              f"not split")
+        return None
+    out = {}
+    for key, t in zip(keys, us):
+        ms, n = out.get(key, (0.0, 0))
+        out[key] = (ms + t / 1e3, n + 1)
+    print(f"    {tag} by launch: " + "; ".join(
+        f"{k} {ms:.4f} ms x{n}" for k, (ms, n) in out.items()))
+    return {str(k): {"ms": ms, "launches": n} for k, (ms, n) in out.items()}
 
 
 def window_lines(tag: str, host_s, per, busy, groups) -> dict:

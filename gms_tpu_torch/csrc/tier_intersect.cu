@@ -2,7 +2,8 @@
 // tiers of the triangle-count plan; K14, the same tiers counted per vertex;
 // and K40, K1's gather mode over two row tables.
 //
-// Replaces three device programs of gms_tpu/algorithms/triangle_count.py:
+// Replaces four device programs of gms_tpu/algorithms/triangle_count.py
+// and gms_tpu/parallel/sharding.py:
 //   * count_tier_mat (:383)  — stream mode: operand rows pre-gathered and
 //     stored transposed, a[wa, E] and b[wb, E]; row e is column e, stride E;
 //   * count_dag_edges (:99)  — gather mode: rows nbr[u, :wa] and nbr[v, :wb]
@@ -23,13 +24,14 @@
 // because its platform memoized repeated runs of a pure program; CUDA launches
 // are never memoized, so the port drops them.
 //
-// Design: one thread per edge. Both rows are sorted ascending with a SENTINEL
-// (int32 max) tail — the padded-layout invariant of harness/checks.py — so the
-// thread merges them in O(wa + wb) steps instead of the wa*wb compare cube of
-// the TPU program. An a-element counts only when it is not SENTINEL (SENTINEL
-// equals SENTINEL; gms_tpu masks that diagonal at triangle_count.py:413): the
-// merge stops at the first SENTINEL on either side, since nothing after it can
-// match. Widths are runtime values (tiers reach D_pad).
+// Design of K1 and K40: one thread per edge. Both rows are sorted ascending
+// with a SENTINEL (int32 max) tail — the padded-layout invariant of
+// harness/checks.py — so the thread merges them in O(wa + wb) steps instead
+// of the wa*wb compare cube of the TPU program. An a-element counts only when
+// it is not SENTINEL (SENTINEL equals SENTINEL; gms_tpu masks that diagonal
+// at triangle_count.py:413): the merge stops at the first SENTINEL on either
+// side, since nothing after it can match. Widths are runtime values (tiers
+// reach D_pad).
 //
 // Bound on an H100 (3.35 TB/s): the words that carry data, read once: each
 // valid edge's two rows up to and including their first SENTINEL (at most
@@ -42,11 +44,28 @@
 // serves graphs whose materialized streams would not fit (plan MAT_BUDGET).
 // Counts are summed exactly: int64 per block, one atomicAdd per block.
 //
-// K14 adds with 64-bit integer atomicAdd, bit-identical to a sequential sum
-// in any order. Its risk is time, not exactness: under the degree order the
-// witnesses are the high-rank hubs, so the atomics of one launch pile onto a
-// few addresses (RMAT-18: 82,647,223 witness increments). Its bound is the
-// gather mode's bytes plus the int64 output written once.
+// K14 (vertex_kernel) gives each edge a group of G lanes, G = 8, 16 or 32
+// by the narrower width (a warp from 17 on), so the loads of a row coalesce
+// and a long merge no longer holds a whole warp of unrelated edges. The
+// group stages the wider row in shared memory up to its first SENTINEL
+// (kUnroll rounds of loads in flight before their votes; kStageInts a
+// block, in pieces where a row is longer than the group's share), reads
+// the narrower row G entries at a time, the next round loaded ahead, and
+// each lane binary-searches its entry in the staged row (at most 9 probes
+// at 512): len_a · log2 len_b probes, fewer than len_b · log2 len_a where,
+// as the planner orders them, the narrower row is the shorter. Entries past
+// the staged piece's last value end the piece. The edge's count is a group
+// sum. The witnesses go to a block-private table in shared memory (id ->
+// count, kSlots slots, open addressing, at most kProbes probes; a witness
+// that finds no slot adds to device memory at once), flushed once when the
+// block ends: under the degree order the witnesses are the high-rank hubs
+// (RMAT-18: 82,647,223 increments, the top vertex's 2,043,113), so the
+// table takes most adds off device memory. An edge's two endpoint adds are
+// one 64-bit atomicAdd each. Integer adds in any order give the same sums,
+// so the result is exact for edges in any order. The grid is as many blocks
+// as the occupancy calculator fits on the card, each walking edges by a
+// stride. Its bound is the gather mode's bytes plus the int64 output
+// written once; the merge, not the adds, holds it off that bound.
 
 #include <cuda_runtime.h>
 
@@ -54,15 +73,10 @@
 
 namespace {
 
-struct NoWitness {
-  __device__ void operator()(int) const {}
-};
-
-// |a ∩ b| of two sorted rows; on_match(x) is called for each common x.
-template <typename OnMatch = NoWitness>
+// |a ∩ b| of two sorted rows.
 __device__ __forceinline__ int merge_count(const int* a, long long sa, int wa,
-                                           const int* b, long long sb, int wb,
-                                           OnMatch on_match = OnMatch()) {
+                                           const int* b, long long sb,
+                                           int wb) {
   if (wa <= 0 || wb <= 0) return 0;
   int i = 0, j = 0, cnt = 0;
   int x = a[0], y = b[0];
@@ -74,7 +88,6 @@ __device__ __forceinline__ int merge_count(const int* a, long long sa, int wa,
       if (++j == wb) break;
       y = b[j * sb];
     } else {
-      on_match(x);
       ++cnt;
       if (++i == wa || ++j == wb) break;
       x = a[i * sa];
@@ -113,27 +126,163 @@ __global__ void gather_kernel(const int* __restrict__ nbr_a, long long d_a,
   block_sum_add(cnt, out);
 }
 
-__global__ void vertex_kernel(const int* __restrict__ nbr, long long d_pad,
-                              const int* __restrict__ edges,
-                              const int* __restrict__ valid, int wa, int wb,
-                              long long E, unsigned long long* out,
-                              long long n_out) {
-  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (e >= E) return;
-  const int v = valid[e];
-  if (v <= 0) return;
-  const long long u = edges[2 * e], w = edges[2 * e + 1];
-  const int cnt = merge_count(
-      nbr + u * d_pad, 1, wa, nbr + w * d_pad, 1, wb, [&](int x) {
-        if (x < n_out) atomicAdd(out + x, 1ull);
-      });
-  if (cnt == 0) return;
-  const unsigned long long add = (unsigned long long)cnt * v;
-  if (u >= 0 && u < n_out) atomicAdd(out + u, add);
-  if (w >= 0 && w < n_out) atomicAdd(out + w, add);
+constexpr int kThreads = 256;
+
+// K14's block: the witness table and the staged rows.
+constexpr int kSlotBits = 11;
+constexpr int kSlots = 1 << kSlotBits;
+constexpr int kProbes = 8;
+constexpr int kEmpty = -1;
+constexpr int kStageInts = 4096;          // 16 KB, split among the groups
+constexpr int kUnroll = 4;                // staging rounds a vote
+
+// Adds 1 to witness x (0 <= x < n_out) in the block's table, or in device
+// memory when its kProbes slots hold other ids.
+__device__ __forceinline__ void add_witness(int* keys, unsigned* counts, int x,
+                                            unsigned long long* out) {
+  unsigned h = ((unsigned)x * 2654435761u) >> (32 - kSlotBits);
+  for (int p = 0; p < kProbes; ++p, h = (h + 1) & (kSlots - 1)) {
+    int k = *(volatile int*)(keys + h);
+    if (k == kEmpty) k = atomicCAS(keys + h, kEmpty, x);
+    if (k == kEmpty || k == x) {
+      atomicAdd(counts + h, 1u);
+      return;
+    }
+  }
+  atomicAdd(out + x, 1ull);
 }
 
-constexpr int kThreads = 256;
+// One edge a group of G lanes (see the header): the wider row (b) staged a
+// piece at a time, each entry of the narrower row (a) searched in it.
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+vertex_kernel(const int* __restrict__ nbr, long long d_pad,
+              const int* __restrict__ edges, const int* __restrict__ valid,
+              int wa, int wb, int b_col, long long E,
+              unsigned long long* out, long long n_out) {
+  constexpr int kGroups = kThreads / G;
+  constexpr int kCap = kStageInts / kGroups;
+  __shared__ int keys[kSlots];
+  __shared__ unsigned counts[kSlots];
+  __shared__ int stage[kStageInts];
+  for (int s = threadIdx.x; s < kSlots; s += kThreads) {
+    keys[s] = kEmpty;
+    counts[s] = 0;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x % G, grp = threadIdx.x / G;
+  const int shift = threadIdx.x & 31 & ~(G - 1);
+  const unsigned gmask =
+      (G == 32 ? 0xffffffffu : (1u << (G % 32)) - 1) << shift;
+  int* buf = stage + grp * kCap;
+  // the group's lanes' votes, lane 0 of the group in bit 0 (lanes of other
+  // groups that run the same instruction are masked off)
+  auto ballot = [&](bool p) {
+    return (__ballot_sync(gmask, p) & gmask) >> shift;
+  };
+
+  for (long long e = (long long)blockIdx.x * kGroups + grp; e < E;
+       e += (long long)gridDim.x * kGroups) {
+    const int v = valid[e];
+    if (v <= 0) continue;
+    const long long u = edges[2 * e], w = edges[2 * e + 1];
+    const int* ra = nbr + (b_col ? u : w) * d_pad;
+    const int* rb = nbr + (b_col ? w : u) * d_pad;
+    auto a_at = [&](int i) { return i < wa ? ra[i] : GMS_SENTINEL; };
+    int cnt = 0;
+    int a0 = 0;                  // a's entries before a0 lie below the piece
+    int x_a0 = a_at(lane);       // a's round at a0, loaded ahead
+    bool a_done = wa <= 0;
+    for (int p0 = 0; p0 < wb && !a_done; p0 += kCap) {
+      // stage rb[p0 ..) up to its first SENTINEL, at most kCap entries,
+      // kUnroll rounds of loads in flight before their votes
+      const int lim = min(kCap, wb - p0);
+      int n = lim;
+      bool b_end = p0 + lim == wb;
+      for (int t = 0; t < lim && n == lim; t += kUnroll * G) {
+        int y[kUnroll];
+#pragma unroll
+        for (int q = 0; q < kUnroll; ++q) {
+          const int i = t + q * G + lane;
+          y[q] = i < lim ? rb[p0 + i] : GMS_SENTINEL;
+        }
+#pragma unroll
+        for (int q = 0; q < kUnroll; ++q) {
+          const int i = t + q * G + lane;
+          if (i < lim) buf[i] = y[q];
+          const unsigned sent = ballot(y[q] == GMS_SENTINEL && i < lim);
+          if (sent && n == lim) {
+            n = t + q * G + __ffs(sent) - 1;
+            b_end = true;
+          }
+        }
+      }
+      __syncwarp(gmask);
+      if (n == 0) break;
+      const int hi = buf[n - 1];
+      int x = x_a0;
+      for (int s0 = a0; s0 < wa; s0 += G) {
+        const int x_next = a_at(s0 + G + lane);
+        if (x <= hi) {           // SENTINEL > hi: b's entries are ids
+          int l = 0, r = n - 1;
+          while (l < r) {
+            const int m = (l + r) >> 1;
+            if (buf[m] < x) l = m + 1;
+            else r = m;
+          }
+          if (buf[l] == x) {
+            ++cnt;
+            if (x >= 0 && x < n_out) add_witness(keys, counts, x, out);
+          }
+        }
+        // an entry past hi may match the next piece: resume at this round
+        if (ballot(x > hi && x != GMS_SENTINEL)) {
+          a0 = s0;
+          x_a0 = x;
+          break;
+        }
+        if (ballot(x == GMS_SENTINEL) || s0 + G >= wa) {
+          a_done = true;
+          break;
+        }
+        x = x_next;
+      }
+      __syncwarp(gmask);         // buf is rewritten by the next piece
+      if (b_end) break;
+    }
+    for (int o = G / 2; o > 0; o >>= 1) cnt += __shfl_xor_sync(gmask, cnt, o);
+    if (lane == 0 && cnt > 0) {
+      const unsigned long long add = (unsigned long long)cnt * v;
+      if (u >= 0 && u < n_out) atomicAdd(out + u, add);
+      if (w >= 0 && w < n_out) atomicAdd(out + w, add);
+    }
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < kSlots; s += kThreads)
+    if (counts[s]) atomicAdd(out + keys[s], (unsigned long long)counts[s]);
+}
+
+template <int G>
+cudaError_t launch_vertex(const int* nbr, long long d_pad, const int* edges,
+                          const int* valid, int wa, int wb, int b_col,
+                          long long E, unsigned long long* out,
+                          long long n_out, cudaStream_t stream) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, vertex_kernel<G>, kThreads, 0);
+  if (err != cudaSuccess) return err;
+  constexpr int kGroups = kThreads / G;
+  const long long need = (E + kGroups - 1) / kGroups;
+  const long long fit = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  vertex_kernel<G><<<(unsigned)(need < fit ? need : fit), kThreads, 0,
+                     stream>>>(nbr, d_pad, edges, valid, wa, wb, b_col, E,
+                               out, n_out);
+  return cudaSuccess;
+}
 
 }  // namespace
 
@@ -175,10 +324,22 @@ extern "C" int tier_intersect_vertex(const void* nbr, long long d_pad,
                                      int wa, int wb, long long E, void* out,
                                      long long n_out, void* stream) {
   if (E > 0) {
-    const long long blocks = (E + kThreads - 1) / kThreads;
-    vertex_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int*)nbr, d_pad, (const int*)edges, (const int*)valid, wa, wb,
-        E, (unsigned long long*)out, n_out);
+    // the group searches the narrower width's entries in the wider row
+    const int b_col = wb >= wa;
+    const int narrow = b_col ? wa : wb, wide = b_col ? wb : wa;
+    const int* n = (const int*)nbr;
+    const int* ed = (const int*)edges;
+    const int* va = (const int*)valid;
+    unsigned long long* o = (unsigned long long*)out;
+    const cudaStream_t s = (cudaStream_t)stream;
+    const cudaError_t e =
+        narrow <= 8 ? launch_vertex<8>(n, d_pad, ed, va, narrow, wide, b_col,
+                                       E, o, n_out, s)
+        : narrow <= 16 ? launch_vertex<16>(n, d_pad, ed, va, narrow, wide,
+                                           b_col, E, o, n_out, s)
+                       : launch_vertex<32>(n, d_pad, ed, va, narrow, wide,
+                                           b_col, E, o, n_out, s);
+    if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaGetLastError();
 }

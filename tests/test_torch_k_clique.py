@@ -204,6 +204,34 @@ def test_kclique_dense_chunk_equals_gms_tpu(k):
     assert total == jkc.kclique_count(jg, k)
 
 
+@pytest.mark.parametrize("k", [3, 4, 5])
+def test_kclique_dense_chunk_skewed_chunk_equals_gms_tpu(k):
+    # the widest chunk's shape of the test above, its roots now the densest
+    # root of RMAT-10 among roots without out-edges and pad (SENTINEL) roots,
+    # so that one root carries all the work
+    _, jg = rmat(10)
+    jpg, chunks = jax_plan(jg, k)
+    pg = padded_from_numpy(np.asarray(jpg.nbr), device="cpu")
+    chunk, ww = max(chunks, key=lambda c: c[1])
+    W = 32 * ww
+    deg = np.asarray(jpg.deg)[:jpg.num_nodes]
+    dense = int(np.argmax(deg))
+    empty = np.flatnonzero(deg == 0)[:3]
+    mixed = np.full(len(chunk), jpg.v_pad, dtype=np.int32)
+    mixed[[1, 4, 9]] = empty
+    mixed[6] = dense
+    group = int(np.gcd(max(1, (1 << 24) // W ** 3), len(chunk)))
+    want = int(jkc.kclique_dense_chunk(jpg.nbr, jnp.asarray(mixed),
+                                       w_words=ww, k=k, group=group,
+                                       i_block=W))
+    got = kc.kclique_dense_chunk(pg.nbr, tensor_from_numpy(mixed,
+                                                           device="cpu"),
+                                 w_words=ww, k=k)
+    alone = kc.kclique_dense_chunk(pg.nbr, tensor_from_numpy(
+        mixed[6:7], device="cpu"), w_words=ww, k=k)
+    assert int(got) == want == int(alone) > 0
+
+
 def _jax_fused(jpg, chunk, ww, k):
     """gms_tpu's kc_fused_chunk with kclique_count's plan for the tier;
     its total, once the stack ran out without overflow."""
@@ -239,6 +267,40 @@ def test_kc_fused_chunk_equals_gms_tpu(k):
         assert got.dtype == torch.int64 and int(got) == want, (ww, k)
         total += want if i < len(chunks) else 0
     assert total == jkc.kclique_count(jg, k)
+
+
+@pytest.mark.parametrize("k", [3, 4, 5])
+def test_kclique_dense_count_plain_word_ops(k):
+    # stats["word_ops"] against a loop over the bits: every word at k=3;
+    # A_i's non-zero words a pair (i, j), and at k=5 X's non-zero words a
+    # triple (i, j, m); the counts against the same loop
+    rng = np.random.default_rng(k)
+    for ww in (1, 3):
+        W = 32 * ww
+        bits = np.triu(rng.random((4, W, W)) < 0.15, 1)
+        bits[1] = False
+        words = np.packbits(bits, axis=-1, bitorder="little").view(np.uint32)
+        stats = {}
+        got = kc.kclique_dense_count_plain(
+            torch.from_numpy(words.view(np.int32).copy()), k=k, stats=stats)
+        ops = count = 0
+        for b, i in np.ndindex(bits.shape[:2]):
+            if k == 3:
+                count += int(bits[b, i].sum())
+                continue
+            for j in np.flatnonzero(bits[b, i]):
+                ops += int((words[b, i] != 0).sum())
+                x = bits[b, i] & bits[b, j]
+                xw = words[b, i] & words[b, j]
+                if k == 4:
+                    count += int(x.sum())
+                    continue
+                for m in np.flatnonzero(x):
+                    ops += int((xw != 0).sum())
+                    count += int((x & bits[b, m]).sum())
+        if k == 3:
+            ops = words.size
+        assert stats["word_ops"] == ops and int(got) == count > 0
 
 
 def test_kc_stack_count_refuses_small_k():

@@ -481,6 +481,48 @@ def test_dense_count_on_card(card, k, C, ww, p):
     assert int(got) == int(kc.kclique_dense_count_plain(adj, k=k)) > 0
 
 
+def _dense_chunk(rng, kind, ww):
+    """A K5 chunk [C, 32*ww, ww]: random rows ("random"); one root with a
+    clique on its first min(W, 40) local vertices and sparse rows among
+    all-zero roots ("skewed"); or rows with one set bit each, most of them
+    on one local vertex whose row holds only that bit ("single")."""
+    W = 32 * ww
+    C = 6
+    if kind == "random":
+        return _sparse_bits(rng, (C, W, ww), min(0.3, 2.0 / W ** 0.5))
+    bits = np.zeros((C, W, W), bool)
+    if kind == "skewed":
+        q = min(W, 40)
+        bits[2] = rng.random((W, W)) < 1.0 / W
+        bits[2][:q, :q] |= np.triu(np.ones((q, q), bool), 1)
+    else:
+        c = int(rng.integers(0, W))
+        hit = rng.random((C, W)) < 0.5
+        col = np.where(hit, c, rng.integers(0, W, (C, W)))
+        col[:, c] = c
+        bits[np.arange(C)[:, None], np.arange(W)[None, :], col] = True
+    return torch.from_numpy(np.packbits(bits, axis=-1, bitorder="little")
+                            .view(np.int32).copy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 4, 5])
+@pytest.mark.parametrize("kind", ["random", "skewed", "single"])
+@pytest.mark.parametrize("ww", [1, 2, 4, 8, 16, 32, 64])
+def test_dense_count_widths_on_card(card, k, kind, ww):
+    # ww <= 8 the kernel compiled per width, 16 and 32 the generic one on
+    # the staged root, 64 on the root in device memory
+    rng = np.random.default_rng(ww * 10 + k)
+    adj = _dense_chunk(rng, kind, ww).to(card)
+    got = _launched("kclique_dense_count",
+                    lambda: kc.kclique_dense_count(adj, k=k), kc.LAUNCHES)
+    want = kc.kclique_dense_count_plain(adj, k=k)
+    assert int(got) == int(want) > 0
+    # a chunk that is a view into a larger tensor
+    got = kc.kclique_dense_count(torch.cat([adj, adj])[adj.shape[0]:], k=k)
+    assert int(got) == int(want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [5, 6, 8])
 def test_stack_count_on_card(card, k):
@@ -982,6 +1024,108 @@ def test_per_vertex_on_card(card, wa, wb, D):
                         lambda: tc.count_dag_edges_per_vertex(
                             *args, **kw, out=want.clone()))
         assert torch.equal(acc, 2 * want)
+
+
+# every tier shape the planner makes at RMAT-18 (widths 16, 64, 256, 512),
+# odd widths, and the wider row first
+K14_SHAPES = [(16, 16), (16, 64), (16, 256), (16, 512), (64, 64), (64, 256),
+              (64, 512), (256, 256), (256, 512), (512, 512), (3, 70), (70, 3)]
+
+
+def _k14_case(rng, case, wa, wb):
+    """(nbr, edges, valid) of a K14 case: V = 700 rows over ids < 690 at
+    width D = max(wa, wb), sorted with a SENTINEL tail. "random": rows of
+    random length, edges in random order; "one_row": every edge on one
+    a-row; "hub": id 689 in every row (the witness of every edge);
+    "full": every row at full width D (no SENTINEL). Hub rows hold at
+    most min(wa, wb) entries, so that both slices keep the hub."""
+    V, n, E = 700, 690, 3000
+    D = max(wa, wb)
+    if case == "full":
+        nbr = np.stack([np.sort(rng.choice(n, D, replace=False))
+                        for _ in range(V)]).astype(np.int32)
+    else:
+        nbr = _padded_rows(rng, V, D, n, D)
+    if case == "hub":
+        for row in nbr[:n - 1]:
+            live = row[row != SENTINEL]
+            k = min(len(live), min(wa, wb) - 1)
+            keep = np.sort(np.append(live[live != n - 1][:k], n - 1))
+            row[:] = SENTINEL
+            row[:len(keep)] = keep
+    edges = rng.integers(0, n, (E, 2)).astype(np.int32)
+    if case == "one_row":
+        edges[:, 0] = int(rng.integers(0, n))
+    valid = rng.choice([0, 1, 1, 1, 2, -1], E).astype(np.int32)
+    return nbr, edges, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "one_row", "hub", "full"])
+@pytest.mark.parametrize("wa,wb", K14_SHAPES)
+def test_per_vertex_tiers_on_card(card, wa, wb, case):
+    rng = np.random.default_rng(wa * 1000 + wb)
+    nbr, edges, valid = _k14_case(rng, case, wa, wb)
+    args = [torch.from_numpy(x).to(card) for x in (nbr, edges, valid)]
+    for segs in (400, 700):  # ids past num_segments are dropped
+        kw = dict(num_segments=segs, width_a=wa, width_b=wb)
+        got = _launched("count_dag_edges_per_vertex",
+                        lambda: tc.count_dag_edges_per_vertex(*args, **kw))
+        want = tc.count_dag_edges_per_vertex_plain(*args, chunk=256, **kw)
+        assert torch.equal(got, want) and int(want.sum()) > 0
+        acc = tc.count_dag_edges_per_vertex(*args, **kw, out=want.clone())
+        assert torch.equal(acc, 2 * want)
+    if case == "hub" and min(wa, wb) > 1:
+        # the hub witnesses every counted edge whose rows both hold it
+        both = (valid > 0) & (edges != 689).all(1)
+        assert int(got[689]) >= int(both.sum()) > 0
+
+
+def _k14_wide_case(rng, case, wa, wb):
+    """(nbr, edges, valid) of a K14 case whose wider row outgrows its
+    group's share of the staged rows (G = 32: 512 entries, G = 16: 256,
+    G = 8: 128), so that the group stages it in pieces, with E = 50,000
+    edges, so that every group of the grid walks several. Rows as
+    _k14_case's over ids < D + 50; "hub": id 0 in every live row, the
+    first entry of each (the witness of every edge)."""
+    D = max(wa, wb)
+    n, E = D + 50, 50_000
+    V = n + 10
+    if case == "full":
+        nbr = np.full((V, D), SENTINEL, dtype=np.int32)
+        nbr[:n] = np.stack([np.sort(rng.choice(n, D, replace=False))
+                            for _ in range(n)])
+    else:
+        nbr = _padded_rows(rng, V, D, n, D)
+    if case == "hub":
+        for row in nbr[:n]:
+            live = row[(row != SENTINEL) & (row != 0)][:D - 1]
+            row[:] = SENTINEL
+            row[:len(live) + 1] = np.append(0, live)
+    edges = rng.integers(0, n, (E, 2)).astype(np.int32)
+    valid = rng.choice([0, 1, 1, 1, 2, -1], E).astype(np.int32)
+    return nbr, edges, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "hub", "full"])
+@pytest.mark.parametrize("wa,wb", [(64, 1024), (32, 2048), (2048, 32),
+                                   (16, 600), (8, 300)])
+def test_per_vertex_wide_rows_on_card(card, wa, wb, case):
+    rng = np.random.default_rng(wa * 10_000 + wb)
+    nbr, edges, valid = _k14_wide_case(rng, case, wa, wb)
+    args = [torch.from_numpy(x).to(card) for x in (nbr, edges, valid)]
+    for segs in (nbr.shape[0] // 2, nbr.shape[0]):
+        kw = dict(num_segments=segs, width_a=wa, width_b=wb)
+        got = _launched("count_dag_edges_per_vertex",
+                        lambda: tc.count_dag_edges_per_vertex(*args, **kw))
+        want = tc.count_dag_edges_per_vertex_plain(*args, chunk=256, **kw)
+        assert torch.equal(got, want) and int(want.sum()) > 0
+        acc = tc.count_dag_edges_per_vertex(*args, **kw, out=want.clone())
+        assert torch.equal(acc, 2 * want)
+    if case == "hub":
+        # id 0, in every row, witnesses every counted edge
+        assert int(got[0]) >= int((valid > 0).sum()) > 0
 
 
 @pytest.mark.cuda

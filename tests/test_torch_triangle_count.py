@@ -421,6 +421,68 @@ def test_count_dag_edges_per_vertex_plain_vs_jax(method, widths):
                               random_graph(80, 0.25, 9), num_nodes=80)))
 
 
+def _per_vertex_pair(nbr, e, v, wa=None, wb=None):
+    """(the plain version's counts, gms_tpu's) on the same padded rows nbr
+    (int32 numpy), at the chunk, method and segments with which
+    test_count_dag_edges_per_vertex_plain_vs_jax compiles gms_tpu's
+    program."""
+    want = np.asarray(jtc.count_dag_edges_per_vertex(
+        jnp.asarray(nbr), jnp.asarray(e), jnp.asarray(v), chunk=64,
+        num_segments=nbr.shape[0], method="compare", width_a=wa, width_b=wb))
+    got = tc.count_dag_edges_per_vertex_plain(
+        torch.from_numpy(nbr), torch.from_numpy(e), torch.from_numpy(v),
+        num_segments=nbr.shape[0], chunk=64, width_a=wa, width_b=wb)
+    return got.numpy(), want
+
+
+def test_count_dag_edges_per_vertex_in_any_edge_order():
+    # each tier's edges permuted: the same counts as in the planner's order
+    rng = np.random.default_rng(5)
+    pg, _, dag = oriented_padded(n=80, p=0.25, seed=9)
+    nbr = pg.nbr.numpy()
+    parts = tc.partition_edges_2d(dag.edge_array(), np.asarray(dag.degrees),
+                                  tc._tier_widths(pg.d_pad, (4, 8)))
+    total = np.zeros(pg.v_pad, dtype=np.int64)
+    for (wa, wb), part in parts.items():
+        e, v = tc._pad_edges(part, 64)
+        ep, vp = tc._pad_edges(part[rng.permutation(len(part))], 64)
+        got, want = _per_vertex_pair(nbr, ep, vp, wa, wb)
+        assert np.array_equal(got, want)
+        assert np.array_equal(got, _per_vertex_pair(nbr, e, v, wa, wb)[0])
+        total += got
+    assert np.array_equal(total[:dag.num_nodes],
+                          tc.triangle_count_per_vertex_oracle(build_csr(
+                              random_graph(80, 0.25, 9), num_nodes=80)))
+
+
+def test_count_dag_edges_per_vertex_one_hub_witness():
+    # a book of triangles: every row holds the hub (the last id) and a few
+    # higher ids, so the hub is the witness of every edge between two pages;
+    # the table and edge count of test_count_dag_edges_per_vertex_plain_vs_jax
+    rng = np.random.default_rng(6)
+    pg, _, dag = oriented_padded(n=80, p=0.25, seed=9)
+    V, D = pg.nbr.shape
+    hub = 79
+    nbr = np.full((V, D), int(SENTINEL), dtype=np.int32)
+    for i in range(hub):
+        up = np.arange(i + 1, hub)
+        k = min(len(up), int(rng.integers(0, D - 1)), 6)
+        nbr[i, :k + 1] = np.sort(np.append(rng.choice(up, k, replace=False),
+                                           hub))
+    ids = np.arange(V)[:, None].repeat(D, 1)
+    edges = np.stack([ids[nbr != SENTINEL], nbr[nbr != SENTINEL]], 1)
+    edges = edges.astype(np.int32)
+    e, v = tc._pad_edges(dag.edge_array(), 64)
+    assert len(edges) <= len(e)
+    e[:] = 0
+    v[:] = 0
+    e[:len(edges)], v[:len(edges)] = edges, 1
+    got, want = _per_vertex_pair(nbr, e, v)
+    assert np.array_equal(got, want)
+    # the hub's row is empty, so its count is one a page edge
+    assert got[hub] == int((edges[:, 1] != hub).sum()) > 0
+
+
 PER_VERTEX_GRAPHS = ["fixtures", "random0", "random1", "rmat8", "rmat9",
                      "rmat10"]
 
