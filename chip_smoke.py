@@ -118,7 +118,9 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      decode_star_rows on every job; the rows sum to 4,077,953 and their
      star popcounts to 136,080,055; in a seeded sample of 1,000 rows the
      clique is a clique and the star equals its common neighbourhood less
-     the clique;
+     the clique; then the same pass once more under torch.profiler:
+     decode_star_rows's device time and launches over it (K11 and K12
+     beside it), the host time and the device's idle share;
  21. list mode: 30-vertex random graphs at k = 2, 3, 4 against
      kclique_star_oracle, and RMAT 10 at k = 3 against the port's own
      device="cpu" run, as sets;
@@ -1677,6 +1679,8 @@ def star_decode_bytes(pg, chunk, out) -> int:
 
 def star_phases(timing, report) -> None:
     """Phases 17-22: the k-clique-star path (see the module docstring)."""
+    from gms_tpu_torch.bench.profiling import (STAR_GROUPS, profile_window,
+                                               window_lines)
     from gms_tpu_torch.algorithms import k_clique as kc
     from gms_tpu_torch.algorithms import k_clique_star as ks
     from gms_tpu_torch.algorithms.triangle_count import popcount32
@@ -1785,6 +1789,21 @@ def star_phases(timing, report) -> None:
           f"in {len(jobs)} jobs, {emit_s:.4f} s (count pass, emit pass, "
           f"decode); launches {enum}; {STAR_SAMPLE} sampled rows are cliques "
           f"whose stars equal their common neighbourhoods")
+
+    def emit_pass():
+        n_rows = 0
+        for chunk, ww in jobs:
+            _, out = ks.star_fused_chunk(pg.nbr, rank_pad, chunk, w_words=ww,
+                                         k=k, emit=True)
+            ks.decode_star_rows(pg.nbr, chunk, out)
+            n_rows += out.shape[0]
+            del out
+        return n_rows
+
+    again, host_s, per, busy = profile_window(emit_pass)
+    check(again == rows, f"the profiled emit pass gave {again} rows")
+    window_lines("[20] the emit pass again under torch.profiler:", host_s,
+                 per, busy, STAR_GROUPS)
 
     # [21] list mode against the oracle and the plain run
     for kk in (2, 3, 4):

@@ -252,8 +252,9 @@ def hub_cover_bits(dag_nbr, lo_indptr, lo_cols, chunk, *, in_width: int,
     """Cover bitsets of a chunk's roots for the leaf maximality filter.
 
     dag_nbr:   int32[V_pad, D] oriented padded adjacency, rows strictly
-               ascending with a SENTINEL tail (the kernel binary-searches
-               the root's slots, as build_local_adj's does)
+               ascending with a SENTINEL tail (the kernel looks the root's
+               slots up in a hash table and stops a row past the root's
+               last slot, as build_local_adj's does)
     lo_indptr: int32[n+1], lo_cols: int32[E_lo] lower-neighbour CSR
     chunk:     int32[C] root ids; pad ids (>= n) have no lower neighbours
     Returns (M int32[C, in_width, w_words], wvalid bool[C, in_width]): with

@@ -17,6 +17,11 @@ BK_GROUPS = {"K9": K9_KERNELS, "K36": K36_KERNELS,
              "root offsets (K9, K36)": ("root_offsets_kernel",),
              "K4": ("local_adj_kernel",), "K7": ("symmetrize_kernel",),
              "K8": ("cover_kernel",), "K35": ("init_items_kernel",)}
+# the device functions of the k-clique-star path (K13 and K10 share
+# csrc/row_decode.cuh's decode_rows_kernel)
+STAR_GROUPS = {"K11": ("univ_kernel",),
+               "K12": ("count_kernel", "stack_kernel"),
+               "K13": ("decode_rows_kernel",)}
 
 
 def bare_kernel(key: str) -> str:

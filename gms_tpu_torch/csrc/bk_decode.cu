@@ -7,8 +7,8 @@
 //   gid[l]        = g
 //   members[l, j] = q[j] if bit j of Rbits is set and q[j] != SENTINEL,
 //                   else -1
-// One thread per (row, lane) pair: row_decode.cuh with one bit block, whose
-// header gives the bound.
+// A warp a row, 16-byte stores: row_decode.cuh with one bit block, whose
+// header gives the design and the bound.
 
 #include "row_decode.cuh"
 
@@ -16,6 +16,6 @@ extern "C" int decode_clique_members(const void* nbr, long long v_pad, int d,
                                      const void* chunk, long long c,
                                      const void* out, long long l_rows, int ww,
                                      void* gid, void* members, void* stream) {
-  return decode_rows(nbr, v_pad, d, chunk, c, out, l_rows, ww, 1, gid,
-                     members, stream);
+  return decode_rows<1>(nbr, v_pad, d, chunk, c, out, l_rows, ww, gid,
+                        members, stream);
 }

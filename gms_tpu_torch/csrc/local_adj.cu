@@ -21,70 +21,22 @@
 // each (root, slab of 16 local rows), C * W / 16 blocks of 8 warps; a block
 // whose slab lies past L writes its rows as zeros with 16-byte stores and
 // leaves (the sharded count pads every chunk to one global W, where most
-// roots use a small prefix). A live block reads the root's row once into
-// shared memory and, in the same pass, into an open-addressed table (value
-// -> slot, at least 4W entries up to W = 1024 and 2W above, multiplicative
-// hash, linear probing: one or two probes an element, in place of log2(W)
-// for a binary search). Each warp then takes local rows i < L of its slab:
-// it loads row nbr[r_nbr[i]] four 32-slot chunks at a time (coalesced, the
-// four loads in flight together), looks the elements up, stops once an
-// element passes the root's last live value r_nbr[L-1] (which also stops it
-// at its first SENTINEL), and ORs the slot bits it finds into its word
-// buffer in shared memory (a shared atomicOr a hit) before one coalesced
-// store. Above W = 8192 the table would not fit; there the block
-// binary-searches r_nbr[0, L) in shared memory.
-//
-// It does not use row_search.cuh, whose binary search K8, K11 and K39 keep.
+// roots use a small prefix). A live block loads the root's slots into
+// shared memory and a hash table, and each warp takes local rows i < L of
+// its slab: it walks row nbr[r_nbr[i]] against the root's slots until an
+// element passes the root's last live value r_nbr[L-1], then writes its
+// word buffer with one coalesced store (slot_table.cuh, shared with K8's
+// hub_cover_bits; above W = 8192 a binary search in place of the table).
 
 #include <cuda_runtime.h>
 
-#include "block_sum.cuh"
+#include "slot_table.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSlab = 16;            // local rows a block
-constexpr int kUnroll = 4;           // 32-slot chunks of a row in flight
-constexpr int kMaxHashW = 8192;      // the largest W the table serves
-constexpr int kQuarterW = 1024;      // up to here the table is <= 1/4 full
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ long long clip_row(long long v, long long n) {
-  return v < 0 ? 0 : (v >= n ? n - 1 : v);
-}
-
-__device__ __forceinline__ unsigned hash_of(int x, int shift) {
-  return ((unsigned)x * 0x9E3779B1u) >> shift;
-}
-
-// The root's live slots, looked up: a hash table (kHash) or the sorted
-// slots themselves.
-template <bool kHash>
-struct Slots {
-  int2* table;       // kHash: [mask + 1] (value, slot), empty = SENTINEL
-  int* sorted;       // !kHash: r_nbr[0, L)
-  int mask, shift, n;
-
-  __device__ __forceinline__ int find(int x) const {
-    if (kHash) {
-      unsigned h = hash_of(x, shift);
-      while (true) {
-        const int2 e = table[h];
-        if (e.x == x) return e.y;
-        if (e.x == GMS_SENTINEL) return -1;
-        h = (h + 1) & mask;
-      }
-    } else {
-      int lo = 0, hi = n;
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (sorted[mid] < x) lo = mid + 1; else hi = mid;
-      }
-      return lo < n && sorted[lo] == x ? lo : -1;
-    }
-  }
-};
 
 template <bool kHash>
 __global__ void __launch_bounds__(kThreads) local_adj_kernel(
@@ -103,47 +55,21 @@ __global__ void __launch_bounds__(kThreads) local_adj_kernel(
 
   // a slab past the live prefix: zeros, 16 bytes a store
   if (i0 >= wmax || root_row[i0] == GMS_SENTINEL) {
-    uint4* out = reinterpret_cast<uint4*>(slab_out);
-    for (int k = threadIdx.x; k < kSlab * ww / 4; k += kThreads)
-      out[k] = make_uint4(0u, 0u, 0u, 0u);
+    zero_words(slab_out, (long long)kSlab * ww);
     if (i0 == 0)
       for (int w = threadIdx.x; w < ww; w += kThreads) s0[b * ww + w] = 0u;
     return;
   }
 
   // shared memory: the table (kHash) | r_nbr[W] | a word buffer a warp
-  Slots<kHash> slots;
   int2* table = reinterpret_cast<int2*>(smem4);
   int* r_nbr = kHash ? reinterpret_cast<int*>(table + table_cap)
                      : reinterpret_cast<int*>(smem4);
   unsigned* bits = reinterpret_cast<unsigned*>(r_nbr + W) + warp * ww;
-  if (kHash) {
-    slots.table = table;
-    slots.mask = table_cap - 1;
-    slots.shift = 32 - __ffs(table_cap) + 1;
-    for (int h = threadIdx.x; h < table_cap; h += kThreads)
-      table[h] = make_int2(GMS_SENTINEL, 0);
-    __syncthreads();
-  }
-  // one pass over the root's row: r_nbr to shared memory, each live slot
-  // into the table, L = the live prefix
-  int live = 0;
-  for (int base = 0; base < W; base += kThreads) {
-    const int j = base + threadIdx.x;
-    const int x = j < wmax ? root_row[j] : GMS_SENTINEL;
-    if (j < W) r_nbr[j] = x;
-    if (kHash && x != GMS_SENTINEL) {
-      unsigned h = hash_of(x, slots.shift);
-      while (atomicCAS(&table[h].x, GMS_SENTINEL, x) != GMS_SENTINEL)
-        h = (h + 1) & slots.mask;
-      table[h].y = j;
-    }
-    live += __syncthreads_count(x != GMS_SENTINEL);
-  }
-  const int L = live;
+  const Slots<kHash> slots =
+      load_slots<kHash>(root_row, wmax, W, table, table_cap, r_nbr);
+  const int L = slots.n;
   const int last = r_nbr[L - 1];
-  slots.sorted = r_nbr;
-  slots.n = L;
   if (i0 == 0)
     for (int w = threadIdx.x; w < ww; w += kThreads) {
       const int rem = L - 32 * w;
@@ -156,29 +82,8 @@ __global__ void __launch_bounds__(kThreads) local_adj_kernel(
       for (int w = lane; w < ww; w += 32) out[w] = 0u;
       continue;
     }
-    for (int w = lane; w < ww; w += 32) bits[w] = 0u;
-    __syncwarp();
-    const int* row = nbr + clip_row(r_nbr[i], v_pad) * d;
-    // kUnroll chunks of 32 slots loaded at once, then looked up
-    for (int base = 0; base < d; base += 32 * kUnroll) {
-      int x[kUnroll];
-#pragma unroll
-      for (int k = 0; k < kUnroll; ++k) {
-        const int s = base + 32 * k + lane;
-        x[k] = s < d ? row[s] : GMS_SENTINEL;
-      }
-      bool past = false;
-#pragma unroll
-      for (int k = 0; k < kUnroll; ++k) {
-        if (x[k] <= last) {
-          const int j = slots.find(x[k]);
-          if (j >= 0) atomicOr(bits + (j >> 5), 1u << (j & 31));
-        }
-        past |= x[k] > last;
-      }
-      if (__any_sync(kFull, past)) break;
-    }
-    __syncwarp();
+    warp_row_bits(nbr + clip_row(r_nbr[i], v_pad) * d, d, last, slots, lane,
+                  bits, ww);
     for (int w = lane; w < ww; w += 32) out[w] = bits[w];
     __syncwarp();
   }
@@ -189,13 +94,9 @@ int launch(const int* nbr, long long v_pad, int d, const int* roots,
            long long c, int ww, unsigned* adj, unsigned* s0,
            cudaStream_t stream) {
   const int W = 32 * ww;
-  int cap = 0;
-  size_t smem = (size_t)(W + kWarps * ww) * sizeof(int);
-  if (kHash) {
-    cap = 64;
-    while (cap < (W <= kQuarterW ? 4 : 2) * W) cap <<= 1;
-    smem += (size_t)cap * sizeof(int2);
-  }
+  const int cap = kHash ? slot_table_cap(W) : 0;
+  const size_t smem =
+      (size_t)(W + kWarps * ww) * sizeof(int) + (size_t)cap * sizeof(int2);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         local_adj_kernel<kHash>, cudaFuncAttributeMaxDynamicSharedMemorySize,

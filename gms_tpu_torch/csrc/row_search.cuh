@@ -1,7 +1,8 @@
 // Membership of a padded row's elements among a root's slots, by binary
-// search: the inner loop shared by hub_cover_bits (bk_cover.cu),
-// build_local_univ (star_univ.cu) and member_pack (ring_member.cu).
-// build_local_adj (local_adj.cu) looks its slots up in a hash table.
+// search: the inner loop shared by build_local_univ (star_univ.cu, K11) and
+// member_pack (ring_member.cu, K39). build_local_adj (local_adj.cu, K4) and
+// hub_cover_bits (bk_cover.cu, K8) look their slots up in a hash table
+// (slot_table.cuh). clip_index is every kernel's clip-mode gather.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -9,8 +9,8 @@
 //   ids[0, l, j]  = q[j] if bit j of Rbits is set and q[j] != SENTINEL,
 //                   else -1 (the clique's members besides g)
 //   ids[1, l, j]  = the same for starbits (the star)
-// One thread per (row, lane) pair writing both ids: row_decode.cuh with two
-// bit blocks, whose header gives the bound.
+// A warp a row writing both ids, 16-byte stores: row_decode.cuh with two bit
+// blocks, whose header gives the design and the bound.
 
 #include "row_decode.cuh"
 
@@ -18,6 +18,6 @@ extern "C" int decode_star_rows(const void* nbr, long long v_pad, int d,
                                 const void* chunk, long long c,
                                 const void* out, long long l_rows, int ww,
                                 void* gid, void* ids, void* stream) {
-  return decode_rows(nbr, v_pad, d, chunk, c, out, l_rows, ww, 2, gid, ids,
-                     stream);
+  return decode_rows<2>(nbr, v_pad, d, chunk, c, out, l_rows, ww, gid, ids,
+                        stream);
 }

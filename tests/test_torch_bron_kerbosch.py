@@ -220,6 +220,28 @@ def test_hub_cover_bits_equals_gms_tpu(rmat9, ww):
     assert m.any() and v[:20].any() and not v[-2:].any()
 
 
+@pytest.mark.parametrize("ww", [1, 4])
+def test_hub_cover_bits_hub_job_equals_gms_tpu(rmat9, ww):
+    """A hub job's shape at RMAT-9: the root of most lower neighbours (275,
+    over five of the kernel's 64-row slabs and past half of IN = 512) among
+    pad roots, at the shapes test_hub_cover_bits_equals_gms_tpu compiles."""
+    g, jg, jp = rmat9
+    pg = padded_from_numpy(np.asarray(jp.jpg.nbr), device="cpu")
+    indeg = np.diff(jp.lo_indptr)
+    hub = int(np.argmax(indeg))
+    chunk, _, IN = max(jp.jobs, key=lambda j: j[2])
+    assert hub in chunk and 2 * indeg[hub] > IN and indeg[hub] > 4 * 64
+    roots = np.full(62, jp.jpg.v_pad, np.int32)
+    roots[30] = hub
+    want_m, want_v = jp.cover(roots, ww, IN)
+    m, v = bk.hub_cover_bits(pg.nbr, t(jp.lo_indptr), t(jp.lo_cols), t(roots),
+                             in_width=IN, w_words=ww)
+    np.testing.assert_array_equal(bits(m), np.asarray(want_m))
+    np.testing.assert_array_equal(v.numpy(), np.asarray(want_v))
+    assert int(v.sum()) == int(v[30].sum()) == indeg[hub]
+    assert m[30].any() and not m[:30].any() and not m[31:].any()
+
+
 @pytest.mark.parametrize("ww", [1, 2, 8])
 def test_symmetrize_bits_equals_gms_tpu(ww):
     rng = np.random.default_rng(ww)

@@ -283,6 +283,28 @@ def test_decode_star_rows_clips_like_gms_tpu(rmat8):
         assert (got[1] >= 0).any() and (got[2] == -1).any()
 
 
+def test_decode_star_rows_runs_of_roots_past_d_like_gms_tpu(rmat8):
+    """Rows whose roots repeat in runs, as star_stack emits them, at W = 256
+    above D = 192 (the root's slots past D read as SENTINEL)."""
+    g, jg, js = rmat8
+    rng = np.random.default_rng(5)
+    ww, L = 8, 300
+    assert 32 * ww > js.jpg.d_pad
+    chunk = np.argsort(-np.asarray(jg.degrees))[:40].astype(np.int32)
+    chunk[-2:] = (js.jpg.v_pad, -5)
+    out = rng.integers(0, 1 << 32, (L, 2 * ww + 1),
+                       dtype=np.uint64).astype(np.uint32)
+    runs = np.repeat(rng.integers(-3, 45, L), rng.integers(1, 9, L))[:L]
+    out[:, 2 * ww] = runs.astype(np.int32).view(np.uint32)
+    got = ks.decode_star_rows(t(np.asarray(js.jpg.nbr)), t(chunk), t(out))
+    want = jks.decode_star_rows(js.jpg.nbr, jnp.asarray(chunk),
+                                jnp.asarray(out))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert (np.diff(runs) == 0).sum() > L // 2
+    assert (got[1] >= 0).any() and (got[2][:, js.jpg.d_pad:] == -1).all()
+
+
 def test_star_stack_counts_ops():
     # k = 2: a popcount per live root and one per leaf, a bitwise operation
     # per leaf; k = 3 adds 2 bitwise and 1 popcount per child node, the

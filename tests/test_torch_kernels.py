@@ -633,6 +633,66 @@ def test_hub_cover_on_card(card, ww, D, in_w):
     assert m.any() and v.any() and not v.all()
 
 
+def _cover_inputs(rng, card, D, lens, roots, V=300, n=290):
+    """K8's inputs: padded rows over [0, n), a lower-neighbour CSR whose
+    vertex v lists lens[v] random ids (lens shorter than n padded with
+    random counts up to 20), and `roots`, all on the card."""
+    nbr = _padded_rows(rng, V, D, n, D)
+    lens = np.concatenate([lens, rng.integers(0, 21, n - len(lens))])
+    indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    cols = rng.integers(0, n, max(int(indptr[-1]), 1)).astype(np.int32)
+    return [torch.from_numpy(x).to(card)
+            for x in (nbr, indptr, cols, np.asarray(roots, np.int32))]
+
+
+def _check_cover(nbr, indptr, cols, roots, in_w, ww):
+    m, v = _launched("hub_cover_bits", lambda: bk.hub_cover_bits(
+        nbr, indptr, cols, roots, in_width=in_w, w_words=ww), bk.LAUNCHES)
+    pm, pv = bk.hub_cover_bits_plain(nbr, indptr, cols, roots,
+                                     in_width=in_w, w_words=ww)
+    assert torch.equal(m, pm) and torch.equal(v, pv)
+    return m, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ww", [1, 4, 32])
+def test_hub_cover_hub_job_on_card(card, ww):
+    """RMAT-14's hub job shape: one root with 3,575 lower neighbours at
+    IN = 4,096 among 255 pad roots (56 live slabs of 64, the rest zeros)."""
+    rng = np.random.default_rng(ww + 7)
+    hub, V = 5, 300
+    lens = np.zeros(6, np.int64)
+    lens[hub] = 3575
+    roots = np.full(256, V, np.int32)
+    roots[100] = hub
+    args = _cover_inputs(rng, card, 96, lens, roots, V=V)
+    m, v = _check_cover(*args, 4096, ww)
+    assert int(v.sum()) == 3575 and bool(v[100, :3575].all())
+    assert m[100].any() and not m[:100].any() and not m[101:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ww,in_w,D", [(1, 137, 96), (4, 128, 64),
+                                       (32, 192, 160), (260, 80, 64)])
+def test_hub_cover_counts_and_roots_on_card(card, ww, in_w, D):
+    """Counts of 0 and 1, one short of a 64-row slab and one past it, equal
+    to and above IN; a negative root (vertex 0's list), pad roots at n, V
+    and beyond, a root with an empty row; IN not a multiple of the slab
+    (137: zeros by 4-byte stores; 80), W = 8,320 above the table's reach (a
+    binary search)."""
+    rng = np.random.default_rng(ww * in_w)
+    V, n = 300, 290
+    lens = np.array([in_w + 3, 0, 1, 63, 65, in_w, in_w - 1, 33, 5])
+    roots = np.array([1, 2, 3, 4, 5, 6, 7, 0, -3, n, V, V + 11, 8, 2, 6],
+                     np.int32)
+    nbr, indptr, cols, r = _cover_inputs(rng, card, D, lens, roots, V, n)
+    nbr[8] = SENTINEL  # root 8 lists 5 lower neighbours, its row is empty
+    m, v = _check_cover(nbr, indptr, cols, r, in_w, ww)
+    assert v.sum(1).tolist() == [0, 1, 63, 65, in_w, in_w - 1, 33, in_w,
+                                 in_w, 0, 0, 0, 5, 1, in_w - 1]
+    assert m.any() and not m[12].any()
+
+
 def _bk_universe(plan, chunk, ww, in_w):
     nbr = plan.padded.nbr
     adj, s0 = kc.build_local_adj(nbr, chunk, w_words=ww)
@@ -983,6 +1043,65 @@ def test_star_decode_on_card(card, ww, D):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert (got[1] >= 0).any() and (got[2] >= 0).any()
     assert (got[2] == -1).any()
+
+
+def _decode_inputs(rng, card, ww, D, L, blocks, view):
+    """Padded rows at D (a view whose data starts 4 bytes past an aligned
+    address when `view`), 50 chunk slots (a pad and a negative id among
+    them) and L emitted rows of `blocks` bit blocks whose root-local index
+    words run in groups of up to 7 equal ids, some clipping below 0 and
+    past C."""
+    V, n, C = 300, 290, 50
+    rows = torch.from_numpy(_padded_rows(rng, V, D, n, D)).to(card)
+    if view:
+        flat = torch.empty(V * D + 1, dtype=torch.int32, device=card)
+        flat[1:] = rows.reshape(-1)
+        rows = flat[1:].view(V, D)
+    chunk = rng.integers(0, n, C).astype(np.int32)
+    chunk[-2:] = (V, -4)
+    out = _sparse_bits(rng, (max(L, 1), blocks * ww + 1), 0.3).numpy()[:L]
+    runs = np.repeat(rng.integers(-3, C + 3, L), rng.integers(1, 8, L))
+    out[:, blocks * ww] = runs[:L]
+    return rows, torch.from_numpy(chunk).to(card), torch.from_numpy(
+        np.ascontiguousarray(out)).to(card)
+
+
+# (ww, D): D below, equal to and above W, and D % 4 != 0 (scalar loads)
+DECODE_SHAPES = [(1, 30), (1, 32), (2, 96), (2, 70), (8, 256), (8, 250),
+                 (64, 160)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ww,D", DECODE_SHAPES)
+@pytest.mark.parametrize("L", [0, 1, 997])
+def test_star_decode_shapes_on_card(card, ww, D, L):
+    rng = np.random.default_rng(ww * D + L)
+    for view in (False, True):
+        nbr, chunk, out = _decode_inputs(rng, card, ww, D, L, 2, view)
+        got = _launched("decode_star_rows", lambda: ks.decode_star_rows(
+            nbr, chunk, out), ks.LAUNCHES)
+        want = ks.decode_star_rows_plain(nbr, chunk, out)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert got[1].shape == (L, 32 * ww)
+        if L > 1:
+            assert (got[1] >= 0).any() and (got[2] == -1).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ww,D", DECODE_SHAPES)
+@pytest.mark.parametrize("L", [0, 1, 997])
+def test_decode_shapes_on_card(card, ww, D, L):
+    rng = np.random.default_rng(ww * D + L + 1)
+    for view in (False, True):
+        nbr, chunk, out = _decode_inputs(rng, card, ww, D, L, 1, view)
+        gid, mem = _launched("decode_clique_members",
+                             lambda: bk.decode_clique_members(nbr, chunk,
+                                                              out),
+                             bk.LAUNCHES)
+        pgid, pmem = bk.decode_clique_members_plain(nbr, chunk, out)
+        assert torch.equal(gid, pgid) and torch.equal(mem, pmem)
+        if L > 1:
+            assert (mem >= 0).any() and (mem == -1).any()
 
 
 @pytest.mark.cuda
