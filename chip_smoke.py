@@ -32,7 +32,9 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      golden count 82,647,223, and every kernel must have launched;
   4. each kernel against its plain version on the plan's own arrays at the
      headline shapes, exactly (integers, tolerance 0), with CUDA-event times;
-  5. steady-state trial time of both plans;
+  5. steady-state trial time of both plans; K40's device time over one warm
+     VertexShardedTrianglePlan.run at a world of one (no process group)
+     under torch.profiler, with the idle share;
   6. small graph (RMAT scale 12) against the host oracle, at hub thresholds
      8, 65 and None, both modes;
   7. the triangle path's launches and the time so far;
@@ -214,10 +216,14 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      coloring launch counter set to 0 just before it:
      jones_plassmann(g, speculative=True, priority="degree") must give 104
      colors and digest c7b066c1de1c6f34 (COLOR_GOLDEN, gms_tpu's on the CPU);
-     the first call's time (its round-start states recorded by wrapping the
-     module's spec_round for the call),
+     the first call's time (its dispatch-start states recorded by wrapping
+     the module's spec_run for the call),
      the median of 3 warm calls and of 3 host tier builds with their copy,
-     the rounds and launches; color_spec must have launched;
+     the rounds and launches; spec_run (K23) must have launched once a
+     dispatch; one warm call under torch.profiler: K23's device time over
+     the whole call, its launches and the idle share, beside its bound over
+     the whole call (every round of every dispatch, each round's buckets
+     counted as phase 41 counts them);
  38. the other deterministic variants at RMAT 16, the counters set to 0
      before each: speculative random, strict JP-LF (its jp_run dispatch
      states recorded), strict random and dense_sparse(g, seed=0), each
@@ -245,8 +251,12 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      buckets), color_jp (jp_bucket, off the kernels line: no entry point
      runs it) on the first and last round of strict JP-LF (the last
      dispatch stepped to its last round by jp_run),
-     color_spec (its three passes) on the main path's, color_johansson on
-     Johansson's, color_one_shot (pick and resolve) on Barenboim's (and,
+     spec_run on the speculative main path's first and last dispatch
+     (colors and rounds; bytes every round's buckets), its three passes
+     (spec_pick, spec_rank, spec_clash, off the kernels line: no entry
+     point runs them one by one) on the main path's first and last round,
+     color_johansson on Johansson's, color_one_shot (pick and resolve) on
+     Barenboim's (and,
      off the kernels line, on Elkin's), color_components on phase 39's
      first and last label steps; CUDA-event times, L2 flushed, and bytes
      bounds of what each function needs (each row's id, own color and
@@ -421,7 +431,9 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      bron_kerbosch); K39, K40, K1, K2, K5, K6, K7, K9 and K38 must have
      launched;
  57. K40 count_dag_edges_cross against its plain version, exactly, on the
-     RMAT 18 vertex-sharded run's rotation, and K39 member_pack on every
+     RMAT 18 vertex-sharded run's rotation with the plan's schedule (its
+     bound the function's bytes, the schedule's own bytes beside it), and
+     K39 member_pack on every
      (chunk, hop, pack) of the RMAT 12 BK and RMAT 13 k=6 runs, with
      CUDA-event times and byte bounds (each distinct row read to its first
      SENTINEL, the selected slots' locs, the outputs); the kernels line's
@@ -550,8 +562,8 @@ KERNELS = {
                        "gms_tpu/algorithms/similarity.py:115"),
     "jp_run": ("gms_tpu_torch/csrc/color_jp.cu",
                "gms_tpu/algorithms/coloring.py:272"),
-    "color_spec": ("gms_tpu_torch/csrc/color_spec.cu",
-                   "gms_tpu/algorithms/coloring.py:202"),
+    "spec_run": ("gms_tpu_torch/csrc/color_spec.cu",
+                 "gms_tpu/algorithms/coloring.py:257"),
     "color_johansson": ("gms_tpu_torch/csrc/color_random.cu",
                         "gms_tpu/algorithms/coloring.py:127"),
     "color_one_shot": ("gms_tpu_torch/csrc/color_random.cu",
@@ -2880,53 +2892,110 @@ def jp_run_calls(gc, label, state):
              kernel, plain, nbytes, lambda: kbuf.copy_(col))]
 
 
-def spec_calls(gc, label, state):
-    """The three passes on each bucket of a speculative round-start state.
-    Bytes, for an uncolored row: pick, each entry's index word and color;
-    rank, its own pick and priority, each entry's index word and color, an
-    uncolored neighbour's pick, and the priority of one whose pick is the
-    row's; clash, its own tent and priority, each entry's index word and
-    tent, and the priority of one whose tent is the row's, up to the first
-    such neighbour of higher priority (the row loses)."""
-    col, prio, tiers = state[:3]
+def spec_round_parts(gc, col, prio, tiers):
+    """(pick0, tent, [(ids, nbrt, (pick, rank, clash bytes))]) of a
+    speculative round-start state col: the passes' plain buffers, and each
+    bucket's bytes of the three passes. Bytes, for an uncolored row: pick,
+    each entry's index word and color; rank, its own pick and priority, each
+    entry's index word and color, an uncolored neighbour's pick, and the
+    priority of one whose pick is the row's; clash, its own tent and
+    priority, each entry's index word and tent, and the priority of one
+    whose tent is the row's, up to the first such neighbour of higher
+    priority (the row loses)."""
     pick0 = col.clone()
     for ids, nbrt in tiers:
         gc.spec_pick_plain(col, ids, nbrt, pick0)
     tent = col.clone()
     for ids, nbrt in tiers:
         gc.spec_rank_plain(col, pick0, prio, ids, nbrt, tent)
-    calls = []
+    parts = []
     for ids, nbrt in tiers:
-        tag = f"{label}, Dt {nbrt.shape[1]}, Vt {ids.numel()}"
         idl = ids.long()
         unc_n = (nbr_take(col, nbrt) == -1).long()
         same_pk = (nbr_take(pick0, nbrt) == pick0[idl][:, None]).long()
         same_t = nbr_take(tent, nbrt) == tent[idl][:, None]
         higher = nbr_take(prio, nbrt) > prio[idl][:, None]
+        parts.append((ids, nbrt, (
+            bucket_bytes(ids, nbrt, col, 0, torch.full_like(unc_n, 8)),
+            bucket_bytes(ids, nbrt, col, 8,
+                         8 + 4 * unc_n + 4 * unc_n * same_pk),
+            bucket_bytes(ids, nbrt, col, 8, 8 + 4 * same_t.long(),
+                         stop=same_t & higher))))
+    return pick0, tent, parts
+
+
+def spec_calls(gc, label, state):
+    """The three passes on each bucket of a speculative round-start state
+    (spec_pick, spec_rank, spec_clash: no entry point runs them one by one);
+    bytes by spec_round_parts."""
+    col, prio, tiers = state[:3]
+    pick0, tent, parts = spec_round_parts(gc, col, prio, tiers)
+    calls = []
+    for ids, nbrt, (b_pick, b_rank, b_clash) in parts:
+        tag = f"{label}, Dt {nbrt.shape[1]}, Vt {ids.numel()}"
         bufs = [col.clone() for _ in range(6)]
         calls += [
             (f"spec_pick {tag}",
              lambda ids=ids, nbrt=nbrt, b=bufs[0]: gc.spec_pick(
                  col, ids, nbrt, b),
              lambda ids=ids, nbrt=nbrt, b=bufs[1]: gc.spec_pick_plain(
-                 col, ids, nbrt, b),
-             bucket_bytes(ids, nbrt, col, 0, torch.full_like(unc_n, 8)),
-             None),
+                 col, ids, nbrt, b), b_pick, None),
             (f"spec_rank {tag}",
              lambda ids=ids, nbrt=nbrt, b=bufs[2]: gc.spec_rank(
                  col, pick0, prio, ids, nbrt, b),
              lambda ids=ids, nbrt=nbrt, b=bufs[3]: gc.spec_rank_plain(
-                 col, pick0, prio, ids, nbrt, b),
-             bucket_bytes(ids, nbrt, col, 8,
-                          8 + 4 * unc_n + 4 * unc_n * same_pk), None),
+                 col, pick0, prio, ids, nbrt, b), b_rank, None),
             (f"spec_clash {tag}",
              lambda ids=ids, nbrt=nbrt, b=bufs[4]: gc.spec_clash(
                  col, tent, prio, ids, nbrt, b),
              lambda ids=ids, nbrt=nbrt, b=bufs[5]: gc.spec_clash_plain(
-                 col, tent, prio, ids, nbrt, b),
-             bucket_bytes(ids, nbrt, col, 8, 8 + 4 * same_t.long(),
-                          stop=same_t & higher), None)]
+                 col, tent, prio, ids, nbrt, b), b_clash, None)]
     return calls
+
+
+def spec_dispatch_bytes(gc, col, prio, tiers, limit: int, n: int):
+    """(bytes, rounds) of a speculative dispatch from col: each round's
+    buckets as spec_round_parts counts them from the round-start colors,
+    summed over the rounds it runs."""
+    nbytes, r = 0, 0
+    while r < limit and bool((col[:n] == -1).any()):
+        nbytes += sum(sum(b) for _, _, b in spec_round_parts(
+            gc, col, prio, tiers)[2])
+        col = gc.spec_round_plain(col, prio, tiers)
+        r += 1
+    return nbytes, r
+
+
+def spec_run_calls(gc, label, state):
+    """spec_run on a speculative dispatch-start state (colors, priorities,
+    tiers, its limit and n) against spec_run_plain, colors and rounds;
+    bytes by spec_dispatch_bytes over the rounds it runs."""
+    col, prio, tiers, kw = state
+    nbytes, rounds = spec_dispatch_bytes(gc, col, prio, tiers, **kw)
+    kbuf, pbuf = col.clone(), col.clone()
+
+    def kernel():
+        c, r = gc.spec_run(kbuf, prio, tiers, **kw)
+        return c, r.long()
+
+    def plain():
+        pbuf.copy_(col)
+        c, r = gc.spec_run_plain(pbuf, prio, tiers, **kw)
+        return c, torch.tensor([r], device=c.device)
+
+    return [(f"spec_run {label}, {rounds} rounds over {len(tiers)} buckets",
+             kernel, plain, nbytes, lambda: kbuf.copy_(col))]
+
+
+def last_round_state(gc, run, state):
+    """A dispatch-start state (colors, priorities, tiers, kw) stepped by
+    the dispatch function `run` to the start of its last round: (label
+    rounds, state)."""
+    col = state[0].clone()
+    _, rounds = run(col.clone(), *state[1:3], **state[3])
+    if int(rounds) > 1:
+        run(col, *state[1:3], limit=int(rounds) - 1, n=state[3]["n"])
+    return int(rounds), (col,) + tuple(state[1:])
 
 
 def johansson_calls(gc, label, state):
@@ -3042,11 +3111,12 @@ def coloring_phases(timing, report) -> None:
     kw, want_n, want_d = COLOR_GOLDEN["spec-lf"]
     gc.reset_launches()
     t0 = time.perf_counter()
-    with RoundStates(gc, "spec_round") as spec_states:
+    with RoundStates(gc, "spec_run", every=True) as spec_states:
         c = gc.jones_plassmann(g, device="cuda", **kw)
     first_s = time.perf_counter() - t0
     main_launches = dict(gc.LAUNCHES)
     rounds = gc.ROUNDS["jones_plassmann"]
+    spec_dispatches = spec_states.rounds
     n_col, d = held(g, c, want_n, want_d, "speculative JP-LF")
     check(gc.verify_degree_bound(g, c), "speculative JP-LF over deg(v)")
     warm = []
@@ -3066,8 +3136,31 @@ def coloring_phases(timing, report) -> None:
           f"(round states recorded) {first_s:.4f} s, median of {COLOR_WARM} warm calls "
           f"{statistics.median(warm):.4f} s, of which the host tier build "
           f"and its copy {statistics.median(tier_s):.4f} s (median of "
-          f"{COLOR_WARM} apart); {rounds} rounds; launches {main_launches}")
-    check(main_launches["color_spec"] > 0, "K23 never launched")
+          f"{COLOR_WARM} apart); {rounds} rounds in {spec_dispatches} "
+          f"dispatch(es); launches {main_launches}")
+    check(main_launches["spec_run"] == spec_dispatches > 0,
+          f"K23 (spec_run) launched {main_launches['spec_run']} times over "
+          f"{spec_dispatches} speculative dispatches")
+    gc.reset_launches()
+    c, host_s, per, busy = profile_window(
+        lambda: gc.jones_plassmann(g, device="cuda", **kw))
+    check(color_digest(c) == want_d, "the profiled speculative call's colors")
+    spec_sums = window_lines(
+        "[37] warm speculative JP-LF call under torch.profiler:", host_s, per,
+        busy, {"K23": ("spec_run_kernel",)})
+    check(gc.LAUNCHES["spec_run"] == spec_dispatches,
+          f"the profiled call launched K23 {gc.LAUNCHES['spec_run']} times "
+          f"over {spec_dispatches} dispatches")
+    whole_b, whole_r = 0, 0
+    for col, prio, tiers, dkw in spec_states.every:
+        b, r = spec_dispatch_bytes(gc, col, prio, tiers, **dkw)
+        whole_b, whole_r = whole_b + b, whole_r + r
+    check(whole_r == rounds, f"the speculative dispatches replayed {whole_r} "
+          f"rounds, the call ran {rounds}")
+    print(f"    [37] its {spec_dispatches} dispatch(es), {whole_r} rounds: "
+          f"bound {whole_b / HBM_BYTES_PER_S * 1e3:.4f} ms ({whole_b} bytes)"
+          f" against K23's {spec_sums['K23'][0]:.4f} ms of device time | "
+          f"{card_line()}")
 
     # [38] the other deterministic variants, counters from 0 before each
     run_launches = {}
@@ -3102,15 +3195,15 @@ def coloring_phases(timing, report) -> None:
           f"over {dispatches} dispatches")
     # the whole call's bound: every dispatch's rounds, each round's buckets
     # as phase 41 counts them
-    whole_b, whole_r = 0, 0
+    strict_b, strict_r = 0, 0
     for col, prio, tiers, dkw in strict_states.every:
         b, r = jp_dispatch_bytes(gc, col, prio, tiers, **dkw)
-        whole_b, whole_r = whole_b + b, whole_r + r
-    check(whole_r == gc.ROUNDS["jones_plassmann"],
-          f"the dispatches replayed {whole_r} rounds, the call ran "
+        strict_b, strict_r = strict_b + b, strict_r + r
+    check(strict_r == gc.ROUNDS["jones_plassmann"],
+          f"the dispatches replayed {strict_r} rounds, the call ran "
           f"{gc.ROUNDS['jones_plassmann']}")
-    print(f"    [38] its {dispatches} dispatches, {whole_r} rounds: bound "
-          f"{whole_b / HBM_BYTES_PER_S * 1e3:.4f} ms ({whole_b} bytes) "
+    print(f"    [38] its {dispatches} dispatches, {strict_r} rounds: bound "
+          f"{strict_b / HBM_BYTES_PER_S * 1e3:.4f} ms ({strict_b} bytes) "
           f"against K22's {sums['K22'][0]:.4f} ms of device time | "
           f"{card_line()}")
     gc.reset_launches()
@@ -3191,14 +3284,9 @@ def coloring_phases(timing, report) -> None:
     # bucket, jp_run's decide and a commit pass), which no entry point runs
     # now, held off the kernels line on the first round and the last
     dfirst, dlast = strict_states.first, strict_states.last
-    last_col = dlast[0].clone()
-    _, r_last = gc.jp_run(last_col.clone(), *dlast[1:3], **dlast[3])
-    if int(r_last) > 1:
-        gc.jp_run(last_col, *dlast[1:3], limit=int(r_last) - 1,
-                  n=dlast[3]["n"])
-    strict_rounds = [(f"round 1 of {whole_r}", dfirst),
-                     (f"round {whole_r} of {whole_r}",
-                      (last_col,) + tuple(dlast[1:]))]
+    _, last_round = last_round_state(gc, gc.jp_run, dlast)
+    strict_rounds = [(f"round 1 of {strict_r}", dfirst),
+                     (f"round {strict_r} of {strict_r}", last_round)]
     err, k_ms, p_ms, bound_ms, _ = color_compare(timing, [
         c for lab, st in strict_rounds
         for c in jp_calls(gc, f"JP-LF {lab}", st)])
@@ -3206,15 +3294,34 @@ def coloring_phases(timing, report) -> None:
           f"first and last round: max_abs_err {err}, kernel {k_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms (bytes), plain {p_ms:.4f} ms")
     check(err == 0, f"color_jp disagrees with its plain version by {err}")
+    # K23's three passes, one bucket a launch (no entry point runs them so),
+    # off the kernels line on the speculative main path's first and last
+    # round (its last dispatch stepped to its last round by spec_run)
+    sfirst, slast = spec_states.first, spec_states.last
+    _, spec_last = last_round_state(gc, gc.spec_run, slast)
+    err, k_ms, p_ms, bound_ms, _ = color_compare(timing, [
+        c for lab, st in ((f"round 1 of {rounds}", sfirst),
+                          (f"round {rounds} of {rounds}", spec_last))
+        for c in spec_calls(gc, f"spec JP-LF {lab}", st)])
+    print(f"[41] spec_pick, spec_rank, spec_clash (off the main path) on the "
+          f"speculative JP-LF call's first and last round: max_abs_err {err}"
+          f", kernel {k_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes), plain "
+          f"{p_ms:.4f} ms")
+    check(err == 0, f"K23's passes disagree with their plain versions by "
+          f"{err}")
+    spec_held = [(f"dispatch 1 of {spec_dispatches}", sfirst)]
+    if spec_dispatches > 1:
+        spec_held.append((f"dispatch {spec_dispatches} of {spec_dispatches}",
+                          slast))
     groups = {
         "jp_run": (run_launches["strict-lf"], [
             c for lab, st in ((f"dispatch 1 of {dispatches}", dfirst),
                               (f"dispatch {dispatches} of {dispatches}",
                                dlast))
             for c in jp_run_calls(gc, f"JP-LF {lab}", st)]),
-        "color_spec": (main_launches, [
-            c for lab, st in spec_states.both()
-            for c in spec_calls(gc, f"spec JP-LF {lab}", st)]),
+        "spec_run": (main_launches, [
+            c for lab, st in spec_held
+            for c in spec_run_calls(gc, f"spec JP-LF {lab}", st)]),
         "color_johansson": (rand_launches["johansson"], [
             c for lab, st in rand_states["johansson"].both()
             for c in johansson_calls(gc, f"Johansson {lab}", st)]),
@@ -4974,7 +5081,10 @@ def ring_exact_checks(g18, plans) -> None:
     for d in range(2):
         for t in range(2):
             own, vis = table[d], table[(d + t) % 2]
-            got = tc.count_dag_edges_cross(own, vis, eb[d, t], vb[d, t])
+            sched = tc.cross_schedule(eb[d, t], vb[d, t],
+                                      tc.row_lengths(vis))
+            got = tc.count_dag_edges_cross(own, vis, eb[d, t], vb[d, t],
+                                           schedule=sched)
             total += int(got)
             if t:
                 want = tc.count_dag_edges_cross_plain(own, vis, eb[d, t],
@@ -5089,10 +5199,12 @@ def ring_phases(timing, report) -> None:
     # [57] K40 and K39 against their plain versions, exactly, on the
     # world-size-1 runs whose launches the kernels line counts
     tv = plans["tc_vertex"]
-    own, eb, vb = tv._own, tv._eb[0], tv._vb[0]
+    own, eb, vb, sched = tv._own, tv._eb[0], tv._vb[0], tv._sched[0]
     used = eb[vb > 0]
-    k40 = [(f"RMAT {SCALE} rotation 0: E={eb.shape[0]} D={own.shape[1]}",
-            lambda: tc.count_dag_edges_cross(own, own, eb, vb),
+    k40 = [(f"RMAT {SCALE} rotation 0: E={eb.shape[0]} D={own.shape[1]}, "
+            f"{sched.items.shape[0]} items of at most {sched.span} edges",
+            lambda: tc.count_dag_edges_cross(own, own, eb, vb,
+                                             schedule=sched),
             lambda: tc.count_dag_edges_cross_plain(
                 own, own, eb, vb, chunk=tv._chunk, method=tv._method),
             (row_words(own, used.reshape(-1)) + eb.numel() + vb.numel()) * 4
@@ -5100,14 +5212,19 @@ def ring_phases(timing, report) -> None:
     # the plain merge at D_pad 512 is a [1,024, 512, 512] compare a step
     err, k_ms, p_ms, bound_ms, by = compare(timing, k40, plain_reps=1)
     n40 = one["tc_vertex"]["launches"].get("count_dag_edges_cross", 0)
+    sched_bytes = 4 * (sched.items.numel() + sched.vis.numel()
+                       + sched.wt.numel() + sched.vlen.numel())
     print(f"[57] count_dag_edges_cross: {len(k40)} launch(es), the tc_vertex "
           f"run's {n40}; max_abs_err {err}, kernel {k_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({by}), plain {p_ms:.4f} ms")
+          f"{bound_ms:.4f} ms ({by}; the function's bytes), plain "
+          f"{p_ms:.4f} ms; the schedule's own {sched_bytes} bytes "
+          f"({sched_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms), built once with "
+          f"the plan")
     check(err == 0, f"count_dag_edges_cross disagrees with plain by {err}")
     check(n40 == len(k40), f"K40 launches {n40} != its {len(k40)} calls")
     report.append(kernel_entry("count_dag_edges_cross", n40, err, k_ms, p_ms,
                                bound_ms, by))
-    del own, eb, vb, used, k40, tv
+    del own, eb, vb, used, k40, tv, sched
     k39 = (pack_calls(plans[f"bk{BK_SMALL}"], f"BK RMAT {BK_SMALL}")
            + pack_calls(plans["kc13_6"], "RMAT 13 k=6"))
     n39 = sum(one[key]["launches"].get("member_pack", 0)
@@ -5295,6 +5412,21 @@ def main() -> None:
               f"traffic_bytes() at 3.35 TB/s {modelled_ms:.4f} ms")
         check(cnt == GOLDEN, f"steady {label} count {cnt} != {GOLDEN}")
     del plan, gplan, calls
+    # K40 over a warm vertex-sharded run at a world of one (no process
+    # group; phase 56 runs the plan over NCCL), under torch.profiler
+    from gms_tpu_torch.bench.profiling import profile_window, window_lines
+    from gms_tpu_torch.parallel import sharding
+    vplan = sharding.VertexShardedTrianglePlan(g, sharding.make_mesh())
+    check(vplan.run() == GOLDEN, "the vertex-sharded run's count")
+    got, host_s, per, busy = profile_window(vplan.run)
+    check(got == GOLDEN, f"the profiled vertex-sharded run: {got}")
+    sums = window_lines("[5] warm VertexShardedTrianglePlan.run, a world of "
+                        "one, under torch.profiler:", host_s, per, busy,
+                        {"K40": ("owned_rows_kernel",)})
+    check(sums["K40"][1] == 1, "the profiled vertex-sharded run traced "
+          f"{sums['K40'][1]} K40 launches")
+    print(f"    [5] | {card_line()}")
+    del vplan
 
     # [6] small graph against the host oracle
     small = build_csr(generate_rmat_el(12, 16, seed=SEED), num_nodes=1 << 12)

@@ -48,8 +48,10 @@ SIGNATURES = {
         "tier_intersect_gather": (_P, _L, _P, _P, _I, _I, _L, _P, _P),
         # nbr, d_pad, edges, valid, wa, wb, E, out, len(out), stream
         "tier_intersect_vertex": (_P, _L, _P, _P, _I, _I, _L, _P, _L, _P),
-        # nbr_a, da, nbr_b, db, edges, valid, wa, wb, E, out, stream
-        "tier_intersect_cross": (_P, _L, _P, _L, _P, _P, _I, _I, _L, _P, _P),
+        # nbr_a, da, nbr_b, db, items, n_items, vis, wt, vlen, wa, wb, out,
+        # stream
+        "tier_intersect_owned": (_P, _L, _P, _L, _P, _L, _P, _P, _P, _I, _I,
+                                 _P, _P),
     },
     "hub_popcount": {
         # b, a, G, K, W, out, stream
@@ -154,12 +156,15 @@ SIGNATURES = {
         "color_jp_run": (_P, _I, _P, _L, _P, _L, _I, _I, _P, _P, _P),
     },
     "color_spec": {
-        # ids, nbrt, Vt, Dt, colors, cw, pick0, stream
-        "spec_pick": (_P, _P, _L, _I, _P, _I, _P, _P),
-        # ids, nbrt, Vt, Dt, colors, pick0, prio, cw, tent, stream
-        "spec_rank": (_P, _P, _L, _I, _P, _P, _P, _I, _P, _P),
+        # ids, nbrt, Vt, Dt, colors, pick0, stream
+        "spec_pick": (_P, _P, _L, _I, _P, _P, _P),
+        # ids, nbrt, Vt, Dt, colors, pick0, prio, tent, stream
+        "spec_rank": (_P, _P, _L, _I, _P, _P, _P, _P, _P),
         # ids, nbrt, Vt, Dt, colors, tent, prio, out, stream
         "spec_clash": (_P, _P, _L, _I, _P, _P, _P, _P, _P),
+        # bucket table, buckets, colors, scratch, len(colors), prio, n,
+        # limit, widest Dt, ctl, stream
+        "color_spec_run": (_P, _I, _P, _P, _L, _P, _L, _I, _I, _P, _P),
     },
     "color_random": {
         # ids, nbrt, Vt, Dt, colors, deg1, draws, out, stream

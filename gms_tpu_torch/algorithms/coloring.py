@@ -23,8 +23,14 @@ tensors, and adds one to LAUNCHES[name] per launch:
   * `jp_bucket` (K22, LAUNCHES "color_jp"): one strict JP round over a
     bucket, decide then commit (every read of the bucket-start colors), the
     same decide and commit as jp_run's: two CUDA launches, counted as one;
-  * `spec_pick`, `spec_rank`, `spec_clash` (K23, csrc/color_spec.cu): the
-    three passes of the speculative round, each into a fresh buffer;
+  * `spec_run` (K23, csrc/color_spec.cu, LAUNCHES "spec_run"): a whole
+    speculative JP dispatch, up to `limit` rounds of three passes over
+    every bucket while a vertex is uncolored (gms_tpu's _spec_run_tiered),
+    in one cooperative launch; the speculative dispatches of
+    `jones_plassmann` run it;
+  * `spec_pick`, `spec_rank`, `spec_clash` (K23, LAUNCHES "color_spec"):
+    the three passes of the speculative round over one bucket, each into a
+    fresh buffer, on the same device functions as spec_run;
   * `johansson_bucket` (K24, csrc/color_random.cu, LAUNCHES
     "color_johansson") and `one_shot_pick` + `one_shot_resolve` (K24,
     "color_one_shot"): the randomized rounds on explicit draws (Johansson's
@@ -33,11 +39,12 @@ tensors, and adds one to LAUNCHES[name] per launch:
   * `component_step` (K25, csrc/color_components.cu): one Jacobi min-label
     step on the friend graph of `dense_sparse`, over the degree-balanced
     row schedule of graphs/row_schedule.py (built once a call).
-The wrappers other than jp_run take one bucket; the round functions
-(`jp_round`, `spec_round`, `johansson_round`, `one_shot_round`,
+The wrappers other than jp_run and spec_run take one bucket; the round
+functions (`jp_round`, `spec_round`, `johansson_round`, `one_shot_round`,
 `component_labels`) walk the buckets through them; their `*_plain` twins
-walk them through the plain versions, on any device (`jp_run_plain`, the
-round loop of `jp_round_plain`).
+walk them through the plain versions, on any device (`jp_run_plain` and
+`spec_run_plain`, the round loops of `jp_round_plain` and
+`spec_round_plain`).
 
 Johansson and Barenboim/Elkin draw gms_tpu's jax.random numbers from
 gms_tpu's keys (gms_tpu_torch/prng.py, threefry bit for bit), so their
@@ -68,7 +75,7 @@ UNCOLORED = -1
 SPEC_RANK_CAP = 31
 
 # Kernel launches, counted only where a CUDA kernel launches.
-LAUNCHES = {"jp_run": 0, "color_jp": 0, "color_spec": 0,
+LAUNCHES = {"jp_run": 0, "color_jp": 0, "spec_run": 0, "color_spec": 0,
             "color_johansson": 0, "color_one_shot": 0, "color_components": 0}
 # rounds (JP, Johansson, Barenboim/Elkin) or steps (components) of the last
 # call of each entry point
@@ -176,6 +183,16 @@ def _gather(state, ids, nbrt):
     return state[ids.long()], _take_clip(state, nbrt)
 
 
+def _bucket_table(tiers, dev):
+    """The cooperative dispatches' bucket table on `dev`, int64[nb, 4] rows
+    of (ids pointer, nbrt pointer, Vt, Dt), and the widest Dt (the C entries
+    take at most 64 buckets)."""
+    table = torch.tensor([[ids.data_ptr(), nbrt.data_ptr(), *nbrt.shape]
+                          for ids, nbrt in tiers] or [[0, 0, 0, 0]],
+                         dtype=torch.int64).to(dev)
+    return table, max([nbrt.shape[1] for _, nbrt in tiers] + [1])
+
+
 def _check_bucket(name, ids, nbrt, *state):
     _kernels.check_tensor(name, "ids", ids, 1)
     _kernels.check_tensor(name, "nbrt", nbrt, 2)
@@ -281,14 +298,11 @@ def jp_run(colors, priority, tiers, *, limit: int, n: int):
     if not cuda:
         return jp_run_plain(colors, priority, tiers, limit=limit, n=n)
     dev = colors.device
-    table = torch.tensor([[ids.data_ptr(), nbrt.data_ptr(), *nbrt.shape]
-                          for ids, nbrt in tiers] or [[0, 0, 0, 0]],
-                         dtype=torch.int64).to(dev)
+    table, max_dt = _bucket_table(tiers, dev)
     words = torch.empty(colors.shape[0], dtype=torch.int64, device=dev)
     ctl = torch.zeros(5 + 4 * len(tiers), dtype=torch.int64, device=dev)
     _kernels.launch("color_jp", "color_jp_run", table, len(tiers), colors,
-                    colors.shape[0], priority, n, int(limit),
-                    max([nbrt.shape[1] for _, nbrt in tiers] + [1]), words,
+                    colors.shape[0], priority, n, int(limit), max_dt, words,
                     ctl)
     LAUNCHES["jp_run"] += 1
     return colors, ctl[1:2].to(torch.int32)
@@ -337,7 +351,7 @@ def spec_pick(colors, ids, nbrt, pick0):
         return spec_pick_plain(colors, ids, nbrt, pick0)
     Vt, Dt = nbrt.shape
     _kernels.launch("color_spec", "spec_pick", ids, nbrt, Vt, Dt, colors,
-                    _color_words(Dt + 2), pick0)
+                    pick0)
     LAUNCHES["color_spec"] += 1
     return pick0
 
@@ -350,7 +364,7 @@ def spec_rank(colors, pick0, priority, ids, nbrt, tent):
         return spec_rank_plain(colors, pick0, priority, ids, nbrt, tent)
     Vt, Dt = nbrt.shape
     _kernels.launch("color_spec", "spec_rank", ids, nbrt, Vt, Dt, colors,
-                    pick0, priority, _color_words(Dt + 2), tent)
+                    pick0, priority, tent)
     LAUNCHES["color_spec"] += 1
     return tent
 
@@ -390,6 +404,45 @@ def spec_round(colors, priority, tiers):
 def spec_round_plain(colors, priority, tiers):
     return _spec_round(colors, priority, tiers, spec_pick_plain,
                        spec_rank_plain, spec_clash_plain)
+
+
+def spec_run_plain(colors, priority, tiers, *, limit: int, n: int):
+    """Plain version of spec_run: up to `limit` spec_round_plain rounds
+    while a vertex of [0, n) is uncolored, in place on colors; returns
+    (colors, the rounds run)."""
+    out, r = _run(spec_round_plain, colors, n, limit, priority, tiers)
+    colors.copy_(out)
+    return colors, r
+
+
+def spec_run(colors, priority, tiers, *, limit: int, n: int):
+    """One speculative JP dispatch, gms_tpu's _spec_run_tiered
+    (coloring.py:257): up to `limit` rounds (spec_round) while a vertex of
+    [0, n) is uncolored, in place on colors int32[n + 1]. Returns (colors,
+    rounds): for CUDA tensors one cooperative launch of K23's run kernel,
+    the rounds an int32[1] tensor on the card (read it back with the
+    colors); for CPU tensors spec_run_plain, the rounds an int. The
+    buckets' rows are distinct vertices, as _TierGraph builds them (the
+    kernel counts the uncolored vertices outside them once)."""
+    name = "spec_run"
+    _kernels.check_tensor(name, "colors", colors, 1)
+    cuda = _kernels.on_cuda(name, colors, priority)
+    for ids, nbrt in tiers:
+        _check_bucket(name, ids, nbrt, colors, priority)
+    if not 0 <= n < colors.shape[0]:
+        raise ValueError(f"{name}: n = {n} for {colors.shape[0]} state slots")
+    if not cuda:
+        return spec_run_plain(colors, priority, tiers, limit=limit, n=n)
+    dev = colors.device
+    table, max_dt = _bucket_table(tiers, dev)
+    scratch = torch.empty((3, colors.shape[0]), dtype=torch.int32,
+                          device=dev)
+    ctl = torch.zeros(6, dtype=torch.int64, device=dev)
+    _kernels.launch("color_spec", "color_spec_run", table, len(tiers), colors,
+                    scratch, colors.shape[0], priority, n, int(limit), max_dt,
+                    ctl)
+    LAUNCHES["spec_run"] += 1
+    return colors, ctl[1:2].to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -717,7 +770,7 @@ def jones_plassmann(g: CSRGraph, *, priority: str = "random", seed: int = 0,
                            else np.nonzero(unc)[0]).to(dev)
         limit = min(budget - 64 * d, 64)
         if speculative:
-            return _run(spec_round, colors, n, limit, prio, tiers)
+            return spec_run(colors, prio, tiers, limit=limit, n=n)
         return jp_run(colors, prio, tiers, limit=limit, n=n)
 
     return _dispatches(dispatch, _initial_colors(n, dev), n, n,

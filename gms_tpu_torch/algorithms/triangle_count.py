@@ -21,7 +21,7 @@ is a hand-written CUDA kernel here (csrc/), wrapped by the function named:
 
     count_tier_mat              csrc/tier_intersect.cu  (stream mode)
     count_dag_edges             csrc/tier_intersect.cu  (gather mode)
-    count_dag_edges_cross       csrc/tier_intersect.cu  (two-table gather)
+    count_dag_edges_cross       csrc/tier_intersect.cu  (owned rows staged)
     count_dag_edges_per_vertex  csrc/tier_intersect.cu  (per-vertex mode)
     count_hub_groups_mat        csrc/hub_popcount.cu    (stream mode)
     count_hub_groups            csrc/hub_popcount.cu    (gather mode)
@@ -40,6 +40,7 @@ decoded to a CSRGraph first.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -322,14 +323,106 @@ def count_dag_edges(nbr, edges, valid, *, chunk: int = DEFAULT_CHUNK,
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class CrossSchedule:
+    """K40's schedule of one bucket (cross_schedule): its valid edges
+    grouped by owned row and cut into work items of at most `span` edges.
+    items int32[I, 3]: (owned row, first edge, count), ascending by owned
+    row; vis, wt, vlen int32[E']: each scheduled edge's visiting row, weight
+    (valid) and the visiting row's live length (its entries before the
+    first SENTINEL), item by item."""
+    items: torch.Tensor
+    vis: torch.Tensor
+    wt: torch.Tensor
+    vlen: torch.Tensor
+    span: int
+
+    def edges(self):
+        """(edges int32[E', 2], valid int32[E']) in schedule order."""
+        own = torch.repeat_interleave(self.items[:, 0], self.items[:, 2])
+        return torch.stack([own, self.vis], 1), self.wt
+
+
+# K40's work items: at most this many edges of one owned row, so that a hub
+# row's edges spread over several blocks (RMAT-18's rotation: 32 edges an
+# item and 512 were slower than 128, PERF.md PR 19)
+CROSS_SPAN = 128
+
+
+def row_lengths(nbr) -> torch.Tensor:
+    """int32[V]: each padded row's live length (entries before its first
+    SENTINEL; rows are ascending with a SENTINEL tail)."""
+    return (nbr != _SENT).sum(1, dtype=torch.int32)
+
+
+def cross_schedule(edges, valid, vis_len, *,
+                   span: int = CROSS_SPAN) -> CrossSchedule:
+    """K40's schedule of a bucket (edges int32[E, 2] as (owned row,
+    visiting row), valid int32[E]; vis_len int32[Vb], the visiting table's
+    row_lengths), built with torch ops on their device: the edges with
+    valid != 0, stably sorted by owned row, each owned row's run cut into
+    items of at most `span` edges. Padding edges (valid 0) are left out."""
+    _check_edges("cross_schedule", edges, valid)
+    _check("cross_schedule", "vis_len", vis_len, 1)
+    if span < 1:
+        raise ValueError(f"cross_schedule: span {span} < 1")
+    dev = edges.device
+    keep = (valid != 0).nonzero().reshape(-1)
+    own, order = torch.sort(edges[keep, 0], stable=True)
+    keep = keep[order]
+    rows, counts = torch.unique_consecutive(own, return_counts=True)
+    counts = counts.long()
+    n_items = (counts + span - 1) // span
+    run = torch.repeat_interleave(torch.arange(rows.numel(), device=dev),
+                                  n_items)
+    k = (torch.arange(run.numel(), device=dev)
+         - (torch.cumsum(n_items, 0) - n_items)[run])
+    first = (torch.cumsum(counts, 0) - counts)[run] + k * span
+    count = torch.clamp(counts[run] - k * span, max=span)
+    if keep.numel() >= 1 << 31:
+        raise ValueError(f"cross_schedule: {keep.numel()} edges do not fit "
+                         f"int32 offsets")
+    items = torch.stack([rows[run].long(), first, count], 1).to(torch.int32)
+    vis = edges[keep, 1].contiguous()
+    return CrossSchedule(items.contiguous(), vis, valid[keep].contiguous(),
+                         vis_len[vis.long()].contiguous(), span)
+
+
+def _check_schedule(name, schedule, edges, valid, nbr_b) -> None:
+    for what in ("items", "vis", "wt", "vlen"):
+        t = getattr(schedule, what)
+        _check(name, f"schedule.{what}", t, 2 if what == "items" else 1)
+        if t.device != edges.device:
+            raise ValueError(f"{name}: schedule.{what} on {t.device}, the "
+                             f"edges on {edges.device}")
+    if schedule.items.shape[1] != 3 or not \
+            schedule.vis.shape == schedule.wt.shape == schedule.vlen.shape:
+        raise ValueError(f"{name}: schedule items "
+                         f"{tuple(schedule.items.shape)}, vis "
+                         f"{tuple(schedule.vis.shape)}, wt "
+                         f"{tuple(schedule.wt.shape)}, vlen "
+                         f"{tuple(schedule.vlen.shape)}")
+    if checks.paranoid():
+        ref = cross_schedule(edges, valid, row_lengths(nbr_b),
+                             span=schedule.span)
+        if not all(torch.equal(getattr(ref, f), getattr(schedule, f))
+                   for f in ("items", "vis", "wt", "vlen")):
+            raise ValueError(f"{name}: the schedule is not these edges' "
+                             f"and rows'")
+
+
 def count_dag_edges_cross_plain(nbr_a, nbr_b, edges, valid, *,
                                 chunk: int = DEFAULT_CHUNK,
                                 method: str = "compare",
                                 width_a: int | None = None,
-                                width_b: int | None = None):
+                                width_b: int | None = None,
+                                schedule: CrossSchedule | None = None):
     """Plain version of count_dag_edges_cross: gather `chunk` edges' rows,
     u's from nbr_a and v's from nbr_b, then sets.ops.intersect_count by
-    `method`."""
+    `method`; with a schedule, over its edges (in its order) in place of
+    edges and valid."""
+    if schedule is not None:
+        edges, valid = schedule.edges()
     wa = min(width_a or nbr_a.shape[1], nbr_a.shape[1])
     wb = min(width_b or nbr_b.shape[1], nbr_b.shape[1])
     total = _zero(nbr_a.device)
@@ -345,38 +438,48 @@ def count_dag_edges_cross_plain(nbr_a, nbr_b, edges, valid, *,
 def count_dag_edges_cross(nbr_a, nbr_b, edges, valid, *,
                           chunk: int = DEFAULT_CHUNK, method: str = "compare",
                           width_a: int | None = None,
-                          width_b: int | None = None):
+                          width_b: int | None = None,
+                          schedule: CrossSchedule | None = None):
     """Σ over edges e of valid[e] * |nbr_a[u] ∩ nbr_b[v]| — int64 0-d
-    tensor, (u, v) = edges[e]: K1's gather entry over two row tables.
+    tensor, (u, v) = edges[e]: K40 over two row tables.
 
     nbr_a: int32[Va, Da], nbr_b: int32[Vb, Db] padded rows, strictly
     ascending with a SENTINEL tail (checked under GMS_TPU_PARANOID=1; the
-    kernel merges rows and miscounts any other row, which the plain version
-    would not); edges: int32[E, 2] row indices into nbr_a and nbr_b, valid:
-    int32[E] (0 for padding edges). width_a/width_b slice the rows (default
-    their full width). The rotation body of gms_tpu's
-    VertexShardedTrianglePlan (parallel/sharding.py:206-216), with the
-    owned shard as nbr_a and the visiting shard as nbr_b, so no rows are
-    copied into one table. `chunk` and `method` only shape the plain
-    version.
+    kernel looks entries up in the owned row and stops a visiting row past
+    its last value, and miscounts any other row, which the plain version
+    would not); edges: int32[E, 2] row indices into nbr_a (the
+    owned row) and nbr_b (the visiting row), valid: int32[E] (0 for padding
+    edges). width_a/width_b slice the rows (default their full width).
+    schedule: cross_schedule(edges, valid, row_lengths(nbr_b)), which a
+    caller that counts the same edges again builds once (checked against
+    the edges and nbr_b under GMS_TPU_PARANOID=1); built here when None.
+    The rotation body of gms_tpu's VertexShardedTrianglePlan
+    (parallel/sharding.py:206-216), with the owned shard as nbr_a and the
+    visiting shard as nbr_b, so no rows are copied into one table. `chunk`
+    and `method` only shape the plain version.
     """
     name = "count_dag_edges_cross"
     _check(name, "nbr_a", nbr_a, 2)
     _check(name, "nbr_b", nbr_b, 2)
     _check_edges(name, edges, valid)
+    if schedule is not None:
+        _check_schedule(name, schedule, edges, valid, nbr_b)
     if checks.paranoid():
         checks.validate_sorted_rows(nbr_a, name=f"{name} nbr_a")
         checks.validate_sorted_rows(nbr_b, name=f"{name} nbr_b")
     if not _on_cuda(name, nbr_a, nbr_b, edges, valid):
         return count_dag_edges_cross_plain(
             nbr_a, nbr_b, edges, valid, chunk=chunk, method=method,
-            width_a=width_a, width_b=width_b)
+            width_a=width_a, width_b=width_b, schedule=schedule)
+    if schedule is None:
+        schedule = cross_schedule(edges, valid, row_lengths(nbr_b))
     wa = min(width_a or nbr_a.shape[1], nbr_a.shape[1])
     wb = min(width_b or nbr_b.shape[1], nbr_b.shape[1])
     out = _zero(nbr_a.device)
-    _kernels.launch("tier_intersect", "tier_intersect_cross", nbr_a,
-                    nbr_a.shape[1], nbr_b, nbr_b.shape[1], edges, valid, wa,
-                    wb, edges.shape[0], out)
+    _kernels.launch("tier_intersect", "tier_intersect_owned", nbr_a,
+                    nbr_a.shape[1], nbr_b, nbr_b.shape[1], schedule.items,
+                    schedule.items.shape[0], schedule.vis, schedule.wt,
+                    schedule.vlen, wa, wb, out)
     LAUNCHES[name] += 1
     return out
 

@@ -1,5 +1,5 @@
 """K5 (kclique_dense_count) and K14 (count_dag_edges_per_vertex) on the card,
-over whole warm calls; K23 and K24 over theirs.
+over whole warm calls; K23, K24 and K40 over theirs.
 
 K5 over one warm RMAT-16 k=5 `kclique_count` call (chip_smoke.py's phase 8),
 its device time split by chunk width W. K14 over one warm RMAT-18
@@ -9,12 +9,16 @@ merging the two rows, as the parent's K14 does, without the witness adds),
 so that the gap between the two is what the parent's witness atomics cost.
 K23 (`spec_*`) over a warm speculative JP-LF call and K24 over warm
 `johansson` and `barenboim_elkin` calls at RMAT-16 (phases 37 and 39), for
-the ranking of the next redesigns. Each call under torch.profiler (the
+the ranking of the next redesigns. K40 (count_dag_edges_cross) over one
+warm RMAT-18 `VertexShardedTrianglePlan.run` at a world of one (phase 56's
+call, no process group), and, where the package has K40's schedule
+(cross_schedule), the kernel alone on that rotation by the schedule's span,
+by torch.profiler's device time over HELD_PASSES launches. Each call under torch.profiler (the
 kernel's device time and launches, each launch's device time in launch
 order, read by bench/profiling.py's profile_launches, the host time and
 the device's idle share) and, unprofiled, the best of 3.
 
-    python -m gms_tpu_torch.bench.dense_vertex --label this
+    python -m gms_tpu_torch.bench.dense_vertex --label this [--parts kc,pv,color,ring]
 
 To compare two checkouts on one card, run the other's package with this
 script in turns: PYTHONPATH=<other checkout> python
@@ -38,22 +42,62 @@ from gms_tpu_torch.bench.profiling import launch_split, profile_launches
 
 SEED, DEGREE = 27491095, 16
 KC_SCALE, KC_K, KC_GOLDEN = 16, 5, 4_600_426_489
-PV_SCALE, PV_SUM = 18, 3 * 82_647_223
+TC_GOLDEN = 82_647_223
+PV_SCALE, PV_SUM = 18, 3 * TC_GOLDEN
 COLOR_SCALE = 16
 # the device functions of each kernel, this tree's and the parent's
 K5_KERNELS = ("rows_kernel", "rows_any_kernel", "popcount_kernel",
               "dense_kernel")
 K14_KERNELS = ("vertex_kernel",)
 K1_GATHER = ("gather_kernel",)
-K23_KERNELS = ("spec_pick_kernel", "spec_rank_kernel", "spec_clash_kernel")
+# K23: the parent's three passes, a launch a bucket; this tree's dispatch
+# kernel (and the passes' one kernel, which no entry point runs)
+K23_KERNELS = ("spec_pick_kernel", "spec_rank_kernel", "spec_clash_kernel",
+               "spec_pass_kernel", "spec_run_kernel")
 K24_KERNELS = ("johansson_kernel", "one_shot_pick_kernel",
                "one_shot_resolve_kernel")
+# K40: the parent's thread merge (K1's gather kernel over two tables), this
+# tree's owned-row kernels
+K40_KERNELS = ("gather_kernel", "owned_rows_kernel")
+K40_SPANS, K40_STAGES, HELD_PASSES = (32, 128), ("block", "bitmap", "bitmap_s8", "bitmap_s2", "bitmap_s1"), 10
+PARTS = ("kc", "pv", "color", "ring")
+
+
+def held_k40(tc, own, eb, vb) -> dict:
+    """K40 alone on a rotation by the schedule's span: device ms a launch
+    (torch.profiler over HELD_PASSES launches), the items, the count."""
+    from gms_tpu_torch.bench.profiling import profile_window
+
+    out = {}
+    lens = tc.row_lengths(own)
+    for span in K40_SPANS:
+        sched = tc.cross_schedule(eb, vb, lens, span=span)
+
+        def passes(sched=sched):
+            return [tc.count_dag_edges_cross(own, own, eb, vb, schedule=sched)
+                    for _ in range(HELD_PASSES)]
+
+        got = {int(x) for x in passes()}
+        _, _, per, _ = profile_window(passes)
+        ms = sum(per[k][0] for k in K40_KERNELS if k in per) / 1e3
+        n = sum(per[k][1] for k in K40_KERNELS if k in per)
+        key = f"span {span}"
+        out[key] = {"ms": ms / max(n, 1), "launches": n,
+                    "items": int(sched.items.shape[0]), "count": sorted(got)}
+        print(f"    K40 held, {key}: {ms / max(n, 1):.4f} ms a launch ({n} "
+              f"traced), {sched.items.shape[0]} items, count {sorted(got)}")
+        if got != {TC_GOLDEN}:
+            raise SystemExit(f"K40 {key}: {sorted(got)}")
+    return out
 
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--label", default="")
+    p.add_argument("--parts", default=",".join(PARTS),
+                   help="of " + ",".join(PARTS))
     args = p.parse_args(argv)
+    parts = args.parts.split(",")
     if not torch.cuda.is_available():
         raise SystemExit("dense_vertex needs a CUDA device")
 
@@ -64,6 +108,7 @@ def main(argv=None) -> dict:
     from gms_tpu_torch.algorithms import triangle_count as tc
     from gms_tpu_torch.io.builder import build_csr
     from gms_tpu_torch.io.generators import generate_rmat_el
+    from gms_tpu_torch.parallel import sharding
     from gms_tpu_torch.preprocessing import degeneracy
 
     card = subprocess.run(
@@ -72,12 +117,26 @@ def main(argv=None) -> dict:
         timeout=60).stdout.strip()
     print(f"card: {card}; package {gms_tpu_torch.__file__}")
     built = _kernels.build()
-    for name in ("kclique_dense", "tier_intersect"):
+    for name in ("kclique_dense", "tier_intersect", "color_spec"):
         if name in built:
             print(f"ptxas {name}:\n{built[name]}")
     out = {"label": args.label, "card": card}
+    if "kc" in parts:
+        out["kclique_count"] = kc_part(kc, build_csr, generate_rmat_el,
+                                       degeneracy)
+    if "pv" in parts:
+        out.update(pv_part(tc, build_csr, generate_rmat_el))
+    if "color" in parts:
+        out["coloring"] = color_part(gc, build_csr, generate_rmat_el)
+    if "ring" in parts:
+        out["vertex_sharded"] = ring_part(tc, sharding, build_csr,
+                                          generate_rmat_el)
+    print(json.dumps(out))
+    return out
 
-    # K5 over the warm kclique_count call, by chunk width
+
+def kc_part(kc, build_csr, generate_rmat_el, degeneracy) -> dict:
+    """K5 over the warm kclique_count call, by chunk width."""
     g = build_csr(generate_rmat_el(KC_SCALE, DEGREE, seed=SEED),
                   num_nodes=1 << KC_SCALE)
     rank, _ = degeneracy.degeneracy_ordering_rank(g)
@@ -97,10 +156,13 @@ def main(argv=None) -> dict:
                         [f"W={32 * ww}" for _, ww in chunks])
     run["best_s"] = best_s(single)
     print(f"    unprofiled best of 3 {run['best_s']:.4f} s")
-    out["kclique_count"] = run
-    del g, chunks
+    return run
 
-    # K14 over the warm per-vertex call, by tier; K1's gather on its tiers
+
+def pv_part(tc, build_csr, generate_rmat_el) -> dict:
+    """K14 over the warm per-vertex call, by tier; K1's gather on its
+    tiers."""
+    out = {}
     g = build_csr(generate_rmat_el(PV_SCALE, DEGREE, seed=SEED),
                   num_nodes=1 << PV_SCALE)
 
@@ -136,9 +198,11 @@ def main(argv=None) -> dict:
     run["by_tier"] = launch_split(f"{tag} K1, the second pass", seq,
                                   K1_GATHER, tiers)
     out["k1_gather"] = run
-    del g, pg, parts
+    return out
 
-    # K23 and K24 over their warm coloring calls
+
+def color_part(gc, build_csr, generate_rmat_el) -> dict:
+    """K23 and K24 over their warm coloring calls."""
     g = build_csr(generate_rmat_el(COLOR_SCALE, DEGREE, seed=SEED),
                   num_nodes=1 << COLOR_SCALE)
     calls = {
@@ -151,7 +215,7 @@ def main(argv=None) -> dict:
                                                  device="cuda"),
                       {"K24": K24_KERNELS}),
     }
-    out["coloring"] = {}
+    out = {}
     for label, (fn, groups) in calls.items():
         first = fn()
         if not gc.verify_coloring(g, np.asarray(first)):
@@ -161,9 +225,35 @@ def main(argv=None) -> dict:
                      groups)
         run["best_s"] = best_s(fn)
         print(f"    unprofiled best of 3 {run['best_s']:.4f} s")
-        out["coloring"][label] = run
-    print(json.dumps(out))
+        out[label] = run
     return out
+
+
+def ring_part(tc, sharding, build_csr, generate_rmat_el) -> dict:
+    """K40 over the warm RMAT-18 vertex-sharded run at a world of one; the
+    kernel alone by span where the package has its schedule."""
+    import time
+
+    g = build_csr(generate_rmat_el(PV_SCALE, DEGREE, seed=SEED),
+                  num_nodes=1 << PV_SCALE)
+    t0 = time.perf_counter()
+    plan = sharding.VertexShardedTrianglePlan(g, sharding.make_mesh())
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if plan.run() != TC_GOLDEN:
+        raise SystemExit("VertexShardedTrianglePlan.run: not the golden count")
+    got, host_s, per, busy, _ = profile_launches(plan.run)
+    if got != TC_GOLDEN:
+        raise SystemExit(f"profiled vertex-sharded run: {got}")
+    run = window(f"warm VertexShardedTrianglePlan.run RMAT {PV_SCALE}, "
+                 f"world of one:", host_s, per, busy, {"K40": K40_KERNELS})
+    run["best_s"] = best_s(plan.run)
+    run["build_s"] = build_s
+    print(f"    unprofiled best of 3 {run['best_s']:.4f} s; plan built in "
+          f"{build_s:.3f} s")
+    if hasattr(tc, "cross_schedule"):
+        run["held"] = held_k40(tc, plan._own, plan._eb[0], plan._vb[0])
+    return run
 
 
 if __name__ == "__main__":

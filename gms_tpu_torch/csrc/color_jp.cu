@@ -216,23 +216,6 @@ __global__ void jp_commit(const int* __restrict__ ids,
   if (r < Vt && dec[r] >= 0) colors[ids[r]] = dec[r];
 }
 
-// A value read by thread 0 after a grid barrier, shared with the block.
-__device__ __forceinline__ long long block_read(const long long* p) {
-  __shared__ long long value;
-  if (threadIdx.x == 0) value = *reinterpret_cast<const volatile long long*>(p);
-  __syncthreads();
-  const long long v = value;
-  __syncthreads();
-  return v;
-}
-
-// Adds the block's sum of v to *out; every thread calls it, and calls may
-// follow each other.
-__device__ __forceinline__ void add_block_sum(long long v, long long* out) {
-  __syncthreads();
-  block_sum_add(v, reinterpret_cast<unsigned long long*>(out));
-}
-
 // tab: a bucket a row of 4 int64 (ids, nbrt, Vt, Dt), ascending width,
 // nb <= kMaxBuckets. words uint64[n_state] scratch. ctl int64[5 + 4 nb],
 // zero on entry: [0] the uncolored vertices of [0, n) at the start, [1] the

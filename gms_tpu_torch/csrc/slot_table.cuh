@@ -1,6 +1,8 @@
 // A root's padded row looked up by value, and one warp's walk of another
 // row against it: the inner loop of build_local_adj (local_adj.cu, K4) and
-// hub_cover_bits (bk_cover.cu, K8). build_local_univ (star_univ.cu) and
+// hub_cover_bits (bk_cover.cu, K8), which OR the slots found into bits
+// (warp_row_bits), and of tier_intersect_owned (tier_intersect.cu, K40),
+// which counts them (warp_row_count). build_local_univ (star_univ.cu) and
 // member_pack (ring_member.cu) binary-search instead (row_search.cuh).
 //
 // Rows are strictly ascending with a SENTINEL tail (the padded layout), so a
@@ -75,7 +77,10 @@ struct Slots {
 // root's slots root_row[0, wmax), SENTINEL beyond, and with kHash each live
 // slot in `table` (table_cap entries). Returns the slots with n = L, the
 // number of live slots; r_nbr and the table are complete for every thread.
-template <bool kHash>
+// With kPrefix the block reads only the live prefix: it stops after the
+// first blockDim-slot round that holds a SENTINEL, and r_nbr is written only
+// that far (K40 stages a short row of a wide table so).
+template <bool kHash, bool kPrefix = false>
 __device__ __forceinline__ Slots<kHash> load_slots(const int* root_row,
                                                    int wmax, int W,
                                                    int2* table, int table_cap,
@@ -101,6 +106,7 @@ __device__ __forceinline__ Slots<kHash> load_slots(const int* root_row,
       table[h].y = j;
     }
     live += __syncthreads_count(x != GMS_SENTINEL);
+    if (kPrefix && live < base + (int)blockDim.x) break;
   }
   slots.sorted = r_nbr;
   slots.n = live;
@@ -139,6 +145,35 @@ __device__ __forceinline__ void warp_row_bits(const int* row, int d,
     if (__any_sync(kFull, past)) break;
   }
   __syncwarp();
+}
+
+// For one warp: this lane's share of |{x in row[0, d) : x in slots}|, the
+// walk of warp_row_bits with hits counted (slots: a Slots, or any set whose
+// find(x) is >= 0 for a member, none above `last`). d is the row's live
+// length, so that no load reaches past the row's data; kUnroll chunks of
+// 32 load at a time, and the warp stops after the chunk where an element
+// passes `last`. Every lane calls it with the same row; the caller sums
+// the lanes' shares.
+template <class Lookup>
+__device__ __forceinline__ int warp_row_count(const int* row, int d, int last,
+                                              const Lookup& slots, int lane) {
+  int hits = 0;
+  for (int base = 0; base < d; base += 32 * kUnroll) {
+    int x[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      const int s = base + 32 * k + lane;
+      x[k] = s < d ? row[s] : GMS_SENTINEL;
+    }
+    bool past = false;
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      if (x[k] <= last) hits += slots.find(x[k]) >= 0;
+      past |= x[k] > last;
+    }
+    if (__any_sync(kFull, past)) break;
+  }
+  return hits;
 }
 
 // Block-wide: n words at `out` set to zero, 16 bytes a store where `out` is

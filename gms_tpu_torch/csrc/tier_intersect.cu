@@ -1,6 +1,7 @@
 // K1 intersect_count: Σ over edges e of |A_e ∩ B_e| for the narrow degree
 // tiers of the triangle-count plan; K14, the same tiers counted per vertex;
-// and K40, K1's gather mode over two row tables.
+// and K40, the same sum over two row tables, an owned row staged once for
+// all of its edges.
 //
 // Replaces four device programs of gms_tpu/algorithms/triangle_count.py
 // and gms_tpu/parallel/sharding.py:
@@ -10,10 +11,9 @@
 //     of the padded adjacency (row stride D_pad), with valid[e] weighting
 //     each edge (0 for padding edges, which point at vertex 0);
 //   * the rotation body of gms_tpu/parallel/sharding.py:206-216
-//     (VertexShardedTrianglePlan) — K40, the gather mode over two tables
-//     (tier_intersect_cross): u's row from the owned table shard, v's from
-//     the visiting one, each with its own row stride, so the ring never
-//     copies a shard into one buffer;
+//     (VertexShardedTrianglePlan) — K40 (tier_intersect_owned): u's row
+//     from the owned table shard, v's from the visiting one, each with its
+//     own row stride, so the ring never copies a shard into one buffer;
 //   * count_dag_edges_per_vertex (:129) — per-vertex mode (K14): the gather
 //     mode's merge, where each match x (a witness) adds 1 to out[x] and the
 //     edge's count c adds c * valid[e] to out[u] and out[v], for edges with
@@ -24,7 +24,7 @@
 // because its platform memoized repeated runs of a pure program; CUDA launches
 // are never memoized, so the port drops them.
 //
-// Design of K1 and K40: one thread per edge. Both rows are sorted ascending
+// Design of K1: one thread per edge. Both rows are sorted ascending
 // with a SENTINEL (int32 max) tail — the padded-layout invariant of
 // harness/checks.py — so the thread merges them in O(wa + wb) steps instead
 // of the wa*wb compare cube of the TPU program. An a-element counts only when
@@ -43,6 +43,30 @@
 // Gather mode reads rows of D_pad-strided adjacency and does not coalesce; it
 // serves graphs whose materialized streams would not fit (plan MAT_BUDGET).
 // Counts are summed exactly: int64 per block, one atomicAdd per block.
+//
+// K40 (owned_rows_kernel) takes the edges by a schedule
+// (algorithms/triangle_count.py's cross_schedule) that orders a bucket's
+// valid edges by owned row, cuts each row's run into work items (owned
+// row, first edge, count) of at most `span` edges, and carries each edge's
+// visiting row id, weight and live length. A block takes an item: it
+// stages the owned row's live prefix once for all of the item's edges
+// (csrc/slot_table.cuh's load_slots, stopping at the SENTINEL) and sets it
+// in a bitmap of its value range in shared memory (2^18 ids; a row of a
+// wider range is binary-searched in its staged copy), one lookup an entry;
+// its warps take the item's edges in turn and walk each visiting row's
+// live entries, kUnroll 32-entry chunks in flight, coalesced
+// (warp_row_count), stopping after the chunk where an entry passes the
+// owned row's last value. The row lengths keep every load on the rows'
+// data. The grid is as many blocks as fit on the card, each walking items
+// by a stride; hits times the edge's weight add into an int64 a lane, one
+// atomicAdd a block. Integer sums in any order: exact. What bounds it on
+// RMAT-18's rotation is the walk: 647 M visiting entries (each edge's row up
+// to the owned row's last value) read from L2 and looked up, for 82.6 M
+// triangles; a warp an item (binary search, or a hash set of its own), a
+// hash table in place of the bitmap, 1, 2 or 8 chunks in flight, lane
+// groups of 8 or 16 an edge and 512-thread blocks measured slower (PERF.md,
+// PR 19). Bound: the gather mode's bytes (the function's); the schedule
+// adds its own ids, weights, lengths and items.
 //
 // K14 (vertex_kernel) gives each edge a group of G lanes, G = 8, 16 or 32
 // by the narrower width (a warp from 17 on), so the loads of a row coalesce
@@ -70,6 +94,7 @@
 #include <cuda_runtime.h>
 
 #include "block_sum.cuh"
+#include "slot_table.cuh"
 
 namespace {
 
@@ -106,8 +131,8 @@ __global__ void stream_kernel(const int* __restrict__ a,
   block_sum_add(cnt, out);
 }
 
-// Gather mode over two row tables: u's row from nbr_a, v's from nbr_b (the
-// same table for K1's gather entry).
+// Gather mode: u's row from nbr_a, v's from nbr_b (K1's gather entry passes
+// one table twice).
 __global__ void gather_kernel(const int* __restrict__ nbr_a, long long d_a,
                               const int* __restrict__ nbr_b, long long d_b,
                               const int* __restrict__ edges,
@@ -134,7 +159,7 @@ constexpr int kSlots = 1 << kSlotBits;
 constexpr int kProbes = 8;
 constexpr int kEmpty = -1;
 constexpr int kStageInts = 4096;          // 16 KB, split among the groups
-constexpr int kUnroll = 4;                // staging rounds a vote
+// (kUnroll, slot_table.cuh's 4: K14's staging rounds a vote)
 
 // Adds 1 to witness x (0 <= x < n_out) in the block's table, or in device
 // memory when its kProbes slots hold other ids.
@@ -284,6 +309,93 @@ cudaError_t launch_vertex(const int* nbr, long long d_pad, const int* edges,
   return cudaSuccess;
 }
 
+// K40's blocks and their staged rows.
+constexpr int kOwnedThreads = 256;
+constexpr int kOwnedWarps = kOwnedThreads / 32;
+constexpr int kBitWords = 8192;           // the bitmap: 2^18 ids, 32 KB
+
+// An owned row's live values as a bitmap over [lo, lo + 32 kBitWords).
+struct BitSlots {
+  const unsigned* bits;
+  int lo;
+  __device__ __forceinline__ int find(int x) const {
+    const unsigned d = (unsigned)(x - lo);
+    return d < 32u * kBitWords && (bits[d >> 5] >> (d & 31) & 1u) ? 0 : -1;
+  }
+};
+
+// This warp's edges of an item, first + warp + kOwnedWarps i: each edge's
+// hits in its visiting row's live entries (warp_row_count), times its
+// weight, into acc (a lane's share). The warp loads its next edge's row
+// id, weight and length while it walks.
+template <class Lookup>
+__device__ __forceinline__ void item_edges(
+    const int* __restrict__ vis, const int* __restrict__ wt,
+    const int* __restrict__ vlen, long long first, int count, int warp,
+    int lane, long long& acc, const int* __restrict__ nbr_b, long long d_b,
+    int wb, int last, const Lookup& look) {
+  int v = 0, w = 0, len = 0;
+  if (warp < count) {
+    v = vis[first + warp], w = wt[first + warp], len = vlen[first + warp];
+  }
+  for (int i = warp; i < count; i += kOwnedWarps) {
+    const int vi = v, wi = w, li = min(len, wb);
+    if (i + kOwnedWarps < count) {
+      const long long k = first + i + kOwnedWarps;
+      v = vis[k], w = wt[k], len = vlen[k];
+    }
+    acc += (long long)warp_row_count(nbr_b + vi * d_b, li, last, look,
+                                     lane) * wi;
+  }
+}
+
+// A block an item: the owned row's live prefix staged by load_slots (W
+// slots, a power of two >= wa) and set in a bitmap of its value range, or,
+// where that range is wider than the bitmap, binary-searched; the item's
+// edges dealt to the warps in turn. The bitmap is all zero between items:
+// an item clears the words it set.
+__global__ void __launch_bounds__(kOwnedThreads)
+owned_rows_kernel(const int* __restrict__ nbr_a, long long d_a,
+                  const int* __restrict__ nbr_b, long long d_b,
+                  const int* __restrict__ items, long long n_items,
+                  const int* __restrict__ vis, const int* __restrict__ wt,
+                  const int* __restrict__ vlen, int wa, int wb, int W,
+                  unsigned long long* out) {
+  extern __shared__ unsigned bits[];      // [kBitWords], then r_nbr[W]
+  int* r_nbr = reinterpret_cast<int*>(bits + kBitWords);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < kBitWords; i += kOwnedThreads) bits[i] = 0u;
+  __syncthreads();
+  long long acc = 0;
+  for (long long it = blockIdx.x; it < n_items; it += gridDim.x) {
+    const int u = items[3 * it], first = items[3 * it + 1],
+              count = items[3 * it + 2];
+    const Slots<false> slots = load_slots<false, true>(
+        nbr_a + u * d_a, wa, W, nullptr, 0, r_nbr);
+    const int n = slots.n;
+    if (n > 0) {
+      const int lo = r_nbr[0], last = r_nbr[n - 1];
+      if (last - lo < 32 * kBitWords) {   // block-uniform
+        for (int j = threadIdx.x; j < n; j += kOwnedThreads) {
+          const int d = r_nbr[j] - lo;
+          atomicOr(bits + (d >> 5), 1u << (d & 31));
+        }
+        __syncthreads();
+        item_edges(vis, wt, vlen, first, count, warp, lane, acc, nbr_b, d_b,
+                   wb, last, BitSlots{bits, lo});
+        __syncthreads();
+        for (int j = threadIdx.x; j < n; j += kOwnedThreads)
+          bits[(r_nbr[j] - lo) >> 5] = 0u;
+      } else {
+        item_edges(vis, wt, vlen, first, count, warp, lane, acc, nbr_b, d_b,
+                   wb, last, slots);
+      }
+    }
+    __syncthreads();   // r_nbr and the bitmap are rebuilt for the next item
+  }
+  block_sum_add(acc, out);
+}
+
 }  // namespace
 
 extern "C" int tier_intersect_stream(const void* a, const void* b, int wa,
@@ -297,16 +409,38 @@ extern "C" int tier_intersect_stream(const void* a, const void* b, int wa,
   return (int)cudaGetLastError();
 }
 
-extern "C" int tier_intersect_cross(const void* nbr_a, long long d_a,
+// K40: items int32[n_items, 3] (owned row, first edge, count); vis, wt,
+// vlen int32[E'] (each scheduled edge's visiting row, weight and that row's
+// live length, grouped by item).
+extern "C" int tier_intersect_owned(const void* nbr_a, long long d_a,
                                     const void* nbr_b, long long d_b,
-                                    const void* edges, const void* valid,
-                                    int wa, int wb, long long E, void* out,
-                                    void* stream) {
-  if (E > 0) {
-    const long long blocks = (E + kThreads - 1) / kThreads;
-    gather_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int*)nbr_a, d_a, (const int*)nbr_b, d_b, (const int*)edges,
-        (const int*)valid, wa, wb, E, (unsigned long long*)out);
+                                    const void* items, long long n_items,
+                                    const void* vis, const void* wt,
+                                    const void* vlen, int wa, int wb,
+                                    void* out, void* stream) {
+  if (n_items > 0 && wa > 0 && wb > 0) {
+    int W = 64;
+    while (W < wa) W <<= 1;
+    const size_t smem = sizeof(unsigned) * kBitWords + sizeof(int) * W;
+    cudaError_t e = cudaSuccess;
+    if (smem > 48 * 1024)
+      e = cudaFuncSetAttribute(owned_rows_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    int dev = 0, sms = 0, per_sm = 0;
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, owned_rows_kernel, kOwnedThreads, smem);
+    if (e != cudaSuccess) return (int)e;
+    const long long fit = (long long)sms * (per_sm > 0 ? per_sm : 1);
+    owned_rows_kernel<<<(unsigned)(n_items < fit ? n_items : fit),
+                        kOwnedThreads, smem, (cudaStream_t)stream>>>(
+        (const int*)nbr_a, d_a, (const int*)nbr_b, d_b, (const int*)items,
+        n_items, (const int*)vis, (const int*)wt, (const int*)vlen, wa, wb, W,
+        (unsigned long long*)out);
   }
   return (int)cudaGetLastError();
 }
@@ -315,8 +449,13 @@ extern "C" int tier_intersect_gather(const void* nbr, long long d_pad,
                                      const void* edges, const void* valid,
                                      int wa, int wb, long long E, void* out,
                                      void* stream) {
-  return tier_intersect_cross(nbr, d_pad, nbr, d_pad, edges, valid, wa, wb, E,
-                              out, stream);
+  if (E > 0) {
+    const long long blocks = (E + kThreads - 1) / kThreads;
+    gather_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int*)nbr, d_pad, (const int*)nbr, d_pad, (const int*)edges,
+        (const int*)valid, wa, wb, E, (unsigned long long*)out);
+  }
+  return (int)cudaGetLastError();
 }
 
 extern "C" int tier_intersect_vertex(const void* nbr, long long d_pad,

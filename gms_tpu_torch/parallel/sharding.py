@@ -42,7 +42,7 @@ from gms_tpu_torch.algorithms import bron_kerbosch as bk
 from gms_tpu_torch.algorithms import k_clique as kc
 from gms_tpu_torch.algorithms.triangle_count import (
     TrianglePlan, count_dag_edges, count_dag_edges_cross, count_hub_groups,
-    timed_trials)
+    cross_schedule, timed_trials)
 from gms_tpu_torch.device import resolve
 from gms_tpu_torch.graphs.tiles import PaddedGraph, SENTINEL, round_up
 from gms_tpu_torch.preprocessing import degeneracy, orient
@@ -353,9 +353,12 @@ class VertexShardedTrianglePlan:
     (count_dag_edges_cross: u's rows from the owned shard, v's from the
     visiting one), and the visiting shard moves one hop between rotations;
     N rotations (N - 1 hops: gms_tpu's scan also makes a last hop, which
-    only brings the owned shard home and which nothing reads), then psum. Per-device memory: two table shards (own + visiting) and this
-    rank's edge buckets. `chunk` and `method` only shape K40's plain
-    version. `run` and `run_steady` are collective.
+    only brings the owned shard home and which nothing reads), then psum.
+    Each bucket's K40 schedule (its valid edges by owned row, in work
+    items: cross_schedule) is built once, on the device, with the plan.
+    Per-device memory: two table shards (own + visiting), this rank's edge
+    buckets and their schedules. `chunk` and `method` only shape K40's
+    plain version. `run` and `run_steady` are collective.
     """
 
     def __init__(self, g, mesh: Mesh, *, rank=None, chunk: int = 1024,
@@ -376,6 +379,14 @@ class VertexShardedTrianglePlan:
         self._own = torch.from_numpy(table[me]).to(dev)
         self._eb = torch.from_numpy(eb[me]).to(dev)           # [N, E, 2]
         self._vb = torch.from_numpy(vb[me]).to(dev)           # [N, E]
+        # rotation t visits shard (me + t) mod N: its rows' live lengths
+        lens = np.zeros(N * _Vs, np.int32)
+        lens[owner_all.astype(np.int64) * _Vs + loc_all] = \
+            (nbr != _SENT).sum(1)
+        lens = lens.reshape(N, _Vs)
+        self._sched = [cross_schedule(
+            self._eb[t], self._vb[t],
+            torch.from_numpy(lens[(me + t) % N]).to(dev)) for t in range(N)]
         self._chunk, self._method = chunk, method
 
     def _count(self) -> torch.Tensor:
@@ -386,7 +397,7 @@ class VertexShardedTrianglePlan:
                 vis = ppermute(vis, self.mesh)
             acc = acc + count_dag_edges_cross(
                 self._own, vis, self._eb[t], self._vb[t], chunk=self._chunk,
-                method=self._method)
+                method=self._method, schedule=self._sched[t])
         return psum(acc, self.mesh)
 
     def run(self) -> int:

@@ -277,9 +277,11 @@ def _record(monkeypatch, fn: str) -> list:
 
 
 _ROUND_CASES = {
-    "spec": ("spec_round", gc.spec_round_plain, "jones_plassmann",
+    # speculative and strict JP call their dispatch functions, spec_run and
+    # jp_run, once a dispatch
+    "spec": ("spec_run", lambda *a, **kw: gc.spec_run_plain(*a, **kw)[0],
+             "jones_plassmann",
              lambda g: gc.jones_plassmann(g, speculative=True, device="cpu")),
-    # strict JP calls its dispatch function, jp_run, once a dispatch
     "strict": ("jp_run", lambda *a, **kw: gc.jp_run_plain(*a, **kw)[0],
                "jones_plassmann", lambda g: gc.jones_plassmann(g,
                                                                device="cpu")),
@@ -303,18 +305,19 @@ def test_round_functions_see_each_round_start_state(case, monkeypatch):
     """Each entry point calls its round function, looked up in the module at
     each call, once a round on that round's start state (draws included)
     and only while a vertex is uncolored; each recorded state is the plain
-    round of the one before. Strict JP calls jp_run so once a dispatch, and
-    the dispatches' rounds sum to ROUNDS. chip_smoke.py records its kernel
-    states so."""
+    round of the one before. Speculative and strict JP call spec_run and
+    jp_run so once a dispatch, and the dispatches' rounds sum to ROUNDS.
+    chip_smoke.py records its kernel states so."""
     g, _ = _rmat(8)
     n = g.num_nodes
     fn, plain, key, call = _ROUND_CASES[case]
     seen = _record(monkeypatch, fn)
     out = call(g)
     assert gc.verify_coloring(g, out)
-    if case == "strict":
-        runs = [gc.jp_run_plain(*(x.clone() if isinstance(x, torch.Tensor)
-                                  else x for x in a), **kw) for a, kw in seen]
+    if case in ("spec", "strict"):
+        run = gc.spec_run_plain if case == "spec" else gc.jp_run_plain
+        runs = [run(*(x.clone() if isinstance(x, torch.Tensor) else x
+                      for x in a), **kw) for a, kw in seen]
         assert sum(r for _, r in runs) == gc.ROUNDS[key] >= len(seen) > 0
         assert np.array_equal(runs[-1][0][:n].numpy(), out)
     else:

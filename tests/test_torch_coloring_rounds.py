@@ -231,6 +231,62 @@ def _jp_run_agrees(col, prio, tiers, jtiers, n, limits):
     return out
 
 
+def _spec_run_agrees(col, prio, tiers, jtiers, n, limits):
+    """spec_run_plain (and spec_run on the CPU) from state col against
+    gms_tpu's _spec_run_tiered at each limit: the same colors, and as many
+    rounds as gms_tpu runs (its colors at limit = rounds are these, at
+    rounds - 1 still hold an uncolored vertex, and fewer rounds than the
+    limit leave none). Returns the rounds at each limit."""
+    jprio = jnp.asarray(prio.astype(np.uint32))
+
+    def gms(limit):
+        return np.asarray(jc._spec_run_tiered(jnp.asarray(col), jprio,
+                                              jtiers, limit=limit, n=n))
+
+    out = []
+    for limit in limits:
+        want = gms(limit)
+        got, rounds = gc.spec_run_plain(torch.from_numpy(col.copy()),
+                                        torch.from_numpy(prio), tiers,
+                                        limit=limit, n=n)
+        assert np.array_equal(got.numpy(), want)
+        again, r2 = gc.spec_run(torch.from_numpy(col.copy()),
+                                torch.from_numpy(prio), tiers, limit=limit,
+                                n=n)
+        assert np.array_equal(again.numpy(), want) and r2 == rounds
+        assert 0 < rounds <= limit
+        assert np.array_equal(gms(rounds), want)
+        assert (gms(rounds - 1)[:n] == -1).any()
+        if rounds < limit:
+            assert not (want[:n] == -1).any()
+        out.append(rounds)
+    return out
+
+
+@pytest.mark.parametrize("start", ["uncolored", "frontier"])
+def test_spec_run_equals_gms_tpu_dispatch(start):
+    """A speculative dispatch from all-uncolored over every vertex's tiers,
+    and from the state after one round over the uncolored frontier's tiers
+    (jones_plassmann re-tiers so between dispatches)."""
+    g, jg = _rmat(10)
+    n = g.num_nodes
+    col, jcol, prio, jprio, tiers, jtiers = _state(
+        g, jg, 0 if start == "uncolored" else 1, jc._spec_round_tiered)
+    if start == "frontier":
+        ids = np.nonzero(col[:n] == -1)[0]
+        assert 0 < len(ids) < n
+        jtiers = jc._TierGraph(jg, ids=ids).tiers
+        tiers = tiers_from_numpy([(np.asarray(i), np.asarray(t))
+                                  for i, t in jtiers], device="cpu")
+    rounds = _spec_run_agrees(col, prio, tiers, jtiers, n, (1, 3, 64))
+    assert rounds[0] == 1 and rounds[2] < 64
+    # every vertex colored: no round
+    done = gc.spec_run_plain(torch.from_numpy(col.copy()),
+                             torch.from_numpy(prio), tiers, limit=64, n=n)[0]
+    assert gc.spec_run(done, torch.from_numpy(prio), tiers, limit=64,
+                       n=n)[1] == 0
+
+
 def test_jp_run_equals_gms_tpu_dispatch():
     g, jg = _rmat(10)
     n = g.num_nodes

@@ -1688,6 +1688,41 @@ def test_jp_run_uncovered_vertex_on_card(card, limit):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("limit", [1, 64])
+def test_spec_run_on_card(card, limit):
+    """K23's cooperative dispatch against spec_run_plain, colors and rounds:
+    from each round-start state of a speculative run over every vertex's
+    tiers (the last bucket 2,048 wide: a block a row), from the second over
+    its uncolored frontier's tiers, from a colored state (no round), with
+    no bucket and with an uncolored vertex left out of every bucket (both
+    to the limit)."""
+    g = _coloring_graph(3)
+    n = g.num_nodes
+    prio, tiers, states = _states(g, card)
+    assert tiers[-1][1].shape[1] == 2048
+    frontier = gc._TierGraph(g, ids=np.nonzero(
+        states[1][:n].cpu().numpy() == -1)[0]).to(card)
+    ids = tiers[0][0].clone()
+    assert int(states[0][ids[0].long()]) == -1
+    ids[0] = n                                 # the dump slot, colored 0
+    uncovered = [(ids, tiers[0][1])] + list(tiers[1:])
+    done = gc.spec_run_plain(states[0].clone(), prio, tiers, limit=n,
+                             n=n)[0]
+    runs = [(col, tiers) for col in states] + [
+        (states[1], frontier), (done, tiers), (states[0], []),
+        (states[0], uncovered)]
+    for col, tt in runs:
+        got, rounds = _launched("spec_run", lambda: gc.spec_run(
+            col.clone(), prio, tt, limit=limit, n=n), gc.LAUNCHES)
+        want, wrounds = gc.spec_run_plain(col.clone(), prio, tt, limit=limit,
+                                          n=n)
+        assert torch.equal(got, want)
+        assert rounds.dtype == torch.int32 and int(rounds) == wrounds
+        assert wrounds == limit or not (want[:n] == -1).any()
+    assert int(rounds) == limit and (want[:n] == -1).any()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("limit", [1, 3, 64])
 def test_component_step_on_card(card, limit):
     rng = np.random.default_rng(limit)
@@ -2395,6 +2430,56 @@ def test_count_dag_edges_cross_on_card(card, da, db, wa, wb):
         *args, width_a=wa, width_b=wb), tc.LAUNCHES)
     want = tc.count_dag_edges_cross_plain(*args, width_a=wa, width_b=wb)
     assert int(got) == int(want) > 0
+
+
+def _skewed_edges(rng, Va, Vb, E):
+    """int32[E', 2], int32[E']: owned row 5 with 600 edges (split over
+    items), rows 6 and 7 with one and two, rows 8 and 9 with none, random
+    edges elsewhere, and padding edges (valid 0, pointing at row 0); weights
+    0 to 3."""
+    rest = rng.integers(10, Va, E)
+    own = np.concatenate([np.full(600, 5), [6, 7, 7], rest, np.zeros(50)])
+    vis = np.concatenate([rng.integers(0, Vb, 603 + E), np.zeros(50)])
+    valid = np.concatenate([rng.integers(1, 4, 603 + E), np.zeros(50)])
+    perm = rng.permutation(len(own))
+    return (np.stack([own, vis], 1)[perm].astype(np.int32),
+            valid[perm].astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("da,db,wa,wb,ids", [(96, 64, None, None, 300),
+                                             (128, 256, 40, 200, 800),
+                                             (512, 130, None, 7, 1600),
+                                             (1100, 64, 1030, None, 3300),
+                                             (9000, 40, None, None, 27000),
+                                             (200, 100, None, None, 900000)])
+def test_tier_intersect_owned_skewed_on_card(card, da, db, wa, wb, ids):
+    """K40 against plain: a hub row's edges over several items, rows with
+    0, 1 and 2 edges, padding edges, sliced widths, two tables of other
+    strides, owned rows of up to 9,000 slots in a bitmap of 2^18 ids and of
+    a wider range by binary search, with the plan's schedule and
+    without."""
+    rng = np.random.default_rng(da + db)
+    a = _rows_over(rng, 400, da, ids, da)
+    b = _rows_over(rng, 300, db, ids, db)
+    a[5, :da] = np.sort(rng.choice(ids, da, replace=False))
+    a[9] = SENTINEL                      # an owned row with no entry
+    b[:20, :db] = np.sort(rng.choice(ids, (20, db)), axis=1)
+    b[:20] = np.where(np.diff(b[:20], axis=1, prepend=-1) == 0, SENTINEL,
+                      b[:20])
+    b[:20] = np.sort(b[:20], axis=1)
+    b[20] = SENTINEL                     # a visiting row sharing the hub's
+    b[20, :min(da, db)] = a[5, :min(da, db)]
+    edges, valid = _skewed_edges(rng, 400, 300, 4000)
+    args = [torch.from_numpy(x).to(card) for x in (a, b, edges, valid)]
+    sched = tc.cross_schedule(args[2], args[3], tc.row_lengths(args[1]))
+    assert int((sched.items[:, 0] == 5).sum()) == -(-600 // tc.CROSS_SPAN)
+    want = tc.count_dag_edges_cross_plain(*args, width_a=wa, width_b=wb)
+    for kw in ({"schedule": sched}, {}):
+        got = _launched("count_dag_edges_cross",
+                        lambda: tc.count_dag_edges_cross(
+                            *args, width_a=wa, width_b=wb, **kw), tc.LAUNCHES)
+        assert int(got) == int(want) > 0
 
 
 @pytest.mark.cuda

@@ -6,7 +6,10 @@ gms_tpu's on its virtual CPU mesh and against the host oracles.
   process (N = 1, 2, 4), equal gms_tpu's build_local_adj and
   _hub_cover_bits bit for bit, on RMAT-9 and two random graphs;
 * K40's plain version (count_dag_edges_cross) against gms_tpu's
-  sets.ops.intersect_count summed over the same row pairs;
+  sets.ops.intersect_count summed over the same row pairs, with and
+  without its schedule; the schedule (cross_schedule) covering each valid
+  edge of every bucket of the triangle plan once, in items of at most
+  `span` edges of one owned row, at N = 1, 2, 3;
 * kc_stack_machine and kclique_count_chunk against gms_tpu's at k = 3..7;
 * the host layouts (_hash_owner_layout, the triangle plan's edge buckets,
   roots_pad, BK's ltable, the table, edge and id-map bytes and both
@@ -448,10 +451,110 @@ def test_count_dag_edges_cross_plain_equals_intersect_count():
         cnt = jops.intersect_count(jnp.asarray(ja[edges[:, 0]]),
                                    jnp.asarray(jb[edges[:, 1]]))
         want = int(np.sum(np.asarray(cnt, np.int64) * valid))
+        args = [torch.from_numpy(x) for x in (a, b, edges, valid)]
         got = tc.count_dag_edges_cross(
-            *(torch.from_numpy(x) for x in (a, b, edges, valid)),
-            chunk=128, method=method, width_a=wa, width_b=wb)
+            *args, chunk=128, method=method, width_a=wa, width_b=wb)
         assert int(got) == want > 0
+        for span in (1, 5, tc.CROSS_SPAN):
+            sched = tc.cross_schedule(args[2], args[3],
+                                      tc.row_lengths(args[1]), span=span)
+            got = tc.count_dag_edges_cross(
+                *args, chunk=128, method=method, width_a=wa, width_b=wb,
+                schedule=sched)
+            assert int(got) == want
+
+
+def _check_schedule_covers(edges, valid, span, lens):
+    """cross_schedule(edges, valid, lens, span=span): every edge with
+    valid != 0 once, with its weight and its visiting row's length, in
+    items of 1 to `span` edges of one owned row that tile [0, E') in order,
+    ascending by owned row."""
+    sched = tc.cross_schedule(torch.from_numpy(edges),
+                              torch.from_numpy(valid), torch.from_numpy(lens),
+                              span=span)
+    items = sched.items.numpy().astype(np.int64)
+    row, first, count = items[:, 0], items[:, 1], items[:, 2]
+    vis, wt = sched.vis.numpy(), sched.wt.numpy()
+    assert sched.items.dtype == sched.vis.dtype == torch.int32
+    assert ((count >= 1) & (count <= span)).all()
+    assert np.array_equal(first, np.concatenate([[0], np.cumsum(count)])[:-1])
+    assert count.sum() == len(vis) == int((valid != 0).sum())
+    assert (np.diff(row) >= 0).all()
+    # a row's run is cut into items only where it exceeds span
+    runs = np.bincount(row, weights=count).astype(np.int64)
+    per_row = np.bincount(row)
+    assert np.array_equal(per_row[runs > 0], -(-runs[runs > 0] // span))
+    got = np.stack([np.repeat(row, count), vis, wt], 1)
+    keep = valid != 0
+    want = np.stack([edges[keep, 0], edges[keep, 1], valid[keep]], 1)
+    order = lambda x: x[np.lexsort(x.T[::-1])]
+    assert np.array_equal(order(got), order(want))
+    assert np.array_equal(sched.edges()[0].numpy(), got[:, :2])
+    assert np.array_equal(sched.vlen.numpy(), lens[vis])
+    return sched
+
+
+@pytest.mark.parametrize("n", (1, 2, 3))
+def test_cross_schedule_covers_each_bucket_edge_once(cases, n):
+    for key in ("rmat9_5", "tc100"):
+        el, nn = cases[key]
+        g = _build(el, nn)
+        dag = orient.orient(g, orient.degree_rank(g))
+        nbr = sharding._host_nbr(dag)
+        table, owner, loc, _ = sharding._hash_owner_layout(nbr, n)
+        eb, vb, _ = sharding._edge_buckets(dag.edge_array(), owner, loc, n,
+                                           64, nbr.shape[1])
+        lens = (table != SENTINEL).sum(-1).astype(np.int32)
+        split = 0
+        for d in range(n):
+            for t in range(n):
+                for span in (3, tc.CROSS_SPAN):
+                    sched = _check_schedule_covers(eb[d, t], vb[d, t], span,
+                                                   lens[(d + t) % n])
+                    split += span == 3 and len(sched.items) > len(
+                        np.unique(sched.items[:, 0].numpy()))
+        assert int(vb.sum()) == dag.num_edges and split > 0
+        # the plan's schedules: the same, the visiting shard's lengths
+        for d in range(n):
+            p = sharding.VertexShardedTrianglePlan(
+                g, sharding.Mesh(None, d, n, CPU), chunk=64)
+            for t in range(n):
+                want = tc.cross_schedule(torch.from_numpy(eb[d, t]),
+                                         torch.from_numpy(vb[d, t]),
+                                         tc.row_lengths(torch.from_numpy(
+                                             table[(d + t) % n])))
+                assert all(torch.equal(getattr(p._sched[t], f),
+                                       getattr(want, f))
+                           for f in ("items", "vis", "wt", "vlen"))
+    # weights other than 0 and 1, negative ones too, and no edge at all
+    rng = np.random.default_rng(n)
+    edges = rng.integers(0, 9, (300, 2)).astype(np.int32)
+    valid = rng.integers(-2, 3, 300).astype(np.int32)
+    lens = rng.integers(0, 50, 9).astype(np.int32)
+    _check_schedule_covers(edges, valid, 4, lens)
+    empty = _check_schedule_covers(edges, np.zeros(300, np.int32), 4, lens)
+    assert empty.items.shape == (0, 3)
+
+
+def test_cross_schedule_of_other_edges_is_refused(monkeypatch):
+    rng = np.random.default_rng(1)
+    a = torch.from_numpy(np.stack([np.r_[np.sort(rng.choice(
+        50, 4, replace=False)), [SENTINEL] * 4] for _ in range(20)]).astype(
+            np.int32))
+    edges = torch.tensor([[0, 1], [2, 3], [2, 4]], dtype=torch.int32)
+    valid = torch.ones(3, dtype=torch.int32)
+    lens = tc.row_lengths(a)
+    assert lens.tolist() == [4] * 20
+    other = tc.cross_schedule(edges, torch.tensor([1, 0, 1],
+                                                  dtype=torch.int32), lens)
+    short = tc.cross_schedule(edges, valid, lens - 1)
+    monkeypatch.setenv("GMS_TPU_PARANOID", "1")
+    for wrong in (other, short):
+        with pytest.raises(ValueError, match="not these edges"):
+            tc.count_dag_edges_cross(a, a, edges, valid, schedule=wrong)
+    assert int(tc.count_dag_edges_cross(
+        a, a, edges, valid, schedule=tc.cross_schedule(edges, valid,
+                                                       lens))) >= 0
 
 
 def test_kc_stack_machine_equals_gms_tpu(universes):
