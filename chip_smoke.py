@@ -122,7 +122,8 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      clique is a clique and the star equals its common neighbourhood less
      the clique; then the same pass once more under torch.profiler:
      decode_star_rows's device time and launches over it (K11 and K12
-     beside it), the host time and the device's idle share;
+     beside it, each of the jobs' K11 launches traced), the host time and
+     the device's idle share;
  21. list mode: 30-vertex random graphs at k = 2, 3, 4 against
      kclique_star_oracle, and RMAT 10 at k = 3 against the port's own
      device="cpu" run, as sets;
@@ -131,7 +132,9 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      12 job, star_stack (count, and emit as sorted rows) on every job too;
      its bound is the larger of its bytes over 3.35 TB/s (live0, the live
      roots' S0 and I0, and the two matrices' rows of the slots it searches)
-     and its operations, as K9's;
+     and its operations, as K9's; the emit pass's bound beside it, the
+     larger of the same operations and those bytes plus the rows written
+     ((2 * WW + 1) words each);
  23. per-vertex main path, with the triangle launch counters set to 0 just
      before it: triangle_count_per_vertex(g, device="cuda") on phase 2's
      RMAT 18, timed to its read-back, the host plan timed apart; the counts
@@ -1814,8 +1817,10 @@ def star_phases(timing, report) -> None:
 
     again, host_s, per, busy = profile_window(emit_pass)
     check(again == rows, f"the profiled emit pass gave {again} rows")
-    window_lines("[20] the emit pass again under torch.profiler:", host_s,
-                 per, busy, STAR_GROUPS)
+    sums = window_lines("[20] the emit pass again under torch.profiler:",
+                        host_s, per, busy, STAR_GROUPS)
+    check(sums["K11"][1] == len(jobs), f"the profiled emit pass traced "
+          f"{sums['K11'][1]} K11 launches for {len(jobs)} jobs")
 
     # [21] list mode against the oracle and the plain run
     for kk in (2, 3, 4):
@@ -1841,7 +1846,7 @@ def star_phases(timing, report) -> None:
     # [22] each kernel against its plain version, job by job
     rates = (sm_rate(POPC_PER_CLOCK_PER_SM), sm_rate(BITWISE_PER_CLOCK_PER_SM))
     nbr = pg.nbr
-    univ_calls, decode_calls, stack = [], [], []
+    univ_calls, decode_calls, stack, emit_bytes = [], [], [], []
     for chunk, ww in jobs:
         label = f"W={32 * ww} C={chunk.numel()}"
         univ_calls.append((
@@ -1860,6 +1865,7 @@ def star_phases(timing, report) -> None:
                 *u, k=k, emit=emit, stats=stats),
             star_stack_bytes(*univ, k), rates))
         _, out = ks.star_stack(*univ, k=k, emit=True)
+        emit_bytes.append(out.numel() * 4)
         decode_calls.append((
             f"{label} L={out.shape[0]}",
             lambda c=chunk, o=out: ks.decode_star_rows(nbr, c, o),
@@ -1876,10 +1882,16 @@ def star_phases(timing, report) -> None:
                                    bound_ms, by))
         del calls[:]
     err, k_ms, e_ms, p_ms, popc, bit, bound, by, _ = search_summary(stack)
+    # the emit pass's bound a job: its operations, or the count pass's bytes
+    # and the rows written
+    emit_bound = sum(max(r[5], r[4] + rb / HBM_BYTES_PER_S * 1e3)
+                     for r, rb in zip(stack, emit_bytes))
     print(f"[22] star_stack: {len(stack)} of {len(jobs)} jobs held against the "
           f"plain version (count and emitted rows), max_abs_err {err}, "
           f"kernel {k_ms:.4f} ms (emit {e_ms:.4f} ms), bound {bound:.4f} ms "
-          f"({by}; {popc} popcounts, {bit} bitwise ops), plain {p_ms:.4f} ms")
+          f"({by}; {popc} popcounts, {bit} bitwise ops; the emit pass "
+          f"{emit_bound:.4f} ms, {sum(emit_bytes)} bytes of rows written "
+          f"besides), plain {p_ms:.4f} ms")
     check(err == 0, f"star_stack disagrees with its plain version by {err}")
     report.append(kernel_entry("star_stack", main["star_stack"], err, k_ms,
                                p_ms, bound, by))

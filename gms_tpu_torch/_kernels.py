@@ -103,10 +103,15 @@ SIGNATURES = {
                              _P),
     },
     "star_stack": {
-        # adj_full, adj_dag, s0, i0, live0, C, w_words, k, root offsets,
-        # item offsets, out tail, out rows, out capacity, totals, stream
-        "star_stack": (_P, _P, _P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _L, _P,
-                       _P),
+        # adj_full, adj_dag, s0, i0, live0, C, w_words, k, run, sizes only,
+        # control words, item counts, run table, leaves a run, stream
+        "star_stack_count": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P,
+                             _P, _P, _P),
+        # adj_full, adj_dag, s0, i0, C, w_words, k, control words, run
+        # table, leaves a run, runs, run bases, out rows, out capacity,
+        # stream
+        "star_stack_emit": (_P, _P, _P, _P, _L, _I, _I, _P, _P, _P, _L, _P,
+                            _P, _L, _P),
     },
     "star_decode": {
         # nbr, v_pad, d_pad, chunk, C, out, L, w_words, gid, ids, stream
@@ -326,7 +331,8 @@ def _load(name: str) -> ctypes.CDLL:
         build([name])
         lib = ctypes.CDLL(str(_library(name)))
         for fn, argtypes in (*SIGNATURES[name].items(),
-                             ("gms_set_device", (_I,))):
+                             ("gms_set_device", (_I,)),
+                             ("gms_window_open", (_P,))):
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         _LIBS[name] = lib
@@ -382,6 +388,15 @@ def launch(name: str, fn: str, *args) -> None:
             c_args.append(a)
     index = (found.pop() if len(found) == 1 and min(found) >= 0
              else launch_device(fn, args).index)
+    lib = _on_device(name, fn, index)
+    err = getattr(lib, fn)(*c_args, current_stream(index))
+    if err:
+        raise RuntimeError(f"{fn}: CUDA error {err}")
+
+
+def _on_device(name: str, fn: str, index: int) -> ctypes.CDLL:
+    """Library `name`, its runtime set to card `index` where this thread
+    last set it to another."""
     lib = _load(name)
     set_to = _SET.__dict__
     if set_to.get(name) != index:
@@ -390,9 +405,17 @@ def launch(name: str, fn: str, *args) -> None:
             raise RuntimeError(f"{fn}: cudaSetDevice({index}) failed, "
                                f"CUDA error {err}")
         set_to[name] = index
-    err = getattr(lib, fn)(*c_args, current_stream(index))
-    if err:
-        raise RuntimeError(f"{fn}: CUDA error {err}")
+    return lib
+
+
+def open_window(index: int) -> None:
+    """An empty kernel (csrc/set_device.cuh's gms_window_open) from every
+    library loaded so far, on card `index`'s current stream."""
+    for name in list(_LIBS):
+        err = _on_device(name, "gms_window_open", index).gms_window_open(
+            current_stream(index))
+        if err:
+            raise RuntimeError(f"gms_window_open: CUDA error {err}")
 
 
 # ---------------------------------------------------------------------------

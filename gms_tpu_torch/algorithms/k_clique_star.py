@@ -52,6 +52,8 @@ each k-clique is emitted exactly once (PARITY.md §2.8).
 
 from __future__ import annotations
 
+import gc
+from contextlib import contextmanager
 from itertools import combinations
 
 import numpy as np
@@ -80,6 +82,15 @@ LAUNCHES = dict.fromkeys(
 
 # elements per step of the plain versions' broadcast tensors
 _PLAIN_BUDGET = 1 << 24
+
+# K12's least items a run: of 1, 4, 16 and 64, 4 was the fastest over the
+# RMAT-12 k=4 emit pass on an H100 (bench/cover_decode.py --run; 1 within
+# 2 %, 16 9 % slower)
+RUN_ITEMS = 4
+# K12's control words before the roots' look-back status, and the runs of
+# one tile of its base scan (csrc/star_stack.cu's kCtl and kTile)
+_CTL_WORDS = 8
+_BASE_TILE = 2048
 
 
 def reset_launches() -> None:
@@ -167,8 +178,9 @@ def build_local_univ(nbr, rank_pad, roots, *, w_words: int):
 
     nbr:      int32[V_pad, D] undirected padded adjacency, each row strictly
               ascending with a SENTINEL tail (the padded layout; the kernel
-              binary-searches the root's row and would miss members of an
-              unsorted one, which the plain version would not;
+              takes a root's valid slots as a prefix and stops a row past
+              the root's last value, so it would miss members of an
+              unsorted row, which the plain version would not;
               GMS_TPU_PARANOID=1 checks it)
     rank_pad: int32[R] ranks; lookups clip to [0, R-1] (gms_tpu passes
               R = V_pad + 1 with int32 max from n on)
@@ -229,11 +241,47 @@ def _check_univ(name, adj_full, adj_dag, S0, I0, live0):
         raise ValueError(f"{name}: live0 must be contiguous")
 
 
+def _expand(adj_full, adj_dag, stack, ops):
+    """Expands the LIFO `stack` of node batches (S, I, R, b, tag, rem), rem
+    >= 1, breadth-wise in batches sharing `rem`, as star_stack's tree: the
+    child of (S, I, R) along i ∈ S is (S & adj_dag[b, i], I & adj_full[b,
+    i], R ∪ {i}), a child of rem r >= 1 kept iff |S| >= r. Yields each batch
+    of leaves (R, star, b, tag); ops[0] and ops[1] gain the popcounts and
+    bitwise words (star_stack_plain's stats)."""
+    C, W, WW = adj_full.shape
+    onehot = pack_bits(torch.eye(W, dtype=torch.bool, device=adj_full.device))
+    batch = max(1, _PLAIN_BUDGET // (W * WW))
+    while stack:
+        S, I, R, root, tag, rem = stack.pop()
+        if S.shape[0] > batch:
+            stack.append((S[batch:], I[batch:], R[batch:], root[batch:],
+                          tag[batch:], rem))
+            S, I, R, root, tag = (S[:batch], I[:batch], R[:batch],
+                                  root[:batch], tag[:batch])
+        item, i = unpack_bits(S).nonzero(as_tuple=True)
+        b = root[item]
+        cR = R[item] | onehot[i]
+        cI = I[item] & adj_full[b, i]
+        n = item.shape[0]
+        if rem == 1:  # the children are k-cliques
+            ops[0] += n * WW
+            ops[1] += n * WW
+            yield cR, cI & ~cR, b, tag[item]
+            continue
+        cS = S[item] & adj_dag[b, i]
+        ops[0] += n * WW
+        ops[1] += 2 * n * WW
+        keep = popcount32(cS).sum(1) >= rem - 1
+        if keep.any():
+            stack.append((cS[keep], cI[keep], cR[keep], b[keep],
+                          tag[item][keep], rem - 1))
+
+
 def star_stack_plain(adj_full, adj_dag, S0, I0, live0, *, k: int,
                      emit: bool = False, stats: dict | None = None):
     """Plain version of star_stack: the same tree, expanded breadth-wise in
     batches of nodes (S, I, R, root) sharing `rem`, kept in a LIFO so memory
-    stays bounded. A node of rem 1 makes its children as leaves.
+    stays bounded (_expand). A node of rem 1 makes its children as leaves.
 
     With `stats`, adds the tree's word operations by type: stats["popc_ops"],
     the popcounts (WW per live root for |S0|, WW per child node for |S|, WW
@@ -243,46 +291,22 @@ def star_stack_plain(adj_full, adj_dag, S0, I0, live0, *, k: int,
     """
     C, W, WW = adj_full.shape
     dev = adj_full.device
-    onehot = pack_bits(torch.eye(W, dtype=torch.bool, device=dev))
     n_cl = torch.zeros((), dtype=torch.int64, device=dev)
     n_st = torch.zeros((), dtype=torch.int64, device=dev)
-    popc = int(live0.sum()) * WW
-    bit = 0
+    ops = [int(live0.sum()) * WW, 0]
     rows = []
     root_ok = live0 & (popcount32(S0).sum(1) >= k - 1)
     roots = root_ok.nonzero()[:, 0]
     stack = [(S0[roots], I0[roots], S0.new_zeros((roots.shape[0], WW)), roots,
-              k - 1)]
-    batch = max(1, _PLAIN_BUDGET // (W * WW))
-    while stack:
-        S, I, R, root, rem = stack.pop()
-        if S.shape[0] > batch:
-            stack.append((S[batch:], I[batch:], R[batch:], root[batch:], rem))
-            S, I, R, root = S[:batch], I[:batch], R[:batch], root[:batch]
-        item, i = unpack_bits(S).nonzero(as_tuple=True)
-        b = root[item]
-        cR = R[item] | onehot[i]
-        cI = I[item] & adj_full[b, i]
-        n = item.shape[0]
-        if rem == 1:  # the children are k-cliques
-            star = cI & ~cR
-            n_cl += n
-            n_st += popcount32(star).sum()
-            popc += n * WW
-            bit += n * WW
-            if emit:
-                rows.append(torch.cat([cR, star, b[:, None].to(torch.int32)],
-                                      1))
-            continue
-        cS = S[item] & adj_dag[b, i]
-        popc += n * WW
-        bit += 2 * n * WW
-        keep = popcount32(cS).sum(1) >= rem - 1
-        if keep.any():
-            stack.append((cS[keep], cI[keep], cR[keep], b[keep], rem - 1))
+              roots, k - 1)]
+    for cR, star, b, _ in _expand(adj_full, adj_dag, stack, ops):
+        n_cl += cR.shape[0]
+        n_st += popcount32(star).sum()
+        if emit:
+            rows.append(torch.cat([cR, star, b[:, None].to(torch.int32)], 1))
     if stats is not None:
-        stats["popc_ops"] = stats.get("popc_ops", 0) + popc
-        stats["bit_ops"] = stats.get("bit_ops", 0) + bit
+        stats["popc_ops"] = stats.get("popc_ops", 0) + ops[0]
+        stats["bit_ops"] = stats.get("bit_ops", 0) + ops[1]
     counts = torch.stack([n_cl, n_st])
     if not emit:
         return counts
@@ -290,18 +314,92 @@ def star_stack_plain(adj_full, adj_dag, S0, I0, live0, *, k: int,
     return counts, out
 
 
-def _launch_stack(adj_full, adj_dag, S0, I0, live0, k, totals, out=None):
-    """One launch of K12 (csrc/star_stack.cu): a count pass, or with `out`
-    an emit pass writing out.shape[0] rows."""
+def star_runs_plain(adj_full, adj_dag, S0, I0, live0, *, k: int,
+                    run: int = RUN_ITEMS):
+    """Plain version of star_stack's run table and its leaves a run:
+    (table int32[n, 4], leaves int64[n]). A row (b, i, first, items) is a
+    run of `items` consecutive items sharing their parent: at depth 1 (k <=
+    3) i = -1 and the items are the set bits of S0[b] ranked [first, first
+    + items); at depth 2 (k >= 4) the set bits of S0[b] & adj_dag[b, i] so
+    ranked, for each i ∈ S0[b] with at least k-2 of them. Roots ascending,
+    then i; only roots with live0 and |S0| >= k-1. A run holds `run` items,
+    the last of a parent fewer; at depth 2 a root with over W·run items
+    takes runs of ceil(items / W), so that it has at most 2W runs. leaves:
+    the k-cliques below each run; their exclusive prefix sums are the emit
+    pass's first row of each run."""
     C, W, WW = adj_full.shape
     dev = adj_full.device
+    root_ok = live0 & (popcount32(S0).sum(1) >= k - 1)
+    bits0 = unpack_bits(S0) & root_ok[:, None]                     # [C, W]
+    if k <= 3:
+        n = bits0.sum(1)                                           # [C]
+        runs = (n + run - 1) // run
+        b = torch.repeat_interleave(torch.arange(C, device=dev), runs)
+        first = (torch.arange(b.shape[0], device=dev)
+                 - torch.repeat_interleave(runs.cumsum(0) - runs, runs)) * run
+        i = torch.full_like(b, -1)
+        cnt = torch.clamp(n[b] - first, max=run)
+    else:
+        n = popcount32(S0[:, None, :] & adj_dag).sum(2) * bits0   # [C, W]
+        n = torch.where(n >= k - 2, n, 0)
+        rb = torch.clamp((n.sum(1) + W - 1) // W, min=run)         # [C]
+        runs = ((n + rb[:, None] - 1) // rb[:, None]).reshape(-1)
+        pair = torch.repeat_interleave(torch.arange(C * W, device=dev), runs)
+        b, i = pair // W, pair % W
+        t = (torch.arange(pair.shape[0], device=dev)
+             - torch.repeat_interleave(runs.cumsum(0) - runs, runs))
+        first = t * rb[b]
+        cnt = torch.minimum(n.reshape(-1)[pair] - first, rb[b])
+    table = torch.stack([b, i, first, cnt], 1).to(torch.int32)
+    return table, _run_leaves(adj_full, adj_dag, S0, I0, table, k)
+
+
+def _run_leaves(adj_full, adj_dag, S0, I0, table, k):
+    """The k-cliques below each run of `table` (star_runs_plain)."""
+    C, W, WW = adj_full.shape
+    if k == 2:  # the items are leaves
+        return table[:, 3].long()
+    onehot = pack_bits(torch.eye(W, dtype=torch.bool, device=S0.device))
+    b, i, first, cnt = table.long().unbind(1)
+    S, I = S0[b], I0[b]                     # the runs' parents
+    R = S0.new_zeros((b.shape[0], WW))
+    if k >= 4:                              # the root's child along i
+        S, I, R = S & adj_dag[b, i], I & adj_full[b, i], onehot[i]
+    bits = unpack_bits(S)
+    rank = bits.cumsum(1) - 1
+    mine = bits & (rank >= first[:, None]) & (rank < (first + cnt)[:, None])
+    tag, v = mine.nonzero(as_tuple=True)    # each run's items
+    bt = b[tag]
+    iS = S[tag] & adj_dag[bt, v]
+    rem0 = k - 1 - (1 if k <= 3 else 2)
+    keep = popcount32(iS).sum(1) >= rem0
+    stack = [(iS[keep], (I[tag] & adj_full[bt, v])[keep],
+              (R[tag] | onehot[v])[keep], bt[keep], tag[keep], rem0)]
+    leaves = torch.zeros(b.shape[0], dtype=torch.int64, device=S0.device)
+    for _, _, _, t in _expand(adj_full, adj_dag, stack, [0, 0]):
+        leaves.index_add_(0, t, torch.ones_like(t))
+    return leaves
+
+
+def _count_pass(adj_full, adj_dag, S0, I0, live0, k, sizes=False):
+    """K12's count pass (csrc/star_stack.cu's star_stack_count): (ctl int64:
+    cliques, star total and runs, then the kernel's counters; table
+    int32[2CW, 4], the run table in its first `runs` rows; leaf_cnt
+    int64[2CW], each run's leaves). With `sizes` it counts the cliques
+    only and leaves the star total at 0 for the emit pass to sum."""
+    C, W, WW = adj_full.shape
+    dev = adj_full.device
+    cap = 2 * C * W
+    ctl = torch.zeros(_CTL_WORDS + C + -(-cap // _BASE_TILE),
+                      dtype=torch.int64, device=dev)
+    table = torch.empty((cap, 4), dtype=torch.int32, device=dev)
+    leaf_cnt = torch.empty(cap, dtype=torch.int64, device=dev)
     _kernels.launch(
-        "star_stack", "star_stack", adj_full, adj_dag, S0, I0, live0, C, WW,
-        k, torch.empty(C + 2, dtype=torch.int64, device=dev),
-        torch.empty(C * W, dtype=torch.int32, device=dev),
-        torch.zeros(1, dtype=torch.int64, device=dev), out,
-        0 if out is None else out.shape[0], totals)
+        "star_stack", "star_stack_count", adj_full, adj_dag, S0, I0, live0,
+        C, WW, k, RUN_ITEMS, int(sizes), ctl,
+        torch.empty(C * W, dtype=torch.int32, device=dev), table, leaf_cnt)
     LAUNCHES["star_stack"] += 1
+    return ctl, table, leaf_cnt
 
 
 def star_stack(adj_full, adj_dag, S0, I0, live0, *, k: int,
@@ -316,8 +414,11 @@ def star_stack(adj_full, adj_dag, S0, I0, live0, *, k: int,
 
     Count mode: int64[2] (cliques, star total), no read-back. emit=True:
     (that pair, out int32[cliques, 2WW+1]), each row (R bits | star bits |
-    root-local index) as gms_tpu's OUT rows (the order of rows may differ);
-    the kernel counts first, reads the count back and sizes `out` exactly.
+    root-local index) as gms_tpu's OUT rows; the kernel counts first, reads
+    the count back and sizes `out` exactly. On the card the rows come in
+    the same order on every run, the walk's (roots ascending, then the
+    members in local order, depth-first); the plain version's order
+    differs, and so may gms_tpu's: compare rows as sets.
     """
     name = "star_stack"
     _check_univ(name, adj_full, adj_dag, S0, I0, live0)
@@ -326,16 +427,21 @@ def star_stack(adj_full, adj_dag, S0, I0, live0, *, k: int,
     if not _on_cuda(name, adj_full, adj_dag, S0, I0, live0):
         return star_stack_plain(adj_full, adj_dag, S0, I0, live0, k=k,
                                 emit=emit)
-    dev = adj_full.device
-    counts = torch.zeros(2, dtype=torch.int64, device=dev)
-    _launch_stack(adj_full, adj_dag, S0, I0, live0, k, counts)
+    ctl, table, leaf_cnt = _count_pass(adj_full, adj_dag, S0, I0, live0, k,
+                                       sizes=emit)
+    counts = ctl[:2]
     if not emit:
         return counts
-    out = torch.empty((int(counts[0]), 2 * adj_full.shape[2] + 1),
-                      dtype=torch.int32, device=dev)
-    if out.shape[0]:
-        _launch_stack(adj_full, adj_dag, S0, I0, live0, k,
-                      torch.zeros(2, dtype=torch.int64, device=dev), out)
+    n_rows, _, n_runs = ctl[:3].tolist()
+    C, W, WW = adj_full.shape
+    dev = adj_full.device
+    out = torch.empty((n_rows, 2 * WW + 1), dtype=torch.int32, device=dev)
+    if n_rows:
+        _kernels.launch(
+            "star_stack", "star_stack_emit", adj_full, adj_dag, S0, I0, C,
+            WW, k, ctl, table, leaf_cnt, n_runs,
+            torch.empty(n_runs, dtype=torch.int64, device=dev), out, n_rows)
+        LAUNCHES["star_stack"] += 1
     return counts, out
 
 
@@ -429,18 +535,48 @@ def kclique_star_list(g: CSRGraph, k: int, *, device="cuda",
         n_cl, n_st = torch.stack(outs).sum(0).tolist()
         return n_cl, n_st
     results: list[tuple[frozenset, frozenset]] = []
-    for chunk, ww in jobs:
-        _, out = star_fused_chunk(nbr, rank_pad, chunk, w_words=ww, k=k,
-                                  emit=True)
-        if not out.shape[0]:
-            continue
-        gid, members, stars = (t.cpu().numpy() for t in
-                               decode_star_rows(nbr, chunk, out))
-        for l in range(len(gid)):
-            ms, ss = members[l], stars[l]
-            results.append((frozenset([int(gid[l]), *ms[ms >= 0].tolist()]),
-                            frozenset(ss[ss >= 0].tolist())))
+    with gc_paused():
+        for chunk, ww in jobs:
+            _, out = star_fused_chunk(nbr, rank_pad, chunk, w_words=ww, k=k,
+                                      emit=True)
+            if out.shape[0]:
+                results += star_pairs(*decode_star_rows(nbr, chunk, out))
     return results
+
+
+@contextmanager
+def gc_paused():
+    """Python's cyclic garbage collector off inside, as it was after. The
+    list call's pairs hold no cycles, and the collector's passes over the
+    millions of frozensets they add cost more than building them."""
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if collecting:
+            gc.enable()
+
+
+def star_pairs(gid, members, stars) -> list[tuple[frozenset, frozenset]]:
+    """decode_star_rows' output as [(clique, star)] frozensets: each row's
+    root and its member ids, and its star ids. The ids >= 0 are compacted on
+    their device (row-major) before one copy each, then cut on the host by
+    each row's count, one slice a row (kclique_star_list calls it inside
+    gc_paused)."""
+    def compact(ids):
+        keep = ids >= 0
+        return (ids[keep].cpu().tolist(),
+                keep.sum(1).cumsum(0).cpu().tolist())
+
+    mem, mem_end = compact(members)
+    st, st_end = compact(stars)
+    pairs = []
+    m0 = s0 = 0
+    for root, m1, s1 in zip(gid.cpu().tolist(), mem_end, st_end):
+        pairs.append((frozenset([root, *mem[m0:m1]]), frozenset(st[s0:s1])))
+        m0, s0 = m1, s1
+    return pairs
 
 
 # ---------------------------------------------------------------------------

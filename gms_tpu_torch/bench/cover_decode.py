@@ -1,24 +1,30 @@
-"""K8 (hub_cover_bits), K13 (decode_star_rows) and K10 (decode_clique_members)
-on the card, over whole warm calls; K4 beside K8.
+"""K8 (hub_cover_bits), K13 (decode_star_rows), K11 (build_local_univ), K12
+(star_stack) and K10 (decode_clique_members) on the card, over whole warm
+calls; K4 beside K8.
 
 K8 and K4 over one warm fused RMAT-14 `bron_kerbosch` count call
 (chip_smoke.py's phase 12), K8 split by job, so that the hub jobs (one to a
 few real roots padded to 256, IN up to 4,096) show; K4 also over the warm
-RMAT-16 k=5 `kclique_count` call. K13 over the RMAT-12 k=4 emit pass, every
-job's `star_fused_chunk(emit=True)` then `decode_star_rows`, as phase 20
-runs them, split by job. K10 over phase 14's RMAT-12 enumerate run
+RMAT-16 k=5 `kclique_count` call. K13 and K11 over the RMAT-12 k=4 emit
+pass, every job's `star_fused_chunk(emit=True)` then `decode_star_rows`, as
+phase 20 runs them, each split by job, K12 beside them (--run sets K12's
+least run length), and both held job by job as phase 22 holds them
+(--parts held). K10 over phase 14's RMAT-12 enumerate run
 (`bron_kerbosch(collect=True, sink=)`). The list call `kclique_star_list(g,
 4)` at RMAT-12 under torch.profiler (its device time), then its list-mode
 body once more with each stage timed apart: the plan, the device work
 (emit and decode, synchronised), the `.cpu()` copies of the ids and the
-Python loop that builds the pairs (it holds some 4 M frozensets, tens of GB
-of host memory, for a minute or two; --parts picks the measurements).
+Python loop that builds the pairs (in a tree with `star_pairs`, the ids
+compacted on the card, their copies and the pairs in one figure, loop_s;
+it holds some 4 M frozensets, tens of GB of host memory; --parts picks the
+measurements).
 
 Each call under torch.profiler (bench/profiling.py's profile_launches: the
 kernel's device time and launches, each launch in launch order, the host
 time and the device's idle share).
 
-    python -m gms_tpu_torch.bench.cover_decode --label this
+    python -m gms_tpu_torch.bench.cover_decode --label this [--parts emit,list]
+        [--run 4]
 
 To compare two checkouts on one card, run the other's package with this
 script in turns: PYTHONPATH=<other checkout> python
@@ -31,7 +37,9 @@ object last.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import statistics
 import subprocess
 import time
 
@@ -51,11 +59,15 @@ K4 = ("local_adj_kernel",)
 K8 = ("cover_kernel",)
 K10 = K13 = ("decode_rows_kernel",)
 K11 = ("univ_kernel",)
-K12 = ("count_kernel", "stack_kernel")
-LIBRARIES = ("bk_cover", "local_adj", "star_decode", "bk_decode")
+# K12's count, stack and base scans, this tree's and the parent's
+K12 = ("count_kernel", "root_offsets_kernel", "base_kernel", "stack_kernel")
+LIBRARIES = ("bk_cover", "local_adj", "star_decode", "bk_decode",
+             "star_univ", "star_stack")
 # what --parts selects: K8 and K4 over the fused call, K4 over kclique_count,
-# K10 over the enumerate run, K13 over the emit pass, the list call's split
-PARTS = ("bk", "kc", "enum", "emit", "list")
+# K10 over the enumerate run, K13 over the emit pass, K11 and K12 held job
+# by job, the list call's split
+PARTS = ("bk", "kc", "enum", "emit", "held", "list")
+HELD_REPS = 10
 
 
 def _rmat(scale):
@@ -141,9 +153,57 @@ def star_emit(out: dict, g, rank) -> None:
     tag = f"RMAT {STAR_SCALE} k={STAR_K} emit pass:"
     run = window(tag, host_s, per, busy, {"K13": K13, "K11": K11,
                                           "K12": K12})
-    run["K13_by_job"] = launch_split(f"{tag} K13", seq, K13,
-                                     [f"W={32 * ww}" for _, ww in jobs])
+    widths = [f"W={32 * ww}" for _, ww in jobs]
+    run["K13_by_job"] = launch_split(f"{tag} K13", seq, K13, widths)
+    run["K11_by_job"] = launch_split(f"{tag} K11", seq, K11, widths)
     out["star_emit"] = run
+
+
+def star_held(out: dict, g, rank) -> None:
+    """K11 and K12 held job by job over the RMAT-12 k=4 jobs, as
+    chip_smoke.py's phase 22 times them: the median of HELD_REPS CUDA-event
+    timings of one wrapper call, after a first call, with L2 flushed (a
+    256 MB write) before each; K12 in count and in emit mode (the emit call
+    includes its count pass and read-back)."""
+    from gms_tpu_torch.algorithms import k_clique_star as ks
+
+    pg, rank_pad, jobs = ks.plan_star_jobs(g, STAR_K, device="cuda",
+                                           rank=rank)
+    flush = torch.empty(1 << 26, dtype=torch.int32, device="cuda")
+
+    def ms(fn):
+        fn()
+        times = []
+        for _ in range(HELD_REPS):
+            flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    held = {}
+    for chunk, ww in jobs:
+        univ = (*ks.build_local_univ(pg.nbr, rank_pad, chunk, w_words=ww),
+                chunk != pg.v_pad)
+        held[f"W={32 * ww}"] = {
+            "K11": ms(lambda c=chunk, w=ww: ks.build_local_univ(
+                pg.nbr, rank_pad, c, w_words=w)),
+            "K12": ms(lambda u=univ: ks.star_stack(*u, k=STAR_K)),
+            "K12_emit": ms(lambda u=univ: ks.star_stack(*u, k=STAR_K,
+                                                        emit=True))}
+    sums = {key: sum(h[key] for h in held.values())
+            for key in ("K11", "K12", "K12_emit")}
+    print(f"    held RMAT {STAR_SCALE} k={STAR_K} jobs (ms, median of "
+          f"{HELD_REPS}, L2 flushed): " + "; ".join(
+              f"{w} " + " ".join(f"{k} {v:.4f}" for k, v in h.items())
+              for w, h in held.items()))
+    print("    held over the jobs: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in sums.items()))
+    out["star_held"] = {"jobs": held, "sums": sums}
 
 
 def star_list(out: dict, g, rank) -> None:
@@ -169,27 +229,37 @@ def star_list(out: dict, g, rank) -> None:
     split = {"plan_s": time.perf_counter() - t0, "device_s": 0.0,
              "copy_s": 0.0, "loop_s": 0.0, "copy_bytes": 0}
     results = []
-    for chunk, ww in jobs:
-        t0 = time.perf_counter()
-        _, o = ks.star_fused_chunk(pg.nbr, rank_pad, chunk, w_words=ww,
-                                   k=STAR_K, emit=True)
-        if not o.shape[0]:
-            continue
-        dev = ks.decode_star_rows(pg.nbr, chunk, o)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        gid, members, stars = (t.cpu().numpy() for t in dev)
-        t2 = time.perf_counter()
-        split["copy_bytes"] += gid.nbytes + members.nbytes + stars.nbytes
-        for l in range(len(gid)):
-            ms, ss = members[l], stars[l]
-            results.append((frozenset([int(gid[l]), *ms[ms >= 0].tolist()]),
-                            frozenset(ss[ss >= 0].tolist())))
-        t3 = time.perf_counter()
-        split["device_s"] += t1 - t0
-        split["copy_s"] += t2 - t1
-        split["loop_s"] += t3 - t2
-        del o, dev, gid, members, stars
+    # this tree's list call builds its pairs with the collector paused
+    with getattr(ks, "gc_paused", contextlib.nullcontext)():
+        for chunk, ww in jobs:
+            t0 = time.perf_counter()
+            _, o = ks.star_fused_chunk(pg.nbr, rank_pad, chunk, w_words=ww,
+                                       k=STAR_K, emit=True)
+            if not o.shape[0]:
+                continue
+            dev = ks.decode_star_rows(pg.nbr, chunk, o)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if hasattr(ks, "star_pairs"):
+                # this tree: the ids compacted on the card, copied, cut by row
+                # (the copies are inside the loop's time)
+                results += ks.star_pairs(*dev)
+                t2 = t1
+            else:
+                gid, members, stars = (t.cpu().numpy() for t in dev)
+                t2 = time.perf_counter()
+                split["copy_bytes"] += (gid.nbytes + members.nbytes
+                                        + stars.nbytes)
+                for l in range(len(gid)):
+                    ms, ss = members[l], stars[l]
+                    results.append((frozenset([int(gid[l]),
+                                               *ms[ms >= 0].tolist()]),
+                                    frozenset(ss[ss >= 0].tolist())))
+            t3 = time.perf_counter()
+            split["device_s"] += t1 - t0
+            split["copy_s"] += t2 - t1
+            split["loop_s"] += t3 - t2
+            del o, dev
     if len(results) != STAR_GOLDEN[0]:
         raise SystemExit(f"the list body gave {len(results)} pairs")
     del results
@@ -231,6 +301,8 @@ def main(argv=None) -> dict:
     p.add_argument("--label", default="")
     p.add_argument("--parts", default=",".join(PARTS),
                    help="comma-separated subset of " + ",".join(PARTS))
+    p.add_argument("--run", type=int, default=None,
+                   help="K12's least items a run (k_clique_star.RUN_ITEMS)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("cover_decode needs a CUDA device")
@@ -248,7 +320,11 @@ def main(argv=None) -> dict:
     for name in LIBRARIES:
         if name in built:
             print(f"ptxas {name}:\n{built[name]}")
-    out = {"label": args.label, "card": card}
+    from gms_tpu_torch.algorithms import k_clique_star as ks
+    if args.run is not None:
+        ks.RUN_ITEMS = args.run
+    out = {"label": args.label, "card": card,
+           "run_items": getattr(ks, "RUN_ITEMS", None)}
     parts = args.parts.split(",")
     if "bk" in parts:
         fused_bk(out)
@@ -256,11 +332,13 @@ def main(argv=None) -> dict:
         kclique_k4(out)
     if "enum" in parts:
         bk_enumerate(out)
-    if "emit" in parts or "list" in parts:
+    if {"emit", "held", "list"} & set(parts):
         g = _rmat(STAR_SCALE)
         rank, _ = degeneracy.degeneracy_ordering_rank(g)
         if "emit" in parts:
             star_emit(out, g, rank)
+        if "held" in parts:
+            star_held(out, g, rank)
         if "list" in parts:
             star_list(out, g, rank)
     print(json.dumps(out))

@@ -1,5 +1,6 @@
-// Block-wide exclusive scans, the root-offset scan and the bit walks of the
-// work-stack kernels (kclique_stack.cu, bk_stack.cu, star_stack.cu).
+// Block-wide exclusive scans and totals, the root-offset scan, a tile's
+// prefix by decoupled look-back, and the bit walks of the work-stack kernels
+// (kclique_stack.cu, bk_stack.cu, star_stack.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,6 +33,66 @@ __device__ T block_scan(T n, T* carry) {
   if (threadIdx.x == blockDim.x - 1) *carry = excl + n;
   __syncthreads();
   return excl;
+}
+
+// Block-wide sum of one value per thread, returned to every thread. Every
+// thread of the block must call it.
+template <typename T>
+__device__ T block_total(T n) {
+  __shared__ T carry;
+  if (threadIdx.x == 0) carry = T(0);
+  __syncthreads();
+  block_scan(n, &carry);
+  const T total = carry;
+  __syncthreads();
+  return total;
+}
+
+// A tile's status word in a decoupled look-back (a single-pass scan over
+// tiles handed out in order by a ticket, so that every tile before a
+// running one has started): 0 until published, then a flag in the top two
+// bits and a count below.
+constexpr unsigned long long kLookAggregate = 1ull << 62;
+constexpr unsigned long long kLookPrefix = 2ull << 62;
+constexpr unsigned long long kLookValue = kLookAggregate - 1;
+
+// Block-wide: the exclusive prefix of tile t, whose own count is agg, over
+// the status words of the tiles before it (zeroed before the launch). Warp
+// 0 publishes t's count, reads the 32 status words before it at a time,
+// waiting on any not yet published, adds counts back to the first
+// inclusive prefix, and publishes t's own. Every thread calls it.
+__device__ long long tile_prefix(volatile unsigned long long* status,
+                                 long long t, long long agg) {
+  __shared__ long long prefix;
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    long long excl = 0;
+    if (t > 0) {
+      if (lane == 0) status[t] = kLookAggregate | (unsigned long long)agg;
+      for (long long j = t - 1;; j -= 32) {
+        const long long at = j - lane;
+        unsigned long long s = kLookPrefix;  // before tile 0: a prefix of 0
+        if (at >= 0) s = status[at];
+        while (__any_sync(0xffffffffu, s < kLookAggregate))
+          if (s < kLookAggregate) s = status[at];
+        const unsigned pre = __ballot_sync(0xffffffffu, s >= kLookPrefix);
+        const int stop = pre ? __ffs(pre) - 1 : 31;  // the nearest prefix
+        long long v = lane <= stop ? (long long)(s & kLookValue) : 0;
+        for (int o = 16; o > 0; o >>= 1)
+          v += __shfl_down_sync(0xffffffffu, v, o);
+        excl += __shfl_sync(0xffffffffu, v, 0);
+        if (pre) break;
+      }
+    }
+    if (lane == 0) {
+      status[t] = kLookPrefix | (unsigned long long)(excl + agg);
+      prefix = excl;
+    }
+  }
+  __syncthreads();
+  const long long p = prefix;
+  __syncthreads();
+  return p;
 }
 
 // One block: roff[0..c) := exclusive offsets of the roots' item counts,

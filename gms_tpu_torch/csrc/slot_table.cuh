@@ -1,9 +1,11 @@
 // A root's padded row looked up by value, and one warp's walk of another
 // row against it: the inner loop of build_local_adj (local_adj.cu, K4) and
 // hub_cover_bits (bk_cover.cu, K8), which OR the slots found into bits
-// (warp_row_bits), and of tier_intersect_owned (tier_intersect.cu, K40),
-// which counts them (warp_row_count). build_local_univ (star_univ.cu) and
-// member_pack (ring_member.cu) binary-search instead (row_search.cuh).
+// (warp_row_bits), of build_local_univ (star_univ.cu, K11), which ORs them
+// into two buffers, the second only where a per-slot test holds
+// (warp_row_bits_if), and of tier_intersect_owned (tier_intersect.cu, K40),
+// which counts them (warp_row_count). All three walk by warp_row_walk.
+// member_pack (ring_member.cu, K39) binary-searches instead (row_search.cuh).
 //
 // Rows are strictly ascending with a SENTINEL tail (the padded layout), so a
 // root's live slots are a prefix [0, L) of its row. A block loads the root's
@@ -15,8 +17,8 @@
 // A warp then walks a row kUnroll 32-slot chunks at a time (coalesced, the
 // chunks' loads in flight together), looks each element up, and stops once
 // an element passes the root's last live value (which also stops it at its
-// first SENTINEL), ORing the slot bits it finds into its word buffer in
-// shared memory (a shared atomicOr a hit).
+// first SENTINEL), ORing the slot bits it finds into its word buffers in
+// shared memory (a shared atomicOr a hit) or counting them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -113,19 +115,17 @@ __device__ __forceinline__ Slots<kHash> load_slots(const int* root_row,
   return slots;
 }
 
-// For one warp: bits[0, ww) = the bitset of the root's live slots (`slots`,
-// n >= 1, the last of them `last`) whose value lies in `row` (d slots).
-// bits is the warp's own buffer in shared memory, complete for every lane on
-// return; every lane calls it with the same row.
-template <bool kHash>
-__device__ __forceinline__ void warp_row_bits(const int* row, int d,
-                                              int last,
-                                              const Slots<kHash>& slots,
-                                              int lane, unsigned* bits,
-                                              int ww) {
-  for (int w = lane; w < ww; w += 32) bits[w] = 0u;
-  __syncwarp();
-  // kUnroll chunks of 32 slots loaded at once, then looked up
+// For one warp: calls hit(j), in the lane that finds it, for each element
+// of `row` (d slots) that `slots` holds, j = slots.find(x) >= 0 (slots: a
+// Slots, or any set whose find(x) is >= 0 for a member, none above `last`).
+// d is the row's live length or more, so that no load reaches past the
+// row's data; kUnroll chunks of 32 load at a time, and the warp stops after
+// the chunk where an element passes `last`. Every lane calls it with the
+// same row.
+template <class Lookup, class Hit>
+__device__ __forceinline__ void warp_row_walk(const int* row, int d, int last,
+                                              const Lookup& slots, int lane,
+                                              Hit hit) {
   for (int base = 0; base < d; base += 32 * kUnroll) {
     int x[kUnroll];
 #pragma unroll
@@ -138,41 +138,59 @@ __device__ __forceinline__ void warp_row_bits(const int* row, int d,
     for (int k = 0; k < kUnroll; ++k) {
       if (x[k] <= last) {
         const int j = slots.find(x[k]);
-        if (j >= 0) atomicOr(bits + (j >> 5), 1u << (j & 31));
+        if (j >= 0) hit(j);
       }
       past |= x[k] > last;
     }
     if (__any_sync(kFull, past)) break;
   }
+}
+
+// For one warp: bits[0, ww) = the bitset of the root's live slots (`slots`,
+// n >= 1, the last of them `last`) whose value lies in `row` (d slots).
+// bits is the warp's own buffer in shared memory, complete for every lane on
+// return; every lane calls it with the same row.
+template <bool kHash>
+__device__ __forceinline__ void warp_row_bits(const int* row, int d,
+                                              int last,
+                                              const Slots<kHash>& slots,
+                                              int lane, unsigned* bits,
+                                              int ww) {
+  for (int w = lane; w < ww; w += 32) bits[w] = 0u;
+  __syncwarp();
+  warp_row_walk(row, d, last, slots, lane, [&](int j) {
+    atomicOr(bits + (j >> 5), 1u << (j & 31));
+  });
+  __syncwarp();
+}
+
+// warp_row_bits into two buffers: each slot found in bits, and in bits2 too
+// where keep(j) holds.
+template <bool kHash, class Keep>
+__device__ __forceinline__ void warp_row_bits_if(const int* row, int d,
+                                                 int last,
+                                                 const Slots<kHash>& slots,
+                                                 int lane, unsigned* bits,
+                                                 unsigned* bits2, int ww,
+                                                 Keep keep) {
+  for (int w = lane; w < ww; w += 32) bits[w] = bits2[w] = 0u;
+  __syncwarp();
+  warp_row_walk(row, d, last, slots, lane, [&](int j) {
+    const unsigned bit = 1u << (j & 31);
+    atomicOr(bits + (j >> 5), bit);
+    if (keep(j)) atomicOr(bits2 + (j >> 5), bit);
+  });
   __syncwarp();
 }
 
 // For one warp: this lane's share of |{x in row[0, d) : x in slots}|, the
-// walk of warp_row_bits with hits counted (slots: a Slots, or any set whose
-// find(x) is >= 0 for a member, none above `last`). d is the row's live
-// length, so that no load reaches past the row's data; kUnroll chunks of
-// 32 load at a time, and the warp stops after the chunk where an element
-// passes `last`. Every lane calls it with the same row; the caller sums
-// the lanes' shares.
+// walk of warp_row_walk with hits counted; the caller sums the lanes'
+// shares.
 template <class Lookup>
 __device__ __forceinline__ int warp_row_count(const int* row, int d, int last,
                                               const Lookup& slots, int lane) {
   int hits = 0;
-  for (int base = 0; base < d; base += 32 * kUnroll) {
-    int x[kUnroll];
-#pragma unroll
-    for (int k = 0; k < kUnroll; ++k) {
-      const int s = base + 32 * k + lane;
-      x[k] = s < d ? row[s] : GMS_SENTINEL;
-    }
-    bool past = false;
-#pragma unroll
-    for (int k = 0; k < kUnroll; ++k) {
-      if (x[k] <= last) hits += slots.find(x[k]) >= 0;
-      past |= x[k] > last;
-    }
-    if (__any_sync(kFull, past)) break;
-  }
+  warp_row_walk(row, d, last, slots, lane, [&](int) { ++hits; });
   return hits;
 }
 

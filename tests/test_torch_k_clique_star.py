@@ -426,3 +426,122 @@ def test_rank_argument_and_edge_cases(rmat8):
         ks.kclique_star_list(g, 1, device="cpu")
     with pytest.raises(ValueError, match="mode"):
         ks.kclique_star_list(g, 3, device="cpu", mode="enumerate")
+
+
+# ---------------------------------------------------------------------------
+# K12's run table, the list call's pairs
+# ---------------------------------------------------------------------------
+
+def _np_bits(words):
+    return np.unpackbits(words.numpy().view(np.uint8), axis=-1,
+                         bitorder="little").astype(bool)
+
+
+def _numpy_runs(univ, k, run):
+    """K12's run table and each run's leaves counted directly: Python loops
+    over numpy bool arrays (the tree of star_stack's docstring)."""
+    full, dag, s0, i0, live = univ
+    dag, s0, live = _np_bits(dag), _np_bits(s0), live.numpy()
+    C, W = s0.shape
+
+    def below(b, S, rem):  # the leaves below a kept node of rem >= 1
+        if rem == 1:
+            return int(S.sum())
+        return sum(below(b, S & dag[b, v], rem - 1) for v in np.nonzero(S)[0]
+                   if (S & dag[b, v]).sum() >= rem - 1)
+
+    table, leaves = [], []
+    for b in range(C):
+        S0 = s0[b]
+        if not live[b] or S0.sum() < k - 1:
+            continue
+        if k <= 3:
+            items = np.nonzero(S0)[0]
+            for f in range(0, len(items), run):
+                its = items[f:f + run]
+                table.append((b, -1, f, len(its)))
+                leaves.append(len(its) if k == 2 else
+                              sum(below(b, S0 & dag[b, v], 1) for v in its))
+            continue
+        per = {}
+        for i in np.nonzero(S0)[0]:
+            js = np.nonzero(S0 & dag[b, i])[0]
+            per[i] = js if len(js) >= k - 2 else js[:0]
+        rb = max(run, -(-sum(map(len, per.values())) // W))
+        for i, js in per.items():
+            Si = S0 & dag[b, i]
+            for f in range(0, len(js), rb):
+                its = js[f:f + rb]
+                table.append((b, i, f, len(its)))
+                leaves.append(sum(below(b, Si & dag[b, j], k - 3)
+                                  for j in its if (Si & dag[b, j]).sum()
+                                  >= k - 3))
+    return table, leaves
+
+
+def _dense_univ(rng, C, W, p):
+    """Random local universes, symmetric adj_full at density p and adj_dag
+    by a random rank, so that a root may hold over W·run items."""
+    full = np.triu(rng.random((C, W, W)) < p, 1)
+    full |= full.transpose(0, 2, 1)
+    rank = rng.permutation(W)
+    dag = full & (rank[None, None, :] > rank[None, :, None])
+    i0 = rng.random((C, W)) < 0.9
+    s0 = i0 & (rank[None, :] > W // 4)
+    pack = lambda b: torch.from_numpy(np.packbits(  # noqa: E731
+        b, axis=-1, bitorder="little").view(np.int32).copy())
+    live = torch.from_numpy(np.arange(C) != 1)
+    return pack(full), pack(dag), pack(s0), pack(i0), live
+
+
+@pytest.mark.parametrize("k", [2, 3, 4, 5, 6])
+def test_star_runs_plain_against_a_direct_count(rmat8, k):
+    """star_runs_plain's run table and leaves a run against Python loops on
+    rmat8's jobs at runs of 1, 4 and 16 items and, for k <= 4, on dense
+    random universes whose roots take runs longer than `run`; the leaves sum
+    to star_stack_plain's cliques and the table stays within 2CW rows."""
+    g, jg, js = rmat8
+    cases = [_port_univ(js, chunk, ww) for chunk, ww in js.jobs]
+    if k <= 4:
+        cases.append(_dense_univ(np.random.default_rng(k), 3, 64, 0.5))
+    longer = 0
+    for univ in cases:
+        C, W, _ = univ[0].shape
+        cliques = int(ks.star_stack_plain(*univ, k=k)[0])
+        for run in (1, 4, 16):
+            table, leaves = ks.star_runs_plain(*univ, k=k, run=run)
+            want_table, want_leaves = _numpy_runs(univ, k, run)
+            assert table.dtype == torch.int32 and leaves.dtype == torch.int64
+            assert list(map(tuple, table.tolist())) == want_table
+            assert leaves.tolist() == want_leaves
+            assert int(leaves.sum()) == cliques
+            assert table.shape[0] <= 2 * C * W
+            longer += int((table[:, 3] > run).sum())
+    if k == 4:
+        assert longer > 0
+
+
+def test_star_pairs_equal_the_row_by_row_pairs():
+    """star_pairs against the per-row construction it replaced (each row's
+    ids >= 0), on decoded rows with -1 lanes anywhere and empty stars."""
+    rng = np.random.default_rng(11)
+    L, W = 500, 64
+    gid = torch.from_numpy(rng.integers(0, 1000, L).astype(np.int32))
+    ids = rng.integers(0, 5000, (2, L, W)).astype(np.int32)
+    ids[rng.random((2, L, W)) < 0.8] = -1
+    ids[1, :7] = -1
+    members, stars = torch.from_numpy(ids[0]), torch.from_numpy(ids[1])
+    want = [(frozenset([int(gid[l]), *ids[0, l][ids[0, l] >= 0].tolist()]),
+             frozenset(ids[1, l][ids[1, l] >= 0].tolist())) for l in range(L)]
+    assert ks.star_pairs(gid, members, stars) == want
+    assert ks.star_pairs(gid[:0], members[:0], stars[:0]) == []
+
+
+@pytest.mark.parametrize("k", [3, 4])
+def test_list_and_count_modes_equal_gms_tpu(k):
+    g, jg = both(random_graph(60, 0.25, 7), 60)
+    got = ks.kclique_star_list(g, k, device="cpu")
+    assert canon(got) == canon(jks.kclique_star_list(jg, k))
+    assert len(got) == len(set(got)) > 0
+    assert (ks.kclique_star_list(g, k, device="cpu", mode="count")
+            == jks.kclique_star_list(jg, k, mode="count"))

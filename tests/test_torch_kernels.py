@@ -960,6 +960,14 @@ def test_star_univ_on_card(card, ww, D):
     roots = rng.integers(0, n, 70).astype(np.int32)
     roots[-3:] = (V, V + 11, -2)
     rank_pad, roots = (torch.from_numpy(x).to(card) for x in (rank_pad, roots))
+    _check_univ(nbr, rank_pad, roots, ww)
+    # mostly pad roots: 3 real ones in 64
+    few = torch.full((64,), V, dtype=torch.int32, device=card)
+    few[[5, 30, 63]] = roots[:3]
+    _check_univ(nbr, rank_pad, few, ww)
+
+
+def _check_univ(nbr, rank_pad, roots, ww):
     got = _launched("build_local_univ", lambda: ks.build_local_univ(
         nbr, rank_pad, roots, w_words=ww), ks.LAUNCHES)
     want = ks.build_local_univ_plain(nbr, rank_pad, roots, w_words=ww)
@@ -967,15 +975,136 @@ def test_star_univ_on_card(card, ww, D):
     assert got[1].any() and got[2].any()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("ww", [1, 2, 4, 8, 16, 32, 64])
+def test_star_univ_widths_on_card(card, ww):
+    """K11 bit for bit at W = 32 ... 2048: RMAT-12's k=4 job of that width
+    (at W = 2048 one real root of 32), the same roots among pad roots, and
+    roots whose rows fill all W slots under a random rank."""
+    W = 32 * ww
+    g = build_csr(generate_rmat_el(12, 16, seed=27491095), num_nodes=4096)
+    pg, rank_pad, jobs = ks.plan_star_jobs(g, 4, device=card)
+    chunk = next(c for c, w in jobs if w == ww)
+    _check_univ(pg.nbr, rank_pad, chunk, ww)
+    real = chunk[chunk != pg.v_pad][:3]
+    padded = torch.full((256,), pg.v_pad, dtype=torch.int32, device=card)
+    padded[[0, 100, 255][:real.numel()]] = real
+    _check_univ(pg.nbr, rank_pad, padded, ww)
+    rng = np.random.default_rng(ww)
+    full = torch.from_numpy(_full_row_nbr(rng, W)).to(card)
+    rank = torch.from_numpy(rng.permutation(full.shape[0]).astype(
+        np.int32)).to(card)
+    roots = torch.tensor([0, 4, 1, full.shape[0], 2, -7, 3, 5, 6],
+                         dtype=torch.int32, device=card)
+    _check_univ(full, rank, roots, ww)
+
+
+@pytest.mark.cuda
+def test_star_univ_beyond_the_hash_width_on_card(card):
+    """W = 8,320 (ww = 260): the binary-search instance, rows short."""
+    rng = np.random.default_rng(4)
+    nbr = torch.from_numpy(_padded_rows(rng, 300, 64, 290, 64)).to(card)
+    rank_pad = torch.from_numpy(rng.permutation(301).astype(np.int32)).to(card)
+    roots = torch.from_numpy(np.array([5, 300, 17, -1, 250],
+                                      np.int32)).to(card)
+    _check_univ(nbr, rank_pad, roots, 260)
+
+
 def _check_star(univ, k):
+    """K12 against plain: the count, the emitted rows as sorted sets, the
+    same rows in the same order on a second run, and the count pass's run
+    table and leaves a run against star_runs_plain, each run's rows at its
+    base under its own root."""
     got = _launched("star_stack", lambda: ks.star_stack(*univ, k=k),
                     ks.LAUNCHES)
     want, want_out = ks.star_stack_plain(*univ, k=k, emit=True)
     assert got.tolist() == want.tolist()
     counts, out = ks.star_stack(*univ, k=k, emit=True)
     assert counts.tolist() == want.tolist()
-    assert _rows(out) == _rows(want_out)
+    assert torch.equal(_sorted_rows(out), _sorted_rows(want_out))
+    assert torch.equal(ks.star_stack(*univ, k=k, emit=True)[1], out)
+    ptable, pleaves = ks.star_runs_plain(*univ, k=k, run=ks.RUN_ITEMS)
+    for sizes in (False, True):  # the count pass of count and emit mode
+        ctl, table, leaf_cnt = ks._count_pass(*univ, k, sizes=sizes)
+        n_runs = int(ctl[2])
+        assert torch.equal(table[:n_runs], ptable)
+        assert torch.equal(leaf_cnt[:n_runs], pleaves)
+        star = 0 if sizes else int(want[1])
+        assert ctl[:2].tolist() == [int(want[0]), star]
+    ww = univ[0].shape[2]
+    owner = torch.repeat_interleave(ptable[:, 0], pleaves)
+    assert torch.equal(out[:, 2 * ww], owner)
     return int(want[0])
+
+
+def _sorted_rows(out):
+    """The rows of out in lexicographic order, sorted on its device."""
+    idx = torch.arange(out.shape[0], device=out.device)
+    for c in reversed(range(out.shape[1])):
+        idx = idx[torch.sort(out[idx, c], stable=True).indices]
+    return out[idx]
+
+
+@pytest.fixture(scope="module")
+def star10():
+    """RMAT-10's k-clique-star universes (chunks of 64 roots) by width."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = build_csr(generate_rmat_el(10, 16, seed=27491095), num_nodes=1024)
+    pg, rank_pad, jobs = ks.plan_star_jobs(g, 2, device="cuda",
+                                           root_chunk=64)
+    return g, pg, rank_pad, jobs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 3, 4, 5, 6])
+@pytest.mark.parametrize("ww", [1, 2, 4, 8, 16, 32, 64])
+def test_star_stack_widths_on_card(card, star10, k, ww):
+    """K12 at W = 32 ... 2048 and k = 2 ... 6: RMAT-10's widest job that fits
+    W, its universe built at W (the same tree in a wider universe)."""
+    g, pg, rank_pad, jobs = star10
+    chunk, w = max(((c, w) for c, w in jobs if w <= ww), key=lambda j: j[1])
+    univ = (*ks.build_local_univ(pg.nbr, rank_pad, chunk, w_words=ww),
+            chunk != pg.v_pad)
+    _check_star(univ, k)
+
+
+def _complete_univ(card, C, W):
+    """C roots whose W locals form a complete graph, ranked in local order,
+    S0 all of them; root 1 is not live. A live root has C(W, 2) items at
+    depth 2, over W·RUN_ITEMS for W >= 64: its runs are longer than
+    RUN_ITEMS."""
+    full = ~np.eye(W, dtype=bool)
+    dag = np.triu(full, 1)
+    pack = lambda b: torch.from_numpy(np.packbits(  # noqa: E731
+        np.broadcast_to(b, (C, *b.shape)), axis=-1,
+        bitorder="little").view(np.int32).copy()).to(card)
+    s0 = np.ones(W, dtype=bool)
+    live = torch.from_numpy(np.arange(C) != 1).to(card)
+    return pack(full), pack(dag), pack(s0), pack(s0), live
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 3, 4, 5, 6])
+def test_star_stack_runs_longer_than_run_on_card(card, k):
+    univ = _complete_univ(card, 3, 64)
+    assert _check_star(univ, k) == 2 * math.comb(64, k - 1)
+    if k >= 4:
+        table, _ = ks.star_runs_plain(*univ, k=k)
+        assert int(table[:, 3].max()) > ks.RUN_ITEMS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", [1, 16, 64])
+def test_star_stack_run_lengths_on_card(card, star10, run, monkeypatch):
+    """K12 at other least run lengths, k = 3 and 4, on RMAT-10's widest job."""
+    monkeypatch.setattr(ks, "RUN_ITEMS", run)
+    g, pg, rank_pad, jobs = star10
+    chunk, ww = jobs[-1]
+    univ = (*ks.build_local_univ(pg.nbr, rank_pad, chunk, w_words=ww),
+            chunk != pg.v_pad)
+    for k in (3, 4):
+        assert _check_star(univ, k) > 0
 
 
 def _star_jobs(g, k, card, **kw):
