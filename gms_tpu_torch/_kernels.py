@@ -103,10 +103,10 @@ SIGNATURES = {
                              _P),
     },
     "star_stack": {
-        # adj_full, adj_dag, s0, i0, live0, C, w_words, k, run, sizes only,
+        # adj_full, adj_dag, s0, i0, live0, C, w_words, k, sizes only,
         # control words, item counts, run table, leaves a run, stream
-        "star_stack_count": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P,
-                             _P, _P, _P),
+        "star_stack_count": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _P, _P, _P,
+                             _P, _P),
         # adj_full, adj_dag, s0, i0, C, w_words, k, control words, run
         # table, leaves a run, runs, run bases, out rows, out capacity,
         # stream

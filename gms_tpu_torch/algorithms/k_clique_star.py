@@ -53,7 +53,6 @@ each k-clique is emitted exactly once (PARITY.md §2.8).
 from __future__ import annotations
 
 import gc
-from contextlib import contextmanager
 from itertools import combinations
 
 import numpy as np
@@ -83,14 +82,17 @@ LAUNCHES = dict.fromkeys(
 # elements per step of the plain versions' broadcast tensors
 _PLAIN_BUDGET = 1 << 24
 
-# K12's least items a run: of 1, 4, 16 and 64, 4 was the fastest over the
-# RMAT-12 k=4 emit pass on an H100 (bench/cover_decode.py --run; 1 within
-# 2 %, 16 9 % slower)
+# K12's least items a run, csrc/star_stack.cu's kRunItems: of 1, 4, 16 and
+# 64, 4 was the fastest over the RMAT-12 k=4 emit pass on an H100 (1 within
+# 2 %, 16 9 % slower; PERF.md §5)
 RUN_ITEMS = 4
 # K12's control words before the roots' look-back status, and the runs of
 # one tile of its base scan (csrc/star_stack.cu's kCtl and kTile)
 _CTL_WORDS = 8
 _BASE_TILE = 2048
+# rows of a job that star_pairs cuts at a time, so that it holds the Python
+# ints of one slab of ids, not of the job
+_PAIR_ROWS = 1 << 15
 
 
 def reset_launches() -> None:
@@ -241,47 +243,11 @@ def _check_univ(name, adj_full, adj_dag, S0, I0, live0):
         raise ValueError(f"{name}: live0 must be contiguous")
 
 
-def _expand(adj_full, adj_dag, stack, ops):
-    """Expands the LIFO `stack` of node batches (S, I, R, b, tag, rem), rem
-    >= 1, breadth-wise in batches sharing `rem`, as star_stack's tree: the
-    child of (S, I, R) along i ∈ S is (S & adj_dag[b, i], I & adj_full[b,
-    i], R ∪ {i}), a child of rem r >= 1 kept iff |S| >= r. Yields each batch
-    of leaves (R, star, b, tag); ops[0] and ops[1] gain the popcounts and
-    bitwise words (star_stack_plain's stats)."""
-    C, W, WW = adj_full.shape
-    onehot = pack_bits(torch.eye(W, dtype=torch.bool, device=adj_full.device))
-    batch = max(1, _PLAIN_BUDGET // (W * WW))
-    while stack:
-        S, I, R, root, tag, rem = stack.pop()
-        if S.shape[0] > batch:
-            stack.append((S[batch:], I[batch:], R[batch:], root[batch:],
-                          tag[batch:], rem))
-            S, I, R, root, tag = (S[:batch], I[:batch], R[:batch],
-                                  root[:batch], tag[:batch])
-        item, i = unpack_bits(S).nonzero(as_tuple=True)
-        b = root[item]
-        cR = R[item] | onehot[i]
-        cI = I[item] & adj_full[b, i]
-        n = item.shape[0]
-        if rem == 1:  # the children are k-cliques
-            ops[0] += n * WW
-            ops[1] += n * WW
-            yield cR, cI & ~cR, b, tag[item]
-            continue
-        cS = S[item] & adj_dag[b, i]
-        ops[0] += n * WW
-        ops[1] += 2 * n * WW
-        keep = popcount32(cS).sum(1) >= rem - 1
-        if keep.any():
-            stack.append((cS[keep], cI[keep], cR[keep], b[keep],
-                          tag[item][keep], rem - 1))
-
-
 def star_stack_plain(adj_full, adj_dag, S0, I0, live0, *, k: int,
                      emit: bool = False, stats: dict | None = None):
     """Plain version of star_stack: the same tree, expanded breadth-wise in
     batches of nodes (S, I, R, root) sharing `rem`, kept in a LIFO so memory
-    stays bounded (_expand). A node of rem 1 makes its children as leaves.
+    stays bounded. A node of rem 1 makes its children as leaves.
 
     With `stats`, adds the tree's word operations by type: stats["popc_ops"],
     the popcounts (WW per live root for |S0|, WW per child node for |S|, WW
@@ -291,22 +257,46 @@ def star_stack_plain(adj_full, adj_dag, S0, I0, live0, *, k: int,
     """
     C, W, WW = adj_full.shape
     dev = adj_full.device
+    onehot = pack_bits(torch.eye(W, dtype=torch.bool, device=dev))
     n_cl = torch.zeros((), dtype=torch.int64, device=dev)
     n_st = torch.zeros((), dtype=torch.int64, device=dev)
-    ops = [int(live0.sum()) * WW, 0]
+    popc = int(live0.sum()) * WW
+    bit = 0
     rows = []
     root_ok = live0 & (popcount32(S0).sum(1) >= k - 1)
     roots = root_ok.nonzero()[:, 0]
     stack = [(S0[roots], I0[roots], S0.new_zeros((roots.shape[0], WW)), roots,
-              roots, k - 1)]
-    for cR, star, b, _ in _expand(adj_full, adj_dag, stack, ops):
-        n_cl += cR.shape[0]
-        n_st += popcount32(star).sum()
-        if emit:
-            rows.append(torch.cat([cR, star, b[:, None].to(torch.int32)], 1))
+              k - 1)]
+    batch = max(1, _PLAIN_BUDGET // (W * WW))
+    while stack:
+        S, I, R, root, rem = stack.pop()
+        if S.shape[0] > batch:
+            stack.append((S[batch:], I[batch:], R[batch:], root[batch:], rem))
+            S, I, R, root = S[:batch], I[:batch], R[:batch], root[:batch]
+        item, i = unpack_bits(S).nonzero(as_tuple=True)
+        b = root[item]
+        cR = R[item] | onehot[i]
+        cI = I[item] & adj_full[b, i]
+        n = item.shape[0]
+        if rem == 1:  # the children are k-cliques
+            star = cI & ~cR
+            n_cl += n
+            n_st += popcount32(star).sum()
+            popc += n * WW
+            bit += n * WW
+            if emit:
+                rows.append(torch.cat([cR, star, b[:, None].to(torch.int32)],
+                                      1))
+            continue
+        cS = S[item] & adj_dag[b, i]
+        popc += n * WW
+        bit += 2 * n * WW
+        keep = popcount32(cS).sum(1) >= rem - 1
+        if keep.any():
+            stack.append((cS[keep], cI[keep], cR[keep], b[keep], rem - 1))
     if stats is not None:
-        stats["popc_ops"] = stats.get("popc_ops", 0) + ops[0]
-        stats["bit_ops"] = stats.get("bit_ops", 0) + ops[1]
+        stats["popc_ops"] = stats.get("popc_ops", 0) + popc
+        stats["bit_ops"] = stats.get("bit_ops", 0) + bit
     counts = torch.stack([n_cl, n_st])
     if not emit:
         return counts
@@ -351,33 +341,43 @@ def star_runs_plain(adj_full, adj_dag, S0, I0, live0, *, k: int,
         first = t * rb[b]
         cnt = torch.minimum(n.reshape(-1)[pair] - first, rb[b])
     table = torch.stack([b, i, first, cnt], 1).to(torch.int32)
-    return table, _run_leaves(adj_full, adj_dag, S0, I0, table, k)
+    return table, _run_leaves(adj_dag, S0, table, k)
 
 
-def _run_leaves(adj_full, adj_dag, S0, I0, table, k):
-    """The k-cliques below each run of `table` (star_runs_plain)."""
-    C, W, WW = adj_full.shape
+def _run_leaves(adj_dag, S0, table, k):
+    """The k-cliques below each run of `table` (star_runs_plain), counted
+    apart from star_stack_plain: a node of rem 1 has |S| leaves, and one of
+    rem r >= 2 those of its children along each i ∈ S, S & adj_dag[i], kept
+    iff they hold at least r-1 bits."""
+    C, W, WW = adj_dag.shape
     if k == 2:  # the items are leaves
         return table[:, 3].long()
-    onehot = pack_bits(torch.eye(W, dtype=torch.bool, device=S0.device))
     b, i, first, cnt = table.long().unbind(1)
-    S, I = S0[b], I0[b]                     # the runs' parents
-    R = S0.new_zeros((b.shape[0], WW))
+    S = S0[b]                               # the runs' parents
     if k >= 4:                              # the root's child along i
-        S, I, R = S & adj_dag[b, i], I & adj_full[b, i], onehot[i]
+        S = S & adj_dag[b, i]
     bits = unpack_bits(S)
     rank = bits.cumsum(1) - 1
     mine = bits & (rank >= first[:, None]) & (rank < (first + cnt)[:, None])
     tag, v = mine.nonzero(as_tuple=True)    # each run's items
-    bt = b[tag]
-    iS = S[tag] & adj_dag[bt, v]
-    rem0 = k - 1 - (1 if k <= 3 else 2)
-    keep = popcount32(iS).sum(1) >= rem0
-    stack = [(iS[keep], (I[tag] & adj_full[bt, v])[keep],
-              (R[tag] | onehot[v])[keep], bt[keep], tag[keep], rem0)]
+    S = S[tag] & adj_dag[b[tag], v]
+    rem = k - 1 - (1 if k <= 3 else 2)      # the items'
+    keep = popcount32(S).sum(1) >= rem
+    stack = [(S[keep], b[tag][keep], tag[keep], rem)]
     leaves = torch.zeros(b.shape[0], dtype=torch.int64, device=S0.device)
-    for _, _, _, t in _expand(adj_full, adj_dag, stack, [0, 0]):
-        leaves.index_add_(0, t, torch.ones_like(t))
+    batch = max(1, _PLAIN_BUDGET // (W * WW))
+    while stack:
+        S, root, tag, rem = stack.pop()
+        if S.shape[0] > batch:
+            stack.append((S[batch:], root[batch:], tag[batch:], rem))
+            S, root, tag = S[:batch], root[:batch], tag[:batch]
+        if rem == 1:
+            leaves.index_add_(0, tag, popcount32(S).sum(1))
+            continue
+        item, u = unpack_bits(S).nonzero(as_tuple=True)
+        cS = S[item] & adj_dag[root[item], u]
+        keep = popcount32(cS).sum(1) >= rem - 1
+        stack.append((cS[keep], root[item][keep], tag[item][keep], rem - 1))
     return leaves
 
 
@@ -396,7 +396,7 @@ def _count_pass(adj_full, adj_dag, S0, I0, live0, k, sizes=False):
     leaf_cnt = torch.empty(cap, dtype=torch.int64, device=dev)
     _kernels.launch(
         "star_stack", "star_stack_count", adj_full, adj_dag, S0, I0, live0,
-        C, WW, k, RUN_ITEMS, int(sizes), ctl,
+        C, WW, k, int(sizes), ctl,
         torch.empty(C * W, dtype=torch.int32, device=dev), table, leaf_cnt)
     LAUNCHES["star_stack"] += 1
     return ctl, table, leaf_cnt
@@ -534,50 +534,55 @@ def kclique_star_list(g: CSRGraph, k: int, *, device="cuda",
             return 0, 0
         n_cl, n_st = torch.stack(outs).sum(0).tolist()
         return n_cl, n_st
-    results: list[tuple[frozenset, frozenset]] = []
-    with gc_paused():
-        for chunk, ww in jobs:
-            _, out = star_fused_chunk(nbr, rank_pad, chunk, w_words=ww, k=k,
-                                      emit=True)
-            if out.shape[0]:
-                results += star_pairs(*decode_star_rows(nbr, chunk, out))
-    return results
+    rows = []
+    for chunk, ww in jobs:
+        _, out = star_fused_chunk(nbr, rank_pad, chunk, w_words=ww, k=k,
+                                  emit=True)
+        if out.shape[0]:
+            rows.append(compact_star_rows(*decode_star_rows(nbr, chunk,
+                                                            out)))
+    return star_pairs(rows)
 
 
-@contextmanager
-def gc_paused():
-    """Python's cyclic garbage collector off inside, as it was after. The
-    list call's pairs hold no cycles, and the collector's passes over the
-    millions of frozensets they add cost more than building them."""
+def compact_star_rows(gid, members, stars):
+    """decode_star_rows' output with its -1 ids dropped on their device
+    (row-major) and copied once: numpy (roots, member ids, each row's end
+    among them, star ids, each row's end among them)."""
+    def compact(ids):
+        keep = ids >= 0
+        return ids[keep].cpu().numpy(), keep.sum(1).cumsum(0).cpu().numpy()
+
+    return (gid.cpu().numpy(), *compact(members), *compact(stars))
+
+
+def star_pairs(jobs) -> list[tuple[frozenset, frozenset]]:
+    """The [(clique, star)] frozensets of compacted jobs (compact_star_rows'
+    tuples): each row's root and member ids, and its star ids, cut from the
+    ids by the rows' ends, _PAIR_ROWS rows at a time, one slice a row.
+    Python's cyclic garbage collector is off while they are built: the pairs
+    hold no cycles, and its passes over the millions of frozensets they add
+    cost more than building them."""
+    pairs = []
     collecting = gc.isenabled()
     gc.disable()
     try:
-        yield
+        for roots, mem, mem_end, st, st_end in jobs:
+            m0 = s0 = 0
+            for a in range(0, len(roots), _PAIR_ROWS):
+                me, se = mem_end[a:a + _PAIR_ROWS], st_end[a:a + _PAIR_ROWS]
+                mids, sids = mem[m0:me[-1]].tolist(), st[s0:se[-1]].tolist()
+                i = j = 0
+                for root, m1, s1 in zip(roots[a:a + _PAIR_ROWS].tolist(),
+                                        (me - m0).tolist(),
+                                        (se - s0).tolist()):
+                    pairs.append((frozenset([root, *mids[i:m1]]),
+                                  frozenset(sids[j:s1])))
+                    i, j = m1, s1
+                m0, s0 = int(me[-1]), int(se[-1])
     finally:
         if collecting:
             gc.enable()
-
-
-def star_pairs(gid, members, stars) -> list[tuple[frozenset, frozenset]]:
-    """decode_star_rows' output as [(clique, star)] frozensets: each row's
-    root and its member ids, and its star ids. The ids >= 0 are compacted on
-    their device (row-major) before one copy each, then cut on the host by
-    each row's count, one slice a row (kclique_star_list calls it inside
-    gc_paused)."""
-    def compact(ids):
-        keep = ids >= 0
-        return (ids[keep].cpu().tolist(),
-                keep.sum(1).cumsum(0).cpu().tolist())
-
-    mem, mem_end = compact(members)
-    st, st_end = compact(stars)
-    pairs = []
-    m0 = s0 = 0
-    for root, m1, s1 in zip(gid.cpu().tolist(), mem_end, st_end):
-        pairs.append((frozenset([root, *mem[m0:m1]]), frozenset(st[s0:s1])))
-        m0, s0 = m1, s1
     return pairs
-
 
 # ---------------------------------------------------------------------------
 # host oracle + validity check (verifiers/valid_kcstar.h:17-60 role)

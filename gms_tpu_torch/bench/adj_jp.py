@@ -1,13 +1,13 @@
 """K4 (build_local_adj) and K22 (color_jp) on the card, over whole warm calls.
 
-K4 over one warm RMAT-16 k=5 `sharded_kclique_count` call at a world of one
-(no process group; chip_smoke.py's phase 53 runs it over NCCL), over the
-warm RMAT-16 k=5 `kclique_count` and RMAT-14 fused `bron_kerbosch` calls,
-and held: `kclique_count`'s chunks and the sharded call's first chunk at
-its global width, each launched alone in passes of HELD_PASSES. K22 over
-one warm strict JP-LF `jones_plassmann` call at RMAT-16 (phase 38), its
-host tier builds timed inside the call, and, where the package has jp_run,
-each dispatch's launch by CUDA events.
+K4 (and K37 beside it) over one warm RMAT-16 k=5 `sharded_kclique_count`
+call at a world of one (no process group; chip_smoke.py's phase 53 runs it
+over NCCL), over the warm RMAT-16 k=5 `kclique_count` and RMAT-14 fused
+`bron_kerbosch` calls, and held: `kclique_count`'s chunks and the sharded
+call's first chunk at its global width, each launched alone in passes of
+HELD_PASSES. K22 over one warm strict JP-LF `jones_plassmann` call at
+RMAT-16 (phase 38), its host tier builds timed inside the call, and, where
+the package has jp_run, each dispatch's launch by CUDA events.
 Each call and pass under torch.profiler: the kernel's device time and
 launches, the host time and the device's idle share; each call also
 unprofiled, the best of 3.
@@ -40,6 +40,8 @@ BK_SCALE, BK_GOLDEN = 14, 165_402_717
 JP_SCALE, JP_DIGEST = 16, "8c0f69ed106f236d"
 ROOT_CHUNK = 256
 HELD_PASSES = 10
+# K37's device functions (csrc/kc_expand.cu)
+K37 = ("expand_kernel", "clear_kernel")
 
 
 def k4_names(per) -> tuple:
@@ -187,7 +189,7 @@ def main(argv=None) -> dict:
     if n != KC_GOLDEN:
         raise SystemExit(f"profiled sharded call: {n}")
     run = window(f"warm sharded RMAT {KC_SCALE} k={KC_K} call:", host_s,
-                 per, busy, {"K4": k4_names(per)})
+                 per, busy, {"K4": k4_names(per), "K37": K37})
     run.update(stats=stats, launches=first, best_s=best_s(sharded))
     print(f"    stats {stats}; a call's launches {first}; unprofiled best "
           f"of 3 {run['best_s']:.4f} s")

@@ -7,24 +7,22 @@ K8 and K4 over one warm fused RMAT-14 `bron_kerbosch` count call
 few real roots padded to 256, IN up to 4,096) show; K4 also over the warm
 RMAT-16 k=5 `kclique_count` call. K13 and K11 over the RMAT-12 k=4 emit
 pass, every job's `star_fused_chunk(emit=True)` then `decode_star_rows`, as
-phase 20 runs them, each split by job, K12 beside them (--run sets K12's
-least run length), and both held job by job as phase 22 holds them
-(--parts held). K10 over phase 14's RMAT-12 enumerate run
-(`bron_kerbosch(collect=True, sink=)`). The list call `kclique_star_list(g,
-4)` at RMAT-12 under torch.profiler (its device time), then its list-mode
-body once more with each stage timed apart: the plan, the device work
-(emit and decode, synchronised), the `.cpu()` copies of the ids and the
-Python loop that builds the pairs (in a tree with `star_pairs`, the ids
-compacted on the card, their copies and the pairs in one figure, loop_s;
-it holds some 4 M frozensets, tens of GB of host memory; --parts picks the
-measurements).
+phase 20 runs them, each split by job, K12 beside them, and both held job
+by job as phase 22 holds them (--parts held). K10 over phase 14's RMAT-12
+enumerate run (`bron_kerbosch(collect=True, sink=)`). The list call
+`kclique_star_list(g, 4)` at RMAT-12 under torch.profiler (its device
+time), then a full `gc.collect()` and the freeing of its pairs, each timed;
+then, in a tree with `compact_star_rows`, its list-mode body once more
+with each stage timed apart: the plan, the device work (emit and decode,
+synchronised), the ids compacted on the card and copied, and the pairs
+built (`star_pairs`). It holds some 4 M frozensets, tens of GB of host
+memory; --parts picks the measurements.
 
 Each call under torch.profiler (bench/profiling.py's profile_launches: the
 kernel's device time and launches, each launch in launch order, the host
 time and the device's idle share).
 
     python -m gms_tpu_torch.bench.cover_decode --label this [--parts emit,list]
-        [--run 4]
 
 To compare two checkouts on one card, run the other's package with this
 script in turns: PYTHONPATH=<other checkout> python
@@ -37,7 +35,7 @@ object last.
 from __future__ import annotations
 
 import argparse
-import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -207,8 +205,9 @@ def star_held(out: dict, g, rank) -> None:
 
 
 def star_list(out: dict, g, rank) -> None:
-    """The list call under torch.profiler, then its body with each stage
-    timed apart (kclique_star_list's list mode, k_clique_star.py)."""
+    """The list call under torch.profiler, a full collection and the freeing
+    of its pairs after it, then its body with each stage timed apart
+    (kclique_star_list's list mode, k_clique_star.py)."""
     from gms_tpu_torch.algorithms import k_clique_star as ks
 
     def call():
@@ -216,58 +215,53 @@ def star_list(out: dict, g, rank) -> None:
 
     res, host_s, per, busy, _ = profile_launches(call)
     n_pairs = len(res)
-    del res
     if n_pairs != STAR_GOLDEN[0]:
         raise SystemExit(f"list call: {n_pairs} pairs")
     run = window(f"list call RMAT {STAR_SCALE} k={STAR_K}:", host_s, per,
                  busy, {"K13": K13, "K11": K11, "K12": K12})
+    t0 = time.perf_counter()
+    gc.collect()
+    t1 = time.perf_counter()
+    del res
+    run["after"] = {"gc_collect_s": t1 - t0,
+                    "free_s": time.perf_counter() - t1}
+    print("    after the call: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in run["after"].items()))
+    out["star_list"] = run
+    if not hasattr(ks, "compact_star_rows"):
+        return
 
     t0 = time.perf_counter()
     pg, rank_pad, jobs = ks.plan_star_jobs(g, STAR_K, device="cuda",
                                            rank=rank)
     torch.cuda.synchronize()
     split = {"plan_s": time.perf_counter() - t0, "device_s": 0.0,
-             "copy_s": 0.0, "loop_s": 0.0, "copy_bytes": 0}
-    results = []
-    # this tree's list call builds its pairs with the collector paused
-    with getattr(ks, "gc_paused", contextlib.nullcontext)():
-        for chunk, ww in jobs:
-            t0 = time.perf_counter()
-            _, o = ks.star_fused_chunk(pg.nbr, rank_pad, chunk, w_words=ww,
-                                       k=STAR_K, emit=True)
-            if not o.shape[0]:
-                continue
-            dev = ks.decode_star_rows(pg.nbr, chunk, o)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            if hasattr(ks, "star_pairs"):
-                # this tree: the ids compacted on the card, copied, cut by row
-                # (the copies are inside the loop's time)
-                results += ks.star_pairs(*dev)
-                t2 = t1
-            else:
-                gid, members, stars = (t.cpu().numpy() for t in dev)
-                t2 = time.perf_counter()
-                split["copy_bytes"] += (gid.nbytes + members.nbytes
-                                        + stars.nbytes)
-                for l in range(len(gid)):
-                    ms, ss = members[l], stars[l]
-                    results.append((frozenset([int(gid[l]),
-                                               *ms[ms >= 0].tolist()]),
-                                    frozenset(ss[ss >= 0].tolist())))
-            t3 = time.perf_counter()
-            split["device_s"] += t1 - t0
-            split["copy_s"] += t2 - t1
-            split["loop_s"] += t3 - t2
-            del o, dev
+             "compact_s": 0.0, "pairs_s": 0.0}
+    rows = []
+    for chunk, ww in jobs:
+        t0 = time.perf_counter()
+        _, o = ks.star_fused_chunk(pg.nbr, rank_pad, chunk, w_words=ww,
+                                   k=STAR_K, emit=True)
+        if not o.shape[0]:
+            continue
+        dev = ks.decode_star_rows(pg.nbr, chunk, o)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rows.append(ks.compact_star_rows(*dev))
+        split["device_s"] += t1 - t0
+        split["compact_s"] += time.perf_counter() - t1
+        del o, dev
+    t0 = time.perf_counter()
+    results = ks.star_pairs(rows)
+    split["pairs_s"] = time.perf_counter() - t0
     if len(results) != STAR_GOLDEN[0]:
         raise SystemExit(f"the list body gave {len(results)} pairs")
-    del results
+    split["copy_bytes"] = sum(a.nbytes for r in rows for a in r)
+    del results, rows
     print("    list body: " + ", ".join(
         f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
         for k, v in split.items()))
     run["split"] = split
-    out["star_list"] = run
 
 
 def bk_enumerate(out: dict) -> None:
@@ -301,8 +295,6 @@ def main(argv=None) -> dict:
     p.add_argument("--label", default="")
     p.add_argument("--parts", default=",".join(PARTS),
                    help="comma-separated subset of " + ",".join(PARTS))
-    p.add_argument("--run", type=int, default=None,
-                   help="K12's least items a run (k_clique_star.RUN_ITEMS)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("cover_decode needs a CUDA device")
@@ -320,11 +312,7 @@ def main(argv=None) -> dict:
     for name in LIBRARIES:
         if name in built:
             print(f"ptxas {name}:\n{built[name]}")
-    from gms_tpu_torch.algorithms import k_clique_star as ks
-    if args.run is not None:
-        ks.RUN_ITEMS = args.run
-    out = {"label": args.label, "card": card,
-           "run_items": getattr(ks, "RUN_ITEMS", None)}
+    out = {"label": args.label, "card": card}
     parts = args.parts.split(",")
     if "bk" in parts:
         fused_bk(out)

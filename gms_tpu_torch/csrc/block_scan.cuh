@@ -1,6 +1,6 @@
 // Block-wide exclusive scans and totals, the root-offset scan, a tile's
 // prefix by decoupled look-back, and the bit walks of the work-stack kernels
-// (kclique_stack.cu, bk_stack.cu, star_stack.cu).
+// (kclique_stack.cu, bk_stack.cu, star_stack.cu; kc_expand.cu looks back).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -56,11 +56,32 @@ constexpr unsigned long long kLookAggregate = 1ull << 62;
 constexpr unsigned long long kLookPrefix = 2ull << 62;
 constexpr unsigned long long kLookValue = kLookAggregate - 1;
 
+// Warp-wide: the exclusive prefix of tile t > 0, every lane. Reads the
+// status words of the tiles before it, 32 at a time, waiting on any not yet
+// published, and adds counts back to the first inclusive prefix. The caller
+// publishes t's count before it and t's inclusive prefix after it.
+__device__ __forceinline__ long long warp_look_back(
+    volatile unsigned long long* status, long long t, int lane) {
+  long long excl = 0;
+  for (long long j = t - 1;; j -= 32) {
+    const long long at = j - lane;
+    unsigned long long s = kLookPrefix;  // before tile 0: a prefix of 0
+    if (at >= 0) s = status[at];
+    while (__any_sync(0xffffffffu, s < kLookAggregate))
+      if (s < kLookAggregate) s = status[at];
+    const unsigned pre = __ballot_sync(0xffffffffu, s >= kLookPrefix);
+    const int stop = pre ? __ffs(pre) - 1 : 31;  // the nearest prefix
+    long long v = lane <= stop ? (long long)(s & kLookValue) : 0;
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    excl += __shfl_sync(0xffffffffu, v, 0);
+    if (pre) return excl;
+  }
+}
+
 // Block-wide: the exclusive prefix of tile t, whose own count is agg, over
 // the status words of the tiles before it (zeroed before the launch). Warp
-// 0 publishes t's count, reads the 32 status words before it at a time,
-// waiting on any not yet published, adds counts back to the first
-// inclusive prefix, and publishes t's own. Every thread calls it.
+// 0 publishes t's count, looks back (warp_look_back) and publishes t's
+// inclusive prefix. Every thread calls it.
 __device__ long long tile_prefix(volatile unsigned long long* status,
                                  long long t, long long agg) {
   __shared__ long long prefix;
@@ -69,20 +90,7 @@ __device__ long long tile_prefix(volatile unsigned long long* status,
     long long excl = 0;
     if (t > 0) {
       if (lane == 0) status[t] = kLookAggregate | (unsigned long long)agg;
-      for (long long j = t - 1;; j -= 32) {
-        const long long at = j - lane;
-        unsigned long long s = kLookPrefix;  // before tile 0: a prefix of 0
-        if (at >= 0) s = status[at];
-        while (__any_sync(0xffffffffu, s < kLookAggregate))
-          if (s < kLookAggregate) s = status[at];
-        const unsigned pre = __ballot_sync(0xffffffffu, s >= kLookPrefix);
-        const int stop = pre ? __ffs(pre) - 1 : 31;  // the nearest prefix
-        long long v = lane <= stop ? (long long)(s & kLookValue) : 0;
-        for (int o = 16; o > 0; o >>= 1)
-          v += __shfl_down_sync(0xffffffffu, v, o);
-        excl += __shfl_sync(0xffffffffu, v, 0);
-        if (pre) break;
-      }
+      excl = warp_look_back(status, t, lane);
     }
     if (lane == 0) {
       status[t] = kLookPrefix | (unsigned long long)(excl + agg);

@@ -23,13 +23,13 @@
 // or zero row cost no lane. One pass, each child formed and counted once:
 //   expand_kernel: a block counts its tile's survivors (a ballot a step,
 //     kept in shared memory) and their popcounts, publishes the tile's
-//     count, and finds its offset by decoupled look-back (warp 0 reads the
-//     flags of the 32 tiles before it at a time, adding counts back to the
-//     first tile that published its inclusive prefix), publishes that
-//     prefix, then writes each survivor below cap at its offset (its row
-//     ANDed again from S and the adj row, which the count just read); the
-//     last tile's prefix is stats[0], the popcounts one 64-bit atomicAdd a
-//     block (order-free);
+//     count, and finds its offset by decoupled look-back (block_scan.cuh's
+//     warp_look_back: warp 0 reads the flags of the 32 tiles before it at a
+//     time, adding counts back to the first tile that published its
+//     inclusive prefix), publishes that prefix, then writes each survivor
+//     below cap at its offset (its row ANDed again from S and the adj row,
+//     which the count just read); the last tile's prefix is stats[0], the
+//     popcounts one 64-bit atomicAdd a block (order-free);
 //   clear_kernel: the rows [min(stats[0], cap), cap) zeroed, 16 bytes a
 //     store.
 //
@@ -40,16 +40,14 @@
 
 #include <cuda_runtime.h>
 
+#include "block_scan.cuh"
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRound = kWarps * 32;  // the most words a tile, 32 a warp
-// a tile's status word: its flag in the top two bits, a count below
-constexpr unsigned long long kAggregate = 1ull << 62;
-constexpr unsigned long long kPrefix = 2ull << 62;
-constexpr unsigned long long kValue = kAggregate - 1;
 
 struct Level {
   const unsigned* S;
@@ -138,27 +136,6 @@ __device__ __forceinline__ void clear_words(T* p, long long a, long long b) {
     q[i] = make_uint4(0u, 0u, 0u, 0u);
 }
 
-// The exclusive prefix of tile t, whose own count is agg: warp 0 reads
-// the status words of the tiles before it, 32 at a time, waiting on any not
-// yet published, and adds counts back to the first inclusive prefix.
-__device__ __forceinline__ long long look_back(
-    volatile unsigned long long* status, long long t, int lane) {
-  long long excl = 0;
-  for (long long j = t - 1;; j -= 32) {
-    const long long at = j - lane;
-    unsigned long long s = kPrefix + 0ull;  // before tile 0: a prefix of 0
-    if (at >= 0) s = status[at];
-    while (__any_sync(kFull, s < kAggregate))
-      if (s < kAggregate) s = status[at];
-    const unsigned pre = __ballot_sync(kFull, s >= kPrefix);
-    const int stop = pre ? __ffs(pre) - 1 : 31;  // the nearest prefix
-    long long v = lane <= stop ? (long long)(s & kValue) : 0;
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
-    excl += __shfl_sync(kFull, v, 0);
-    if (pre) return excl;
-  }
-}
-
 __global__ void __launch_bounds__(kThreads)
     expand_kernel(Level L, unsigned long long* __restrict__ status,
                   unsigned long long* __restrict__ stats, long long cap,
@@ -204,12 +181,12 @@ __global__ void __launch_bounds__(kThreads)
       int agg = lane < kWarps ? warp_cnt[lane] : 0;
       for (int o = 16; o > 0; o >>= 1) agg += __shfl_xor_sync(kFull, agg, o);
       if (t == 0) {
-        if (lane == 0) flags[0] = kPrefix | (unsigned long long)agg;
+        if (lane == 0) flags[0] = kLookPrefix | (unsigned long long)agg;
       } else {
-        if (lane == 0) flags[t] = kAggregate | (unsigned long long)agg;
-        const long long excl = look_back(flags, t, lane);
+        if (lane == 0) flags[t] = kLookAggregate | (unsigned long long)agg;
+        const long long excl = warp_look_back(flags, t, lane);
         if (lane == 0) {
-          flags[t] = kPrefix | (unsigned long long)(excl + agg);
+          flags[t] = kLookPrefix | (unsigned long long)(excl + agg);
           tile_off = excl;
         }
       }

@@ -25,9 +25,9 @@
 // leaves spread over as many warps as it has items (the lesson of K6). The
 // items of k = 2 are leaves, those of k = 3 and k = 4 nodes of rem 1, and
 // k >= 5 walks below its items. A run is up to rb consecutive items that
-// share their parent, (b) at depth 1 and (b, i) at depth 2: rb = `run`, or
-// at depth 2 more for a root with over W * run items, so that a root has
-// at most 2W runs and the run table at most 2CW entries.
+// share their parent, (b) at depth 1 and (b, i) at depth 2: rb = kRunItems,
+// or at depth 2 more for a root with over W * kRunItems items, so that a
+// root has at most 2W runs and the run table at most 2CW entries.
 //   count_kernel, a block a root (taken in order by a ticket): |S0| and, at
 //     depth 2, the items of each i in S0 (|S0 & adj_dag[i]| if that is >=
 //     k-2, else 0) over S0's words up to its last non-zero one; a pad root
@@ -80,6 +80,9 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kList = 256;            // leaves listed at a time, a warp
 constexpr int kPer = 8;               // runs a thread in base_kernel
 constexpr int kTile = kThreads * kPer;
+// the least items a run (k_clique_star.py's RUN_ITEMS): of 1, 4, 16 and 64,
+// 4 was the fastest over the RMAT-12 k=4 emit pass on an H100
+constexpr int kRunItems = 4;
 
 // The control words (int64, zeroed by the caller): the totals, the number
 // of runs, the tickets and work counters, then the roots' look-back status
@@ -228,7 +231,7 @@ struct Leaves {
 __global__ void __launch_bounds__(kThreads) count_kernel(
     const unsigned* __restrict__ adj_dag, const unsigned* __restrict__ s0,
     const unsigned char* __restrict__ live0, long long c, int ww, int k,
-    int depth, int run, unsigned long long* ctl, int* __restrict__ icnt,
+    int depth, unsigned long long* ctl, int* __restrict__ icnt,
     int4* __restrict__ table) {
   __shared__ long long ticket, carry;
   __shared__ int last_word;
@@ -250,11 +253,11 @@ __global__ void __launch_bounds__(kThreads) count_kernel(
   const int nw = last_word + 1, hi = 32 * nw;  // S0 is 0 from bit hi on
   int* cnt = icnt + b * W;
   long long items = 0, runs = 0;
-  int rb = run;
+  int rb = kRunItems;
   if (live0[b] && size >= k - 1) {
     if (depth == 1) {
       items = size;
-      runs = (items + run - 1) / run;
+      runs = (items + kRunItems - 1) / kRunItems;
     } else {
       long long mine = 0;
       for (int i = threadIdx.x; i < hi; i += kThreads) {
@@ -269,7 +272,7 @@ __global__ void __launch_bounds__(kThreads) count_kernel(
       }
       items = block_total(mine);
       const long long per = (items + W - 1) / W;
-      rb = per > run ? (int)per : run;
+      rb = per > kRunItems ? (int)per : kRunItems;
       long long r = 0;
       for (int i = threadIdx.x; i < hi; i += kThreads)
         r += (cnt[i] + rb - 1) / rb;
@@ -281,8 +284,9 @@ __global__ void __launch_bounds__(kThreads) count_kernel(
   if (runs > 0) {
     if (depth == 1) {
       for (long long t = threadIdx.x; t < runs; t += kThreads)
-        table[off + t] = make_int4((int)b, -1, (int)(t * run),
-                                   (int)min((long long)run, items - t * run));
+        table[off + t] =
+            make_int4((int)b, -1, (int)(t * kRunItems),
+                      (int)min((long long)kRunItems, items - t * kRunItems));
     } else {
       if (threadIdx.x == 0) carry = off;
       __syncthreads();
@@ -460,21 +464,20 @@ int stack_grid(int ww, int k, int depth, size_t& smem, long long& blocks) {
 // The count pass. ctl: int64[8 + c + ceil(2*c*32*ww / 2048)] zeros; after
 // it ctl[0] = cliques, ctl[1] = star total (0 with sizes: the emit pass
 // sums it), ctl[2] = the runs. icnt: int32[c*32*ww]; table:
-// int32[2*c*32*ww, 4]; leaf_cnt: int64[2*c*32*ww], each run's leaves. run:
-// items a run (rb's least).
+// int32[2*c*32*ww, 4]; leaf_cnt: int64[2*c*32*ww], each run's leaves.
 extern "C" int star_stack_count(const void* adj_full, const void* adj_dag,
                                 const void* s0, const void* i0,
                                 const void* live0, long long c, int ww, int k,
-                                int run, int sizes, void* ctl, void* icnt,
+                                int sizes, void* ctl, void* icnt,
                                 void* table, void* leaf_cnt, void* stream) {
-  if (k < 2 || run < 1) return (int)cudaErrorInvalidValue;
+  if (k < 2) return (int)cudaErrorInvalidValue;
   if (c <= 0 || ww <= 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
   const int depth = k <= 3 ? 1 : 2;
   unsigned long long* cw = (unsigned long long*)ctl;
   count_kernel<<<(unsigned)c, kThreads, 0, st>>>(
       (const unsigned*)adj_dag, (const unsigned*)s0,
-      (const unsigned char*)live0, c, ww, k, depth, run, cw, (int*)icnt,
+      (const unsigned char*)live0, c, ww, k, depth, cw, (int*)icnt,
       (int4*)table);
   size_t smem = 0;
   long long blocks = 0;

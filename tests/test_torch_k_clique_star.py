@@ -20,6 +20,8 @@ kernels are held against these plain versions on the card by chip_smoke.py
 and by the `cuda`-marked tests of test_torch_kernels.py.
 """
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -522,19 +524,26 @@ def test_star_runs_plain_against_a_direct_count(rmat8, k):
 
 
 def test_star_pairs_equal_the_row_by_row_pairs():
-    """star_pairs against the per-row construction it replaced (each row's
-    ids >= 0), on decoded rows with -1 lanes anywhere and empty stars."""
+    """star_pairs of compact_star_rows against the per-row construction it
+    replaced (each row's ids >= 0), on decoded rows with -1 lanes anywhere
+    and empty stars: a job of more rows than star_pairs cuts at a time, a
+    small one and an empty one; the collector is on again after it."""
     rng = np.random.default_rng(11)
-    L, W = 500, 64
+    L, W = ks._PAIR_ROWS * 2 + 500, 32
     gid = torch.from_numpy(rng.integers(0, 1000, L).astype(np.int32))
     ids = rng.integers(0, 5000, (2, L, W)).astype(np.int32)
     ids[rng.random((2, L, W)) < 0.8] = -1
     ids[1, :7] = -1
+    ids[:, ks._PAIR_ROWS - 3:ks._PAIR_ROWS + 3] = -1
     members, stars = torch.from_numpy(ids[0]), torch.from_numpy(ids[1])
     want = [(frozenset([int(gid[l]), *ids[0, l][ids[0, l] >= 0].tolist()]),
              frozenset(ids[1, l][ids[1, l] >= 0].tolist())) for l in range(L)]
-    assert ks.star_pairs(gid, members, stars) == want
-    assert ks.star_pairs(gid[:0], members[:0], stars[:0]) == []
+    jobs = [ks.compact_star_rows(gid, members, stars),
+            ks.compact_star_rows(gid[:9], members[:9], stars[:9]),
+            ks.compact_star_rows(gid[:0], members[:0], stars[:0])]
+    assert ks.star_pairs(jobs) == want + want[:9]
+    assert gc.isenabled()
+    assert ks.star_pairs(jobs[2:]) == ks.star_pairs([]) == []
 
 
 @pytest.mark.parametrize("k", [3, 4])

@@ -1023,7 +1023,7 @@ def _check_star(univ, k):
     assert counts.tolist() == want.tolist()
     assert torch.equal(_sorted_rows(out), _sorted_rows(want_out))
     assert torch.equal(ks.star_stack(*univ, k=k, emit=True)[1], out)
-    ptable, pleaves = ks.star_runs_plain(*univ, k=k, run=ks.RUN_ITEMS)
+    ptable, pleaves = ks.star_runs_plain(*univ, k=k)
     for sizes in (False, True):  # the count pass of count and emit mode
         ctl, table, leaf_cnt = ks._count_pass(*univ, k, sizes=sizes)
         n_runs = int(ctl[2])
@@ -1092,19 +1092,6 @@ def test_star_stack_runs_longer_than_run_on_card(card, k):
     if k >= 4:
         table, _ = ks.star_runs_plain(*univ, k=k)
         assert int(table[:, 3].max()) > ks.RUN_ITEMS
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("run", [1, 16, 64])
-def test_star_stack_run_lengths_on_card(card, star10, run, monkeypatch):
-    """K12 at other least run lengths, k = 3 and 4, on RMAT-10's widest job."""
-    monkeypatch.setattr(ks, "RUN_ITEMS", run)
-    g, pg, rank_pad, jobs = star10
-    chunk, ww = jobs[-1]
-    univ = (*ks.build_local_univ(pg.nbr, rank_pad, chunk, w_words=ww),
-            chunk != pg.v_pad)
-    for k in (3, 4):
-        assert _check_star(univ, k) > 0
 
 
 def _star_jobs(g, k, card, **kw):
