@@ -244,7 +244,9 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      (their round states and draws recorded): johansson (proper, color <=
      deg), barenboim_elkin "barenboim" (proper, <= Δ+1 colors) and "elkin"
      (both bounds); each color count, time and launches; color_johansson
-     and color_one_shot must have launched; then the three on phase 39's
+     and color_one_shot must have launched twice a round (Johansson's pick
+     words and round, the one-shot's pick and resolve), whatever the number
+     of buckets; then the three on phase 39's
      RMAT 14 against gms_tpu's colors (COLOR_RANDOM_GOLDEN: gms_tpu's keys
      and jax.random's draws, prng.py);
  41. each coloring kernel against its plain version, exactly, on the
@@ -258,9 +260,12 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      (colors and rounds; bytes every round's buckets), its three passes
      (spec_pick, spec_rank, spec_clash, off the kernels line: no entry
      point runs them one by one) on the main path's first and last round,
-     color_johansson on Johansson's, color_one_shot (pick and resolve) on
-     Barenboim's (and,
-     off the kernels line, on Elkin's), color_components on phase 39's
+     color_johansson (johansson_round, a round over every bucket) on
+     Johansson's, color_one_shot (one_shot_round: pick and resolve) on
+     Barenboim's (and, off the kernels line, on Elkin's), their one-bucket
+     entries (johansson_bucket, one_shot_pick, one_shot_resolve, off the
+     kernels line: no entry point runs them) on Johansson's and
+     Barenboim's, color_components on phase 39's
      first and last label steps; CUDA-event times, L2 flushed, and bytes
      bounds of what each function needs (each row's id, own color and
      output; for an uncolored row its own words and, entry by entry, the
@@ -439,7 +444,9 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      K39 member_pack on every
      (chunk, hop, pack) of the RMAT 12 BK and RMAT 13 k=6 runs, with
      CUDA-event times and byte bounds (each distinct row read to its first
-     SENTINEL, the selected slots' locs, the outputs); the kernels line's
+     SENTINEL, the selected slots' locs, the outputs; beside it the bytes
+     with each visiting row read only to the entry that passes its roots'
+     last live value, where the kernel's walk stops); the kernels line's
      launches are those runs' launches, and must equal the calls compared;
      then, for correctness only, K40 on RMAT 18 split over two owners (the
      two buckets whose rows come from the other owner's shard, a table of
@@ -3010,47 +3017,64 @@ def last_round_state(gc, run, state):
     return int(rounds), (col,) + tuple(state[1:])
 
 
+def johansson_bytes(col, deg1, draws, ids, nbrt) -> int:
+    """A Johansson bucket's bytes, for an uncolored row: its draw and deg1;
+    each entry's index word and color, and an uncolored neighbour's draw
+    and deg1, up to the first neighbour whose pick is the row's."""
+    idl = ids.long()
+    ncol = nbr_take(col, nbrt)
+    npick = torch.where(ncol == -1, torch.remainder(
+        nbr_take(draws, nbrt), nbr_take(deg1, nbrt)), ncol)
+    vpick = torch.remainder(draws[idl], deg1[idl])
+    return bucket_bytes(ids, nbrt, col, 8, 8 + 8 * (ncol == -1).long(),
+                        stop=npick == vpick[:, None])
+
+
 def johansson_calls(gc, label, state):
     """johansson_bucket on each bucket of a Johansson round-start state,
-    with that round's draws. Bytes, for an uncolored row: its draw and
-    deg1; each entry's index word and color, and an uncolored neighbour's
-    draw and deg1, up to the first neighbour whose pick is the row's."""
+    with that round's draws (bytes by johansson_bytes)."""
     col, deg1, draws, tiers = state[:4]
     calls = []
     for ids, nbrt in tiers:
-        idl = ids.long()
-        ncol = nbr_take(col, nbrt)
-        npick = torch.where(ncol == -1, torch.remainder(
-            nbr_take(draws, nbrt), nbr_take(deg1, nbrt)), ncol)
-        vpick = torch.remainder(draws[idl], deg1[idl])
         kb, pb = col.clone(), col.clone()
         calls.append((
-            f"color_johansson {label}, Dt {nbrt.shape[1]}, Vt {ids.numel()}",
+            f"johansson_bucket {label}, Dt {nbrt.shape[1]}, Vt "
+            f"{ids.numel()}",
             lambda ids=ids, nbrt=nbrt, b=kb: gc.johansson_bucket(
                 col, deg1, draws, ids, nbrt, b),
             lambda ids=ids, nbrt=nbrt, b=pb: gc.johansson_bucket_plain(
                 col, deg1, draws, ids, nbrt, b),
-            bucket_bytes(ids, nbrt, col, 8, 8 + 8 * (ncol == -1).long(),
-                         stop=npick == vpick[:, None]), None))
+            johansson_bytes(col, deg1, draws, ids, nbrt), None))
     return calls
 
 
-def one_shot_calls(gc, label, state):
-    """one_shot_pick and one_shot_resolve on each bucket of a Barenboim or
-    Elkin round-start state, with that round's draws. Bytes, for an
-    uncolored row: pick, its two 64-bit draw words (and its deg1 for Elkin's
-    palette), each
-    entry's index word and color, two writes a row (pick and nfree);
-    resolve, its nfree, and where nfree > 0 its pick and, over the entries
-    w > v only, the index word, the color and an uncolored neighbour's
-    pick, up to the first uncolored w > v with the row's pick."""
+def johansson_round_calls(gc, label, state):
+    """johansson_round (K24's round over every bucket) on a Johansson
+    round-start state, with that round's draws, against
+    johansson_round_plain; bytes every bucket's, as johansson_bytes."""
+    col, deg1, draws, tiers = state[:4]
+    return [(f"johansson_round {label}, {len(tiers)} buckets",
+             lambda: gc.johansson_round(col, deg1, draws, tiers),
+             lambda: gc.johansson_round_plain(col, deg1, draws, tiers),
+             sum(johansson_bytes(col, deg1, draws, ids, nbrt)
+                 for ids, nbrt in tiers), None)]
+
+
+def one_shot_parts(gc, state):
+    """(pick, nfree, [(ids, nbrt, pick bytes, resolve bytes)]) of a
+    Barenboim or Elkin round-start state: the pick pass's plain buffers and
+    each bucket's bytes. Pick, for an uncolored row: its two 64-bit draw
+    words (and its deg1 for Elkin's palette), each entry's index word and
+    color, two writes a row (pick and nfree); resolve, its nfree, and where
+    nfree > 0 its pick and, over the entries w > v only, the index word,
+    the color and an uncolored neighbour's pick, up to the first uncolored
+    w > v with the row's pick."""
     col, deg1, draws, tiers, kw = state
     pick, nfree = col.clone(), torch.zeros_like(col)
     for ids, nbrt in tiers:
         gc.one_shot_pick_plain(col, deg1, draws, ids, nbrt, pick, nfree, **kw)
-    calls = []
+    parts = []
     for ids, nbrt in tiers:
-        tag = f"{label}, Dt {nbrt.shape[1]}, Vt {ids.numel()}"
         idl = ids.long()
         unc_v = (col[idl] == -1) & (idl < col.shape[0] - 1)
         unc_n = (nbr_take(col, nbrt) == -1).long()
@@ -3058,6 +3082,25 @@ def one_shot_calls(gc, label, state):
         free = nfree[idl] > 0
         clash = (above * unc_n).bool() & (nbr_take(pick, nbrt)
                                           == pick[idl][:, None])
+        parts.append((
+            ids, nbrt,
+            bucket_bytes(ids, nbrt, col, 20 if kw["palette_deg"] else 16,
+                         torch.full_like(unc_n, 8), writes=8),
+            bucket_bytes(ids, nbrt, col, 8, above * (8 + 4 * unc_n),
+                         stop=clash, live=unc_v & free)
+            + 4 * int((unc_v & ~free).sum())))
+    return pick, nfree, parts
+
+
+def one_shot_calls(gc, label, state):
+    """one_shot_pick and one_shot_resolve on each bucket of a Barenboim or
+    Elkin round-start state, with that round's draws (bytes by
+    one_shot_parts)."""
+    col, deg1, draws, tiers, kw = state
+    pick, nfree, parts = one_shot_parts(gc, state)
+    calls = []
+    for ids, nbrt, b_pick, b_resolve in parts:
+        tag = f"{label}, Dt {nbrt.shape[1]}, Vt {ids.numel()}"
         kp, kn, pp, pn = col.clone(), col.clone(), col.clone(), col.clone()
         ko, po = col.clone(), col.clone()
         calls += [
@@ -3065,18 +3108,26 @@ def one_shot_calls(gc, label, state):
              lambda ids=ids, nbrt=nbrt, a=kp, b=kn: gc.one_shot_pick(
                  col, deg1, draws, ids, nbrt, a, b, **kw),
              lambda ids=ids, nbrt=nbrt, a=pp, b=pn: gc.one_shot_pick_plain(
-                 col, deg1, draws, ids, nbrt, a, b, **kw),
-             bucket_bytes(ids, nbrt, col, 20 if kw["palette_deg"] else 16,
-                          torch.full_like(unc_n, 8), writes=8), None),
+                 col, deg1, draws, ids, nbrt, a, b, **kw), b_pick, None),
             (f"one_shot_resolve {tag}",
              lambda ids=ids, nbrt=nbrt, b=ko: gc.one_shot_resolve(
                  col, pick, nfree, ids, nbrt, b),
              lambda ids=ids, nbrt=nbrt, b=po: gc.one_shot_resolve_plain(
-                 col, pick, nfree, ids, nbrt, b),
-             bucket_bytes(ids, nbrt, col, 8, above * (8 + 4 * unc_n),
-                          stop=clash, live=unc_v & free)
-             + 4 * int((unc_v & ~free).sum()), None)]
+                 col, pick, nfree, ids, nbrt, b), b_resolve, None)]
     return calls
+
+
+def one_shot_round_calls(gc, label, state):
+    """one_shot_round (K24's pick and resolve passes over every bucket) on
+    a Barenboim or Elkin round-start state, with that round's draws, against
+    one_shot_round_plain (colors and nfree); bytes every bucket's, as
+    one_shot_parts."""
+    col, deg1, draws, tiers, kw = state
+    nbytes = sum(b + c for *_, b, c in one_shot_parts(gc, state)[2])
+    return [(f"one_shot_round {label}, {len(tiers)} buckets",
+             lambda: gc.one_shot_round(col, deg1, draws, tiers, **kw),
+             lambda: gc.one_shot_round_plain(col, deg1, draws, tiers, **kw),
+             nbytes, None)]
 
 
 def component_calls(gc, label, state):
@@ -3274,8 +3325,16 @@ def coloring_phases(timing, report) -> None:
         print(f"[40] {label}: {n_col} colors, rounds "
               f"{rand_states[label].rounds}, {dt:.4f} s; launches "
               f"{rand_launches[label]}")
-    check(rand_launches["johansson"]["color_johansson"] > 0,
-          "K24's johansson entry never launched")
+    # K24's launches a round: Johansson's pick words and round, the
+    # one-shot's pick and resolve
+    per_round = {"color_johansson": 2, "color_one_shot": 2}
+    for label, key in (("johansson", "color_johansson"),
+                       ("barenboim", "color_one_shot"),
+                       ("elkin", "color_one_shot")):
+        got, rounds = rand_launches[label][key], rand_states[label].rounds
+        check(got == per_round[key] * rounds > 0,
+              f"K24 ({key}) launched {got} times over {label}'s {rounds} "
+              f"rounds, not {per_round[key]} a round")
     # gms_tpu's colors at RMAT 14 (its keys, jax.random's draws)
     for label, (want_n, want_d) in COLOR_RANDOM_GOLDEN.items():
         t0 = time.perf_counter()
@@ -3336,10 +3395,10 @@ def coloring_phases(timing, report) -> None:
             for c in spec_run_calls(gc, f"spec JP-LF {lab}", st)]),
         "color_johansson": (rand_launches["johansson"], [
             c for lab, st in rand_states["johansson"].both()
-            for c in johansson_calls(gc, f"Johansson {lab}", st)]),
+            for c in johansson_round_calls(gc, f"Johansson {lab}", st)]),
         "color_one_shot": (rand_launches["barenboim"], [
             c for lab, st in rand_states["barenboim"].both()
-            for c in one_shot_calls(gc, f"Barenboim {lab}", st)]),
+            for c in one_shot_round_calls(gc, f"Barenboim {lab}", st)]),
         "color_components": (ds_launches, [
             c for lab, st in ds_states.both()
             for c in component_calls(gc, f"RMAT {COLOR_DS_SCALE}, label "
@@ -3372,12 +3431,25 @@ def coloring_phases(timing, report) -> None:
     # Elkin's per-vertex palettes: held to plain too, not on the kernels line
     err, k_ms, p_ms, bound_ms, _ = color_compare(timing, [
         c for lab, st in rand_states["elkin"].both()
-        for c in one_shot_calls(gc, f"Elkin {lab}", st)])
-    print(f"[41] color_one_shot on Elkin's first and last round: max_abs_err "
-          f"{err}, kernel {k_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes), "
-          f"plain {p_ms:.4f} ms; its launches "
+        for c in one_shot_round_calls(gc, f"Elkin {lab}", st)])
+    print(f"[41] color_one_shot (one_shot_round) on Elkin's first and last "
+          f"round: max_abs_err {err}, kernel {k_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms (bytes), plain {p_ms:.4f} ms; its launches "
           f"{rand_launches['elkin']['color_one_shot']}")
     check(err == 0, f"color_one_shot (Elkin) disagrees with plain by {err}")
+    # K24's one-bucket entries, which no entry point runs: off the kernels
+    # line, on Johansson's and Barenboim's first and last round
+    err, k_ms, p_ms, bound_ms, _ = color_compare(timing, [
+        c for lab, st in rand_states["johansson"].both()
+        for c in johansson_calls(gc, f"Johansson {lab}", st)] + [
+        c for lab, st in rand_states["barenboim"].both()
+        for c in one_shot_calls(gc, f"Barenboim {lab}", st)])
+    print(f"[41] johansson_bucket, one_shot_pick, one_shot_resolve (off the "
+          f"main path) on Johansson's and Barenboim's first and last round: "
+          f"max_abs_err {err}, kernel {k_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"(bytes), plain {p_ms:.4f} ms")
+    check(err == 0, f"K24's one-bucket entries disagree with their plain "
+          f"versions by {err}")
     for name, (launches, calls) in groups.items():
         err, k_ms, p_ms, bound_ms, by = color_compare(timing, calls)
         lib_ms = None
@@ -5029,13 +5101,29 @@ def row_words(table, rows) -> int:
     return int((lens + 1).clamp(max=table.shape[1]).sum())
 
 
-def pack_calls(plan, label):
+def stop_row_words(table, rows, last) -> int:
+    """Data words of the distinct `rows` of a padded table, each read up to
+    and including its first entry past the largest of the `last` values it
+    is walked against (a row's own SENTINEL passes every value)."""
+    rows = rows.long().clamp(0, table.shape[0] - 1)
+    u, inv = torch.unique(rows, return_inverse=True)
+    top = torch.full((u.numel(),), -1, dtype=torch.long,
+                     device=rows.device).scatter_reduce_(0, inv, last.long(),
+                                                         "amax")
+    below = (table[u].long() <= top[:, None]).sum(1)
+    return int((below + 1).clamp(max=table.shape[1]).sum())
+
+
+def pack_calls(plan, label, stops):
     """K39's (chunk, hop, pack) calls of a world-size-1 plan, each against
     its plain version on zeroed outputs (OR-ing again leaves them as they
     are, so the timed reps compute the same words). A call's bytes: each
     distinct visiting row a selected slot names and each q row with a
     selected slot, to its first SENTINEL; locs of the selected slots only;
-    sel whole; the selected output words read and written."""
+    sel whole; the selected output words read and written. Appends to
+    `stops` each call's bytes with the visiting rows read only to the
+    entry past their root's last live value (stop_row_words), where the
+    kernel's walk stops."""
     from gms_tpu_torch.algorithms import k_clique as kc
     from gms_tpu_torch.graphs.tiles import SENTINEL
     calls = []
@@ -5054,9 +5142,12 @@ def pack_calls(plan, label):
                                 dtype=torch.int32, device=q.device)
                     for _ in range(2)]
             n_sel = int(sel.sum())
-            nbytes = (row_words(vis, lc[sel])
-                      + row_words(q, sel.any(1).nonzero().reshape(-1))
-                      + n_sel + 2 * n_sel * plan.w_words) * 4 + sel.numel()
+            rest = (row_words(q, sel.any(1).nonzero().reshape(-1))
+                    + n_sel + 2 * n_sel * plan.w_words) * 4 + sel.numel()
+            nbytes = row_words(vis, lc[sel]) * 4 + rest
+            q_last = torch.where(q != int(SENTINEL), q, -1).amax(1)
+            stops.append(stop_row_words(
+                vis, lc[sel], q_last[sel.nonzero()[:, 0]]) * 4 + rest)
             calls.append((
                 f"{label} chunk {ci} {what}: C={q.shape[0]} L={L} "
                 f"selected {n_sel}",
@@ -5237,14 +5328,19 @@ def ring_phases(timing, report) -> None:
     report.append(kernel_entry("count_dag_edges_cross", n40, err, k_ms, p_ms,
                                bound_ms, by))
     del own, eb, vb, used, k40, tv, sched
-    k39 = (pack_calls(plans[f"bk{BK_SMALL}"], f"BK RMAT {BK_SMALL}")
-           + pack_calls(plans["kc13_6"], "RMAT 13 k=6"))
+    stops = []
+    k39 = (pack_calls(plans[f"bk{BK_SMALL}"], f"BK RMAT {BK_SMALL}", stops)
+           + pack_calls(plans["kc13_6"], "RMAT 13 k=6", stops))
     n39 = sum(one[key]["launches"].get("member_pack", 0)
               for key in (f"bk{BK_SMALL}", "kc13_6"))
     err, k_ms, p_ms, bound_ms, by = compare(timing, k39)
+    stop_b = sum(stops)
     print(f"[57] member_pack: {len(k39)} calls, the two runs' {n39} "
           f"launches; max_abs_err {err}, kernel {k_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({by}), plain {p_ms:.4f} ms")
+          f"{bound_ms:.4f} ms ({by}; each visiting row to its first "
+          f"SENTINEL), to the entry past the root's last value "
+          f"{stop_b / HBM_BYTES_PER_S * 1e3:.4f} ms ({stop_b} bytes), plain "
+          f"{p_ms:.4f} ms | {card_line()}")
     check(err == 0, f"member_pack disagrees with plain by {err}")
     check(n39 == len(k39), f"K39 launches {n39} != its {len(k39)} calls")
     report.append(kernel_entry("member_pack", n39, err, k_ms, p_ms, bound_ms,

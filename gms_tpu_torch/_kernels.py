@@ -180,6 +180,14 @@ SIGNATURES = {
                           _P),
         # ids, nbrt, Vt, Dt, colors, pick, nfree, out, stream
         "one_shot_resolve": (_P, _P, _L, _I, _P, _P, _P, _P, _P),
+        # bucket table, buckets, wide rows, narrow rows, colors, deg1,
+        # draws, n1, pick words, out, stream
+        "johansson_round": (_P, _I, _L, _L, _P, _P, _P, _L, _P, _P, _P),
+        # bucket table, buckets, wide rows, narrow rows, colors, deg1,
+        # draws, n1, palette_deg, delta, palette words (narrow, wide), pick,
+        # nfree, out, stream
+        "one_shot_round": (_P, _I, _L, _L, _P, _P, _P, _L, _I, _I, _I, _I,
+                           _P, _P, _P, _P),
     },
     "color_components": {
         # indptr, indices, n, comp, nxt, the row schedule (rows, starts,

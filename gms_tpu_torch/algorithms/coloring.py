@@ -31,20 +31,28 @@ tensors, and adds one to LAUNCHES[name] per launch:
   * `spec_pick`, `spec_rank`, `spec_clash` (K23, LAUNCHES "color_spec"):
     the three passes of the speculative round over one bucket, each into a
     fresh buffer, on the same device functions as spec_run;
-  * `johansson_bucket` (K24, csrc/color_random.cu, LAUNCHES
-    "color_johansson") and `one_shot_pick` + `one_shot_resolve` (K24,
-    "color_one_shot"): the randomized rounds on explicit draws (Johansson's
-    picks; the one-shot's two raw 64-bit words a vertex, reduced to a pick
-    in the kernel once the free palette is counted);
+  * `johansson_round` (K24, csrc/color_random.cu, LAUNCHES
+    "color_johansson") and `one_shot_round` (K24, "color_one_shot"): a
+    randomized round over every bucket on explicit draws (Johansson's picks;
+    the one-shot's two raw 64-bit words a vertex, reduced to a pick in the
+    kernel once the free palette is counted): Johansson two launches (the
+    pick words, then the round), the one-shot a pick launch and a resolve
+    launch, a row above 1,024 entries a block; `johansson` and
+    `barenboim_elkin` run them;
+  * `johansson_bucket`, `one_shot_pick` and `one_shot_resolve` (K24, the
+    same LAUNCHES keys): the randomized rounds over one bucket, a warp a
+    row, which no entry point runs;
   * `component_step` (K25, csrc/color_components.cu): one Jacobi min-label
     step on the friend graph of `dense_sparse`, over the degree-balanced
     row schedule of graphs/row_schedule.py (built once a call).
-The wrappers other than jp_run and spec_run take one bucket; the round
-functions (`jp_round`, `spec_round`, `johansson_round`, `one_shot_round`,
-`component_labels`) walk the buckets through them; their `*_plain` twins
-walk them through the plain versions, on any device (`jp_run_plain` and
-`spec_run_plain`, the round loops of `jp_round_plain` and
-`spec_round_plain`).
+The wrappers other than jp_run, spec_run, johansson_round and
+one_shot_round take one bucket; the round functions `jp_round` and
+`spec_round` (and `component_labels` its steps) walk the buckets through
+them; the `*_plain` twins walk them through the plain versions, on any
+device (`jp_run_plain` and `spec_run_plain`, the round loops of
+`jp_round_plain` and `spec_round_plain`; `johansson_round_plain` and
+`one_shot_round_plain` the buckets through `johansson_bucket_plain`, and
+`one_shot_pick_plain` then `one_shot_resolve_plain`).
 
 Johansson and Barenboim/Elkin draw gms_tpu's jax.random numbers from
 gms_tpu's keys (gms_tpu_torch/prng.py, threefry bit for bit), so their
@@ -83,6 +91,9 @@ ROUNDS = {"jones_plassmann": 0, "johansson": 0, "barenboim_elkin": 0,
           "dense_sparse": 0, "component_labels": 0}
 
 _SENT = int(SENTINEL)
+# K24's round kernel (csrc/color_random.cu): rows above _WIDE_ROW entries
+# take a block; at most _MAX_BUCKETS buckets a round
+_WIDE_ROW, _MAX_BUCKETS = 1024, 64
 # elements a plain version materialises at once
 _PLAIN_BUDGET = 1 << 24
 
@@ -487,10 +498,60 @@ def _johansson_round(colors, deg1, draws, tiers, bucket):
     return out
 
 
+def _round_inputs(name, tiers, *state):
+    """Checks a round's buckets against its state arrays; (whether they lie
+    on the card, the bucket table, the rows of the buckets wider than
+    _WIDE_ROW entries, the rest's rows, the widest Dt)."""
+    _kernels.check_tensor(name, "colors", state[0], 1)
+    cuda = _kernels.on_cuda(name, *state)
+    for ids, nbrt in tiers:
+        _check_bucket(name, ids, nbrt, *state)
+    if not cuda:
+        return False, None, 0, 0, 0
+    if len(tiers) > _MAX_BUCKETS:
+        raise ValueError(f"{name}: {len(tiers)} buckets, at most "
+                         f"{_MAX_BUCKETS}")
+    wide = sum(n.shape[0] for _, n in tiers if n.shape[1] > _WIDE_ROW)
+    narrow = sum(n.shape[0] for _, n in tiers if n.shape[1] <= _WIDE_ROW)
+    table, max_dt = _round_table(tuple((i.data_ptr(), n.data_ptr(),
+                                        *n.shape) for i, n in tiers),
+                                 state[0].device)
+    return True, table, wide, narrow, max_dt
+
+
+@functools.lru_cache(maxsize=16)
+def _round_table(rows, dev):
+    """_bucket_table of the buckets whose (ids pointer, nbrt pointer, Vt,
+    Dt) are `rows`, kept for the rounds of a call: a table built anew is a
+    copy from pageable memory, which waits for the stream to drain every
+    round. The table holds nothing but its key, so a kept one is always the
+    one a build would give."""
+    table = torch.tensor(list(rows), dtype=torch.int64).to(dev)
+    return table, max([r[3] for r in rows] + [1])
+
+
 def johansson_round(colors, deg1, draws, tiers):
     """One Johansson round (gms_tpu _johansson_round_tiered, coloring.py:127)
-    with the draws given: int32[n + 1], non-negative (`johansson_draws`)."""
-    return _johansson_round(colors, deg1, draws, tiers, johansson_bucket)
+    with the draws given: int32[n + 1], non-negative (`johansson_draws`).
+    Returns the round's colors, a new tensor. For CUDA tensors two
+    launches, each LAUNCHES "color_johansson": every vertex's pick word
+    (its color, else its draw mod deg1), then K24's round kernel over every
+    bucket, which reads one word a neighbour; for CPU tensors
+    johansson_round_plain."""
+    name = "johansson_round"
+    cuda, table, wide, narrow, _ = _round_inputs(name, tiers, colors, deg1,
+                                                 draws)
+    if not cuda:
+        return johansson_round_plain(colors, deg1, draws, tiers)
+    out = colors.clone()
+    if not wide + narrow:
+        return out
+    pw = torch.empty_like(colors)
+    _kernels.launch("color_random", "johansson_round", table, len(tiers),
+                    wide, narrow, colors, deg1, draws, colors.shape[0], pw,
+                    out)
+    LAUNCHES["color_johansson"] += 2
+    return out
 
 
 def johansson_round_plain(colors, deg1, draws, tiers):
@@ -584,9 +645,38 @@ def one_shot_round(colors, deg1, draws, tiers, *, palette_deg: bool,
                    delta: int):
     """One Barenboim/Elkin round (gms_tpu _one_shot_round, coloring.py:404)
     with the draws given (int64[2, n + 1], `one_shot_draws`); returns
-    (colors, nfree)."""
-    return _one_shot_round(colors, deg1, draws, tiers, palette_deg, delta,
-                           one_shot_pick, one_shot_resolve)
+    (colors, nfree), new tensors. For CUDA tensors two launches of K24's
+    round kernel over every bucket, the pick pass then the resolve pass,
+    each LAUNCHES "color_one_shot"; the rows of the 32-wide bucket pick by
+    the ranks of their sorted used colors, the rest in a used-color mask of
+    their palette (Elkin's deg1[v] must be at most the row's Dt + 1, as
+    deg + 1 is). For CPU tensors one_shot_round_plain."""
+    name = "one_shot_round"
+    _kernels.check_tensor(name, "draws", draws, 2, torch.int64)
+    if draws.shape != (2, colors.shape[0]):
+        raise ValueError(f"{name}: draws {tuple(draws.shape)} for "
+                         f"{colors.shape[0]} state slots")
+    cuda, table, wide, narrow, max_dt = _round_inputs(name, tiers, colors,
+                                                      deg1)
+    _kernels.on_cuda(name, colors, draws)      # raises on another device
+    if not cuda:
+        return one_shot_round_plain(colors, deg1, draws, tiers,
+                                    palette_deg=palette_deg, delta=delta)
+    # palette words of the widest narrow and wide row
+    top = min(max_dt, _WIDE_ROW)
+    cw = _color_words((top + 1) if palette_deg else (delta + 1))
+    cw_wide = (_color_words((max_dt + 1) if palette_deg else (delta + 1))
+               if max_dt > _WIDE_ROW else 0)
+    pick, out = colors.clone(), colors.clone()
+    nfree = torch.zeros_like(colors)
+    if not wide + narrow:
+        return out, nfree
+    _kernels.launch("color_random", "one_shot_round", table, len(tiers),
+                    wide, narrow, colors, deg1, draws, draws.shape[1],
+                    int(palette_deg), int(delta), cw, cw_wide, pick, nfree,
+                    out)
+    LAUNCHES["color_one_shot"] += 2
+    return out, nfree
 
 
 def one_shot_round_plain(colors, deg1, draws, tiers, *, palette_deg: bool,

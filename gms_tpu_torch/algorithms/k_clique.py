@@ -223,8 +223,9 @@ def member_pack(q, vis, locs, sel, out):
     packs of gms_tpu's vertex-sharded plans (parallel/sharding.py:379-400,
     :579-603): adj with locs the root row's own slots, BK's cover bitsets M
     with locs its lower neighbours. Rows must be sorted as stated (checked
-    under GMS_TPU_PARANOID=1): the kernel binary-searches q and would miss
-    members of an unsorted one, which the plain version would not.
+    under GMS_TPU_PARANOID=1): the kernel stops a visiting row past q's
+    last live value and would miss members of an unsorted one, which the
+    plain version would not.
     """
     name = "member_pack"
     _check(name, "q", q, 2)

@@ -1,6 +1,5 @@
-// Warp-cooperative color picks over a used-color bitmask in shared memory,
-// shared by the coloring kernels (K22 color_jp, K23 color_spec, K24's
-// one-shot round).
+// Color picks over a used-color bitmask in shared memory, shared by the
+// coloring kernels (K22 color_jp, K23 color_spec, K24's one-shot round).
 //
 // One warp owns one row (vertex) and `cw` 32-bit words of shared memory.
 // `mask_clear` zeroes them, `mask_mark` sets the bit of a color when it lies
@@ -9,6 +8,9 @@
 // k-th (0-based) color below `limit` whose bit is clear — gms_tpu's
 // _pick_tiered word scan with _select_bit, 32 words a step — or -1 when
 // fewer than k+1 are free. `free_count` counts the clear bits below `limit`.
+// A row wide enough to take a whole block (K23's and K24's rows above 1,024
+// entries) marks one mask for the block; `block_free_count` and
+// `block_kth_free` count and select in it block-wide.
 
 #pragma once
 
@@ -75,6 +77,39 @@ __device__ __forceinline__ int kth_free(const unsigned* mask, int cw,
     rem -= __shfl_sync(kFull, incl, 31);
   }
   return -1;
+}
+
+// free_count for a block's mask (block-wide; every thread calls it after
+// the marks and a barrier, and gets the count).
+__device__ __forceinline__ int block_free_count(const unsigned* mask, int cw,
+                                                int limit) {
+  __shared__ int total;
+  if (threadIdx.x == 0) total = 0;
+  __syncthreads();
+  int c = 0;
+  for (int wi = threadIdx.x; wi < cw; wi += blockDim.x)
+    c += __popc(~mask[wi] & limit_bits(wi, limit));
+  for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(kFull, c, o);
+  if ((threadIdx.x & 31) == 0 && c) atomicAdd(&total, c);
+  __syncthreads();
+  const int t = total;
+  __syncthreads();   // total is free for the next row
+  return t;
+}
+
+// The k-th free color below `limit` of a block's mask (block-wide; k
+// block-uniform, the marks done before a barrier), 0 when none.
+__device__ __forceinline__ int block_kth_free(const unsigned* mask, int cw,
+                                              int limit, int k) {
+  __shared__ int pick;
+  if (threadIdx.x < 32) {
+    const int p = kth_free(mask, cw, limit, k, threadIdx.x);
+    if (threadIdx.x == 0) pick = p;
+  }
+  __syncthreads();
+  const int p = pick;
+  __syncthreads();   // pick and the mask are free for the next row
+  return p < 0 ? 0 : p;
 }
 
 // Dynamic shared memory of a launch with `wpb` warps of `cw` words each;

@@ -228,21 +228,6 @@ __device__ __forceinline__ int pass_warp(const int* ids, const int* nbrt,
   }
 }
 
-// The k-th free color of a block's mask (block-wide; k block-uniform, the
-// marks done before a barrier), 0 when none.
-__device__ __forceinline__ int block_kth_free(const unsigned* mask, int cw,
-                                              int k) {
-  __shared__ int pick;
-  if (threadIdx.x < 32) {
-    const int p = color::kth_free(mask, cw, 32 * cw, k, threadIdx.x);
-    if (threadIdx.x == 0) pick = p;
-  }
-  __syncthreads();
-  const int p = pick;
-  __syncthreads();   // pick and the mask are free for the next row
-  return p < 0 ? 0 : p;
-}
-
 // One pass over row r of a bucket, the whole block (Dt > kWideRow): the
 // same answer as pass_warp. mask holds cw words.
 template <int kPass>
@@ -307,7 +292,8 @@ __device__ __forceinline__ int pass_block(const int* ids, const int* nbrt,
     if (kPass == 1 && k) atomicAdd(&rank_k, k);
     __syncthreads();
     const int kk = kPass == 1 ? rank_k : 0;
-    result = block_kth_free(mask, cw, kk < kRankCap ? kk : kRankCap);
+    result = color::block_kth_free(mask, cw, limit,
+                                   kk < kRankCap ? kk : kRankCap);
   }
   if (threadIdx.x == 0) out[id] = result;
   return kPass == 2 && lose && id < n;

@@ -1,11 +1,11 @@
 // A root's padded row looked up by value, and one warp's walk of another
-// row against it: the inner loop of build_local_adj (local_adj.cu, K4) and
-// hub_cover_bits (bk_cover.cu, K8), which OR the slots found into bits
-// (warp_row_bits), of build_local_univ (star_univ.cu, K11), which ORs them
-// into two buffers, the second only where a per-slot test holds
-// (warp_row_bits_if), and of tier_intersect_owned (tier_intersect.cu, K40),
-// which counts them (warp_row_count). All three walk by warp_row_walk.
-// member_pack (ring_member.cu, K39) binary-searches instead (row_search.cuh).
+// row against it: the inner loop of build_local_adj (local_adj.cu, K4),
+// hub_cover_bits (bk_cover.cu, K8) and member_pack (ring_member.cu, K39),
+// which OR the slots found into bits (warp_row_bits), of build_local_univ
+// (star_univ.cu, K11), which ORs them into two buffers, the second only
+// where a per-slot test holds (warp_row_bits_if), and of
+// tier_intersect_owned (tier_intersect.cu, K40), which counts them
+// (warp_row_count). All three walk by warp_row_walk.
 //
 // Rows are strictly ascending with a SENTINEL tail (the padded layout), so a
 // root's live slots are a prefix [0, L) of its row. A block loads the root's

@@ -103,7 +103,24 @@ def test_spec_round_equals_gms_tpu():
 
 
 def test_johansson_round_fed_gms_tpu_draws():
-    g, jg = _rmat(10)
+    _johansson_rounds(*_rmat(10))
+
+
+def test_johansson_round_with_a_wide_row_fed_gms_tpu_draws():
+    # a row of 1,100 entries, which K24's round kernel gives a block (the
+    # card test of the same graph: test_torch_kernels.py's
+    # test_random_rounds_wide_rows_on_card)
+    from test_torch_kernels import _wide_row_el
+
+    g, jg = _both(*_wide_row_el())
+    assert jc._TierGraph(jg).tiers[-1][1].shape[1] == 2048
+    assert g.max_degree > 1024
+    _johansson_rounds(g, jg)
+
+
+def _johansson_rounds(g, jg):
+    """Three Johansson rounds of the port (kernel wrapper and plain) against
+    gms_tpu's _johansson_round_tiered, fed its draws."""
     n = g.num_nodes
     tg = jc._TierGraph(jg)
     tiers = tiers_from_numpy([(np.asarray(i), np.asarray(t))

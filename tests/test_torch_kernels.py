@@ -1707,6 +1707,20 @@ def _states(g, card, rounds=3):
     return prio, tiers, states
 
 
+def _wide_row_el(seed=27491095):
+    """RMAT-10 plus a star: vertex 3 joined to 1,100 leaves among 2,048
+    vertices, a row of more than 1,024 entries (the 2,048-wide bucket, a
+    block a row in K24's rounds); (edge list, vertex count). The CPU tests
+    of tests/test_torch_coloring_rounds.py hold the port to gms_tpu on the
+    same graph."""
+    n = 2048
+    rng = np.random.default_rng(seed)
+    leaves = rng.choice(np.delete(np.arange(n), 3), 1100, replace=False)
+    el = np.concatenate([generate_rmat_el(10, 16, seed=seed),
+                         np.stack([np.full(1100, 3), leaves], axis=1)])
+    return el.astype(np.int64), n
+
+
 @pytest.mark.cuda
 def test_color_rounds_on_card(card):
     g = _coloring_graph(3)
@@ -1717,6 +1731,7 @@ def test_color_rounds_on_card(card):
                             .astype(np.int32)).to(card)
     gen = torch.Generator(device=card)
     gen.manual_seed(5)
+    j0, o0 = gc.LAUNCHES["color_johansson"], gc.LAUNCHES["color_one_shot"]
     for col in states:
         for ids, nbrt in tiers:
             got = _launched("color_jp", lambda: gc.jp_bucket(
@@ -1747,8 +1762,50 @@ def test_color_rounds_on_card(card):
                                            delta=g.max_degree)
             assert torch.equal(got[0], want[0]) and torch.equal(got[1],
                                                                 want[1])
-    assert gc.LAUNCHES["color_johansson"] >= len(tiers)
-    assert gc.LAUNCHES["color_one_shot"] >= 4 * len(tiers)
+    # K24's launches a round, whatever the number of buckets: Johansson two
+    # (pick words, round), the one-shot two (pick, resolve)
+    assert gc.LAUNCHES["color_johansson"] - j0 == 2 * len(states)
+    assert gc.LAUNCHES["color_one_shot"] - o0 == 2 * 2 * len(states)
+
+
+@pytest.mark.cuda
+def test_random_rounds_wide_rows_on_card(card):
+    """johansson_round and one_shot_round (Barenboim and Elkin) against
+    their plain versions on a graph with a row of 1,100 entries, on the
+    first round and a later one, with the entry points' own draws; each a
+    fixed number of launches a round."""
+    from gms_tpu_torch import prng
+
+    el, n = _wide_row_el()
+    g = build_csr(el, num_nodes=n)
+    tiers = gc._TierGraph(g).to(card)
+    assert tiers[-1][1].shape[1] == 2048 and g.max_degree > 1024
+    deg1 = torch.from_numpy(np.concatenate([g.degrees + 1, [1]])
+                            .astype(np.int32)).to(card)
+    key = prng.key(5, card)
+    col = gc._initial_colors(n, card)
+    for r in range(3):
+        draws = gc.johansson_draws(key, r, deg1)
+        before = gc.LAUNCHES["color_johansson"]
+        got = gc.johansson_round(col, deg1, draws, tiers)
+        assert gc.LAUNCHES["color_johansson"] - before == 2
+        want = gc.johansson_round_plain(col, deg1, draws, tiers)
+        assert torch.equal(got, want), r
+        col = want
+    assert (col[:n] == -1).any() and (col[:n] >= 0).any()
+    for palette_deg in (False, True):
+        col = gc._initial_colors(n, card)
+        for r in range(3):
+            draws = gc.one_shot_draws(key, r, n + 1)
+            kw = dict(palette_deg=palette_deg, delta=g.max_degree)
+            before = gc.LAUNCHES["color_one_shot"]
+            got = gc.one_shot_round(col, deg1, draws, tiers, **kw)
+            assert gc.LAUNCHES["color_one_shot"] - before == 2
+            want = gc.one_shot_round_plain(col, deg1, draws, tiers, **kw)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1]), r
+            col = want[0]
+        assert (col[:n] >= 0).any()
 
 
 @pytest.mark.cuda
@@ -2509,17 +2566,26 @@ def test_ring_wrappers_reject_bad_inputs():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("ww,D,L", [(1, 96, 32), (3, 64, 70), (8, 160, 256)])
+@pytest.mark.parametrize("ww,D,L", [(1, 96, 32), (3, 64, 70), (8, 160, 256),
+                                    (32, 4096, 1024), (64, 4096, 2048)])
 def test_member_pack_on_card(card, ww, D, L):
     # q rows from one table, the visiting rows from another over the same
-    # ids; about half the slots selected, out pre-filled so the OR shows
+    # ids; about half the slots selected, out pre-filled so the OR shows.
+    # At W >= 1,024 the q rows hold values below 3,000 and the visiting rows
+    # up to 4,096 values below 8,192, so most of a visiting row lies past
+    # its root's last live value
     rng = np.random.default_rng(ww * D + L)
-    C, W, Vs = 37, 32 * ww, 300
-    q = _rows_over(rng, C, W, 500, W)
+    wide = ww >= 32
+    C, W, Vs = (6 if wide else 37), 32 * ww, 300
+    q = _rows_over(rng, C, W, 3000 if wide else 500, W)
     q[-3:] = SENTINEL                                   # pad roots
-    vis = _rows_over(rng, Vs, D, 500, D)
+    vis = _rows_over(rng, Vs, D, 8192 if wide else 500, D)
     locs = rng.integers(-5, Vs + 5, (C, L)).astype(np.int32)
     sel = rng.random((C, L)) < 0.5
+    if wide:
+        sel[0, : L // 2] = False       # a dead slab: no selected slot
+        assert (vis > q[:-3].max(where=q[:-3] != SENTINEL, initial=0)).any(
+            where=vis != SENTINEL)
     out = _sparse_bits(rng, (C, L, ww), 0.05)
     args = [torch.from_numpy(a).to(card) for a in (q, vis, locs, sel)]
     want = kc.member_pack_plain(*args, out.to(card).clone())
@@ -2527,6 +2593,11 @@ def test_member_pack_on_card(card, ww, D, L):
         *args, out.to(card).clone()), kc.LAUNCHES)
     assert torch.equal(got, want)
     assert not torch.equal(want.cpu(), out)
+    # a chunk with no selected slot leaves out as it is
+    none = torch.zeros_like(args[3])
+    got = _launched("member_pack", lambda: kc.member_pack(
+        *args[:3], none, out.to(card).clone()), kc.LAUNCHES)
+    assert torch.equal(got.cpu(), out)
 
 
 @pytest.mark.cuda

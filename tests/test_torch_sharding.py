@@ -4,7 +4,8 @@ gms_tpu's on its virtual CPU mesh and against the host oracles.
 * K39's plain version (member_pack_plain): the ring-built local adjacency
   and cover bitsets of every root, the N visiting shards folded in one
   process (N = 1, 2, 4), equal gms_tpu's build_local_adj and
-  _hub_cover_bits bit for bit, on RMAT-9 and two random graphs;
+  _hub_cover_bits bit for bit, on RMAT-9, two random graphs and RMAT-9
+  with ten hubs (visiting rows that run past their roots' last values);
 * K40's plain version (count_dag_edges_cross) against gms_tpu's
   sets.ops.intersect_count summed over the same row pairs, with and
   without its schedule; the schedule (cross_schedule) covering each valid
@@ -351,7 +352,21 @@ def _universe_graphs():
     from conftest import random_graph
 
     return {"rmat9": _rmat(9, 3), "g80": (random_graph(80, 0.2, seed=4), 80),
-            "g130": (random_graph(130, 0.08, seed=5), 130)}
+            "g130": (random_graph(130, 0.08, seed=5), 130),
+            "hubs": _hub_graph()}
+
+
+def _hub_graph():
+    """RMAT-9 plus ten hubs, the ids 590..599, each joined to 300 of the
+    other vertices: 42 % of the visiting rows a ring pack walks (BK's two
+    packs at N = 1) run past their root's last live value, where K39's walk
+    stops."""
+    rng = np.random.default_rng(4)
+    el = [generate_rmat_el(9, 8, seed=3)]
+    for h in range(590, 600):
+        el.append(np.stack([np.full(300, h),
+                            rng.choice(590, 300, replace=False)], axis=1))
+    return np.concatenate(el), 600
 
 
 @pytest.fixture(scope="module")
