@@ -146,7 +146,9 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      vertices by (per-vertex count, id);
  25. dense path, the counters set to 0 just before it: triangle_count_dense
      on RMAT 16 equals TrianglePlan's count; the bitmap's bytes
-     (536,870,912) and host build time; count_hub_edges launched once;
+     (536,870,912) and host build time; count_hub_edges launched once; the
+     call once more, warm, under torch.profiler: K15's device time and the
+     idle share;
  26. device ADG at RMAT 18, the ADG counter set to 0 just before each run:
      "avg" and "min" at eps 0.01, 0.1 and 0.5 equal the host
      adg_ordering_rank rank for rank; "prob_min" and "prob_median" give the
@@ -161,8 +163,12 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      |A|+|B|-|A∩B| and |A∖B| = |A|-|A∩B|, and |A| is v's out-degree;
  28. each of those kernels against its plain version, exactly, with
      CUDA-event times and bounds: count_dag_edges_per_vertex on every RMAT
-     18 tier, count_hub_edges on RMAT 16's dense edges (its operations, one
-     AND+popcount a word, bound it), bitmap_rows_count on phase 27's rows
+     18 tier, count_hub_edges on RMAT 16's dense edges (its bytes bound
+     it: each distinct source row once, the distinct (other row, word)
+     pairs at the source's non-zero words, the edges and valid; beside it,
+     of record, the dense design's AND+popcount of every word of both rows
+     an edge) and K15's device time over phase 25's warm call,
+     bitmap_rows_count on phase 27's rows
      (the two views of one table are read once: their bytes count once),
      adg_round on every round state of the main path's "avg" eps 0.1 run
      (times and bounds summed over its rounds); K14's device time over
@@ -324,7 +330,9 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      vectorised float64 PageRank (rtol 1e-4, atol 1e-7); each call's first
      and best of 3 warm times (host clock to the read-back), the host CSR
      copy timed apart; bfs_pull, frontier_ids, bfs_push, pr_pull, cc_step
-     and sssp_step must have launched;
+     and sssp_step must have launched; one more warm bfs(g, 0) under
+     torch.profiler: K30's device time (bfs_push's offsets scan and push,
+     frontier_ids), K29's beside it, and the idle share;
  48. betweenness_centrality(g, num_samples=64, seed=0) at RMAT 18, its
      counters set to 0 just before: max_depth 12, max_depth launches of each
      BC step a batch; its first and best warm time; the kernels against the
@@ -344,8 +352,10 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      indptr words and entries up to the one that decides them, the
      writes); frontier_ids on the level the d-opt BFS compacts, bfs_push on
      its push levels (the frontier's ids, distinct indptr words and rows,
-     each distinct neighbour's dist, the writes), each timed bare (the ids,
-     in any order, are sorted only to compare them); bfs_kbit_pull on every level of RMAT 14's KbitGraph (the
+     each distinct neighbour's dist, the writes; levels 0, 3 and 4, each
+     line printed, with K30's device time over phase 47's warm call
+     beside them), each timed bare (the ids, in any order, are sorted only
+     to compare them); bfs_kbit_pull on every level of RMAT 14's KbitGraph (the
      unreached rows' packed words up to the deciding lane); pr_pull on
      PageRank's first and last iteration, cc_step and sssp_step (weighted)
      on their first and last step (indptr, indices, weights, the state and
@@ -509,6 +519,12 @@ K6_KERNELS = ("stack_reg_kernel", "stack_kernel", "count_kernel",
 # of RMAT-16 k=5 (phase 8), one a tier of RMAT-18 (phase 23)
 K5_KERNELS = ("rows_kernel", "rows_any_kernel", "popcount_kernel")
 K14_KERNELS = ("vertex_kernel",)
+# K15's kernel; K30's: the push's offsets scan and segment push, and the
+# compaction; K29's
+K15_KERNELS = ("edge_runs_kernel",)
+K30_KERNELS = ("push_offsets_kernel", "bfs_push_kernel",
+               "frontier_ids_kernel")
+K29_KERNELS = ("bfs_pull_kernel",)
 K5_MAIN_LAUNCHES, K14_MAIN_LAUNCHES = 31, 10
 # k-clique graphs of bench.py: (RMAT scale, k, golden count of BENCH_r05)
 KCLIQUE_RUNS = ((16, 5, 4_600_426_489), (13, 6, 681_595_966),
@@ -1937,6 +1953,28 @@ def adg_bytes(g, alive, peel) -> int:
     return 8 * n + 3 * n + 16 * w + 4 * row_words + 8 * w
 
 
+def hub_edge_bytes_ops(rows, edges, valid, width: int) -> tuple:
+    """K15's bound on edges that hold row ids (no row_of, as the dense count
+    calls it): (bytes, AND+popcounts). Bytes: each distinct source row read
+    once to `width`, the distinct (other row, word) pairs at the source's
+    non-zero words, the edges and valid, the output. Operations: one a word
+    where both rows' words are non-zero (a word only where it can be
+    non-zero, as K21's and K5's bounds count)."""
+    n = rows.shape[0]
+    e = edges[valid != 0].long().clamp(0, n - 1)
+    nz = rows[:, :width] != 0
+    seen = torch.zeros(n * width, dtype=torch.bool, device=rows.device)
+    ops, step = 0, max(1, (1 << 26) // width)
+    for j in range(0, e.shape[0], step):
+        a, b = nz[e[j:j + step, 0]], e[j:j + step, 1]
+        ops += int((a & nz[b]).sum())
+        i, w = a.nonzero(as_tuple=True)
+        seen[b[i] * width + w] = True
+    sources = torch.unique(e[:, 0]).numel()
+    return (4 * (sources * width + int(seen.sum()) + edges.numel()
+                 + valid.numel()) + 8, ops)
+
+
 def vertex_phases(timing, report, g) -> None:
     """Phases 23-28: per-vertex and dense triangles, the device ADG and the
     bitmap counts (see the module docstring); g is phase 2's RMAT-18."""
@@ -2024,6 +2062,13 @@ def vertex_phases(timing, report, g) -> None:
     check(nbytes == DENSE_BYTES, f"bitmap bytes {nbytes}")
     check(dense_launches["count_hub_edges"] == 1,
           f"K15 launched {dense_launches}")
+    dense_warm, host_s, per, busy = profile_window(
+        lambda: tc.triangle_count_dense(g16, device="cuda"))
+    check(dense_warm == want, "the profiled dense call differs")
+    k15_whole = window_lines(
+        f"[25] warm RMAT {DENSE_SCALE} triangle_count_dense call under "
+        f"torch.profiler:", host_s, per, busy, {"K15": K15_KERNELS})["K15"]
+    check(k15_whole[0] > 0, "torch.profiler traced no K15 time")
 
     # [26] the device ADG at RMAT 18, the counter set to 0 just before each
     # run; the main path's run is ADG_MAIN's
@@ -2111,13 +2156,16 @@ def vertex_phases(timing, report, g) -> None:
     edges, valid = torch.from_numpy(edges).cuda(), torch.from_numpy(valid).cuda()
     W = bg.w_pad
     used = torch.unique(edges[valid > 0].reshape(-1)).numel()
+    k15_bytes, k15_ops = hub_edge_bytes_ops(bg.words, edges, valid, W)
     k15 = [(f"RMAT {DENSE_SCALE} E={int(valid.sum())} W={W}",
             lambda: tc.count_hub_edges(bg.words, None, edges, valid,
                                        chunk=1024),
             lambda: tc.count_hub_edges_plain(bg.words, None, edges, valid,
                                              chunk=1024),
-            (used * W + edges.numel() + valid.numel()) * 4 + 8,
-            int(valid.sum()) * W)]
+            k15_bytes, k15_ops)]
+    # of record: the dense design's count, every word of both rows an edge
+    record_ops = int(valid.sum()) * W
+    record_bytes = (used * W + edges.numel() + valid.numel()) * 4 + 8
     k16 = [(f"{op} B={a.shape[0]} W={W}",
             lambda op=op: bo.rows_count(a, b, op=op),
             lambda op=op: bo.rows_count_plain(a, b, op=op),
@@ -2130,9 +2178,17 @@ def vertex_phases(timing, report, g) -> None:
             ("bitmap_rows_count", k16, bm_launches)):
         err, k_ms, p_ms, bound_ms, by = compare(timing, calls, ops_rate=rate,
                                                 plain_reps=1)
-        whole = (f"; over the warm call (phase 23) {k14_whole[0]:.4f} ms of "
-                 f"device time, {k14_whole[1]} launches traced"
-                 if name == "count_dag_edges_per_vertex" else "")
+        whole = ""
+        if name == "count_dag_edges_per_vertex":
+            whole = (f"; over the warm call (phase 23) {k14_whole[0]:.4f} ms "
+                     f"of device time, {k14_whole[1]} launches traced")
+        elif name == "count_hub_edges":
+            whole = (f"; over the warm call (phase 25) {k15_whole[0]:.4f} ms "
+                     f"of device time, {k15_whole[1]} launches traced; of "
+                     f"record (the dense design's count) {record_ops} "
+                     f"AND+popcounts -> {record_ops / rate * 1e3:.4f} ms, "
+                     f"{record_bytes} bytes -> "
+                     f"{record_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
         print(f"[28] {name}: {len(calls)} launches, max_abs_err {err}, kernel "
               f"{k_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), plain "
               f"{p_ms:.4f} ms{whole}")
@@ -4158,6 +4214,13 @@ def gapbs_phases(timing, report, g, g14, forms) -> None:
     for name in ("bfs_pull", "frontier_ids", "bfs_push", "pr_pull",
                  "cc_step", "sssp_step"):
         check(main_launches[name] > 0, f"{name} never launched")
+    # K30 (and K29 beside it) over one warm d-opt BFS call
+    bfs_warm, host_s, per, busy = profile_window(runs["bfs"])
+    check(np.array_equal(bfs_warm, hops), "the profiled BFS call differs")
+    k30_whole = window_lines(
+        f"[47] warm bfs(g, 0) call under torch.profiler:", host_s, per, busy,
+        {"K30": K30_KERNELS, "K29": K29_KERNELS})["K30"]
+    check(k30_whole[0] > 0, "torch.profiler traced no K30 time")
 
     # [48] BC at RMAT 18, counters from 0 just before
     gb.reset_launches()
@@ -4364,11 +4427,15 @@ def gapbs_phases(timing, report, g, g14, forms) -> None:
         err, rel, k_ms, p_ms, bound_ms, lib_ms = state_calls(
             timing, kcalls, sorted_ids if name in ("frontier_ids", "bfs_push")
             else None)
+        whole = (f"; K30 (bfs_push and frontier_ids) over the warm bfs(g, "
+                 f"0) call (phase 47) {k30_whole[0]:.4f} ms of device time, "
+                 f"{k30_whole[1]} launches traced"
+                 if name == "bfs_push" else "")
         print(f"[50] {name}: {len(kcalls)} launches held, max_abs_err {err}, "
               f"max rel err {rel:.3e}, kernel {k_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms (bytes), plain {p_ms:.4f} ms, library "
               f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms; launches "
-              f"of its run {launches[name]} | {card}")
+              f"of its run {launches[name]}{whole} | {card}")
         if rtol is None:
             check(err == 0, f"{name} disagrees with its plain version by "
                             f"{err}")

@@ -215,8 +215,9 @@ SIGNATURES = {
         "bfs_pull": (_P, _P, _L, _P, _I, _P, _P),
         # dist, n, it, ids, count, stream
         "frontier_ids": (_P, _L, _I, _P, _P, _P),
-        # indptr, indices, ids, fcount, dist, it, next ids, next count, stream
-        "bfs_push": (_P, _P, _P, _L, _P, _I, _P, _P, _P),
+        # indptr, indices, ids, fcount, dist, it, next ids, scratch (the
+        # next count first), blocks, stream
+        "bfs_push": (_P, _P, _P, _L, _P, _I, _P, _P, _I, _P),
     },
     "gapbs_kbit_bfs": {
         # packed, W, deg, n, k, dist, it, count, stream

@@ -78,6 +78,11 @@ STEPS = {"bfs": [], "cc": 0, "sssp": 0}
 # [n, 64] float32 (67 MB each; gms_tpu sizes its vmapped batch to a
 # [B, V, D] gather)
 BC_BATCH = 64
+# K30's push (csrc/gapbs_bfs.cu): frontier rows a scan tile (its
+# kScanThreads, which sizes the push's scratch), and the push's blocks of
+# 256 threads an SM
+PUSH_SCAN_TILE = 1024
+PUSH_BLOCKS_PER_SM = 4
 # elements a plain version materialises at once
 _PLAIN_BUDGET = 1 << 24
 
@@ -233,7 +238,11 @@ def bfs_push(indptr, indices, ids, fcount: int, dist, it: int):
     """One top-down level from the frontier ids[:fcount], in place: each
     neighbour still at INF gets it + 1 (gms_tpu's scatter-min). Returns
     (next_ids int32[n], next_count int64[1]): the vertices it reached, the
-    next frontier, in any order."""
+    next frontier, in any order. On the card, two launches and no read-back:
+    the frontier rows' segment offsets (rows of at most NARROW entries a
+    lane, longer ones cut into segments of at most SEGMENT entries), then
+    the push on a grid of PUSH_BLOCKS_PER_SM blocks an SM, a warp a run of
+    segments or of 32 narrow rows."""
     name = "bfs_push"
     _kernels.check_tensor(name, "dist", dist, 1)
     _kernels.check_tensor(name, "ids", ids, 1)
@@ -243,11 +252,17 @@ def bfs_push(indptr, indices, ids, fcount: int, dist, it: int):
                          f"{ids.shape[0]} ids")
     if not _kernels.on_cuda(name, indptr, indices, ids, dist):
         return bfs_push_plain(indptr, indices, ids, fcount, dist, it)
-    nxt, count = torch.empty_like(dist), _count(dist.device)
+    nxt = torch.empty_like(dist)
+    # one buffer: the next count, the scan's ticket and look-back words, the
+    # segment offsets [fcount + 2] and the narrow rows' ids (int32[fcount])
+    tiles = -(-fcount // PUSH_SCAN_TILE)
+    scratch = torch.empty(4 + tiles + fcount + (fcount + 1) // 2,
+                          dtype=torch.int64, device=dist.device)
     _kernels.launch("gapbs_bfs", "bfs_push", indptr, indices, ids, fcount,
-                    dist, it, nxt, count)
+                    dist, it, nxt, scratch,
+                    PUSH_BLOCKS_PER_SM * _kernels.sm_count(dist.get_device()))
     LAUNCHES[name] += 1
-    return nxt, count
+    return nxt, scratch[:1]
 
 
 # ---------------------------------------------------------------------------

@@ -17,12 +17,18 @@ by torch.profiler's device time over HELD_PASSES launches. K39
 (member_pack) over one warm `VertexShardedKCliquePlan.run` at RMAT-13 k=6
 and one warm `VertexShardedBKPlan.run` at RMAT-12, both at a world of one
 and built as phase 56 builds them (exact degeneracy ranks, root chunks of
-512). Each call under torch.profiler (the
+512). K15 (count_hub_edges) over one warm RMAT-16 `triangle_count_dense`
+call (phase 25) and held on its edges, K16 (bitmap_rows_count) held on
+that bitmap's rows, row v against row v+1 (phase 27); K30 (bfs_push and
+frontier_ids) over one warm RMAT-18 `bfs(g, 0)` call (phase 47), each
+launch's device time, K29 (bfs_pull) beside it, and bfs_push held on each
+push level's own state (phase 50's levels 0, 3 and 4), the state copied
+before each pass. Each call under torch.profiler (the
 kernel's device time and launches, each launch's device time in launch
 order, read by bench/profiling.py's profile_launches, the host time and
 the device's idle share) and, unprofiled, the best of 3.
 
-    python -m gms_tpu_torch.bench.dense_vertex --label this [--parts kc,pv,color,ring]
+    python -m gms_tpu_torch.bench.dense_vertex --label this [--parts kc,pv,color,ring,dense,bfs]
 
 To compare two checkouts on one card, run the other's package with this
 script in turns: PYTHONPATH=<other checkout> python
@@ -74,7 +80,17 @@ RING_K39 = (("VertexShardedKCliquePlan RMAT 13 k=6", 13, 6, 681_595_966),
             ("VertexShardedBKPlan RMAT 12", 12, None, 725_641))
 RING_CHUNK = 512
 K40_SPANS, K40_STAGES, HELD_PASSES = (32, 128), ("block", "bitmap", "bitmap_s8", "bitmap_s2", "bitmap_s1"), 10
-PARTS = ("kc", "pv", "color", "ring")
+# K15: the parent's warp an edge, this tree's runs; K16; K30: the push (this
+# tree's offsets scan and segment push, the parent's warp a row) and the
+# compaction; K29
+K15_KERNELS = ("edge_kernel", "edge_runs_kernel")
+K16_KERNELS = ("rows_kernel",)
+K30_PUSH = ("push_offsets_kernel", "bfs_push_kernel")
+K30_IDS = ("frontier_ids_kernel",)
+K29_KERNELS = ("bfs_pull_kernel",)
+DENSE_SCALE, DENSE_GOLDEN = 16, 15_613_640
+BFS_SCALE, BFS_REACHED = 18, 173_898
+PARTS = ("kc", "pv", "color", "ring", "dense", "bfs")
 
 
 def held_k40(tc, own, eb, vb) -> dict:
@@ -147,6 +163,10 @@ def main(argv=None) -> dict:
                                           generate_rmat_el)
         out["ring_k39"] = k39_part(sharding, build_csr, generate_rmat_el,
                                    degeneracy)
+    if "dense" in parts:
+        out["dense"] = dense_part(tc, build_csr, generate_rmat_el)
+    if "bfs" in parts:
+        out["bfs"] = bfs_part(build_csr, generate_rmat_el)
     print(json.dumps(out))
     return out
 
@@ -386,6 +406,119 @@ def held_k39(plan, label) -> dict:
           f"pass, device time over {HELD_PASSES} passes), = plain")
     return {"ms": ms / HELD_PASSES, "calls": len(calls),
             "launches": n / HELD_PASSES}
+
+
+def held(fn, names, passes=HELD_PASSES) -> tuple:
+    """(device ms a pass, launches a pass) of `names` over `passes` calls of
+    fn under torch.profiler."""
+    from gms_tpu_torch.bench.profiling import profile_window
+
+    _, _, per, _ = profile_window(lambda: [fn() for _ in range(passes)])
+    ms = sum(per[k][0] for k in names if k in per) / 1e3
+    n = sum(per[k][1] for k in names if k in per)
+    return ms / passes, n / passes
+
+
+def dense_part(tc, build_csr, generate_rmat_el) -> dict:
+    """K15 over the warm dense count and held on its edges; K16 held on
+    the bitmap's rows."""
+    from gms_tpu_torch.graphs.bitmap import BitmapGraph
+    from gms_tpu_torch.preprocessing import orient
+    from gms_tpu_torch.sets import bitmap_ops as bo
+
+    g = build_csr(generate_rmat_el(DENSE_SCALE, DEGREE, seed=SEED),
+                  num_nodes=1 << DENSE_SCALE)
+
+    def dense():
+        return tc.triangle_count_dense(g, device="cuda")
+
+    if dense() != DENSE_GOLDEN:
+        raise SystemExit("triangle_count_dense: not the golden count")
+    got, host_s, per, busy, seq = profile_launches(dense)
+    if got != DENSE_GOLDEN:
+        raise SystemExit(f"profiled triangle_count_dense: {got}")
+    run = window(f"warm triangle_count_dense RMAT {DENSE_SCALE}:", host_s,
+                 per, busy, {"K15": K15_KERNELS})
+    run["best_s"] = best_s(dense)
+    print(f"    unprofiled best of 3 {run['best_s']:.4f} s")
+    dag = orient.orient(g, orient.degree_rank(g))
+    bg = BitmapGraph.from_csr(dag, device="cuda")
+    e, v = tc._pad_edges(dag.edge_array(), 1024)
+    e, v = torch.from_numpy(e).cuda(), torch.from_numpy(v).cuda()
+    k15 = int(tc.count_hub_edges(bg.words, None, e, v, chunk=1024))
+    if k15 != DENSE_GOLDEN:
+        raise SystemExit(f"count_hub_edges held: {k15}")
+    ms, n = held(lambda: tc.count_hub_edges(bg.words, None, e, v, chunk=1024),
+                 K15_KERNELS)
+    run["held"] = {"ms": ms, "launches": n}
+    print(f"    K15 held on the call's {int(v.sum())} edges: {ms:.4f} ms a "
+          f"launch (device time over {HELD_PASSES})")
+    a, b = bg.words[:-1], bg.words[1:]
+    k16 = {}
+    for op in ("card", "and", "or", "andnot"):
+        if not torch.equal(bo.rows_count(a, b, op=op),
+                           bo.rows_count_plain(a, b, op=op)):
+            raise SystemExit(f"bitmap_rows_count {op}: not plain's")
+        k16[op], _ = held(lambda op=op: bo.rows_count(a, b, op=op),
+                          K16_KERNELS)
+    run["k16_held"] = k16
+    print(f"    K16 held on {a.shape[0]} row pairs, device ms a launch: "
+          + ", ".join(f"{op} {ms:.4f}" for op, ms in k16.items()))
+    return run
+
+
+def bfs_part(build_csr, generate_rmat_el) -> dict:
+    """K30 and K29 over the warm d-opt BFS call; bfs_push held on each push
+    level's state."""
+    from gms_tpu_torch.algorithms import gapbs as gb
+
+    g = build_csr(generate_rmat_el(BFS_SCALE, DEGREE, seed=SEED),
+                  num_nodes=1 << BFS_SCALE)
+
+    def bfs():
+        return gb.bfs(g, 0, device="cuda")
+
+    hops = bfs()
+    dirs = list(gb.STEPS["bfs"])
+    if int((hops >= 0).sum()) != BFS_REACHED:
+        raise SystemExit("bfs: not the golden reach")
+    _, host_s, per, busy, seq = profile_launches(bfs)
+    run = window(f"warm bfs(g, 0) RMAT {BFS_SCALE} {dirs}:", host_s, per,
+                 busy, {"K30 push": K30_PUSH, "K30 frontier_ids": K30_IDS,
+                        "K29": K29_KERNELS})
+    pushes = [it for it, d in enumerate(dirs) if d == "push"]
+    # the push kernel's launches in order, one a push level
+    run["push_by_level"] = launch_split(
+        "K30 bfs_push kernel", seq, ("bfs_push_kernel",),
+        [f"level {it}" for it in pushes])
+    run["best_s"] = best_s(bfs)
+    print(f"    unprofiled best of 3 {run['best_s']:.4f} s")
+    indptr, indices, _, n, _ = gb._prep(g, "cuda")
+    dist = torch.from_numpy(np.where(hops < 0, gb.INF, hops).astype(
+        np.int32)).cuda()
+    levels = {}
+    for it in pushes:
+        st = torch.where(dist <= it, dist, gb.INF).to(torch.int32)
+        ids, fc = gb.frontier_ids_plain(st, it)
+        fc = int(fc)
+        work = st.clone()
+
+        def push(it=it, ids=ids, fc=fc, st=st, work=work):
+            work.copy_(st)
+            return gb.bfs_push(indptr, indices, ids, fc, work, it)
+
+        nxt, c = push()
+        want, wc = gb.bfs_push_plain(indptr, indices, ids, fc, st.clone(),
+                                     it)
+        if int(c) != int(wc) or not torch.equal(
+                nxt[:int(c)].sort().values, want[:int(wc)].sort().values):
+            raise SystemExit(f"bfs_push level {it}: not plain's")
+        ms, k = held(push, K30_PUSH)
+        levels[f"level {it}"] = {"frontier": fc, "ms": ms, "launches": k}
+        print(f"    K30 push held, level {it} ({fc} frontier): {ms:.4f} ms "
+              f"and {k:g} launches a level (device time over {HELD_PASSES})")
+    run["held"] = levels
+    return run
 
 
 if __name__ == "__main__":

@@ -397,6 +397,105 @@ def test_pull_and_push_steps_equal_gms_tpu(rmat10):
             want == it + 1)[0].tolist()
 
 
+# K30's push (csrc/gapbs_bfs.cu bfs_push) replayed in numpy: rows of at most
+# NARROW entries a lane, 32 a warp item; longer rows cut into segments of
+# SEGMENT entries, their offsets scanned, a segment a warp item; a warp a
+# run of consecutive items, its first segment's row found by the warp-wide
+# search; each neighbour claimed once from INF
+
+def _warp_row_of(off, c, t):
+    """bfs_push_kernel's warp_row_of: the last f < c with off[f] <= t, by
+    rounds of 32 probes."""
+    lo, hi = 0, c
+    while hi - lo > 1:
+        step = (hi - lo + 31) // 32
+        last = max(i for i in range(32)
+                   if lo + i * step < hi and off[lo + i * step] <= t)
+        lo += last * step
+        hi = min(hi, lo + step)
+    return lo
+
+
+def _replayed_push(warps):
+    """bfs_push as its kernel deals the work to `warps` warps, checking that
+    every frontier entry is walked exactly once."""
+    from gms_tpu_torch.graphs.row_schedule import NARROW, SEGMENT
+
+    def push(indptr, indices, ids, fcount, dist, it):
+        ip, ix = indptr.numpy(), indices.numpy()
+        front = ids[:fcount].numpy().astype(np.int64)
+        deg = ip[front + 1] - ip[front]
+        narrow = front[(deg > 0) & (deg <= NARROW)]
+        segs = np.where(deg > NARROW, (deg + SEGMENT - 1) // SEGMENT, 0)
+        off = np.concatenate([[0], np.cumsum(segs)])
+        nitems = -(-len(narrow) // 32)
+        items = nitems + off[-1]
+        d = dist.numpy()
+        walked = np.zeros(len(ix), np.int64)
+        won = []
+
+        def walk(j0, j1):
+            for j in range(j0, j1):
+                walked[j] += 1
+                if d[ix[j]] == _INF:
+                    d[ix[j]] = it + 1
+                    won.append(ix[j])
+
+        for w in range(warps):
+            f = None
+            for k in range(items * w // warps, items * (w + 1) // warps):
+                if k < nitems:
+                    for v in narrow[32 * k:32 * k + 32]:
+                        walk(ip[v], ip[v + 1])
+                    continue
+                s = k - nitems
+                if f is None:
+                    f = _warp_row_of(off, fcount, s)
+                    assert f == np.searchsorted(off[:fcount], s,
+                                                side="right") - 1
+                while off[f + 1] <= s:
+                    f += 1
+                j0 = ip[front[f]] + (s - off[f]) * SEGMENT
+                walk(j0, min(j0 + SEGMENT, ip[front[f] + 1]))
+        rows = np.zeros(len(ip) - 1, bool)
+        rows[front] = True
+        assert np.array_equal(walked, np.repeat(rows, np.diff(ip)))
+        nxt = torch.zeros_like(dist)
+        nxt[:len(won)] = torch.tensor(won, dtype=torch.int32)
+        return nxt, torch.tensor([len(won)])
+
+    return push
+
+
+@pytest.mark.parametrize("warps", [3, 4224])
+def test_push_segments_replay_equals_gms_tpu(warps, monkeypatch):
+    """The replayed push against bfs_push_plain on one level of a 2,600-leaf
+    star and a 3,000-row mixed frontier, and whole d-opt BFS calls through
+    it against gms_tpu's on RMAT-10 with a 2,100-leaf star beside it."""
+    from test_torch_kernels import _push_case
+
+    push = _replayed_push(warps)
+    for kind in ("star", "mixed"):
+        el, n, ids, fcount, dist, it = _push_case(kind)
+        g = build_csr(el, num_nodes=n)
+        indptr, indices = _csr(g)
+        ids = torch.from_numpy(ids)
+        got, want = torch.from_numpy(dist), torch.from_numpy(dist.copy())
+        nxt, nc = push(indptr, indices, ids, fcount, got, it)
+        wn, wnc = gapbs.bfs_push_plain(indptr, indices, ids, fcount, want, it)
+        assert torch.equal(got, want) and int(nc) == int(wnc) > 0
+        assert sorted(nxt[:int(nc)].tolist()) == sorted(wn[:int(wnc)].tolist())
+    star = np.stack([np.full(2100, 1024), np.arange(1025, 3125)], 1)
+    el = np.concatenate([generate_rmat_el(10, 16, seed=SEED), star,
+                         [[0, 1024]]])
+    g, jg = _both(el, 3125)
+    monkeypatch.setattr(gapbs, "bfs_push", push)
+    for source in (0, 1024):
+        assert np.array_equal(gapbs.bfs(g, source, **CPU),
+                              jgapbs.bfs(jg, source))
+        assert "push" in gapbs.STEPS["bfs"]
+
+
 def test_kbit_pull_step_equals_gms_tpu(rmat10):
     g, jg = rmat10
     n = g.num_nodes

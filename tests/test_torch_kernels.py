@@ -1405,6 +1405,82 @@ def test_hub_edges_on_card(card, hw, width, row_of):
         rows[1:], ro, edges, valid, chunk=256, width=width))
 
 
+def _hub_edge_case(kind, seed=5):
+    """count_hub_edges inputs as numpy: (rows uint32[N, HW], row_of or None,
+    edges, valid, width). Sparse rows (fewer bits than HW / 3), edges in runs of one
+    source row (CSR order) with valid in {0, 1, 2}. "shuffled": the same
+    edges in random order; "row_of": vertex ids through a row table (ids
+    clip); "width": a 37-word prefix of 70-word rows (word loads), and
+    "width4" a 64-word prefix of 68-word rows (16-byte loads); "dense":
+    sources whose non-zero words are above half of the width; "tile": one
+    source's run of 600 edges across two tile boundaries; "wide": 4,096-word
+    rows, and in the first tile two sources with 1,500 non-zero words each
+    (below half of the width): the first run's pairs fit the tile's 2,048,
+    the second's do not (the word loop).
+    The edges are padded to a multiple of 256 with valid 0."""
+    rng = np.random.default_rng(seed)
+    N, HW, width = 600, 64, None
+    if kind == "width":
+        HW, width = 70, 37
+    elif kind == "width4":
+        HW, width = 68, 64
+    elif kind == "wide":
+        N, HW = 200, 4096
+    rows = np.zeros((N, HW), np.uint32)
+    for r in range(N):
+        bits = rng.choice(32 * HW, int(rng.integers(0, min(300, HW // 3))),
+                          replace=False)
+        np.bitwise_or.at(rows[r], bits >> 5, np.uint32(1) << (bits & 31)
+                         .astype(np.uint32))
+    if kind == "dense":
+        rows[::7] = rng.integers(0, 1 << 32, (len(rows[::7]), HW),
+                                 dtype=np.uint64).astype(np.uint32)
+    if kind == "wide":
+        for r in (3, 4):
+            rows[r] = 0
+            rows[r, rng.choice(HW, 1500, replace=False)] = rng.integers(
+                1, 1 << 32, 1500, dtype=np.uint64).astype(np.uint32)
+    src = np.repeat(np.arange(N), rng.integers(0, 25, N))
+    if kind == "wide":
+        src = np.concatenate([np.full(30, 3), np.full(30, 4), src])
+    if kind == "tile":
+        src = np.concatenate([src[:100], np.full(600, 9), src[100:]])
+    edges = np.stack([src, rng.integers(0, N, len(src))], 1).astype(np.int32)
+    valid = rng.choice([0, 1, 1, 1, 2], len(src)).astype(np.int32)
+    row_of = None
+    if kind == "shuffled":
+        perm = rng.permutation(len(src))
+        edges, valid = edges[perm], valid[perm]
+    elif kind == "row_of":
+        V = 900
+        row_of = rng.integers(0, N, V + 1).astype(np.int32)
+        row_of[-1] = N + 3                      # clips to the last row
+        edges = rng.integers(-2, V + 4, (len(src), 2)).astype(np.int32)
+        edges = edges[np.argsort(row_of[np.clip(edges[:, 0], 0, V)],
+                                 kind="stable")]
+    pad = -len(edges) % 256                     # chunks of 256, valid 0
+    edges = np.concatenate([edges, np.zeros((pad, 2), np.int32)])
+    valid = np.concatenate([valid, np.zeros(pad, np.int32)])
+    return rows, row_of, edges, valid, width
+
+
+HUB_EDGE_KINDS = ["csr", "shuffled", "row_of", "width", "width4", "dense",
+                  "tile", "wide"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", HUB_EDGE_KINDS)
+def test_hub_edge_runs_on_card(card, kind):
+    rows, row_of, edges, valid, width = _hub_edge_case(kind)
+    args = (torch.from_numpy(rows.view(np.int32)).to(card),
+            None if row_of is None else torch.from_numpy(row_of).to(card),
+            torch.from_numpy(edges).to(card), torch.from_numpy(valid).to(card))
+    got = _launched("count_hub_edges", lambda: tc.count_hub_edges(
+        *args, chunk=256, width=width))
+    want = tc.count_hub_edges_plain(*args, chunk=256, width=width)
+    assert int(got) == int(want) > 0
+
+
 @pytest.mark.cuda
 def test_triangle_count_dense_on_card(card):
     for scale in (9, 11):
@@ -2153,6 +2229,65 @@ def test_bfs_steps_on_card(card, source):
         assert torch.equal(got, want) and int(nc) == int(wnc)
         assert torch.equal(nxt[:int(nc)].sort().values,
                            wn[:int(wnc)].sort().values)
+
+
+def _push_case(kind, seed=11):
+    """A push level's inputs as numpy: (el, n, ids, fcount, dist, it).
+    "star": the centre of a 2,600-leaf star (six segments of 512 entries)
+    alone in the frontier; "mixed": a frontier of 3,000 rows over three
+    scan tiles of 1,024, empty, narrow (1-8 entries), middle (9-511), 512,
+    513 and wide (1,500 and 2,600 entries) rows in random order, some of
+    their neighbours already reached. ids run past fcount."""
+    rng = np.random.default_rng(seed)
+    if kind == "star":
+        leaves = 2600
+        el = np.stack([np.zeros(leaves, np.int64),
+                       np.arange(1, leaves + 1, dtype=np.int64)], axis=1)
+        n = leaves + 5
+        front = np.array([0])
+        dist = np.full(n, np.iinfo(np.int32).max, np.int32)
+    else:
+        n = 12_000
+        front = rng.choice(n, 3000, replace=False)
+        sizes = np.concatenate([
+            np.zeros(400, np.int64), rng.integers(1, 9, 1500),
+            rng.integers(9, 512, 1080), np.array([512] * 4 + [513] * 4
+                                                 + [1500] * 6 + [2600] * 6)])
+        rng.shuffle(sizes)
+        el = np.concatenate([np.stack([np.full(d, v, np.int64),
+                                       rng.choice(n, d, replace=False)], 1)
+                             for v, d in zip(front, sizes) if d > 0])
+        el = el[el[:, 0] != el[:, 1]]
+        dist = np.where(rng.random(n) < 0.3, 1, np.iinfo(np.int32).max
+                        ).astype(np.int32)
+    it = 2
+    dist[front] = it
+    ids = np.concatenate([front, rng.integers(0, n, 7)]).astype(np.int32)
+    return el, n, ids, len(front), dist, it
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["star", "mixed"])
+def test_bfs_push_segments_on_card(card, kind):
+    from gms_tpu_torch.algorithms import gapbs
+
+    el, n, ids, fcount, dist, it = _push_case(kind)
+    g = build_csr(el, num_nodes=n)
+    indptr = torch.from_numpy(g.indptr).to(card)
+    indices = torch.from_numpy(g.indices).to(card)
+    ids = torch.from_numpy(ids).to(card)
+    got = torch.from_numpy(dist).to(card)
+    want = got.clone()
+    nxt, nc = _launched("bfs_push", lambda: gapbs.bfs_push(
+        indptr, indices, ids, fcount, got, it), gapbs.LAUNCHES)
+    wn, wnc = gapbs.bfs_push_plain(indptr, indices, ids, fcount, want, it)
+    assert torch.equal(got, want) and int(nc) == int(wnc) > 0
+    assert torch.equal(nxt[:int(nc)].sort().values,
+                       wn[:int(wnc)].sort().values)
+    # the same level again reaches nothing new, nor does an empty frontier
+    for fc in (fcount, 0):
+        _, c2 = gapbs.bfs_push(indptr, indices, ids, fc, got, it)
+        assert int(c2) == 0 and torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -572,3 +572,82 @@ def test_triangle_count_dense_rmat_and_fixtures(port_fixtures):
     for name, want in {"micro": 0, "triangles_1": 1, "triangles_3": 3}.items():
         assert tc.triangle_count_dense(port_fixtures[name], device="cpu",
                                        chunk=64) == want
+
+
+# K15's design (csrc/bitmap_count.cu edge_runs_kernel) replayed in numpy:
+# tiles of edges, runs of one source row, the tile's runs' non-zero words
+# staged once a run (at most K15_PAIRS a tile), the other row read only at
+# those words, the word loop above the threshold
+K15_TILE, K15_PAIRS = 256, 2048
+
+
+def replay_hub_edges(rows, row_of, edges, valid, width=None):
+    """(count_hub_edges as edge_runs_kernel computes it, runs staged, dense
+    runs); rows uint32[N, HW] numpy."""
+    n, hw = rows.shape
+    w = min(width or hw, hw)
+    e = edges.astype(np.int64)
+    if row_of is not None:
+        e = row_of[np.clip(e, 0, len(row_of) - 1)].astype(np.int64)
+    e = np.clip(e, 0, n - 1)
+    key = np.where(valid != 0, e[:, 0], -1)
+    total = staged = dense = 0
+    for t0 in range(0, len(key), K15_TILE):
+        k = key[t0:t0 + K15_TILE]
+        head = (k >= 0) & np.r_[True, k[1:] != k[:-1]]
+        starts = [*np.nonzero(head)[0], len(k)]
+        end = 0                                 # the tile's pairs so far
+        for s, t in zip(starts, starts[1:]):
+            a = rows[k[s], :w]
+            at = np.nonzero(a)[0]
+            end += len(at)
+            big = 2 * len(at) > w or end > K15_PAIRS
+            staged, dense = staged + 1, dense + big
+            for p in range(s, t):
+                if k[p] != k[s]:
+                    continue
+                b = rows[e[t0 + p, 1], :w]
+                both = a & b if big else a[at] & b[at]
+                total += int(np.bitwise_count(both).sum()) * int(valid[t0 + p])
+    return total, staged, dense
+
+
+@pytest.mark.parametrize("kind", ["csr", "shuffled", "row_of", "width",
+                                  "width4", "dense", "tile", "wide"])
+def test_hub_edge_runs_replay_equals_gms_tpu(kind):
+    from test_torch_kernels import _hub_edge_case
+
+    rows, row_of, edges, valid, width = _hub_edge_case(kind)
+    got, staged, dense = replay_hub_edges(rows, row_of, edges, valid, width)
+    want = int(jtc.count_hub_edges(
+        jnp.asarray(rows), None if row_of is None else jnp.asarray(row_of),
+        jnp.asarray(edges), jnp.asarray(valid), chunk=256, width=width))
+    plain = tc.count_hub_edges_plain(
+        as_i32(rows), None if row_of is None else torch.from_numpy(row_of),
+        torch.from_numpy(edges), torch.from_numpy(valid), chunk=256,
+        width=width)
+    assert got == int(plain) == want > 0
+    # runs share their row's staging unless the edges are shuffled; the
+    # word loop takes dense rows and the runs past a tile's staged pairs
+    # (shuffled tiles may overflow them)
+    assert staged < (0.5 if kind != "shuffled" else 1.01) * len(edges)
+    if kind != "shuffled":
+        assert (dense > 0) == (kind in ("dense", "wide"))
+
+
+def test_triangle_count_dense_replayed_equals_gms_tpu(monkeypatch):
+    """triangle_count_dense with K15's design replayed, against gms_tpu's
+    dense count and the oracle on RMAT-10."""
+    def replayed(rows, row_of, edges, valid, *, chunk, width=None):
+        got, _, _ = replay_hub_edges(
+            rows.numpy().view(np.uint32), None, edges.numpy(),
+            valid.numpy(), width)
+        return torch.tensor(got, dtype=torch.int64)
+
+    el = generate_rmat_el(10, 16, seed=27491095)
+    g = build_csr(el, num_nodes=1024)
+    want = jtc.triangle_count_dense(jbuild_csr(el, num_nodes=1024))
+    monkeypatch.setattr(tc, "count_hub_edges", replayed)
+    assert tc.triangle_count_dense(g, device="cpu") == want == \
+        tc.triangle_count_oracle(g)
+
