@@ -32,6 +32,10 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      golden count 82,647,223, and every kernel must have launched;
   4. each kernel against its plain version on the plan's own arrays at the
      headline shapes, exactly (integers, tolerance 0), with CUDA-event times;
+     K2's bound the function's own (hub_bytes: heads whole, live partners
+     at the head's non-zero 32-byte sectors), its bound of record beside
+     it, and its device time over one warm trial of each plan under
+     torch.profiler;
   5. steady-state trial time of both plans; K40's device time over one warm
      VertexShardedTrianglePlan.run at a world of one (no process group)
      under torch.profiler, with the idle share;
@@ -332,7 +336,9 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      copy timed apart; bfs_pull, frontier_ids, bfs_push, pr_pull, cc_step
      and sssp_step must have launched; one more warm bfs(g, 0) under
      torch.profiler: K30's device time (bfs_push's offsets scan and push,
-     frontier_ids), K29's beside it, and the idle share;
+     frontier_ids), K29's beside it, and the idle share; one more warm
+     connected_components and weighted sssp each under torch.profiler:
+     K33's device time (its init and step launches, two a step);
  48. betweenness_centrality(g, num_samples=64, seed=0) at RMAT 18, its
      counters set to 0 just before: max_depth 12, max_depth launches of each
      BC step a batch; its first and best warm time; the kernels against the
@@ -358,8 +364,11 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      to compare them); bfs_kbit_pull on every level of RMAT 14's KbitGraph (the
      unreached rows' packed words up to the deciding lane); pr_pull on
      PageRank's first and last iteration, cc_step and sssp_step (weighted)
-     on their first and last step (indptr, indices, weights, the state and
-     the output once); bc_forward and bc_backward as whole passes of
+     on their first and last step, on the row schedule the calls build
+     (indptr, indices, weights, the state and the output once), and each
+     off the kernels line on a star of 1,300 leaves, whose hub row is three
+     schedule segments folded by atomicMin; bc_forward and bc_backward as
+     whole passes of
      max_depth steps on phase 48's batch of 64 sources, one bit a source
      (per step one bit a pair of the frontier, each row some pair scans
      read once with its distinct indptr words, the per-pair state words of
@@ -501,6 +510,9 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 POPC_PER_CLOCK_PER_SM = 16
 BITWISE_PER_CLOCK_PER_SM = 64
 KERNEL_REPS, PLAIN_REPS, STEADY_TRIALS = 10, 3, 20
+# torch.profiler windows taken of a warm call before a check that reads
+# the traced kernels gives up (traced_window)
+PROFILE_TRIES = 3
 # back-to-back calls of a batched figure (one event pair, one flush)
 BATCH_STEPS = 100
 # floats of a float32 torch.bmm operand slice in row 10b's library figure,
@@ -519,12 +531,18 @@ K6_KERNELS = ("stack_reg_kernel", "stack_kernel", "count_kernel",
 # of RMAT-16 k=5 (phase 8), one a tier of RMAT-18 (phase 23)
 K5_KERNELS = ("rows_kernel", "rows_any_kernel", "popcount_kernel")
 K14_KERNELS = ("vertex_kernel",)
+# K2's kernel (both entries)
+K2_KERNELS = ("hub_groups_kernel",)
 # K15's kernel; K30's: the push's offsets scan and segment push, and the
 # compaction; K29's
 K15_KERNELS = ("edge_runs_kernel",)
 K30_KERNELS = ("push_offsets_kernel", "bfs_push_kernel",
                "frontier_ids_kernel")
 K29_KERNELS = ("bfs_pull_kernel",)
+# K33's kernels (csrc/min_step.cuh); the leaves of phase 50's star, whose
+# hub row is three 512-entry segments of the row schedule
+K33_KERNELS = ("min_init_kernel", "min_step_kernel")
+STAR_LEAVES = 1300
 K5_MAIN_LAUNCHES, K14_MAIN_LAUNCHES = 31, 10
 # k-clique graphs of bench.py: (RMAT scale, k, golden count of BENCH_r05)
 KCLIQUE_RUNS = ((16, 5, 4_600_426_489), (13, 6, 681_595_966),
@@ -840,6 +858,28 @@ def device_us(fn, calls: int = BATCH_STEPS) -> tuple:
     return (round(sum(per.values()), 3) if per else None), per
 
 
+def traced_window(fn, names, launches: int = 1) -> tuple:
+    """bench.profiling.profile_window(fn), taken again while the window
+    traced fewer than `launches` launches of the kernels `names`, at most
+    PROFILE_TRIES windows in all: torch.profiler has lost some or all of a
+    window's device events on this card (ROADMAP Queue 3), and a window
+    that lost them measures nothing. Each lost window is printed; the
+    caller's checks read the last window. fn must be a warm call that can
+    run again."""
+    from gms_tpu_torch.bench.profiling import profile_window
+
+    for i in range(1, PROFILE_TRIES + 1):
+        out, host_s, per, busy = profile_window(fn)
+        n = sum(per[k][1] for k in names if k in per)
+        if n >= launches:
+            break
+        print(f"    torch.profiler lost a window: {n} of {launches} "
+              f"launches of {', '.join(names)} traced, {len(per)} device "
+              f"kernels, busy {busy / 1e3:.4f} ms (window {i} of "
+              f"{PROFILE_TRIES})")
+    return out, host_s, per, busy
+
+
 def walk_split(stats) -> str:
     """A K9 or K36 stats= run's items and its per-warp cycle split."""
     cyc = stats["cycles"]
@@ -938,6 +978,42 @@ def distinct_rows(guard: int, *ids) -> int:
     """Distinct rows named by `ids`, the all-zero guard row left out."""
     rows = torch.unique(torch.cat([i.reshape(-1) for i in ids]))
     return int((rows != guard).sum())
+
+
+def hub_bytes(rows, b_ids, nbrs, w: int, gather: bool) -> tuple:
+    """K2's bytes for one (W, K) set: (the function's own, the record's).
+    Its own: each non-guard head row at w words, each non-guard partner
+    slot at the 32-byte sectors where its head is non-zero (a row's last
+    sector at its own length), the output; gather mode reads rows of one
+    table, so each distinct (row, sector) pair of those once, and the index
+    arrays. The record's (PRs 1-22): every non-guard head and partner slot
+    at w words (gather: each distinct non-guard row)."""
+    guard = rows.shape[0] - 1
+    sectors = -(-w // 8)
+    head = torch.zeros((b_ids.numel(), 8 * sectors), dtype=torch.int32,
+                       device=rows.device)
+    head[:, :w] = rows[b_ids.long(), :w]
+    nz = (head.view(-1, sectors, 8) != 0).any(2) & (b_ids != guard)[:, None]
+    sector_bytes = torch.full((sectors,), 32, dtype=torch.long,
+                              device=rows.device)
+    sector_bytes[-1] = 4 * (w - 8 * (sectors - 1))
+    g, k, sec = torch.nonzero(nz[:, None, :] & (nbrs != guard)[:, :, None],
+                              as_tuple=True)
+    if gather:
+        heads = torch.unique(b_ids[b_ids != guard]).long()
+        every = torch.arange(sectors, device=rows.device)
+        pairs = torch.unique(torch.cat([
+            (heads[:, None] * sectors + every).reshape(-1),
+            nbrs[g, k].long() * sectors + sec]))
+        own = (int(sector_bytes[pairs % sectors].sum())
+               + 4 * (b_ids.numel() + nbrs.numel()))
+        record = ((distinct_rows(guard, b_ids, nbrs) * w + b_ids.numel()
+                   + nbrs.numel()) * 4 + 8)
+    else:
+        heads = int((b_ids != guard).sum())
+        own = 4 * w * heads + int(sector_bytes[sec].sum())
+        record = (heads + int((nbrs != guard).sum())) * w * 4 + 8
+    return own + 8, record
 
 
 def kernel_entry(name, launches, err, k_ms, p_ms, bound_ms, by,
@@ -1079,9 +1155,9 @@ def kclique_phases(timing, report) -> None:
           f"{K5_MAIN_LAUNCHES}")
     # K5 over the warm k = 5 call, under torch.profiler
     scale, k, golden = KCLIQUE_RUNS[0]
-    count, host_s, per, busy = profile_window(
+    count, host_s, per, busy = traced_window(
         lambda: kc.kclique_count(graphs[scale], k, device="cuda",
-                                 rank=ranks[scale]))
+                                 rank=ranks[scale]), K5_KERNELS)
     check(count == golden, f"the profiled RMAT {scale} call gave {count}")
     k5_whole = window_lines(
         f"[8] warm RMAT {scale} k={k} call under torch.profiler:", host_s,
@@ -1214,8 +1290,9 @@ def kclique_phases(timing, report) -> None:
     # K4's held chunks by device time: each event pair above also spans the
     # wrapper's host time wherever the host lags the L2 flush
     k4_jobs = [c[1] for c in calls["build_local_adj"]]
-    _, _, per, _ = profile_window(lambda: [f() for _ in range(10)
-                                           for f in k4_jobs])
+    _, _, per, _ = traced_window(lambda: [f() for _ in range(10)
+                                          for f in k4_jobs],
+                                 ("local_adj_kernel",))
     k4_us, k4_n = per.get("local_adj_kernel", (0.0, 0))
     print(f"[10] build_local_adj on its {len(k4_jobs)} held chunks by device "
           f"time (torch.profiler, 10 warm passes): {k4_us / 1e4:.4f} ms a "
@@ -1717,8 +1794,7 @@ def star_decode_bytes(pg, chunk, out) -> int:
 
 def star_phases(timing, report) -> None:
     """Phases 17-22: the k-clique-star path (see the module docstring)."""
-    from gms_tpu_torch.bench.profiling import (STAR_GROUPS, profile_window,
-                                               window_lines)
+    from gms_tpu_torch.bench.profiling import STAR_GROUPS, window_lines
     from gms_tpu_torch.algorithms import k_clique as kc
     from gms_tpu_torch.algorithms import k_clique_star as ks
     from gms_tpu_torch.algorithms.triangle_count import popcount32
@@ -1838,7 +1914,8 @@ def star_phases(timing, report) -> None:
             del out
         return n_rows
 
-    again, host_s, per, busy = profile_window(emit_pass)
+    again, host_s, per, busy = traced_window(
+        emit_pass, STAR_GROUPS["K11"], len(jobs))
     check(again == rows, f"the profiled emit pass gave {again} rows")
     sums = window_lines("[20] the emit pass again under torch.profiler:",
                         host_s, per, busy, STAR_GROUPS)
@@ -1979,7 +2056,7 @@ def vertex_phases(timing, report, g) -> None:
     """Phases 23-28: per-vertex and dense triangles, the device ADG and the
     bitmap counts (see the module docstring); g is phase 2's RMAT-18."""
     from gms_tpu_torch.algorithms import triangle_count as tc
-    from gms_tpu_torch.bench.profiling import profile_window, window_lines
+    from gms_tpu_torch.bench.profiling import window_lines
     from gms_tpu_torch.graphs.bitmap import BitmapGraph
     from gms_tpu_torch.io.builder import build_csr
     from gms_tpu_torch.io.generators import generate_rmat_el
@@ -2007,8 +2084,9 @@ def vertex_phases(timing, report, g) -> None:
     check(pv_launches["count_dag_edges_per_vertex"] == len(parts)
           == K14_MAIN_LAUNCHES,
           f"K14 launched {pv_launches} for {len(parts)} tiers")
-    pv_warm, host_s, per, busy = profile_window(
-        lambda: tc.triangle_count_per_vertex(g, device="cuda"))
+    pv_warm, host_s, per, busy = traced_window(
+        lambda: tc.triangle_count_per_vertex(g, device="cuda"), K14_KERNELS,
+        K14_MAIN_LAUNCHES)
     check(np.array_equal(pv_warm, pv), "the profiled per-vertex call differs")
     k14_whole = window_lines(
         f"[23] warm RMAT {SCALE} per-vertex call under torch.profiler:",
@@ -2062,8 +2140,8 @@ def vertex_phases(timing, report, g) -> None:
     check(nbytes == DENSE_BYTES, f"bitmap bytes {nbytes}")
     check(dense_launches["count_hub_edges"] == 1,
           f"K15 launched {dense_launches}")
-    dense_warm, host_s, per, busy = profile_window(
-        lambda: tc.triangle_count_dense(g16, device="cuda"))
+    dense_warm, host_s, per, busy = traced_window(
+        lambda: tc.triangle_count_dense(g16, device="cuda"), K15_KERNELS)
     check(dense_warm == want, "the profiled dense call differs")
     k15_whole = window_lines(
         f"[25] warm RMAT {DENSE_SCALE} triangle_count_dense call under "
@@ -2450,7 +2528,7 @@ def weighted_topq_fault(g, edges, scores, plain_scores, metric):
 def lp_phases(timing, report) -> None:
     """Phases 30-35: link prediction and vertex similarity (see the module
     docstring)."""
-    from gms_tpu_torch.bench.profiling import profile_window, window_lines
+    from gms_tpu_torch.bench.profiling import window_lines
     from gms_tpu_torch.algorithms import link_prediction as lp
     from gms_tpu_torch.algorithms import similarity as vs
     from gms_tpu_torch.graphs.tiles import PaddedGraph
@@ -2580,9 +2658,9 @@ def lp_phases(timing, report) -> None:
     check(bool((scores == 1.0).all()), "top-q scores are not all 1.0")
     check(rank_launches["tile_topq"] == -(-train.num_nodes // LP_BLOCK),
           f"K21 launches {rank_launches}")
-    (e2, _), host_s, per, busy = profile_window(
+    (e2, _), host_s, per, busy = traced_window(
         lambda: lp.link_prediction_similarity(train, LP_Q, metric="jaccard",
-                                              device="cuda"))
+                                              device="cuda"), K21_KERNELS)
     check([tuple(int(x) for x in e) for e in e2] == want,
           "the profiled top-q call differs")
     window_lines("[33] warm call under torch.profiler:", host_s, per, busy,
@@ -2592,9 +2670,9 @@ def lp_phases(timing, report) -> None:
     keep, ab = lp.STRIP_TABLE_BYTES, {"table": [], "search": []}
     for label in ("table", "search", "search", "table", "table", "search"):
         lp.STRIP_TABLE_BYTES = keep if label == "table" else 0
-        (e3, _), h, p3, _ = profile_window(
+        (e3, _), h, p3, _ = traced_window(
             lambda: lp.link_prediction_similarity(
-                train, LP_Q, metric="jaccard", device="cuda"))
+                train, LP_Q, metric="jaccard", device="cuda"), K21_KERNELS)
         check([tuple(int(x) for x in e) for e in e3] == want,
               f"the top-q call with the {label} differs")
         ab[label].append((sum(p3[k][0] for k in K21_KERNELS) / 1e3, h))
@@ -4143,6 +4221,7 @@ def gapbs_phases(timing, report, g, g14, forms) -> None:
     from gms_tpu_torch.algorithms import gapbs as gb
     from gms_tpu_torch.bench.profiling import profile_window, window_lines
     from gms_tpu_torch.graphs import compressed as cp
+    from gms_tpu_torch.io.builder import build_csr
 
     n, card = g.num_nodes, card_line()
     w = rmat_weights(g)
@@ -4215,12 +4294,24 @@ def gapbs_phases(timing, report, g, g14, forms) -> None:
                  "cc_step", "sssp_step"):
         check(main_launches[name] > 0, f"{name} never launched")
     # K30 (and K29 beside it) over one warm d-opt BFS call
-    bfs_warm, host_s, per, busy = profile_window(runs["bfs"])
+    bfs_warm, host_s, per, busy = traced_window(runs["bfs"], K30_KERNELS)
     check(np.array_equal(bfs_warm, hops), "the profiled BFS call differs")
     k30_whole = window_lines(
         f"[47] warm bfs(g, 0) call under torch.profiler:", host_s, per, busy,
         {"K30": K30_KERNELS, "K29": K29_KERNELS})["K30"]
     check(k30_whole[0] > 0, "torch.profiler traced no K30 time")
+    # K33 over one warm connected_components and one warm weighted sssp
+    k33_whole = {}
+    for name, label in (("cc_step", "connected_components"),
+                        ("sssp_step", "sssp weighted")):
+        got, host_s, per, busy = traced_window(
+            runs[label], K33_KERNELS, 2 * steps[label])
+        check(np.array_equal(got, out[label]), f"the profiled {label} call")
+        k33_whole[name] = window_lines(
+            f"[47] warm {label} call under torch.profiler:", host_s, per,
+            busy, {"K33": K33_KERNELS})["K33"]
+        check(k33_whole[name][1] == 2 * steps[label],
+              f"{label}: {k33_whole[name][1]} K33 launches traced")
 
     # [48] BC at RMAT 18, counters from 0 just before
     gb.reset_launches()
@@ -4397,7 +4488,7 @@ def gapbs_phases(timing, report, g, g14, forms) -> None:
     for lab, st in (("step 1", lab18), ("last step", ccf)):
         calls["cc_step"].append((
             f"cc_step RMAT {SCALE} {lab}",
-            lambda s: gb.cc_step(indptr, indices, s),
+            lambda s: gb.cc_step(indptr, indices, s, schedule=sched18),
             lambda s: gb.cc_step_plain(indptr, indices, s),
             lambda st=st: st, 8 * (n + 1) + 4 * e + 4 * n + 4 * n + 4,
             lambda s: s.clone().scatter_reduce_(0, src_rows, s[idx],
@@ -4410,7 +4501,8 @@ def gapbs_phases(timing, report, g, g14, forms) -> None:
     for lab, st in (("step 1", s0), ("last step", sf)):
         calls["sssp_step"].append((
             f"sssp_step RMAT {SCALE} weighted {lab}",
-            lambda s: gb.sssp_step(indptr, indices, w18, s),
+            lambda s: gb.sssp_step(indptr, indices, w18, s,
+                                   schedule=sched18),
             lambda s: gb.sssp_step_plain(indptr, indices, w18, s),
             lambda st=st: st, 8 * (n + 1) + 8 * e + 8 * n + 8 * n + 4,
             lambda s: s.clone().scatter_reduce_(0, src_rows, s[idx] + w18,
@@ -4431,6 +4523,10 @@ def gapbs_phases(timing, report, g, g14, forms) -> None:
                  f"0) call (phase 47) {k30_whole[0]:.4f} ms of device time, "
                  f"{k30_whole[1]} launches traced"
                  if name == "bfs_push" else "")
+        if name in k33_whole:
+            whole = (f"; K33 over the warm {name[:-5]} call (phase 47) "
+                     f"{k33_whole[name][0]:.4f} ms of device time, "
+                     f"{k33_whole[name][1]} launches traced (init and step)")
         print(f"[50] {name}: {len(kcalls)} launches held, max_abs_err {err}, "
               f"max rel err {rel:.3e}, kernel {k_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms (bytes), plain {p_ms:.4f} ms, library "
@@ -4443,6 +4539,39 @@ def gapbs_phases(timing, report, g, g14, forms) -> None:
             check(rel <= rtol, f"{name} off its plain version by {rel}")
         report.append(kernel_entry(name, launches[name], err, k_ms, p_ms,
                                    bound_ms, "bytes", library_ms=lib_ms))
+
+    # K33 on a star whose hub row is three schedule segments (its
+    # atomicMin fold), off the kernels line
+    star = np.stack([np.zeros(STAR_LEAVES, np.int64),
+                     np.arange(1, STAR_LEAVES + 1, dtype=np.int64)], 1)
+    gs = build_csr(star, num_nodes=STAR_LEAVES + 1)
+    sp, si = (torch.from_numpy(gs.indptr).cuda(),
+              torch.from_numpy(gs.indices).cuda())
+    ss = gb.build_row_schedule(sp)
+    check(ss.n_wide == 1 and ss.n_seg == 3, "the star's hub row: "
+          f"{ss.n_seg} segments")
+    ns, es = gs.num_nodes, gs.num_edges
+    ws = torch.from_numpy(rmat_weights(gs)).cuda()
+    rev = torch.arange(ns - 1, -1, -1, dtype=torch.int32, device="cuda")
+    d1 = torch.full((ns,), big, dtype=torch.int64, device="cuda")
+    d1[ns - 1] = 0
+    star_calls = [
+        ("cc_step", lambda s: gb.cc_step(sp, si, s, schedule=ss),
+         lambda s: gb.cc_step_plain(sp, si, s), lambda: rev,
+         8 * (ns + 1) + 4 * es + 8 * ns + 4),
+        ("sssp_step", lambda s: gb.sssp_step(sp, si, ws, s, schedule=ss),
+         lambda s: gb.sssp_step_plain(sp, si, ws, s), lambda: d1,
+         8 * (ns + 1) + 8 * es + 16 * ns + 4)]
+    for name, kern, plain, make, nbytes in star_calls:
+        err, _, k_ms, p_ms, bound_ms, _ = state_calls(timing, [(
+            f"{name} on a star of {STAR_LEAVES} leaves", kern, plain, make,
+            nbytes)])
+        print(f"[50] {name} on a star of {STAR_LEAVES} leaves (hub row of 3 "
+              f"segments, folded by atomicMin): max_abs_err {err}, kernel "
+              f"{k_ms:.4f} ms, bound {bound_ms:.4f} ms, plain {p_ms:.4f} ms "
+              f"| {card}")
+        check(err == 0, f"{name} on the star disagrees by {err}")
+        check(int(kern(make())[1]) == 1, f"{name} on the star moved nothing")
 
     # K32 gives the same bits on every run; the floor of the timing, and
     # batched figures (BATCH_STEPS back-to-back iterations from iteration
@@ -5531,12 +5660,12 @@ def main() -> None:
                                                       plan.tiers_mat)],
         "count_hub_groups_mat": [
             (f"(W={b.shape[1]},K={a.shape[1]}) G={b.shape[0]}",
-             lambda a=a, b=b: tc.count_hub_groups_mat(b, a),
+             lambda a=a, b=b, lv=lv: tc.count_hub_groups_mat(b, a, live=lv),
              lambda a=a, b=b, gc=gc: tc.count_hub_groups_mat_plain(
                  b, a, chunk=gc),
-             int((b_ids != guard).sum() + (nbrs != guard).sum()) * w * 4 + 8)
-            for (w, k, _, b_ids, nbrs), (gc, b, a) in zip(plan.hub,
-                                                           plan.hub_mat)],
+             hub_bytes(rows, b_ids, nbrs, w, False)[0])
+            for (w, k, _, b_ids, nbrs), (gc, b, a, lv) in zip(plan.hub,
+                                                               plan.hub_mat)],
         "build_hub_rows": [
             (f"Nw={wide.numel()} hw={rows.shape[1]}",
              lambda: tc.build_hub_rows(nbr, plan.hub_id, wide,
@@ -5560,15 +5689,39 @@ def main() -> None:
                 gplan.hub_rows, b, n, chunk=gc, width=w, k=k),
              lambda b=b, n=n, w=w, k=k, gc=gc: tc.count_hub_groups_plain(
                  gplan.hub_rows, b, n, chunk=gc, width=w, k=k),
-             (distinct_rows(gguard, b, n) * w + b.numel() + n.numel()) * 4 + 8)
+             hub_bytes(gplan.hub_rows, b, n, w, True)[0])
             for w, k, gc, b, n in gplan.hub],
     }
+    # K2's bound of record (PRs 1-22: every non-guard row at W words)
+    k2_record = {
+        "count_hub_groups_mat": sum(hub_bytes(rows, b, n, w, False)[1]
+                                    for w, _, _, b, n in plan.hub),
+        "count_hub_groups": sum(hub_bytes(gplan.hub_rows, b, n, w, True)[1]
+                                for w, _, _, b, n in gplan.hub)}
+    # K2 over one warm trial of each plan, under torch.profiler
+    k2_whole = {}
+    for name, p in (("count_hub_groups_mat", plan),
+                    ("count_hub_groups", gplan)):
+        got, _, per, busy = traced_window(p.run, K2_KERNELS,
+                                          len(calls[name]))
+        check(got == GOLDEN, f"the profiled trial ({name}): {got}")
+        k2_whole[name] = [sum(per[k][i] for k in K2_KERNELS if k in per)
+                          for i in (0, 1)]
     report, bounds = [], {}
     for name, kcalls in calls.items():
         err, k_ms, p_ms, bound_ms, by = compare(timing, kcalls)
+        note = ""
+        if name in k2_record:
+            us, n_k2 = k2_whole[name]
+            rec = k2_record[name]
+            note = (f" (the function's own; of record {rec} bytes -> "
+                    f"{rec / HBM_BYTES_PER_S * 1e3:.4f} ms); over one warm "
+                    f"trial (torch.profiler) {us / 1e3:.4f} ms of device "
+                    f"time, {n_k2} launches traced | {card_line()}")
+            check(n_k2 == len(kcalls), f"{name}: {n_k2} K2 launches traced")
         print(f"[4] {name}: {len(kcalls)} launches/trial, max_abs_err {err}, "
               f"kernel {k_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), "
-              f"plain {p_ms:.4f} ms")
+              f"plain {p_ms:.4f} ms{note}")
         check(err == 0, f"{name} disagrees with its plain version by {err}")
         bounds[name] = bound_ms
         report.append(kernel_entry(name, launches[name], err, k_ms, p_ms,
@@ -5589,11 +5742,11 @@ def main() -> None:
     del plan, gplan, calls
     # K40 over a warm vertex-sharded run at a world of one (no process
     # group; phase 56 runs the plan over NCCL), under torch.profiler
-    from gms_tpu_torch.bench.profiling import profile_window, window_lines
+    from gms_tpu_torch.bench.profiling import window_lines
     from gms_tpu_torch.parallel import sharding
     vplan = sharding.VertexShardedTrianglePlan(g, sharding.make_mesh())
     check(vplan.run() == GOLDEN, "the vertex-sharded run's count")
-    got, host_s, per, busy = profile_window(vplan.run)
+    got, host_s, per, busy = traced_window(vplan.run, ("owned_rows_kernel",))
     check(got == GOLDEN, f"the profiled vertex-sharded run: {got}")
     sums = window_lines("[5] warm VertexShardedTrianglePlan.run, a world of "
                         "one, under torch.profiler:", host_s, per, busy,

@@ -54,10 +54,10 @@ SIGNATURES = {
                                  _P, _P),
     },
     "hub_popcount": {
-        # b, a, G, K, W, out, stream
-        "hub_popcount_stream": (_P, _P, _L, _I, _I, _P, _P),
-        # rows, hw, b_ids, nbrs, G, K, W, out, stream
-        "hub_popcount_gather": (_P, _L, _P, _P, _L, _I, _I, _P, _P),
+        # b, a, live (or null), G, K, W, out, stream
+        "hub_popcount_stream": (_P, _P, _P, _L, _I, _I, _P, _P),
+        # rows, n_rows, hw, b_ids, nbrs, G, K, W, out, stream
+        "hub_popcount_gather": (_P, _L, _L, _P, _P, _L, _I, _I, _P, _P),
     },
     "hub_rows": {
         # nbr, v_pad, d_pad, hub_id, wide_ids, nw, hw, out, stream
@@ -231,10 +231,13 @@ SIGNATURES = {
                     _P, _P, _P),
     },
     "gapbs_min": {
-        # indptr, indices, n, cur, nxt, changed, stream
-        "cc_step": (_P, _P, _L, _P, _P, _P, _P),
-        # indptr, indices, weights (or null), n, cur, nxt, changed, stream
-        "sssp_step": (_P, _P, _P, _L, _P, _P, _P, _P),
+        # indptr, indices, n, cur, nxt, the row schedule (rows, starts,
+        # n_narrow, n_seg, n_wide, segment), changed, stream
+        "cc_step": (_P, _P, _L, _P, _P, _P, _P, _L, _L, _L, _I, _P, _P),
+        # indptr, indices, weights (or null), n, cur, nxt, the row schedule,
+        # changed, stream
+        "sssp_step": (_P, _P, _P, _L, _P, _P, _P, _P, _L, _L, _L, _I, _P,
+                      _P),
     },
     "gapbs_bc": {
         # indptr, indices, n, lvl, seen, sigma, it, rows, starts, n_narrow,

@@ -37,9 +37,10 @@ minima by index_add_ and scatter_reduce_), for CUDA tensors it launches the
 kernel (raising if the launch fails) and adds one to LAUNCHES[name].
 PageRank's and BC's row sums accumulate in float64 and round once to
 float32, in the kernels and in the plain versions alike, so the two agree
-whatever order each sums in. pr_pull and the BC steps run on the
-degree-balanced row schedule of graphs/row_schedule.py, which `_pagerank`
-and `_bc_total` build once a call. BC keeps a batch as one 64-bit word a
+whatever order each sums in. pr_pull, cc_step, sssp_step and the BC
+steps run on the degree-balanced row schedule of graphs/row_schedule.py,
+which `_pagerank`, `connected_components`, `sssp` and `_bc_total` build
+once a call. BC keeps a batch as one 64-bit word a
 vertex a depth (bc_state), sigma and delta vertex-major [n, 64]; bc_dist
 gives gms_tpu's dist from it.
 The host oracles are gms_tpu's, copied.
@@ -365,18 +366,24 @@ def cc_step_plain(indptr, indices, cur):
     return _min_step_plain(indptr, cur, cur[indices.long()])
 
 
-def cc_step(indptr, indices, cur):
+def cc_step(indptr, indices, cur, *, schedule: RowSchedule | None = None):
     """(nxt int32[n], changed int32[1]): nxt = min(cur, the row's min of
-    cur), one Jacobi step of min-label propagation."""
+    cur), one Jacobi step of min-label propagation. `schedule` is the row
+    schedule built from this indptr tensor (built here when None): a
+    caller that steps builds it once."""
     name = "cc_step"
     _kernels.check_tensor(name, "cur", cur, 1)
     n = _check_csr(name, indptr, indices, cur.shape[0])
+    if schedule is not None:
+        check_schedule(name, schedule, indptr)
     if not _kernels.on_cuda(name, indptr, indices, cur):
         return cc_step_plain(indptr, indices, cur)
+    if schedule is None:
+        schedule = build_row_schedule(indptr)
     nxt = torch.empty_like(cur)
-    changed = torch.zeros(1, dtype=torch.int32, device=cur.device)
+    changed = torch.empty(1, dtype=torch.int32, device=cur.device)
     _kernels.launch("gapbs_min", "cc_step", indptr, indices, n, cur, nxt,
-                    changed)
+                    *schedule.launch_args(), changed)
     LAUNCHES[name] += 1
     return nxt, changed
 
@@ -386,10 +393,11 @@ def sssp_step_plain(indptr, indices, weights, cur):
     return _min_step_plain(indptr, cur, cand)
 
 
-def sssp_step(indptr, indices, weights, cur):
+def sssp_step(indptr, indices, weights, cur, *,
+              schedule: RowSchedule | None = None):
     """(nxt int64[n], changed int32[1]): nxt = min(cur, the row's min of
     cur[w] + weight), one Bellman-Ford step; weights int32[E] per CSR slot,
-    or None for unit weights."""
+    or None for unit weights. `schedule` as cc_step's."""
     name = "sssp_step"
     _kernels.check_tensor(name, "cur", cur, 1, torch.int64)
     n = _check_csr(name, indptr, indices, cur.shape[0])
@@ -400,12 +408,16 @@ def sssp_step(indptr, indices, weights, cur):
             raise ValueError(f"{name}: {weights.shape[0]} weights for "
                              f"{indices.shape[0]} slots")
         args += (weights,)
+    if schedule is not None:
+        check_schedule(name, schedule, indptr)
     if not _kernels.on_cuda(name, *args):
         return sssp_step_plain(indptr, indices, weights, cur)
+    if schedule is None:
+        schedule = build_row_schedule(indptr)
     nxt = torch.empty_like(cur)
-    changed = torch.zeros(1, dtype=torch.int32, device=cur.device)
+    changed = torch.empty(1, dtype=torch.int32, device=cur.device)
     _kernels.launch("gapbs_min", "sssp_step", indptr, indices, weights, n,
-                    cur, nxt, changed)
+                    cur, nxt, *schedule.launch_args(), changed)
     LAUNCHES[name] += 1
     return nxt, changed
 
@@ -707,8 +719,9 @@ def connected_components(g, *, device="cuda") -> np.ndarray:
     if n == 0:
         return np.zeros(0, np.int32)
     labels = torch.arange(n, dtype=torch.int32, device=dev)
-    return _fixpoint(lambda c: cc_step(indptr, indices, c), labels,
-                     "cc").cpu().numpy()
+    step = functools.partial(cc_step, indptr, indices,
+                             schedule=build_row_schedule(indptr))
+    return _fixpoint(step, labels, "cc").cpu().numpy()
 
 
 def _sssp_rows(g, weights, dev):
@@ -751,8 +764,9 @@ def sssp(g, source: int, weights: np.ndarray | None = None, *,
         raise ValueError(f"source {source} outside [0, {n})")
     dist = torch.full((n,), BIG, dtype=torch.int64, device=dev)
     dist[source] = 0
-    d = _fixpoint(lambda c: sssp_step(indptr, indices, w, c), dist,
-                  "sssp").cpu().numpy()
+    step = functools.partial(sssp_step, indptr, indices, w,
+                             schedule=build_row_schedule(indptr))
+    d = _fixpoint(step, dist, "sssp").cpu().numpy()
     return np.where(d >= BIG, -1, d)
 
 

@@ -230,6 +230,24 @@ def _zero(device) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int64, device=device)
 
 
+def _sum_into(name, out, device) -> torch.Tensor:
+    """The int64 0-d tensor a kernel adds its sum into: `out`, where the
+    caller gives one (a trial's running total), else a new zero."""
+    if out is None:
+        return _zero(device)
+    if out.dtype != torch.int64 or out.dim() != 0 or out.device != device:
+        raise TypeError(f"{name}: out must be an int64 0-d tensor on "
+                        f"{device}, got {out.dtype} {tuple(out.shape)} on "
+                        f"{out.device}")
+    return out
+
+
+def _added(name, out, total) -> torch.Tensor:
+    """A plain version's total, added into `out` where given."""
+    return total if out is None else _sum_into(name, out,
+                                               total.device).add_(total)
+
+
 def count_tier_mat_plain(a_mat, b_mat, *, chunk: int | None = None):
     """Plain version of count_tier_mat: broadcast compares, `chunk` edges
     at a time, as gms_tpu's program (salt 0)."""
@@ -247,7 +265,7 @@ def count_tier_mat_plain(a_mat, b_mat, *, chunk: int | None = None):
     return total
 
 
-def count_tier_mat(a_mat, b_mat, *, chunk: int | None = None):
+def count_tier_mat(a_mat, b_mat, *, chunk: int | None = None, out=None):
     """Σ |a_e ∩ b_e| over materialized narrow-tier edges — int64 0-d tensor.
 
     a_mat: int32[wa, E], b_mat: int32[wb, E] — operand rows stored
@@ -257,6 +275,9 @@ def count_tier_mat(a_mat, b_mat, *, chunk: int | None = None):
     plain version would not; GMS_TPU_PARANOID=1 checks it. Replaces
     gms_tpu's count_tier_mat (triangle_count.py:383); its `salt` is dropped,
     see csrc/tier_intersect.cu. `chunk` only steps the plain version.
+    `out`, an int64 0-d tensor, takes the sum added in and is returned
+    (a trial's running total); a new tensor when None. The same holds for
+    count_dag_edges, count_hub_groups_mat and count_hub_groups.
     """
     name = "count_tier_mat"
     _check(name, "a_mat", a_mat, 2)
@@ -268,8 +289,9 @@ def count_tier_mat(a_mat, b_mat, *, chunk: int | None = None):
         checks.validate_sorted_rows(a_mat.T, name=f"{name} a_mat column")
         checks.validate_sorted_rows(b_mat.T, name=f"{name} b_mat column")
     if not _on_cuda(name, a_mat, b_mat):
-        return count_tier_mat_plain(a_mat, b_mat, chunk=chunk)
-    out = _zero(a_mat.device)
+        return _added(name, out, count_tier_mat_plain(a_mat, b_mat,
+                                                      chunk=chunk))
+    out = _sum_into(name, out, a_mat.device)
     _kernels.launch("tier_intersect", "tier_intersect_stream", a_mat, b_mat,
                     a_mat.shape[0], b_mat.shape[0], a_mat.shape[1], out)
     LAUNCHES[name] += 1
@@ -293,7 +315,7 @@ def count_dag_edges_plain(nbr, edges, valid, *, chunk: int = DEFAULT_CHUNK,
 
 def count_dag_edges(nbr, edges, valid, *, chunk: int = DEFAULT_CHUNK,
                     method: str = "compare", width_a: int | None = None,
-                    width_b: int | None = None):
+                    width_b: int | None = None, out=None):
     """Σ over DAG edges of valid[e] * |N⁺(u) ∩ N⁺(v)| — int64 0-d tensor.
 
     nbr:   int32[V_pad, D_pad] oriented padded adjacency
@@ -312,11 +334,11 @@ def count_dag_edges(nbr, edges, valid, *, chunk: int = DEFAULT_CHUNK,
     if checks.paranoid():
         checks.validate_sorted_rows(nbr, name=f"{name} nbr")
     if not _on_cuda(name, nbr, edges, valid):
-        return count_dag_edges_plain(nbr, edges, valid, chunk=chunk,
-                                     method=method, width_a=width_a,
-                                     width_b=width_b)
+        return _added(name, out, count_dag_edges_plain(
+            nbr, edges, valid, chunk=chunk, method=method, width_a=width_a,
+            width_b=width_b))
     wa, wb = _widths(nbr, width_a, width_b)
-    out = _zero(nbr.device)
+    out = _sum_into(name, out, nbr.device)
     _kernels.launch("tier_intersect", "tier_intersect_gather", nbr,
                     nbr.shape[1], edges, valid, wa, wb, edges.shape[0], out)
     LAUNCHES[name] += 1
@@ -613,14 +635,20 @@ def count_hub_groups_mat_plain(b_mat, a_mat, *, chunk: int | None = None):
     return total
 
 
-def count_hub_groups_mat(b_mat, a_mat, *, chunk: int | None = None):
+def count_hub_groups_mat(b_mat, a_mat, *, chunk: int | None = None,
+                         live=None, out=None):
     """Σ popcount(a & b) over materialized hub groups — int64 0-d tensor.
 
     b_mat: int32[G, W]     each group's head row (v), sliced to its width
     a_mat: int32[G, K, W]  the group's partner rows (u)
+    live:  int32[G] or None: group g's slots at and past live[g] are guard
+           slots, all zero, which the kernel does not read (the last
+           entry of each of the plan's hub_mat; GMS_TPU_PARANOID=1 checks
+           it); None reads every slot.
     Words are int32 carrying gms_tpu's uint32 bits. Replaces gms_tpu's
     count_hub_groups_mat (triangle_count.py:359); its `salt` is dropped.
-    `chunk` only steps the plain version.
+    `chunk` only steps the plain version; `live` only spares the kernel
+    reads (the plain version ignores it and gives the same sum).
     """
     name = "count_hub_groups_mat"
     _check(name, "b_mat", b_mat, 2)
@@ -629,11 +657,25 @@ def count_hub_groups_mat(b_mat, a_mat, *, chunk: int | None = None):
     if a_mat.shape[0] != G or a_mat.shape[2] != W:
         raise ValueError(f"{name}: a_mat {tuple(a_mat.shape)} does not match "
                          f"b_mat {tuple(b_mat.shape)}")
-    if not _on_cuda(name, b_mat, a_mat):
-        return count_hub_groups_mat_plain(b_mat, a_mat, chunk=chunk)
-    out = _zero(b_mat.device)
-    _kernels.launch("hub_popcount", "hub_popcount_stream", b_mat, a_mat, G,
-                    a_mat.shape[1], W, out)
+    tensors = (b_mat, a_mat)
+    if live is not None:
+        _check(name, "live", live, 1)
+        if live.shape[0] != G:
+            raise ValueError(f"{name}: {live.shape[0]} live counts for {G} "
+                             f"groups")
+        tensors += (live,)
+        if checks.paranoid():
+            past = (torch.arange(a_mat.shape[1], device=a_mat.device)[None, :]
+                    >= live.long()[:, None])
+            if bool((a_mat[past] != 0).any()):
+                raise ValueError(f"{name}: a slot past its group's live count "
+                                 f"is not all zero")
+    if not _on_cuda(name, *tensors):
+        return _added(name, out, count_hub_groups_mat_plain(b_mat, a_mat,
+                                                            chunk=chunk))
+    out = _sum_into(name, out, b_mat.device)
+    _kernels.launch("hub_popcount", "hub_popcount_stream", b_mat, a_mat, live,
+                    G, a_mat.shape[1], W, out)
     LAUNCHES[name] += 1
     return out
 
@@ -650,7 +692,8 @@ def count_hub_groups_plain(rows, b_ids, nbrs, *, chunk: int, width: int,
     return total
 
 
-def count_hub_groups(rows, b_ids, nbrs, *, chunk: int, width: int, k: int):
+def count_hub_groups(rows, b_ids, nbrs, *, chunk: int, width: int, k: int,
+                     out=None):
     """Σ over groups g, slots j of popcount(rows[b_ids[g]] & rows[nbrs[g,j]])
     over the first `width` words — int64 0-d tensor.
 
@@ -658,7 +701,8 @@ def count_hub_groups(rows, b_ids, nbrs, *, chunk: int, width: int, k: int):
     b_ids: int32[G] row of each group's v (guard-padded)
     nbrs:  int32[G, k] rows of the group's u's (guard-padded)
     Replaces gms_tpu's count_hub_groups (triangle_count.py:239). `chunk`
-    only steps the plain version.
+    only steps the plain version. The kernel reads no slot on the last row
+    when that row's prefix is all zero, as it adds nothing.
     """
     name = "count_hub_groups"
     _check(name, "rows", rows, 2)
@@ -668,11 +712,11 @@ def count_hub_groups(rows, b_ids, nbrs, *, chunk: int, width: int, k: int):
         raise ValueError(f"{name}: nbrs {tuple(nbrs.shape)} is not "
                          f"({b_ids.shape[0]}, {k})")
     if not _on_cuda(name, rows, b_ids, nbrs):
-        return count_hub_groups_plain(rows, b_ids, nbrs, chunk=chunk,
-                                      width=width, k=k)
-    out = _zero(rows.device)
-    _kernels.launch("hub_popcount", "hub_popcount_gather", rows, rows.shape[1],
-                    b_ids, nbrs, b_ids.shape[0], k,
+        return _added(name, out, count_hub_groups_plain(
+            rows, b_ids, nbrs, chunk=chunk, width=width, k=k))
+    out = _sum_into(name, out, rows.device)
+    _kernels.launch("hub_popcount", "hub_popcount_gather", rows, rows.shape[0],
+                    rows.shape[1], b_ids, nbrs, b_ids.shape[0], k,
                     min(width, rows.shape[1]), out)
     LAUNCHES[name] += 1
     return out
@@ -874,39 +918,47 @@ class TrianglePlan:
             self.tiers_mat.append((cm, a_mat.T.contiguous(),
                                    b_mat.T.contiguous()))
         self.hub_mat = []
+        guard = None if self.hub_rows is None else self.hub_rows.shape[0] - 1
         for w, k, gc, b_ids, nbrs in self.hub or []:
             b_mat = self.hub_rows[b_ids, :w].contiguous()              # [G, W]
             a_mat = self.hub_rows[nbrs.reshape(-1), :w].reshape(
                 len(b_ids), k, w).contiguous()                         # [G, K, W]
-            self.hub_mat.append((gc, b_mat, a_mat))
+            # slots past a group's last non-guard slot are zero rows: K2
+            # does not read them
+            slot = torch.arange(1, k + 1, dtype=torch.int32,
+                                device=nbrs.device)
+            live = torch.where(nbrs != guard, slot, 0).amax(1).to(torch.int32)
+            self.hub_mat.append((gc, b_mat, a_mat, live))
 
     def _count(self) -> torch.Tensor:
-        """Launch one trial's kernels; the total as an int64 0-d tensor."""
+        """Launch one trial's kernels, each adding into one int64 0-d
+        tensor: the total (nothing read back)."""
+        total = _zero(self.device)
         if self.tiers_mat is not None:
-            outs = [count_tier_mat(a, b, chunk=cm)
-                    for cm, a, b in self.tiers_mat]
-            outs += [count_hub_groups_mat(b, a, chunk=gc)
-                     for gc, b, a in self.hub_mat]
+            for cm, a, b in self.tiers_mat:
+                count_tier_mat(a, b, chunk=cm, out=total)
+            for gc, b, a, live in self.hub_mat:
+                count_hub_groups_mat(b, a, chunk=gc, live=live, out=total)
         else:
-            outs = self.run_async()
-        if not outs:
-            return _zero(self.device)
-        return torch.stack(outs).sum()
+            self.run_async(out=total)
+        return total
 
     def run(self) -> int:
         return int(self._count())
 
-    def run_async(self) -> list:
+    def run_async(self, *, out=None) -> list:
         """Launch every tier's K1 and every hub group's K2 gather entry;
-        returns their int64 0-d tensors unsummed, nothing read back.
+        returns their int64 0-d tensors unsummed, nothing read back (each
+        of them `out`, into which every launch adds, where given).
         gms_tpu's run_async (triangle_count.py:571)."""
-        out = [count_dag_edges(self.padded.nbr, edges, valid, chunk=c,
-                               method=self.method, width_a=wa, width_b=wb)
+        res = [count_dag_edges(self.padded.nbr, edges, valid, chunk=c,
+                               method=self.method, width_a=wa, width_b=wb,
+                               out=out)
                for wa, wb, c, edges, valid in self.tiers]
-        out += [count_hub_groups(self.hub_rows, b_ids, nbrs, chunk=gc,
-                                 width=w, k=k)
+        res += [count_hub_groups(self.hub_rows, b_ids, nbrs, chunk=gc,
+                                 width=w, k=k, out=out)
                 for w, k, gc, b_ids, nbrs in self.hub or []]
-        return out
+        return res
 
     def run_steady(self, trials: int = 8):
         """Steady-state timing: (count, seconds_per_trial).

@@ -23,12 +23,23 @@ that bitmap's rows, row v against row v+1 (phase 27); K30 (bfs_push and
 frontier_ids) over one warm RMAT-18 `bfs(g, 0)` call (phase 47), each
 launch's device time, K29 (bfs_pull) beside it, and bfs_push held on each
 push level's own state (phase 50's levels 0, 3 and 4), the state copied
-before each pass. Each call under torch.profiler (the
+before each pass. K2 (count_hub_groups_mat, count_hub_groups) over one
+warm RMAT-18 `TrianglePlan.run()` in each mode (the default, materialized,
+and `materialize=False`; phase 3's trial), split by (W, K) set, K1 beside
+it (count_tier_mat, count_dag_edges: a trial launches K1 a tier, then K2 a
+set, and the parent's kernels of both bear one name, so the trial's
+launches are told apart by their order), and `run_steady(8)` by CUDA
+events. K33 (cc_step, sssp_step) over one warm RMAT-18
+`connected_components(g)` and one warm weighted `sssp(g, 0, w)` (phase
+47's weights, 1 + ((u ^ v) % 9) a CSR slot), each launch's device time in
+launch order. K1, K3, K25, K32 and K33 held as chip_smoke.py holds them
+(--parts held). Each call under torch.profiler (the
 kernel's device time and launches, each launch's device time in launch
 order, read by bench/profiling.py's profile_launches, the host time and
 the device's idle share) and, unprofiled, the best of 3.
 
-    python -m gms_tpu_torch.bench.dense_vertex --label this [--parts kc,pv,color,ring,dense,bfs]
+    python -m gms_tpu_torch.bench.dense_vertex --label this \
+        [--parts kc,pv,color,ring,dense,bfs,tc,min,held]
 
 To compare two checkouts on one card, run the other's package with this
 script in turns: PYTHONPATH=<other checkout> python
@@ -43,6 +54,7 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -90,7 +102,15 @@ K30_IDS = ("frontier_ids_kernel",)
 K29_KERNELS = ("bfs_pull_kernel",)
 DENSE_SCALE, DENSE_GOLDEN = 16, 15_613_640
 BFS_SCALE, BFS_REACHED = 18, 173_898
-PARTS = ("kc", "pv", "color", "ring", "dense", "bfs")
+# K1 and K2 in a triangle trial: the parent's K2 kernels bear K1's names
+# (stream_kernel, gather_kernel), this tree's its own
+TC_SCALE = 18
+TC_TRIAL = ("stream_kernel", "gather_kernel", "hub_groups_kernel")
+# K33: the parent's warp a vertex, this tree's init and row-schedule step
+K33_KERNELS = ("cc_step_kernel", "sssp_step_kernel", "min_init_kernel",
+               "min_step_kernel")
+MIN_SCALE, MIN_COMPONENTS, MIN_SSSP = 18, 88_200, (23, 804_946)
+PARTS = ("kc", "pv", "color", "ring", "dense", "bfs", "tc", "min", "held")
 
 
 def held_k40(tc, own, eb, vb) -> dict:
@@ -167,6 +187,12 @@ def main(argv=None) -> dict:
         out["dense"] = dense_part(tc, build_csr, generate_rmat_el)
     if "bfs" in parts:
         out["bfs"] = bfs_part(build_csr, generate_rmat_el)
+    if "tc" in parts:
+        out["tc"] = tc_part(tc, build_csr, generate_rmat_el)
+    if "min" in parts:
+        out["min"] = min_part(build_csr, generate_rmat_el)
+    if "held" in parts:
+        out["held"] = held_part(tc, build_csr, generate_rmat_el)
     print(json.dumps(out))
     return out
 
@@ -519,6 +545,213 @@ def bfs_part(build_csr, generate_rmat_el) -> dict:
               f"and {k:g} launches a level (device time over {HELD_PASSES})")
     run["held"] = levels
     return run
+
+
+def tc_part(tc, build_csr, generate_rmat_el) -> dict:
+    """K2 by (W, K) set and K1 over one warm trial in each mode; the steady
+    trial by CUDA events."""
+    g = build_csr(generate_rmat_el(TC_SCALE, DEGREE, seed=SEED),
+                  num_nodes=1 << TC_SCALE)
+    out = {}
+    for mode, kw in (("materialized", {}), ("gather", {"materialize": False})):
+        plan = tc.TrianglePlan(g, device="cuda", **kw)
+        if plan.run() != TC_GOLDEN:
+            raise SystemExit(f"TrianglePlan {mode}: not the golden count")
+        got, host_s, per, busy, seq = profile_launches(plan.run)
+        if got != TC_GOLDEN:
+            raise SystemExit(f"profiled TrianglePlan {mode}: {got}")
+        tag = f"warm TrianglePlan.run() RMAT {TC_SCALE} {mode}:"
+        run = window(tag, host_s, per, busy, {"K1 and K2": TC_TRIAL})
+        us = [t for n, t in seq if n in TC_TRIAL]
+        n1, sets = len(plan.tiers), [f"W={w},K={k}" for w, k, *_ in plan.hub]
+        if len(us) == n1 + len(sets):
+            run["K1"] = {"ms": sum(us[:n1]) / 1e3, "launches": n1}
+            run["K2"] = {"ms": sum(us[n1:]) / 1e3, "launches": len(sets)}
+            run["K2_by_set"] = {k: t / 1e3 for k, t in zip(sets, us[n1:])}
+            print(f"    {tag} K1 {run['K1']['ms']:.4f} ms over {n1}, K2 "
+                  f"{run['K2']['ms']:.4f} ms over {len(sets)}; K2 by set: "
+                  + "; ".join(f"{k} {t:.4f}"
+                              for k, t in run["K2_by_set"].items()))
+        else:
+            print(f"    {tag} {len(us)} K1/K2 launches traced for "
+                  f"{n1 + len(sets)}: not split")
+        run["K2_held"] = held_k2(tc, plan)
+        cnt, dt = plan.run_steady(8)
+        if cnt != TC_GOLDEN:
+            raise SystemExit(f"run_steady {mode}: {cnt}")
+        run["steady_ms"] = dt * 1e3
+        # the host's time to enqueue a trial (20 back to back, before the
+        # synchronize): a steady trial is host-bound when it exceeds the
+        # device's
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            plan._count()
+        run["enqueue_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
+        print(f"    {tag} run_steady(8) {dt * 1e3:.4f} ms a trial (CUDA "
+              f"events); the host enqueues a trial in "
+              f"{run['enqueue_ms']:.4f} ms")
+        out[mode] = run
+        del plan
+    return out
+
+
+def held_ms(fn, flush, reps: int = 10) -> float:
+    """A call held as chip_smoke.py's Timing holds it: alone, L2 flushed,
+    CUDA events, the median of `reps` (fn has run once already)."""
+    import statistics
+
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def held_k2(tc, plan) -> dict:
+    """K2's launches of a trial held as chip_smoke.py's phase 4 holds them,
+    summed; and the host's time a K2 wrapper call takes (200 calls of the
+    first set's, nothing synchronised between them)."""
+    if plan.hub_mat is not None:
+        calls = [lambda x=x: tc.count_hub_groups_mat(
+            x[1], x[2], **({"live": x[3]} if len(x) > 3 else {}))
+            for x in plan.hub_mat]
+    else:
+        calls = [lambda w=w, k=k, b=b, n=n: tc.count_hub_groups(
+            plan.hub_rows, b, n, chunk=1, width=w, k=k)
+            for w, k, _, b, n in plan.hub]
+    flush = torch.empty(1 << 26, dtype=torch.int32, device="cuda")
+    total = 0.0
+    for fn in calls:
+        fn()
+        total += held_ms(fn, flush)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        calls[0]()
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    print(f"    K2 held over the trial's {len(calls)} launches (each alone, "
+          f"L2 flushed, CUDA events): {total:.4f} ms; a K2 wrapper call "
+          f"takes {host_us:.1f} µs of host time")
+    return {"ms": total, "launches": len(calls), "host_us": host_us}
+
+
+def held_part(tc, build_csr, generate_rmat_el) -> dict:
+    """K1, K3, K25, K32 and K33 held as chip_smoke.py holds them (phases 4,
+    41 and 50), on the same inputs in every package: K1 on the RMAT-18
+    plans' tiers, K3 on the plan's hub rows, K32 on PageRank's first
+    iteration, K33 on CC's and weighted SSSP's first and last step, K25 on
+    RMAT-14's CSR from labels = ids, each on its row schedule (K33's where
+    the package's step takes one); ms summed over a kernel's calls."""
+    import inspect
+
+    from gms_tpu_torch.algorithms import coloring as gc
+    from gms_tpu_torch.algorithms import gapbs as gb
+    from gms_tpu_torch.graphs.row_schedule import build_row_schedule
+
+    g = build_csr(generate_rmat_el(TC_SCALE, DEGREE, seed=SEED),
+                  num_nodes=1 << TC_SCALE)
+    plan = tc.TrianglePlan(g, device="cuda")
+    gplan = tc.TrianglePlan(g, device="cuda", materialize=False)
+    hw = plan.hub_rows.shape[1]
+    calls = {
+        "K1 count_tier_mat": [lambda a=a, b=b: tc.count_tier_mat(a, b)
+                              for _, a, b in plan.tiers_mat],
+        "K1 count_dag_edges": [
+            lambda e=e, v=v, wa=wa, wb=wb: tc.count_dag_edges(
+                gplan.padded.nbr, e, v, width_a=wa, width_b=wb)
+            for wa, wb, _, e, v in gplan.tiers],
+        "K3 build_hub_rows": [lambda: tc.build_hub_rows(
+            plan.padded.nbr, plan.hub_id, plan.wide_ids, hub_words=hw)]}
+    indptr, indices = gb._prep(g, "cuda")[:2]
+    n = g.num_nodes
+    sched = build_row_schedule(indptr)
+    deg = torch.from_numpy(g.degrees.astype(np.int32)).cuda()
+    pr0 = torch.full((n,), float(np.float32(1.0) / np.float32(n)),
+                     device="cuda")
+    base = float(np.float32(1.0 - 0.85) / np.float32(n))
+    calls["K32 pr_pull"] = [lambda: gb.pr_pull(
+        indptr, indices, deg, pr0, base, float(np.float32(0.85)),
+        schedule=sched)]
+    kw = ({"schedule": sched}
+          if "schedule" in inspect.signature(gb.cc_step).parameters else {})
+    u = np.repeat(np.arange(n), g.degrees.astype(np.int64))
+    w = (1 + ((u ^ g.indices) % 9)).astype(np.int32)
+    wt = torch.from_numpy(w).cuda()
+    labels = torch.arange(n, dtype=torch.int32, device="cuda")
+    cc_last = torch.from_numpy(gb.connected_components(g, device="cuda")).cuda()
+    d0 = torch.full((n,), gb.BIG, dtype=torch.int64, device="cuda")
+    d0[0] = 0
+    d = gb.sssp(g, 0, w, device="cuda")
+    d_last = torch.from_numpy(np.where(d < 0, gb.BIG, d)).cuda()
+    calls["K33 cc_step"] = [lambda s=s: gb.cc_step(indptr, indices, s, **kw)
+                            for s in (labels, cc_last)]
+    calls["K33 sssp_step"] = [
+        lambda s=s: gb.sssp_step(indptr, indices, wt, s, **kw)
+        for s in (d0, d_last)]
+    g14 = build_csr(generate_rmat_el(14, DEGREE, seed=SEED), num_nodes=1 << 14)
+    ip14 = torch.from_numpy(g14.indptr).cuda()
+    ix14 = torch.from_numpy(g14.indices).cuda()
+    s14 = build_row_schedule(ip14)
+    comp = torch.arange(1 << 14, dtype=torch.int32, device="cuda")
+    calls["K25 component_step"] = [lambda: gc.component_step(
+        ip14, ix14, comp, schedule=s14)]
+    flush = torch.empty(1 << 26, dtype=torch.int32, device="cuda")
+    out = {}
+    for name, fns in calls.items():
+        for fn in fns:
+            fn()
+        out[name] = sum(held_ms(fn, flush) for fn in fns)
+        print(f"    held {name}: {out[name]:.4f} ms over {len(fns)} calls "
+              f"(each alone, L2 flushed, CUDA events, median of 10)")
+    return out
+
+
+def min_part(build_csr, generate_rmat_el) -> dict:
+    """K33 over the warm connected_components and weighted sssp calls, by
+    launch; the best of 3."""
+    from gms_tpu_torch.algorithms import gapbs as gb
+
+    g = build_csr(generate_rmat_el(MIN_SCALE, DEGREE, seed=SEED),
+                  num_nodes=1 << MIN_SCALE)
+    u = np.repeat(np.arange(g.num_nodes), g.degrees.astype(np.int64))
+    w = (1 + ((u ^ g.indices) % 9)).astype(np.int32)
+
+    def check(label, got):
+        if label == "connected_components":
+            ok = len(np.unique(got)) == MIN_COMPONENTS
+        else:
+            ok = (int(got.max()), int(got[got >= 0].sum())) == MIN_SSSP
+        if not ok:
+            raise SystemExit(f"{label}: not the golden result")
+
+    out = {}
+    for label, fn, key in (
+            ("connected_components",
+             lambda: gb.connected_components(g, device="cuda"), "cc"),
+            ("sssp weighted", lambda: gb.sssp(g, 0, w, device="cuda"),
+             "sssp")):
+        check(label, fn())
+        got, host_s, per, busy, seq = profile_launches(fn)
+        check(label, got)
+        tag = f"warm {label} RMAT {MIN_SCALE} ({gb.STEPS[key]} steps):"
+        run = window(tag, host_s, per, busy, {"K33": K33_KERNELS})
+        run["by_launch"] = [t / 1e3 for n, t in seq if n in K33_KERNELS]
+        print(f"    {tag} K33 by launch (device ms, in order): "
+              + ", ".join(f"{t:.4f}" for t in run["by_launch"]))
+        run["steps"] = gb.STEPS[key]
+        run["best_s"] = best_s(fn)
+        print(f"    unprofiled best of 3 {run['best_s']:.4f} s")
+        out[key] = run
+    return out
 
 
 if __name__ == "__main__":

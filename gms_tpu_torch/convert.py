@@ -173,7 +173,9 @@ def plan_from_numpy(state: dict, *, device="cuda") -> TrianglePlan:
     rows = state.get("hub_rows")
     plan.hub_rows = None if rows is None else t(rows)
     plan.tiers_mat = listed("tiers_mat", lambda x: (int(x[0]), t(x[1]), t(x[2])))
-    plan.hub_mat = listed("hub_mat", lambda x: (int(x[0]), t(x[1]), t(x[2])))
+    # no live counts: K2 reads every slot of gms_tpu's streams
+    plan.hub_mat = listed("hub_mat",
+                          lambda x: (int(x[0]), t(x[1]), t(x[2]), None))
     if plan.tiers_mat is not None and plan.hub_mat is None:
         plan.hub_mat = []
     return plan

@@ -14,7 +14,7 @@ of a CSR by length d = indptr[v + 1] - indptr[v]:
     partial a segment, which a finish pass combines, a warp a wide row, its
     lanes striding the partials and a shuffle tree adding the lanes' sums
     (K32); where the combination is exact in any order, a kernel may fold a
-    wide row's segments with atomics instead (K25's minimum).
+    wide row's segments with atomics instead (K25's and K33's minimum).
 
 So no warp walks more than max(32 NARROW, SEGMENT) = 512 entries, whatever
 the widest row, and a float sum over the schedule runs in one fixed order
@@ -25,7 +25,8 @@ the list sizes) and serves every iteration or step of that call.
 
 Device side: csrc/row_schedule.cuh, which reads the two buffers below.
 Kernels on it: K32 pr_pull (csrc/gapbs_pr.cu), K25 component_step
-(csrc/color_components.cu) and K34 bc_forward / bc_backward
+(csrc/color_components.cu) and K33 cc_step / sssp_step (csrc/gapbs_min.cu),
+which share the min step of csrc/min_step.cuh, and K34 bc_forward / bc_backward
 (csrc/gapbs_bc.cu), which gives every narrow row a warp (its lanes are a
 batch's sources, not the row's entries) and a wide row's segments float64
 partials for each source.

@@ -351,6 +351,86 @@ def test_hub_popcount_on_card(card, G, K, W):
         rows, b_ids, nbrs, chunk=8, width=W, k=K))
 
 
+def _hub_groups(rng, W, hw, K, guard_zero=True):
+    """A hub row table int32[60, hw] (the last row the guard, zero unless
+    not guard_zero; rows 0, 1 and 2 non-zero nowhere, only in their first
+    32-byte sector, only at word W - 1; the rest sparse) and groups in the
+    plan's layout: pieces of K slots with guard tails of 1, 17 and 63 slots
+    (those below K), full pieces, whole guard groups, and one piece with a
+    guard slot inside. Returns (rows, b_ids, nbrs) on the host."""
+    n = 60
+    words = rng.integers(-(1 << 31), 1 << 31, (n, hw), dtype=np.int64)
+    rows = np.where(rng.random((n, hw)) < 0.3, words, 0).astype(np.int32)
+    rows[:3] = 0
+    rows[1, :min(8, W)] = words[1, :min(8, W)] | 1
+    rows[2, W - 1] = -7
+    guard = n - 1
+    rows[guard] = 0 if guard_zero else words[guard]
+    tails = [t for t in (1, 17, 63) if t < K] + [0, 0, K, K]
+    b_ids, nbrs = [], []
+    for t in tails:
+        for head in (0, 1, 2, int(rng.integers(3, guard))):
+            slots = rng.integers(0, guard, K).astype(np.int32)
+            slots[K - t:] = guard
+            b_ids.append(guard if t == K else head)
+            nbrs.append(slots)
+    inner = rng.integers(0, guard, K).astype(np.int32)
+    inner[K // 2] = guard
+    b_ids.append(3)
+    nbrs.append(inner)
+    return rows, np.array(b_ids, np.int32), np.stack(nbrs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [16, 64, 100])
+@pytest.mark.parametrize("W,pad", [(4, 0), (4, 3), (5, 0), (5, 3), (16, 0),
+                                   (16, 3), (300, 0), (300, 3), (532, 0),
+                                   (532, 3), (1100, 0)])
+def test_hub_popcount_gated_on_card(card, W, pad, K):
+    """K2's head-gated reads against the plain versions: zero heads, heads
+    non-zero only in their first sector or last word, guard tails and
+    guard groups, 16-byte and word chunks (W or the stride not a multiple
+    of 4), head windows (W = 1100, and 532 read by words), a guard slot
+    inside a piece, K beyond one listing of slots (100)."""
+    rng = np.random.default_rng(W * 7 + pad + K)
+    rows, b_ids, nbrs = _hub_groups(rng, W, W + pad, K)
+    rows_d = torch.from_numpy(rows).to(card)
+    b_d = torch.from_numpy(b_ids).to(card)
+    n_d = torch.from_numpy(nbrs).to(card)
+    want = int(tc.count_hub_groups_plain(rows_d, b_d, n_d, chunk=8, width=W,
+                                         k=K))
+    got = _launched("count_hub_groups", lambda: tc.count_hub_groups(
+        rows_d, b_d, n_d, chunk=8, width=W, k=K))
+    assert int(got) == want
+    # the stream entry on the same groups, pre-gathered, with the plan's
+    # live counts (the last non-guard slot + 1) and without
+    b_mat = rows_d[b_d.long(), :W].contiguous()
+    a_mat = rows_d[n_d.long().reshape(-1), :W].reshape(-1, K, W).contiguous()
+    slot = torch.arange(1, K + 1, dtype=torch.int32, device=card)
+    live = torch.where(n_d != rows.shape[0] - 1, slot, 0).amax(1).to(
+        torch.int32)
+    assert int(tc.count_hub_groups_mat_plain(b_mat, a_mat)) == want
+    for lv in (live, None):
+        got = _launched("count_hub_groups_mat",
+                        lambda: tc.count_hub_groups_mat(b_mat, a_mat, live=lv))
+        assert int(got) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [5, 16, 532])
+def test_hub_popcount_nonzero_guard_row_on_card(card, W):
+    """A table whose last row is not zero: its slots are read."""
+    rng = np.random.default_rng(W)
+    rows, b_ids, nbrs = _hub_groups(rng, W, W, 64, guard_zero=False)
+    rows_d = torch.from_numpy(rows).to(card)
+    b_d = torch.from_numpy(b_ids).to(card)
+    n_d = torch.from_numpy(nbrs).to(card)
+    want = tc.count_hub_groups_plain(rows_d, b_d, n_d, chunk=8, width=W, k=64)
+    assert int(want) > 0
+    assert int(tc.count_hub_groups(rows_d, b_d, n_d, chunk=8, width=W,
+                                   k=64)) == int(want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("hw", [1, 17])
 def test_hub_rows_on_card(card, hw):
@@ -2372,6 +2452,78 @@ def test_pr_and_min_steps_on_card(card):
     fixed = gapbs.cc_step(indptr, indices, torch.from_numpy(
         gapbs.cc_oracle(g).astype(np.int32)).to(card))
     assert int(fixed[1]) == 0
+
+
+def _star_rows(card, leaves):
+    """Stars of 300, 700 and `leaves` leaves (their hubs rows of one, two
+    and ceil(leaves / 512) schedule segments) beside a path of 40 vertices
+    (rows of at most two entries) and isolated vertices: (g, indptr,
+    indices)."""
+    el, nxt = [], 3
+    for c, k in enumerate((300, 700, leaves)):
+        el += [[c, leaf] for leaf in range(nxt, nxt + k)]
+        nxt += k
+    el += [[v, v + 1] for v in range(nxt, nxt + 39)]
+    g = build_csr(np.array(el, np.int64), num_nodes=nxt + 45)
+    return (g, torch.from_numpy(g.indptr).to(card),
+            torch.from_numpy(g.indices).to(card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph", ["stars", "path"])
+def test_min_steps_on_the_schedule_on_card(card, graph):
+    """K33 on the row schedule against plain: hub rows of 1, 2 and 3
+    segments (the atomicMin fold), a graph of narrow rows only, CC and SSSP
+    (weighted and unit), the schedule given or built; then a state where
+    nothing moves, whose changed flag stays 0."""
+    from gms_tpu_torch.algorithms import gapbs
+    from gms_tpu_torch.graphs.row_schedule import build_row_schedule
+
+    if graph == "stars":
+        g, indptr, indices = _star_rows(card, 1300)
+    else:
+        n = 200
+        el = np.stack([np.arange(n - 1), np.arange(1, n)], 1)
+        g = build_csr(el.astype(np.int64), num_nodes=n + 3)
+        indptr = torch.from_numpy(g.indptr).to(card)
+        indices = torch.from_numpy(g.indices).to(card)
+    n = g.num_nodes
+    sched = build_row_schedule(indptr)
+    assert sched.n_wide == (2 if graph == "stars" else 0)
+    assert sched.n_seg == (1 + 2 + 3 if graph == "stars" else 0)
+    rng = np.random.default_rng(8)
+    # symmetric weights, 1..9 a slot, as the sssp oracle reads them
+    u = np.repeat(np.arange(n), g.degrees.astype(np.int64))
+    w_host = (1 + ((u ^ g.indices) % 9)).astype(np.int32)
+    w = torch.from_numpy(w_host).to(card)
+    for schedule in (sched, None):
+        cur = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(card)
+        nxt, ch = _launched("cc_step", lambda: gapbs.cc_step(
+            indptr, indices, cur, schedule=schedule), gapbs.LAUNCHES)
+        want, wch = gapbs.cc_step_plain(indptr, indices, cur)
+        assert torch.equal(nxt, want) and torch.equal(ch, wch)
+        d = np.where(rng.random(n) < 0.3, rng.integers(0, 50, n), gapbs.BIG)
+        cur = torch.from_numpy(d).to(card)
+        for weights in (w, None):
+            nxt, ch = _launched("sssp_step", lambda: gapbs.sssp_step(
+                indptr, indices, weights, cur, schedule=schedule),
+                gapbs.LAUNCHES)
+            want, wch = gapbs.sssp_step_plain(indptr, indices, weights, cur)
+            assert torch.equal(nxt, want) and torch.equal(ch, wch)
+    # fixpoints: nothing moves
+    labels = torch.from_numpy(gapbs.cc_oracle(g).astype(np.int32)).to(card)
+    nxt, ch = gapbs.cc_step(indptr, indices, labels, schedule=sched)
+    assert torch.equal(nxt, labels) and int(ch) == 0
+    for weights, wh in ((w, w_host), (None, None)):
+        dist = torch.from_numpy(gapbs.sssp(g, 0, wh, device=card)).to(card)
+        dist = torch.where(dist < 0, gapbs.BIG, dist)
+        nxt, ch = gapbs.sssp_step(indptr, indices, weights, dist,
+                                  schedule=sched)
+        assert torch.equal(nxt, dist) and int(ch) == 0
+    np.testing.assert_array_equal(gapbs.connected_components(g, device=card),
+                                  gapbs.cc_oracle(g))
+    np.testing.assert_array_equal(gapbs.sssp(g, 0, w_host, device=card),
+                                  gapbs.sssp_oracle(g, 0, w_host))
 
 
 @pytest.mark.cuda

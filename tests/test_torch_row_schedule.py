@@ -1,5 +1,6 @@
 """The degree-balanced CSR row schedule (gms_tpu_torch/graphs/row_schedule.py)
-that K32 (pr_pull) and K25 (component_step) run on.
+that K32 (pr_pull), K25 (component_step) and K33 (cc_step, sssp_step) run
+on.
 
 On the CPU: the schedule covers each row exactly once, each wide row's
 segments tile it exactly, and no warp walks more than the bound; the two
@@ -13,7 +14,12 @@ edges (8, 9, 512, 513, 1,024, 1,025), RMAT-10 with isolated vertices (empty
 rows), and n = 0. gms_tpu's programs pad every row to the widest, so its
 padded star of 20,000 leaves would take 1.6 GB: that star is held to
 gms_tpu's host PageRank oracle, the rest to its device programs. PageRank
-is held at rtol 1e-5 (XLA sums in float32), the labels exactly."""
+is held at rtol 1e-5 (XLA sums in float32), the labels exactly. K33's step
+is replayed launch by launch (init, narrow rows, segments, the atomicMin
+fold of a wide row) against cc_step_plain and sssp_step_plain on RMAT-10
+and on a star whose hub row is three segments, and, as the step of
+connected_components and sssp, against gms_tpu's results and its number
+of steps."""
 
 import numpy as np
 import pytest
@@ -23,6 +29,7 @@ import jax.numpy as jnp
 
 from gms_tpu.algorithms import coloring as jc
 from gms_tpu.algorithms import gapbs as jgapbs
+from gms_tpu.graphs.tiles import SENTINEL
 from gms_tpu.graphs.tiles import PaddedGraph as JPaddedGraph
 from gms_tpu.io.builder import build_csr as jbuild_csr
 
@@ -320,3 +327,159 @@ def test_wrappers_refuse_another_csrs_schedule():
         gapbs.pr_pull_plain(a, indices, deg, pr, 0.05, 0.85))
     assert torch.equal(gc.component_step(a, indices, comp, schedule=own)[0],
                        gc.component_step_plain(a, indices, comp)[0])
+
+
+def _min_cases():
+    """RMAT-10 and a star whose hub row is three segments (1,300 leaves)
+    beside the class-edge rows."""
+    star, n = _star(1300)
+    el, m = _edges()
+    return {"rmat10": _CASES["rmat10"](),
+            "star1300": (np.concatenate([star, el + n]), n + m)}
+
+
+def _replay_k33(indptr, indices, cur, s, weights=None, sssp=False):
+    """K33's step (csrc/min_step.cuh) over the schedule, launch by launch:
+    the init launch (changed = 0, nxt[v] = cur[v] for each wide row); a
+    narrow row a thread (its own value, then its candidates in order); a
+    segment's min from the top value; a row of one segment written
+    min(m, own); a wide row's segment folded into nxt[v] by atomicMin where
+    m < own. Candidates: cur[w] (CC) or cur[w] + weight (SSSP, 1 without
+    weights). Every row is written exactly once or folded."""
+    top = torch.iinfo(cur.dtype).max
+    cand = cur[indices.long()]
+    if sssp:
+        cand = cand + (1 if weights is None else weights.long())
+    nxt = torch.full_like(cur, -1)               # no step gives -1
+    wide = s.wide_row.long()
+    nxt[wide] = cur[wide]
+    rows, piece, entry = _pieces(indptr, s)
+    m = torch.full((rows.numel(),), top, dtype=cur.dtype).scatter_reduce_(
+        0, piece, cand[entry], "amin")
+    own = cur[rows]
+    narrow = torch.arange(rows.numel()) < s.n_narrow
+    nxt[rows[narrow]] = torch.minimum(m[narrow], own[narrow])
+    seg = ~narrow
+    one = (indptr[rows + 1] - indptr[rows] <= rs.SEGMENT) & seg
+    nxt[rows[one]] = torch.minimum(m[one], own[one])
+    fold = seg & ~one & (m < own)
+    nxt.scatter_reduce_(0, rows[fold], m[fold], "amin")
+    moved = (narrow & (m < own)) | (seg & (m < own))
+    assert not bool((nxt == -1).any())
+    return nxt, moved.any().to(torch.int32).reshape(1)
+
+
+@pytest.mark.parametrize("case", ["rmat10", "star1300"])
+def test_k33_replay_equals_plain(case):
+    el, n = _min_cases()[case]
+    g = build_csr(el, num_nodes=n)
+    s = _sched(g)
+    if case == "star1300":
+        assert s.n_wide == 4 and int((s.seg_row == 0).sum()) == 3
+    indptr, indices = torch.from_numpy(g.indptr), torch.from_numpy(g.indices)
+    rng = np.random.default_rng(5)
+    u = np.repeat(np.arange(n), g.degrees.astype(np.int64))
+    w = torch.from_numpy((1 + ((u ^ g.indices) % 9)).astype(np.int32))
+    for _ in range(2):
+        cur = torch.from_numpy(rng.permutation(n).astype(np.int32))
+        want = gapbs.cc_step_plain(indptr, indices, cur)
+        got = _replay_k33(indptr, indices, cur, s)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        d = np.where(rng.random(n) < 0.3, rng.integers(0, 40, n), gapbs.BIG)
+        cur = torch.from_numpy(d.astype(np.int64))
+        for weights in (w, None):
+            want = gapbs.sssp_step_plain(indptr, indices, weights, cur)
+            got = _replay_k33(indptr, indices, cur, s, weights, sssp=True)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+    # a state where nothing moves
+    fixed = torch.from_numpy(gapbs.cc_oracle(g).astype(np.int32))
+    nxt, changed = _replay_k33(indptr, indices, fixed, s)
+    assert torch.equal(nxt, fixed) and int(changed) == 0
+
+
+def _jax_steps(nbr, state, cand_of):
+    """gms_tpu's while_loop(changed) on its padded rows, in numpy: steps
+    until one changes nothing, the last included; (final state, steps)."""
+    steps = 0
+    while True:
+        nxt = np.minimum(state, cand_of(state).min(axis=1))
+        steps += 1
+        if np.array_equal(nxt, state):
+            return nxt, steps
+        state = nxt
+
+
+@pytest.mark.parametrize("case", ["rmat10", "star1300"])
+def test_cc_and_sssp_on_the_schedule_equal_gms_tpu(case, monkeypatch):
+    """connected_components and sssp build one row schedule a call and hand
+    it to every step; with K33's replayed arithmetic as the step they give
+    gms_tpu's labels and distances after gms_tpu's number of steps."""
+    el, n = _min_cases()[case]
+    g = build_csr(el, num_nodes=n)
+    jg = jbuild_csr(el, num_nodes=n)
+    seen = []
+
+    def cc_step(indptr, indices, cur, *, schedule=None):
+        seen.append(schedule)
+        rs.check_schedule("cc_step", schedule, indptr)
+        return _replay_k33(indptr, indices, cur, schedule)
+
+    def sssp_step(indptr, indices, weights, cur, *, schedule=None):
+        seen.append(schedule)
+        rs.check_schedule("sssp_step", schedule, indptr)
+        return _replay_k33(indptr, indices, cur, schedule, weights, True)
+
+    monkeypatch.setattr(gapbs, "cc_step", cc_step)
+    monkeypatch.setattr(gapbs, "sssp_step", sssp_step)
+    nbr = np.asarray(JPaddedGraph.from_csr(jg).nbr)
+    V = nbr.shape[0]
+    valid = nbr != SENTINEL
+    take = np.clip(nbr, 0, V - 1)
+    got = gapbs.connected_components(g, **CPU)
+    np.testing.assert_array_equal(got, jgapbs.connected_components(jg))
+    _, steps = _jax_steps(nbr, np.arange(V, dtype=np.int64),
+                          lambda s: np.where(valid, s[take], np.iinfo(
+                              np.int32).max))
+    assert gapbs.STEPS["cc"] == steps
+    assert len(seen) == steps and all(x is seen[0] for x in seen)
+    u = np.repeat(np.arange(n), g.degrees.astype(np.int64))
+    w = (1 + ((u ^ g.indices) % 9)).astype(np.int32)
+    wp = np.zeros(nbr.shape, np.int64)
+    wp[u, np.arange(g.num_edges) - np.repeat(g.indptr[:-1],
+                                               g.degrees.astype(np.int64))] = w
+    for weights in (w, None):
+        seen.clear()
+        got = gapbs.sssp(g, 0, weights, **CPU)
+        np.testing.assert_array_equal(got, jgapbs.sssp(jg, 0, weights))
+        d0 = np.full(V, gapbs.BIG, np.int64)
+        d0[0] = 0
+        wt = wp if weights is not None else np.ones_like(wp)
+        _, steps = _jax_steps(nbr, d0, lambda s: np.where(
+            valid, s[take] + wt, gapbs.BIG))
+        assert gapbs.STEPS["sssp"] == steps
+        assert len(seen) == steps and all(x is seen[0] for x in seen)
+
+
+def test_min_steps_refuse_another_csrs_schedule():
+    """cc_step and sssp_step check a given schedule on every device."""
+    a = torch.tensor([0, 2, 3, 3], dtype=torch.int64)
+    b = torch.tensor([0, 1, 2, 3], dtype=torch.int64)
+    indices = torch.tensor([1, 2, 0], dtype=torch.int32)
+    other = rs.build_row_schedule(b)
+    lab = torch.arange(3, dtype=torch.int32)
+    dist = torch.tensor([0, gapbs.BIG, gapbs.BIG], dtype=torch.int64)
+    w = torch.tensor([2, 3, 4], dtype=torch.int32)
+    with pytest.raises(ValueError, match="another indptr"):
+        gapbs.cc_step(a, indices, lab, schedule=other)
+    with pytest.raises(ValueError, match="another indptr"):
+        gapbs.sssp_step(a, indices, w, dist, schedule=other)
+    with pytest.raises(TypeError, match="RowSchedule"):
+        gapbs.sssp_step(a, indices, None, dist, schedule=object())
+    own = rs.build_row_schedule(a)
+    for got, want in (
+            (gapbs.cc_step(a, indices, lab, schedule=own),
+             gapbs.cc_step_plain(a, indices, lab)),
+            (gapbs.sssp_step(a, indices, w, dist, schedule=own),
+             gapbs.sssp_step_plain(a, indices, w, dist))):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

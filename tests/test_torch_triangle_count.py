@@ -651,3 +651,112 @@ def test_triangle_count_dense_replayed_equals_gms_tpu(monkeypatch):
     assert tc.triangle_count_dense(g, device="cpu") == want == \
         tc.triangle_count_oracle(g)
 
+
+
+def replay_hub_groups(rows, b_ids, nbrs, width, live=None):
+    """K2's reads (csrc/hub_popcount.cu) over one (W, K) set: a group's head
+    chunks (16 bytes where the width and the row stride are multiples of
+    4 words, else words), only its non-zero chunks, and only the slots it
+    reads (gather: not on the guard row, the last, when that row's prefix
+    is zero; stream, given `live`: slots below live[g]). Returns (the sum,
+    the partner words read)."""
+    guard = rows.shape[0] - 1
+    v = 4 if width % 4 == 0 and rows.shape[1] % 4 == 0 else 1
+    head = rows[b_ids.long(), :width].reshape(len(b_ids), width // v, v)
+    nz = (head != 0).any(2)                                  # [G, chunks]
+    if live is None:
+        read = ~((nbrs == guard) & bool((rows[guard, :width] == 0).all()))
+    else:
+        read = torch.arange(nbrs.shape[1])[None, :] < live.long()[:, None]
+    total, words_read = 0, 0
+    for g in torch.nonzero(nz.any(1)).flatten().tolist():
+        at = torch.nonzero(nz[g]).flatten()
+        part = rows[nbrs[g][read[g]].long(), :width].reshape(-1, width // v, v)
+        part = part[:, at]                                   # the read chunks
+        total += int(tc.popcount32(part & head[g, at][None]).sum())
+        words_read += part.numel()
+    return total, words_read
+
+
+@pytest.mark.parametrize("hub_threshold", [8, 65])
+def test_hub_groups_gated_replay_equals_gms_tpu(hub_threshold):
+    """On RMAT-12's plan: K2's head-gated, guard-skipping reads give
+    count_hub_groups_plain's and gms_tpu's count_hub_groups' sum for every
+    (W, K) set, in gather mode and in stream mode with the plan's live
+    counts; the slots past a live count are guard rows, and the gated reads
+    take fewer partner words than the plain version's."""
+    g = build_csr(generate_rmat_el(12, 16, seed=27491095), num_nodes=1 << 12)
+    plan = tc.TrianglePlan(g, device="cpu", hub_threshold=hub_threshold,
+                           materialize=True)
+    assert plan.hub and len(plan.hub) == len(plan.hub_mat)
+    rows = plan.hub_rows
+    guard = rows.shape[0] - 1
+    jrows = jnp.asarray(rows.numpy().view(np.uint32))
+    gated = plain_words = 0
+    for (w, k, gc, b_ids, nbrs), (_, b_mat, a_mat, live) in zip(plan.hub,
+                                                                 plan.hub_mat):
+        want = int(tc.count_hub_groups_plain(rows, b_ids, nbrs, chunk=gc,
+                                             width=w, k=k))
+        assert want == int(jtc.count_hub_groups(
+            jrows, jnp.asarray(b_ids.numpy()), jnp.asarray(nbrs.numpy()),
+            chunk=gc, width=w, k=k))
+        got, words_read = replay_hub_groups(rows, b_ids, nbrs, w)
+        assert got == want
+        gated += words_read
+        plain_words += nbrs.numel() * w
+        # stream: the plan's live counts end each group's non-guard slots
+        past = torch.arange(k)[None, :] >= live.long()[:, None]
+        assert bool((nbrs[past] == guard).all())
+        some = live > 0
+        assert bool((nbrs[some, live[some].long() - 1] != guard).all())
+        assert live.dtype == torch.int32 and int(live.max()) <= k
+        got, _ = replay_hub_groups(rows, b_ids, nbrs, w, live)
+        assert got == want
+        assert int(tc.count_hub_groups_mat(b_mat, a_mat, live=live)) == want
+    assert plan.run() == tc.triangle_count_oracle(g)
+    assert 0 < gated < plain_words
+
+
+def test_hub_groups_mat_live_checked(monkeypatch):
+    """count_hub_groups_mat takes live counts of int32[G]; under
+    GMS_TPU_PARANOID=1 a non-zero slot past its live count is refused."""
+    b = torch.ones((2, 4), dtype=torch.int32)
+    a = torch.ones((2, 3, 4), dtype=torch.int32)
+    with pytest.raises(TypeError, match="live"):
+        tc.count_hub_groups_mat(b, a, live=torch.ones(2, dtype=torch.int64))
+    with pytest.raises(ValueError, match="live counts"):
+        tc.count_hub_groups_mat(b, a, live=torch.ones(3, dtype=torch.int32))
+    live = torch.tensor([3, 1], dtype=torch.int32)
+    assert int(tc.count_hub_groups_mat(b, a, live=live)) == 2 * 3 * 4
+    monkeypatch.setenv("GMS_TPU_PARANOID", "1")
+    with pytest.raises(ValueError, match="live count"):
+        tc.count_hub_groups_mat(b, a, live=live)
+    a[1, 1:] = 0
+    assert int(tc.count_hub_groups_mat(b, a, live=live)) == 16
+
+
+def test_trial_adds_every_launch_into_one_total():
+    """The trial's four wrappers add their sums into a given `out` (one
+    running total a trial, in both modes) and return it; an `out` of
+    another dtype or shape is refused."""
+    g = build_csr(generate_rmat_el(9, 16, seed=5), num_nodes=512)
+    want = tc.triangle_count_oracle(g)
+    for mat in (True, False):
+        plan = tc.TrianglePlan(g, device="cpu", hub_threshold=8,
+                               materialize=mat)
+        assert plan.hub and plan.run() == want
+    total = torch.zeros((), dtype=torch.int64)
+    res = plan.run_async(out=total)
+    assert all(r is total for r in res) and int(total) == want
+    assert int(sum(plan.run_async())) == want
+    w, k, gc, b, n = plan.hub[0]
+    one = tc.count_hub_groups(plan.hub_rows, b, n, chunk=gc, width=w, k=k)
+    acc = torch.tensor(5, dtype=torch.int64)
+    assert tc.count_hub_groups(plan.hub_rows, b, n, chunk=gc, width=w, k=k,
+                               out=acc) is acc
+    assert int(acc) == 5 + int(one)
+    for bad in (torch.zeros(1, dtype=torch.int64),
+                torch.zeros((), dtype=torch.int32)):
+        with pytest.raises(TypeError, match="out"):
+            tc.count_hub_groups(plan.hub_rows, b, n, chunk=gc, width=w, k=k,
+                                out=bad)
