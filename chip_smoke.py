@@ -35,7 +35,9 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      K2's bound the function's own (hub_bytes: heads whole, live partners
      at the head's non-zero 32-byte sectors), its bound of record beside
      it, and its device time over one warm trial of each plan under
-     torch.profiler;
+     torch.profiler; both plans' guard rows zero and the plan's hub rows
+     (build_hub_rows' out= form) equal to the plain version's, and K3's
+     device time over one plan build under torch.profiler;
   5. steady-state trial time of both plans; K40's device time over one warm
      VertexShardedTrianglePlan.run at a world of one (no process group)
      under torch.profiler, with the idle share;
@@ -161,7 +163,8 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      digests, ADG_PROB_GOLDEN: the draws are jax.random's, prng.py); each
      run's rounds (adg_round launches) and time; the main path is the "avg"
      eps 0.1 run, whose launches adg_round's entry in the kernels line
-     carries;
+     carries; that call once more, warm, under torch.profiler: K17's
+     device time, each round's, and the idle share;
  27. bitmap_ops on RMAT 16's bitmap rows, row v against row v+1, the
      counter set to 0 just before: the four counts keep |A∪B| =
      |A|+|B|-|A∩B| and |A∖B| = |A|-|A∩B|, and |A| is v's out-degree;
@@ -175,8 +178,8 @@ paths against its plain PyTorch version on the card. Phases, each printing a lin
      bitmap_rows_count on phase 27's rows
      (the two views of one table are read once: their bytes count once),
      adg_round on every round state of the main path's "avg" eps 0.1 run
-     (times and bounds summed over its rounds); K14's device time over
-     phase 23's warm call beside its held one;
+     (times and bounds summed over its rounds), a wrapper call's host time
+     and phase 26's device time beside it; K14's device time over phase 23's warm call beside its held one;
  30. link-prediction main path on RMAT 16 (bench.py's lp_auc protocol: test
      split extract_random_test_edges(g, int(0.01 m), seed=1)), with the
      similarity and link-prediction counters set to 0 just before it:
@@ -531,8 +534,10 @@ K6_KERNELS = ("stack_reg_kernel", "stack_kernel", "count_kernel",
 # of RMAT-16 k=5 (phase 8), one a tier of RMAT-18 (phase 23)
 K5_KERNELS = ("rows_kernel", "rows_any_kernel", "popcount_kernel")
 K14_KERNELS = ("vertex_kernel",)
-# K2's kernel (both entries)
+# K2's kernel (both entries); K3's; K17's (one cooperative launch a round)
 K2_KERNELS = ("hub_groups_kernel",)
+K3_KERNELS = ("hub_rows_kernel",)
+K17_KERNELS = ("adg_round_kernel",)
 # K15's kernel; K30's: the push's offsets scan and segment push, and the
 # compaction; K29's
 K15_KERNELS = ("edge_runs_kernel",)
@@ -858,18 +863,20 @@ def device_us(fn, calls: int = BATCH_STEPS) -> tuple:
     return (round(sum(per.values()), 3) if per else None), per
 
 
-def traced_window(fn, names, launches: int = 1) -> tuple:
-    """bench.profiling.profile_window(fn), taken again while the window
-    traced fewer than `launches` launches of the kernels `names`, at most
-    PROFILE_TRIES windows in all: torch.profiler has lost some or all of a
-    window's device events on this card (ROADMAP Queue 3), and a window
-    that lost them measures nothing. Each lost window is printed; the
+def traced_window(fn, names, launches: int = 1, order: bool = False) -> tuple:
+    """bench.profiling.profile_window(fn) (profile_launches with `order`,
+    whose tuple adds the launches in the order they ran), taken again while
+    the window traced fewer than `launches` launches of the kernels `names`,
+    at most PROFILE_TRIES windows in all: torch.profiler has lost some or
+    all of a window's device events on this card (ROADMAP Queue 3), and a
+    window that lost them measures nothing. Each lost window is printed; the
     caller's checks read the last window. fn must be a warm call that can
     run again."""
-    from gms_tpu_torch.bench.profiling import profile_window
+    from gms_tpu_torch.bench.profiling import profile_launches, profile_window
 
     for i in range(1, PROFILE_TRIES + 1):
-        out, host_s, per, busy = profile_window(fn)
+        got = (profile_launches if order else profile_window)(fn)
+        out, host_s, per, busy = got[:4]
         n = sum(per[k][1] for k in names if k in per)
         if n >= launches:
             break
@@ -877,7 +884,7 @@ def traced_window(fn, names, launches: int = 1) -> tuple:
               f"launches of {', '.join(names)} traced, {len(per)} device "
               f"kernels, busy {busy / 1e3:.4f} ms (window {i} of "
               f"{PROFILE_TRIES})")
-    return out, host_s, per, busy
+    return got
 
 
 def walk_split(stats) -> str:
@@ -2197,6 +2204,24 @@ def vertex_phases(timing, report, g) -> None:
     print(f"[26] main path ({ADG_MAIN[0]} eps {ADG_MAIN[1]}) launches "
           f"{adg_launches}")
     check(adg_launches["adg_round"] > 0, f"K17 {adg_launches}")
+    # K17 over one warm main-path call, each round's launch apart
+    n_rounds = adg_launches["adg_round"]
+    boundary, eps = ADG_MAIN
+    r, host_s, per, busy, seq = traced_window(
+        lambda: degeneracy.adg_ordering_rank_device(g, eps, boundary,
+                                                    device="cuda"),
+        K17_KERNELS, n_rounds, order=True)
+    check(np.array_equal(r, degeneracy.adg_ordering_rank(g, eps, boundary)),
+          "the profiled device ADG differs from the host's")
+    k17_whole = window_lines(
+        f"[26] warm adg_ordering_rank_device {ADG_MAIN[0]} eps "
+        f"{ADG_MAIN[1]} under torch.profiler:", host_s, per, busy,
+        {"K17": K17_KERNELS})["K17"]
+    k17_rounds = [t / 1e3 for k, t in seq if k in K17_KERNELS]
+    print("    [26] K17 by round (device ms): "
+          + ", ".join(f"{t:.4f}" for t in k17_rounds) + f" | {card_line()}")
+    check(k17_whole[1] == n_rounds,
+          f"the profiled ADG call traced {k17_whole[1]} K17 launches")
 
     # [27] bitmap counts on RMAT 16's rows, row v against row v+1
     a, b = bg.words[:-1], bg.words[1:]
@@ -2318,9 +2343,26 @@ def vertex_phases(timing, report, g) -> None:
               f"included)")
         err, k_ms, p_ms, bound_ms = (max(err, diff), k_ms + kt, p_ms + pt,
                                      bound_ms + bt)
+    # the host's time a wrapper call takes (20 calls on the first round's
+    # state, each alone)
+    deg0 = torch.from_numpy(g.degrees.astype(np.int64)).cuda()
+    host_s = 0.0
+    for _ in range(20):
+        deg.copy_(deg0)
+        alive.fill_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        degeneracy.adg_round(indptr, indices, deg, alive, boundary=boundary,
+                             eps=eps)
+        host_s += time.perf_counter() - t0
+    host_us = host_s / 20 * 1e6
+    torch.cuda.synchronize()
     print(f"[28] adg_round: the {rnd} rounds of {boundary} eps {eps}, "
           f"max_abs_err {err}, kernel {k_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"(bytes), plain {p_ms:.4f} ms")
+          f"(bytes), plain {p_ms:.4f} ms; a wrapper call takes "
+          f"{host_us:.1f} µs of host time; over the warm call (phase 26) "
+          f"{k17_whole[0]:.4f} ms of device time, {k17_whole[1]} launches "
+          f"traced")
     check(rnd == adg_launches["adg_round"],
           f"{rnd} round states, {adg_launches} on the main path")
     check(err == 0, f"adg_round disagrees with its plain version by {err}")
@@ -5590,6 +5632,8 @@ def main() -> None:
     from gms_tpu_torch.io.builder import build_csr
     from gms_tpu_torch.io.generators import generate_rmat_el
 
+    from gms_tpu_torch.bench.profiling import window_lines
+
     t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     card = card_line()
@@ -5707,10 +5751,32 @@ def main() -> None:
         check(got == GOLDEN, f"the profiled trial ({name}): {got}")
         k2_whole[name] = [sum(per[k][i] for k in K2_KERNELS if k in per)
                           for i in (0, 1)]
+    # K3 over one plan build (the plan's out= form: the rows and a zeroed
+    # guard row in one launch), under torch.profiler; the guard rows
+    for p in (plan, gplan):
+        check(not bool(p.hub_rows[-1].any()), "a plan's guard row is not zero")
+    check(torch.equal(plan.hub_rows[:-1], tc.build_hub_rows_plain(
+        nbr, plan.hub_id, wide, hub_words=rows.shape[1])),
+          "the plan's hub rows differ from build_hub_rows_plain's")
+    built, host_s, per, busy = traced_window(
+        lambda: tc.TrianglePlan(g, device="cuda", materialize=False),
+        K3_KERNELS)
+    check(not bool(built.hub_rows[-1].any()), "the traced plan's guard row")
+    del built
+    k3_build = window_lines("[4] one TrianglePlan build (gather mode) under "
+                            "torch.profiler:", host_s, per, busy,
+                            {"K3": K3_KERNELS})["K3"]
+    check(k3_build[1] == 1, f"the plan build traced {k3_build[1]} K3 launches")
+    print(f"    [4] guard rows zero in both plans; the plan's rows equal "
+          f"build_hub_rows_plain's | {card_line()}")
     report, bounds = [], {}
     for name, kcalls in calls.items():
         err, k_ms, p_ms, bound_ms, by = compare(timing, kcalls)
         note = ""
+        if name == "build_hub_rows":
+            note = (f"; over one plan build (torch.profiler) "
+                    f"{k3_build[0]:.4f} ms of device time, {k3_build[1]} "
+                    f"launch traced | {card_line()}")
         if name in k2_record:
             us, n_k2 = k2_whole[name]
             rec = k2_record[name]
@@ -5742,7 +5808,6 @@ def main() -> None:
     del plan, gplan, calls
     # K40 over a warm vertex-sharded run at a world of one (no process
     # group; phase 56 runs the plan over NCCL), under torch.profiler
-    from gms_tpu_torch.bench.profiling import window_lines
     from gms_tpu_torch.parallel import sharding
     vplan = sharding.VertexShardedTrianglePlan(g, sharding.make_mesh())
     check(vplan.run() == GOLDEN, "the vertex-sharded run's count")

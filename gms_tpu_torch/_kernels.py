@@ -60,8 +60,8 @@ SIGNATURES = {
         "hub_popcount_gather": (_P, _L, _L, _P, _P, _L, _I, _I, _P, _P),
     },
     "hub_rows": {
-        # nbr, v_pad, d_pad, hub_id, wide_ids, nw, hw, out, stream
-        "build_hub_rows": (_P, _L, _I, _P, _P, _L, _I, _P, _P),
+        # nbr, v_pad, d_pad, hub_id, wide_ids, nw, hw, guard, out, stream
+        "build_hub_rows": (_P, _L, _I, _P, _P, _L, _I, _I, _P, _P),
     },
     "local_adj": {
         # nbr, v_pad, d_pad, roots, C, w_words, adj, s0, stream
@@ -125,9 +125,9 @@ SIGNATURES = {
         "bitmap_rows_count": (_P, _P, _L, _I, _I, _P, _P),
     },
     "adg_round": {
-        # indptr, indices, n, deg, alive, peel, stats, mode, eps, bound,
-        # stream
-        "adg_round": (_P, _P, _L, _P, _P, _P, _P, _I, _D, _D, _P),
+        # indptr, indices, n, deg, alive, peel, scratch, max_blocks, mode,
+        # eps, bound, stream
+        "adg_round": (_P, _P, _L, _P, _P, _P, _P, _I, _I, _D, _D, _P),
     },
     "pair_scores": {
         # nbr_a, va, wa, nbr_b, vb, wb, deg1, len(deg1), pairs, B, metric,

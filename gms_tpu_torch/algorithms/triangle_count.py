@@ -738,13 +738,18 @@ def build_hub_rows_plain(nbr, hub_id, wide_ids, *, hub_words: int):
     return int32_bits(out).view(r.shape[0], hub_words)
 
 
-def build_hub_rows(nbr, hub_id, wide_ids, *, hub_words: int):
+def build_hub_rows(nbr, hub_id, wide_ids, *, hub_words: int, out=None):
     """int32[Nw, hub_words] hub bitmaps: bit hub_id[w] set for w ∈
     N⁺(wide_ids[i]).
 
     hub_id: int32[V_pad+1]; the SENTINEL-clip slot and non-hub vertices map
-    to 32*hub_words (dropped). Replaces gms_tpu's build_hub_rows
-    (triangle_count.py:219).
+    to 32*hub_words (dropped). nbr's rows are sorted with a SENTINEL tail:
+    the kernel reads a row only up to the 32-slot step of its first
+    SENTINEL (GMS_TPU_PARANOID=1 checks the rows). With `out`, an int32
+    [Nw+1, hub_words] buffer, rows 0..Nw-1 are written into it and its last
+    row (a plan's all-zero guard row) is zeroed, in the same launch; `out`
+    is returned. Replaces gms_tpu's build_hub_rows (triangle_count.py:219),
+    which has no `out`.
     """
     name = "build_hub_rows"
     _check(name, "nbr", nbr, 2)
@@ -753,13 +758,30 @@ def build_hub_rows(nbr, hub_id, wide_ids, *, hub_words: int):
     if hub_id.shape[0] != nbr.shape[0] + 1:
         raise ValueError(f"{name}: hub_id has {hub_id.shape[0]} entries, "
                          f"expected V_pad+1 = {nbr.shape[0] + 1}")
+    nw = wide_ids.shape[0]
+    if out is not None:
+        _check(name, "out", out, 2)
+        if out.shape != (nw + 1, hub_words) or out.device != nbr.device:
+            raise ValueError(f"{name}: out is {tuple(out.shape)} on "
+                             f"{out.device}, expected ({nw + 1}, "
+                             f"{hub_words}) on {nbr.device}")
+    if checks.paranoid():
+        checks.validate_sorted_rows(nbr, name=f"{name} nbr")
     if not _on_cuda(name, nbr, hub_id, wide_ids):
-        return build_hub_rows_plain(nbr, hub_id, wide_ids, hub_words=hub_words)
-    out = torch.zeros((wide_ids.shape[0], hub_words), dtype=torch.int32,
-                      device=nbr.device)
+        rows = build_hub_rows_plain(nbr, hub_id, wide_ids,
+                                    hub_words=hub_words)
+        if out is None:
+            return rows
+        out[:nw] = rows
+        out[nw:] = 0
+        return out
+    guard = out is not None
+    if out is None:
+        out = torch.empty((nw, hub_words), dtype=torch.int32,
+                          device=nbr.device)
     _kernels.launch("hub_rows", "build_hub_rows", nbr, nbr.shape[0],
-                    nbr.shape[1], hub_id, wide_ids, wide_ids.shape[0],
-                    hub_words, out)
+                    nbr.shape[1], hub_id, wide_ids, nw, hub_words,
+                    int(guard), out)
     LAUNCHES[name] += 1
     return out
 
@@ -861,10 +883,12 @@ class TrianglePlan:
                 # its plain version on the plan's own arrays
                 self.hub_id = to_dev(hub_id)
                 self.wide_ids = to_dev(endpoint_ids)
-                rows = build_hub_rows(pg.nbr, self.hub_id, self.wide_ids,
-                                      hub_words=hw)
-                # all-zero guard row: padding slots gather it and add 0
-                rows = torch.cat([rows, rows.new_zeros((1, hw))])
+                # the rows and, last, an all-zero guard row (padding slots
+                # gather it and add 0), written by one launch
+                rows = build_hub_rows(
+                    pg.nbr, self.hub_id, self.wide_ids, hub_words=hw,
+                    out=torch.empty((len(endpoint_ids) + 1, hw),
+                                    dtype=torch.int32, device=dev))
                 # per-edge prefix width in words: covers {h: deg(h)>=deg(w)},
                 # a function of the v endpoint alone
                 hub_deg_desc = deg_full[hub_vids]  # descending

@@ -36,10 +36,19 @@ launch order. K1, K3, K25, K32 and K33 held as chip_smoke.py holds them
 (--parts held). Each call under torch.profiler (the
 kernel's device time and launches, each launch's device time in launch
 order, read by bench/profiling.py's profile_launches, the host time and
-the device's idle share) and, unprofiled, the best of 3.
+the device's idle share) and, unprofiled, the best of 3. K17 (adg_round)
+over one warm RMAT-18 `adg_ordering_rank_device(g, 0.1, "avg")` call (phase
+26's main path), by kernel and by round (the parent's four launches a
+round, init_stats, stats, mask and pull; this tree's one cooperative
+launch), and held on each of the call's round states as chip_smoke.py's
+phase 28 holds it, beside a wrapper call's host time (--parts adg). The
+RMAT-18 hub table as each package's TrianglePlan builds it (K3 and, in the
+parent, the zero-fill before it and the guard row's torch.cat after it;
+this tree's build_hub_rows(out=) one launch) by device time and held, and
+K3's device time over one whole plan build (--parts hub).
 
     python -m gms_tpu_torch.bench.dense_vertex --label this \
-        [--parts kc,pv,color,ring,dense,bfs,tc,min,held]
+        [--parts kc,pv,color,ring,dense,bfs,tc,min,held,adg,hub]
 
 To compare two checkouts on one card, run the other's package with this
 script in turns: PYTHONPATH=<other checkout> python
@@ -110,7 +119,13 @@ TC_TRIAL = ("stream_kernel", "gather_kernel", "hub_groups_kernel")
 K33_KERNELS = ("cc_step_kernel", "sssp_step_kernel", "min_init_kernel",
                "min_step_kernel")
 MIN_SCALE, MIN_COMPONENTS, MIN_SSSP = 18, 88_200, (23, 804_946)
-PARTS = ("kc", "pv", "color", "ring", "dense", "bfs", "tc", "min", "held")
+# K17: the parent's four kernels a round, this tree's cooperative round; K3
+K17_KERNELS = ("init_stats", "stats_kernel", "mask_kernel", "pull_kernel",
+               "adg_round_kernel")
+K3_KERNELS = ("hub_rows_kernel",)
+ADG_SCALE, ADG_RUN = 18, (0.1, "avg")
+PARTS = ("kc", "pv", "color", "ring", "dense", "bfs", "tc", "min", "held",
+         "adg", "hub")
 
 
 def held_k40(tc, own, eb, vb) -> dict:
@@ -193,6 +208,10 @@ def main(argv=None) -> dict:
         out["min"] = min_part(build_csr, generate_rmat_el)
     if "held" in parts:
         out["held"] = held_part(tc, build_csr, generate_rmat_el)
+    if "adg" in parts:
+        out["adg"] = adg_part(degeneracy, build_csr, generate_rmat_el)
+    if "hub" in parts:
+        out["hub"] = hub_part(tc, build_csr, generate_rmat_el)
     print(json.dumps(out))
     return out
 
@@ -752,6 +771,149 @@ def min_part(build_csr, generate_rmat_el) -> dict:
         print(f"    unprofiled best of 3 {run['best_s']:.4f} s")
         out[key] = run
     return out
+
+
+def adg_part(degeneracy, build_csr, generate_rmat_el) -> dict:
+    """K17 over the warm RMAT-18 avg eps 0.1 call, by kernel and by round;
+    held on each round state (restored before each rep, untimed; L2
+    flushed; CUDA events, the median of 10); a wrapper call's host time
+    (20 calls on the first state, each alone); the best of 3."""
+    g = build_csr(generate_rmat_el(ADG_SCALE, DEGREE, seed=SEED),
+                  num_nodes=1 << ADG_SCALE)
+    eps, boundary = ADG_RUN
+    want = degeneracy.adg_ordering_rank(g, eps, boundary)
+
+    def call():
+        return degeneracy.adg_ordering_rank_device(g, eps, boundary,
+                                                   device="cuda")
+
+    degeneracy.reset_launches()
+    if not np.array_equal(call(), want):
+        raise SystemExit("device ADG differs from the host's")
+    rounds = degeneracy.LAUNCHES["adg_round"]
+    got, host_s, per, busy, seq = profile_launches(call)
+    if not np.array_equal(got, want):
+        raise SystemExit("the profiled device ADG differs from the host's")
+    tag = f"warm adg_ordering_rank_device RMAT {ADG_SCALE} {boundary} {eps}:"
+    run = window(tag, host_s, per, busy, {"K17": K17_KERNELS})
+    run["rounds"] = rounds
+    run["by_kernel"] = {k: {"ms": per[k][0] / 1e3, "launches": per[k][1]}
+                        for k in K17_KERNELS if k in per}
+    us = [t for n, t in seq if n in K17_KERNELS]
+    if rounds and len(us) % rounds == 0:
+        a = len(us) // rounds
+        run["by_round"] = [sum(us[i * a:(i + 1) * a]) / 1e3
+                           for i in range(rounds)]
+        print(f"    {tag} by kernel: " + "; ".join(
+            f"{k} {v['ms']:.4f} ms x{v['launches']}"
+            for k, v in run["by_kernel"].items()) + "; by round: "
+            + ", ".join(f"{t:.4f}" for t in run["by_round"]))
+    else:
+        print(f"    {tag} {len(us)} K17 launches traced for {rounds} "
+              f"rounds: not split")
+    indptr = torch.from_numpy(g.indptr).cuda()
+    indices = torch.from_numpy(g.indices).cuda()
+    deg = torch.from_numpy(g.degrees.astype(np.int64)).cuda()
+    alive = torch.ones(g.num_nodes, dtype=torch.bool, device="cuda")
+    deg_start, alive_start = deg.clone(), alive.clone()
+
+    def one_round():
+        return degeneracy.adg_round(indptr, indices, deg, alive,
+                                    boundary=boundary, eps=eps)
+
+    flush = torch.empty(1 << 26, dtype=torch.int32, device="cuda")
+    held = []
+    while bool(alive.any()):
+        d0, a0 = deg.clone(), alive.clone()
+        times = []
+        for _ in range(10):
+            deg.copy_(d0)
+            alive.copy_(a0)
+            flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            one_round()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        held.append(float(np.median(times)))
+        deg.copy_(d0)
+        alive.copy_(a0)
+        one_round()  # leaves the next round's state
+    host_s = 0.0
+    for _ in range(20):
+        deg.copy_(deg_start)
+        alive.copy_(alive_start)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_round()
+        host_s += time.perf_counter() - t0
+    run["host_us"] = host_s / 20 * 1e6
+    torch.cuda.synchronize()
+    run["held_by_round"] = held
+    run["held_ms"] = sum(held)
+    print(f"    K17 held on the {len(held)} round states (each alone, L2 "
+          f"flushed, CUDA events, median of 10): {sum(held):.4f} ms ("
+          + ", ".join(f"{t:.4f}" for t in held) + f"); a wrapper call takes "
+          f"{run['host_us']:.1f} µs of host time")
+    run["best_s"] = best_s(call)
+    print(f"    unprofiled best of 3 {run['best_s']:.4f} s")
+    return run
+
+
+def hub_part(tc, build_csr, generate_rmat_el) -> dict:
+    """The RMAT-18 hub table as the package's TrianglePlan builds it (with
+    build_hub_rows(out=) where the package has it, else K3, then the guard
+    row's torch.cat), on the gather plan's own arrays: its device time
+    under torch.profiler (every device event of the window) and held
+    (alone, L2 flushed, CUDA events, the median of 10); K3's device time
+    over one whole TrianglePlan build."""
+    import inspect
+
+    from gms_tpu_torch.bench.profiling import profile_window
+
+    g = build_csr(generate_rmat_el(TC_SCALE, DEGREE, seed=SEED),
+                  num_nodes=1 << TC_SCALE)
+    plan = tc.TrianglePlan(g, device="cuda", materialize=False)
+    nbr, hub_id, wide = plan.padded.nbr, plan.hub_id, plan.wide_ids
+    hw = plan.hub_rows.shape[1]
+    has_out = "out" in inspect.signature(tc.build_hub_rows).parameters
+
+    def table():
+        if has_out:
+            return tc.build_hub_rows(nbr, hub_id, wide, hub_words=hw,
+                                     out=torch.empty((wide.shape[0] + 1, hw),
+                                                     dtype=torch.int32,
+                                                     device="cuda"))
+        rows = tc.build_hub_rows(nbr, hub_id, wide, hub_words=hw)
+        return torch.cat([rows, rows.new_zeros((1, hw))])
+
+    if not torch.equal(table(), plan.hub_rows):
+        raise SystemExit("the hub table differs from the plan's")
+    _, host_s, per, busy = profile_window(table)
+    tag = f"the RMAT {TC_SCALE} hub table ({wide.shape[0]} x {hw} words):"
+    run = window(tag, host_s, per, busy, {"K3": K3_KERNELS})
+    run["table_device_ms"] = busy / 1e3
+    run["by_kernel"] = {k: {"ms": t / 1e3, "launches": n}
+                        for k, (t, n) in per.items()}
+    flush = torch.empty(1 << 26, dtype=torch.int32, device="cuda")
+    table()
+    run["table_held_ms"] = held_ms(table, flush)
+    print(f"    {tag} device {busy / 1e3:.4f} ms over "
+          f"{sum(n for _, n in per.values())} device events ("
+          + "; ".join(f"{k[:40]} {t / 1e3:.4f} ms x{n}"
+                      for k, (t, n) in per.items())
+          + f"); held {run['table_held_ms']:.4f} ms")
+    del plan
+    built, host_s, per, busy = profile_window(
+        lambda: tc.TrianglePlan(g, device="cuda", materialize=False))
+    if bool(built.hub_rows[-1].any()):
+        raise SystemExit("the plan's guard row is not zero")
+    del built
+    run["build"] = window(f"one TrianglePlan build RMAT {TC_SCALE} (gather):",
+                          host_s, per, busy, {"K3": K3_KERNELS})
+    return run
 
 
 if __name__ == "__main__":

@@ -21,9 +21,10 @@ The exact peel is gms_tpu's numpy loop; gms_tpu runs a native C++ peel first,
 whose ranks may differ from this loop's on ties (core numbers and degeneracy
 agree). The host orderings are numpy, as in gms_tpu. The device ADG
 (`adg_ordering_rank_device`) runs each round through one hand-written CUDA
-kernel, `adg_round` (csrc/adg_round.cu), with its plain version for CPU
-tensors, and ranks each round's peeled vertices with one torch.sort; the
-triangle-count ordering runs the per-vertex triangle kernel.
+kernel, `adg_round` (csrc/adg_round.cu, one cooperative launch a round),
+with its plain version for CPU tensors, and ranks each round's peeled
+vertices with one torch.sort; the triangle-count ordering runs the
+per-vertex triangle kernel.
 """
 
 from __future__ import annotations
@@ -193,6 +194,11 @@ _ADG_MODE = {"avg": 0, "min": 1, "prob_min": 2, "prob_median": 2}
 ADG_SAMPLES = 128
 
 
+# adg_round's grid: at most this many resident blocks an SM (csrc/
+# adg_round.cu launches the fewer of this and what the occupancy allows)
+ADG_BLOCKS_PER_SM = 4
+
+
 def adg_round_plain(indptr, indices, deg, alive, *, boundary: str,
                     eps: float, bound: float | None = None):
     """Plain version of adg_round."""
@@ -225,7 +231,10 @@ def adg_round(indptr, indices, deg, alive, *, boundary: str, eps: float,
     peel = alive & (deg <= bound), or the alive vertices of minimum degree
     when that is empty; each vertex that stays alive loses its peeled
     neighbours from deg. Replaces the round of gms_tpu's
-    adg_ordering_rank_device (degeneracy.py:215-250) but its ranking.
+    adg_ordering_rank_device (degeneracy.py:215-250) but its ranking. On
+    the card one cooperative launch of csrc/adg_round.cu: stats, mask and
+    pull between two grid barriers, a staying row's pieces of 512 entries
+    a warp each.
     """
     name = "adg_round"
     if boundary not in _ADG_MODE:
@@ -245,10 +254,13 @@ def adg_round(indptr, indices, deg, alive, *, boundary: str, eps: float,
         return adg_round_plain(indptr, indices, deg, alive,
                                boundary=boundary, eps=eps, bound=bound)
     peel = torch.empty_like(alive)
-    stats = torch.empty(3, dtype=torch.int64, device=deg.device)
+    # the item count, the blocks' partials and the work list of the pull
+    max_blocks = ADG_BLOCKS_PER_SM * _kernels.sm_count(deg.device.index)
+    scratch = torch.empty(2 + 3 * max_blocks + n + indices.shape[0] // 512,
+                          dtype=torch.int64, device=deg.device)
     _kernels.launch("adg_round", "adg_round", indptr, indices, n, deg, alive,
-                    peel, stats, _ADG_MODE[boundary], float(eps),
-                    float(bound or 0.0))
+                    peel, scratch, max_blocks, _ADG_MODE[boundary],
+                    float(eps), float(bound or 0.0))
     LAUNCHES[name] += 1
     return peel
 

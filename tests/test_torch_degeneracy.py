@@ -235,3 +235,64 @@ def test_danisch_degeneracy_equals_gms_tpu(collection, pair):
     assert dg.verify_degeneracy_order(g, rank)
     with pytest.raises(ValueError, match="unknown collection"):
         oc.degeneracy_ordering_rank_danisch(g, collection="list")
+
+
+def _k17_replay(indptr, indices, deg, alive, *, boundary, eps, bound=None,
+                thread_row=16, piece=512):
+    """csrc/adg_round.cu's round replayed in numpy, phase by phase: the
+    stats, the mask, the work list of a staying row's pieces of at most
+    `piece` entries, each piece's count of peeled entries subtracted from
+    deg, and the thread pass (alive, rows of at most `thread_row`
+    entries). Returns (peel, deg, alive)."""
+    deg, alive = deg.copy(), alive.copy()
+    live = deg[alive]
+    s, m, c = int(live.sum()), int(live.min()), int(alive.sum())
+    b = bound
+    if boundary == "avg":
+        b = (1.0 + eps) * float(s) / float(c)
+    elif boundary == "min":
+        b = (2.0 + eps) * float(m)
+    thr = b if float(m) <= b else float(m)
+    peels = alive & (deg.astype(np.float64) <= thr)
+    lens = np.diff(indptr)
+    items = [(v, q) for v in np.flatnonzero(alive & ~peels &
+                                            (lens > thread_row))
+             for q in range(-(-int(lens[v]) // piece))]
+    for v, q in items:
+        a, e = int(indptr[v]), int(indptr[v + 1])
+        s0 = a + q * piece
+        deg[v] -= int(peels[indices[s0:min(s0 + piece, e)]].sum())
+    for v in np.flatnonzero(alive):
+        if peels[v]:
+            alive[v] = False
+        elif lens[v] <= thread_row:
+            deg[v] -= int(peels[indices[indptr[v]:indptr[v + 1]]].sum())
+    return peels, deg, alive
+
+
+@pytest.mark.parametrize("boundary,eps", [("avg", 0.1), ("min", 0.5),
+                                          ("avg", -0.5)])
+def test_k17_replay_equals_the_plain_round(boundary, eps):
+    """K17's pieces and thread rows give the plain round's state, every
+    round, on RMAT-10 plus a vertex joined to all 1,024 others: a row of
+    two pieces of 512 entries, or of sixteen of 64 (and more rows of
+    several pieces)."""
+    el = generate_rmat_el(10, 16, seed=27491095)
+    star = np.stack([np.full(1024, 1024), np.arange(1024)], 1)
+    g = build_csr(np.concatenate([el, star.astype(el.dtype)]), num_nodes=1025)
+    indptr, indices = torch.from_numpy(g.indptr), torch.from_numpy(g.indices)
+    for piece in (512, 64):
+        deg = torch.from_numpy(g.degrees.astype(np.int64))
+        alive = torch.ones(g.num_nodes, dtype=torch.bool)
+        rounds = 0
+        while bool(alive.any()):
+            want = _k17_replay(g.indptr, g.indices, deg.numpy(),
+                               alive.numpy(), boundary=boundary, eps=eps,
+                               piece=piece)
+            peel = dg.adg_round_plain(indptr, indices, deg, alive,
+                                      boundary=boundary, eps=eps)
+            assert np.array_equal(peel.numpy(), want[0])
+            assert np.array_equal(deg.numpy(), want[1])
+            assert np.array_equal(alive.numpy(), want[2])
+            rounds += 1
+        assert rounds >= 2

@@ -179,6 +179,25 @@ def test_pair_scores_check_sorted_rows_when_paranoid(monkeypatch):
                            metric="jaccard", vw=1)
 
 
+def test_hub_rows_check_the_row_contract_when_paranoid(monkeypatch):
+    """K3 reads a row only up to the step of its first SENTINEL, so under
+    GMS_TPU_PARANOID=1 a row with an entry after its SENTINEL is refused."""
+    nbr = torch.tensor([[1, 3, SENTINEL, SENTINEL], [0, SENTINEL, 2, SENTINEL],
+                        [SENTINEL] * 4], dtype=torch.int32)
+    hub_id = torch.tensor([0, 1, 2, 32], dtype=torch.int32)
+    wide = torch.tensor([0, 1], dtype=torch.int32)
+    tc.build_hub_rows(nbr, hub_id, wide, hub_words=1)   # unchecked
+    monkeypatch.setenv("GMS_TPU_PARANOID", "1")
+    with pytest.raises(AssertionError, match="SENTINEL holes"):
+        tc.build_hub_rows(nbr, hub_id, wide, hub_words=1)
+    nbr[1] = torch.tensor([0, 2, SENTINEL, SENTINEL])
+    out = torch.full((3, 1), -1, dtype=torch.int32)
+    assert tc.build_hub_rows(nbr, hub_id, wide, hub_words=1, out=out) is out
+    assert out[:, 0].tolist() == [0b10, 0b101, 0]
+    with pytest.raises(ValueError, match="expected \\(3, 1\\)"):
+        tc.build_hub_rows(nbr, hub_id, wide, hub_words=1, out=out[:2])
+
+
 def test_every_source_has_a_binding():
     sources = {p.stem for p in _kernels.CSRC.glob("*.cu")}
     assert sources == set(_kernels.SIGNATURES)
@@ -431,25 +450,75 @@ def test_hub_popcount_nonzero_guard_row_on_card(card, W):
                                    k=64)) == int(want)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("hw", [1, 17])
-def test_hub_rows_on_card(card, hw):
-    rng = np.random.default_rng(hw)
-    V, D, n = 200, 128, 150
+def _hub_case(rng, hw, *, V=200, D=128, n=150, nw=60, full=0,
+              sentinel_hub=False):
+    """build_hub_rows' inputs: rows 0..n-1 sorted over [0, n) with a
+    SENTINEL tail (the first `full` of them filled to D, no SENTINEL), the
+    rest all SENTINEL; hub ids spread over [0, 32*hw) (at most n hubs);
+    hub_id[V_pad] a real hub's id with `sentinel_hub`, so that every
+    SENTINEL slot sets its bit; nw wide ids, the last clipping to row
+    V_pad - 1."""
     nbr = np.full((V, D), SENTINEL, dtype=np.int32)
     for v in range(n):
-        k = int(rng.integers(0, D + 1))
-        nbr[v, :k] = np.sort(rng.choice(n, size=k, replace=False))
+        k = D if v < full else int(rng.integers(0, min(D, n) + 1))
+        nbr[v, :k] = np.sort(rng.choice(max(n, D), size=k, replace=False))
     hub_id = np.full(V + 1, 32 * hw, dtype=np.int32)
     n_hub = min(32 * hw, n)
-    hub_id[rng.choice(n, size=n_hub, replace=False)] = rng.permutation(n_hub)
-    wide = rng.choice(n, size=60, replace=False).astype(np.int32)
-    wide[-1] = V + 5  # clips to the guard row
-    args = [torch.from_numpy(x).to(card) for x in (nbr, hub_id, wide)]
+    hub_id[rng.choice(n, size=n_hub, replace=False)] = rng.choice(
+        32 * hw, size=n_hub, replace=False)
+    if sentinel_hub:
+        hub_id[V] = hub_id[int(np.flatnonzero(hub_id[:n] < 32 * hw)[0])]
+    wide = rng.choice(n, size=nw, replace=False).astype(np.int32)
+    if nw:
+        wide[-1] = V + 5  # clips to the last row, all SENTINEL
+    return nbr, hub_id, wide
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [1, 17, 133, 4100])
+def test_hub_rows_on_card(card, hw):
+    """hw = 17 starts rows off 16-byte boundaries; 4100 words is wider
+    than a warp's slab of csrc/hub_rows.cu, so a row is three slabs."""
+    rng = np.random.default_rng(hw)
+    args = [torch.from_numpy(x).to(card) for x in _hub_case(rng, hw)]
     got = _launched("build_hub_rows",
                     lambda: tc.build_hub_rows(*args, hub_words=hw))
     assert torch.equal(got, tc.build_hub_rows_plain(*args, hub_words=hw))
     assert got.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["sentinel_hub", "full_rows", "no_rows",
+                                  "out", "out_no_rows", "out_slabs"])
+def test_hub_rows_cases_on_card(card, case):
+    """The SENTINEL clip on a real hub (every row with a SENTINEL slot sets
+    its bit), rows filled to D_pad with no SENTINEL (D_pad 100, not a
+    multiple of 32), Nw = 0, and the out= form over a buffer of -1: rows
+    0..Nw-1 as without out=, the guard row zeroed, the buffer returned."""
+    rng = np.random.default_rng(len(case))
+    hw = 4100 if case == "out_slabs" else 5
+    kw = {"sentinel_hub": dict(sentinel_hub=True),
+          "full_rows": dict(D=100, full=150),
+          "no_rows": dict(nw=0), "out_no_rows": dict(nw=0)}.get(case, {})
+    nbr, hub_id, wide = (torch.from_numpy(x).to(card)
+                         for x in _hub_case(rng, hw, **kw))
+    want = tc.build_hub_rows_plain(nbr, hub_id, wide, hub_words=hw)
+    if case.startswith("out"):
+        buf = torch.full((wide.shape[0] + 1, hw), -1, dtype=torch.int32,
+                         device=card)
+        got = _launched("build_hub_rows", lambda: tc.build_hub_rows(
+            nbr, hub_id, wide, hub_words=hw, out=buf))
+        assert got is buf
+        assert torch.equal(got[:-1], want) and not got[-1].any()
+    else:
+        got = _launched("build_hub_rows", lambda: tc.build_hub_rows(
+            nbr, hub_id, wide, hub_words=hw))
+        assert torch.equal(got, want) and got.shape == (wide.shape[0], hw)
+    if case == "sentinel_hub":  # the SENTINEL slots add their bit
+        dropped = hub_id.clone()
+        dropped[-1] = 32 * hw
+        assert not torch.equal(want, tc.build_hub_rows_plain(
+            nbr, dropped, wide, hub_words=hw))
 
 
 def _padded_rows(rng, V, D, n, max_len):
@@ -1613,6 +1682,31 @@ def test_adg_round_on_card(card, rounds):
         want = degeneracy.adg_round_plain(indptr, indices, pd, pa, **kw)
         assert torch.equal(peel, want) and want.any()
         assert torch.equal(kd, pd) and torch.equal(ka, pa)
+
+
+@pytest.mark.cuda
+def test_adg_round_on_card_long_row(card):
+    """RMAT-12 plus a vertex joined to all 4,096 others, a row of more than
+    1,024 entries that K17 cuts into pieces across warps: every round, from
+    the first until that vertex peels, held against the plain version."""
+    el = generate_rmat_el(12, 16, seed=27491095)
+    star = np.stack([np.full(4096, 4096), np.arange(4096)], 1)
+    g = build_csr(np.concatenate([el, star.astype(el.dtype)]), num_nodes=4097)
+    assert g.degrees[4096] == 4096
+    for boundary, eps in (("avg", 0.1), ("min", 0.5), ("avg", -0.5)):
+        indptr, indices, deg, alive = _adg_state(g, card, 0)
+        rounds = 0
+        while bool(alive[4096]):
+            kd, ka = deg.clone(), alive.clone()
+            peel = _launched("adg_round", lambda: degeneracy.adg_round(
+                indptr, indices, kd, ka, boundary=boundary, eps=eps),
+                degeneracy.LAUNCHES)
+            want = degeneracy.adg_round_plain(indptr, indices, deg, alive,
+                                              boundary=boundary, eps=eps)
+            assert torch.equal(peel, want)
+            assert torch.equal(kd, deg) and torch.equal(ka, alive)
+            rounds += 1
+        assert rounds >= 2
 
 
 @pytest.mark.cuda

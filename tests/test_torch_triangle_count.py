@@ -119,6 +119,12 @@ def test_build_hub_rows_plain_vs_jax(seed):
         tc.build_hub_rows(pg.nbr, torch.from_numpy(hub_id),
                           torch.from_numpy(wide), hub_words=hw).numpy(),
         got.numpy())
+    # the out= form TrianglePlan takes: gms_tpu's rows, then a zero guard row
+    out = torch.full((len(wide) + 1, hw), -1, dtype=torch.int32)
+    tc.build_hub_rows(pg.nbr, torch.from_numpy(hub_id),
+                      torch.from_numpy(wide), hub_words=hw, out=out)
+    assert np.array_equal(out.numpy().view(np.uint32),
+                          np.concatenate([want, np.zeros((1, hw), want.dtype)]))
 
 
 @pytest.mark.parametrize("method", ["compare", "searchsorted"])
